@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch / CUDA port's serving path.
+"""Chip smoke test of the PyTorch / CUDA port: its serving path and its
+training step.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -23,11 +24,28 @@ hidden biases, which would leave those parts of K1 unchecked.
 
     python3 chip_smoke.py --profile
 
-adds, for one chunk of each phase, the wall time of the plain and the
-kernel path in turns and a torch.profiler breakdown by renderer span.
+adds, for one chunk of each serving phase, the wall time of the plain and
+the kernel path in turns and a torch.profiler breakdown by renderer span,
+and for one training step per phase and grad mode a breakdown by the
+step's spans (``train.render_loss``, ``train.optimizer``) and the
+renderer's.
+
+Then it holds the SDF-VJP kernels (K3 forward, K4 backward, K5 the dW
+reduction; ``csrc/sdf_vjp.cu``) against their plain version on the live
+net, the backward also against float64, and times them at the steady
+phase's 245,760 points beside the plain version and the torch double
+backward. Then it trains: ``init_state`` and ``make_train_step`` over the
+port's ``RayPool`` at batch 8192, on ring-camera rays of the analytic
+sphere (numpy shading, sky and person labels, SFM depth on a quarter of
+the hits, near / far from the bounding sphere), warm-up and then steady
+on the level-10 fine grid, with ``SDF_GRAD_MODE`` 'pallas' (the kernels)
+and 'vjp' (the double backward) in turns; it counts the kernel launches
+of each phase, checks the losses are finite and the parameters move, and
+holds one step of 'pallas' against 'vjp' from one state and one batch.
 
 The last lines are the card line, a JSON object with one entry per
-kernel, and ``{"ok": true, "device": {...}}``. It exits non-zero, with no
+kernel (K1 and K2 with their serving launches, K3 to K5 with their
+training launches), and ``{"ok": true, "device": {...}}``. It exits non-zero, with no
 result line, when there is no CUDA device or any check fails.
 """
 
@@ -71,11 +89,42 @@ PATH_ATOL, PATH_RAY_FRAC = 1e-3, 0.999
 # of sdf into a moved sample on some rays: bound the mean difference per ray
 PATH_BF16_MEAN = 5e-3
 
+# training (PERF.md holds the bounds and why)
+TRAIN_BATCH = 8192
+TRAIN_CAMS = 12
+TRAIN_TIMED = 6  # timed steps per grad mode and phase
+LABEL_SKY, LABEL_BUILDING, LABEL_PERSON = 2, 1, 12
+VJP_CHECK_PTS = 8192  # K3 / K4 + K5 against the plain version (and f64)
+VJP_TIME_PTS = 8192 * 30  # the steady phase's samples per step
+K3_F32_TOL = 1e-4
+VJP_BF16_REL = 5e-2  # kernels vs the plain version in bf16, rel-L2 per output
+# pallas vs vjp, one step from one state. In f32: (loss rtol, rel-L2 per
+# parameter gradient) between the two modes. In bf16 the two modes round
+# the SDF forward at other places (the 'vjp' matmuls round their outputs
+# and add the bias in bf16, K3 keeps both in f32), which moves every loss by
+# ~1 %; and a gradient is a sum over ~200k points whose rounding errors do
+# not cancel as its signal does, so each mode's bf16 gradient lies a few
+# percent to O(1) off the f32 one, independently. So in bf16 both are held
+# to the f32 'vjp' gradient of the same step: 'pallas' may be off it by at
+# most PARITY_BF16_RATIO times what 'vjp' is, or by PARITY_BF16_FLOOR (the
+# bf16 weights shift the SDF's mean a little differently in each mode, which
+# moves a sum over the surface such as the last layer's sdf bias by percents).
+PARITY_F32 = (1e-4, 1e-2)
+PARITY_BF16_LOSS, PARITY_BF16_RATIO, PARITY_BF16_FLOOR = 3e-2, 2.0, 1e-1
+
 
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def sync() -> None:
+    """Waits for the card, where there is one (the CPU rehearsal has none)."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -411,10 +460,355 @@ def profile_chunk(model, fc, rcfg, scene, rays, fine_grid, sfm_grid, label) -> N
     print(events.table(sort_by="self_device_time_total", row_limit=15))
 
 
+# ------------------------------- training -------------------------------
+
+
+def training_rays(n_cams: int = TRAIN_CAMS, wh=IMG_WH, seed: int = SEED):
+    """Ray-cache rows (N, 12) [o, d, near, far, ts, label, depth, weight]
+    and rgbs (N, 3) from ring cameras around the unit sphere, SFM units.
+    near / far are each ray's chord of the bounding sphere |x| = 2 (the
+    training sphere), as the ray cache stores them; the colour is a numpy
+    Lambertian shading of the sphere, the sky behind it. Labels: 'sky'
+    where a ray misses, 'person' on the sphere's lower cap, 'building'
+    elsewhere; every fourth ray that hits carries its SFM depth with
+    weight 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    light = np.array([0.3, -0.5, 0.8]) / np.linalg.norm([0.3, -0.5, 0.8])
+    rows, rgbs = [], []
+    for cam in range(n_cams):
+        ang = 2 * np.pi * cam / n_cams + rng.uniform(0, 0.1)
+        eye = np.array([3.0 * np.cos(ang), 3.0 * np.sin(ang), 0.6 + rng.uniform(-0.2, 0.2)])
+        o, d = camera_rays(wh, 1.2 * wh[0], eye)
+        b = np.sum(o * d, axis=-1)
+        c2 = np.sum(o * o, axis=-1)
+        near = -b - np.sqrt(np.maximum(b * b - c2 + 4.0, 0.0))
+        far = -b + np.sqrt(np.maximum(b * b - c2 + 4.0, 0.0))
+        disc = b * b - c2 + 1.0
+        hit = disc > 0
+        t_hit = np.where(hit, -b - np.sqrt(np.maximum(disc, 0.0)), 0.0)
+        p = o + d * t_hit[:, None]
+        shade = 0.15 + 0.85 * np.clip(p @ light, 0.0, None)
+        rgb = np.where(hit[:, None], np.array([0.8, 0.6, 0.4]) * shade[:, None],
+                       np.array([0.55, 0.7, 0.95]))
+        label = np.where(hit, np.where(p[:, 2] < -0.6, LABEL_PERSON, LABEL_BUILDING), LABEL_SKY)
+        weight = (hit & (np.arange(len(o)) % 4 == 0)).astype(np.float64)
+        n = len(o)
+        rows.append(np.concatenate([o, d, near[:, None], far[:, None], np.full((n, 1), cam),
+                                    label[:, None], t_hit[:, None], weight[:, None]], axis=1))
+        rgbs.append(rgb)
+    return (np.concatenate(rows).astype(np.float32), np.concatenate(rgbs).astype(np.float32))
+
+
+class GradCapture:
+    """Stands in for the optimiser of a TrainState: keeps one step's gradients."""
+
+    def __init__(self, model):
+        self.model, self.grads = model, None
+
+    def zero_grad(self):
+        self.model.zero_grad(set_to_none=True)
+
+    def step(self):
+        import torch
+
+        self.grads = {k: p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+                      for k, p in self.model.named_parameters()}
+
+
+def rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / max(float(b.double().norm()), 1e-30))
+
+
+def vjp_kernel_phase(model, fc):
+    """K3 and K4 + K5 against their plain version (``ops/field_vjp_math.py``)
+    on the live copy of the SDF net at the full width; the backward also
+    against the plain version in float64. Then the times at the steady
+    phase's shape (8192 rays x 30 samples): kernels forward + backward,
+    the plain version, and the torch double backward ('vjp')."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.models.layers import layer_weight
+    from neuralrecon_w_tpu_torch.models.sdf import sdf_value_feat_grad
+    from neuralrecon_w_tpu_torch.ops import field_vjp_math as fvm
+    from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp
+
+    net = live_sdf_net(model.neuconw.sdf_net)
+    dev = net.lin0.bias.device
+    cfg = dict(fc.sdf)
+    args = (tuple(cfg["skip_in"]), cfg["multires"], float(cfg["scale"]))
+    ws = [layer_weight(net.layer(l)).detach().contiguous() for l in range(net.n_layers)]
+    bs = [net.layer(l).bias.detach() for l in range(net.n_layers)]
+    g = torch.Generator(device="cpu").manual_seed(SEED + 7)
+
+    def inputs(n):
+        x = ((torch.rand(n, 3, generator=g) * 2 - 1) * 0.9).to(dev)
+        return x, torch.randn(n, ws[-1].shape[0], generator=g).to(dev), \
+            torch.randn(n, 3, generator=g).to(dev)
+
+    res, fails = {}, []
+    x, c_out, c_grad = inputs(VJP_CHECK_PTS)
+    for act in ("float32", "bfloat16"):
+        act_t = getattr(torch, act)
+        out, grad = vjp.sdf_vjp_fwd(ws, bs, cfg, x, act)
+        w_out, w_grad = fvm.value_and_grad(ws, bs, *args, x, act_t)
+        torch.cuda.synchronize()
+        if act == "float32":
+            ok = all(bool(((a - b).abs() <= K3_F32_TOL + K3_F32_TOL * b.abs()).all())
+                     for a, b in ((out, w_out), (grad, w_grad)))
+        else:
+            ok = (float((out[:, 0] - w_out[:, 0]).abs().max()) <= K1_BF16_ATOL
+                  and max(rel_l2(out, w_out), rel_l2(grad, w_grad)) <= VJP_BF16_REL)
+        err = max(float((out - w_out).abs().max()), float((grad - w_grad).abs().max()))
+        print(f"K3 sdf_vjp_fwd {act} on {VJP_CHECK_PTS} pts: max|err| {err:.3e}, rel-L2 out "
+              f"{rel_l2(out, w_out):.3e} grad {rel_l2(grad, w_grad):.3e} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"K3 {act}")
+        if act == fc.act_dtype:
+            res["sdf_vjp_fwd"] = {"max_abs_err": err}
+
+        got = vjp.sdf_vjp_bwd(ws, bs, cfg, x, c_out, c_grad, act)
+        plain = fvm.vjp(ws, bs, *args, x, c_out, c_grad, act_t)
+        flat = lambda r: [*r[0], *r[1], r[2]]  # noqa: E731
+        names = ([f"dW{l}" for l in range(len(ws))] + [f"db{l}" for l in range(len(ws))]
+                 + ["dx"])
+        if act == "float32":
+            truth = fvm.vjp([w.double() for w in ws], [b.double() for b in bs], *args,
+                            x.double(), c_out.double(), c_grad.double(), torch.float64)
+            rows = [(n, rel_l2(k, t), rel_l2(p, t))
+                    for n, k, p, t in zip(names, flat(got), flat(plain), flat(truth))]
+            bad = [n for n, k, p in rows if k > max(2 * p, 1e-5)]
+            print(f"K4+K5 sdf_vjp_bwd f32 on {VJP_CHECK_PTS} pts, rel-L2 to f64 kernel / plain: "
+                  + ", ".join(f"{n} {k:.2e}/{p:.2e}" for n, k, p in rows)
+                  + f" -> {'ok' if not bad else 'FAIL ' + str(bad)}")
+        else:
+            rows = [(n, rel_l2(k, p)) for n, k, p in zip(names, flat(got), flat(plain))]
+            bad = [n for n, e in rows if e > VJP_BF16_REL]
+            print(f"K4+K5 sdf_vjp_bwd bf16 on {VJP_CHECK_PTS} pts, rel-L2 to plain bf16: "
+                  + ", ".join(f"{n} {e:.2e}" for n, e in rows)
+                  + f" -> {'ok' if not bad else 'FAIL ' + str(bad)}")
+        if bad:
+            fails.append(f"K4+K5 {act}")
+        if act == fc.act_dtype:
+            err = max(float((k - p).abs().max()) for k, p in zip(flat(got), flat(plain)))
+            res["sdf_vjp_bwd"], res["dw_reduce"] = {"max_abs_err": err}, {"max_abs_err": err}
+
+    # times at the steady phase's shape, in the served dtype
+    x, c_out, c_grad = inputs(VJP_TIME_PTS)
+    act = fc.act_dtype
+    act_t = getattr(torch, act)
+    dnet = copy.deepcopy(net).requires_grad_(True)
+
+    def kern():
+        vjp.sdf_vjp_fwd(ws, bs, cfg, x, act)
+        vjp.sdf_vjp_bwd(ws, bs, cfg, x, c_out, c_grad, act)
+
+    def plain():
+        fvm.value_and_grad(ws, bs, *args, x, act_t)
+        fvm.vjp(ws, bs, *args, x, c_out, c_grad, act_t)
+
+    def double_backward():
+        xx = x.clone().requires_grad_(True)
+        s, f, gr = sdf_value_feat_grad(dnet, cfg, xx, act_t, create_graph=True)
+        (torch.sum(s * c_out[:, 0]) + torch.sum(f.float() * c_out[:, 1:])
+         + torch.sum(gr * c_grad)).backward()
+
+    t_k = cuda_ms(kern, reps=2)
+    t_p = cuda_ms(plain, reps=2)
+    t_d = cuda_ms(double_backward, reps=2)
+    t_k2 = cuda_ms(kern, reps=2)
+    t_fwd = cuda_ms(lambda: vjp.sdf_vjp_fwd(ws, bs, cfg, x, act), reps=2)
+    t_fwd_p = cuda_ms(lambda: fvm.value_and_grad(ws, bs, *args, x, act_t), reps=2)
+    t_bwd = cuda_ms(lambda: vjp.sdf_vjp_bwd(ws, bs, cfg, x, c_out, c_grad, act), reps=2)
+    t_bwd_p = cuda_ms(lambda: fvm.vjp(ws, bs, *args, x, c_out, c_grad, act_t), reps=2)
+    t_k5, t_k5_p = time_reduce(ws, bs, cfg, act, VJP_TIME_PTS)
+    print(f"SDF-VJP {act} at {VJP_TIME_PTS} pts, ms forward + backward in turns: kernels "
+          f"{t_k:.2f} / {t_k2:.2f}, plain {t_p:.2f}, torch double backward {t_d:.2f}; "
+          f"forward K3 {t_fwd:.2f} / plain {t_fwd_p:.2f}; backward K4 + K5 {t_bwd:.2f} / plain "
+          f"{t_bwd_p:.2f}, of which the dW reduction K5 {t_k5:.2f} / plain products {t_k5_p:.2f}")
+    res["sdf_vjp_fwd"].update(ms=t_fwd, plain_ms=t_fwd_p)
+    res["sdf_vjp_bwd"].update(ms=t_bwd - t_k5, plain_ms=t_bwd_p, double_backward_ms=t_d,
+                              fwd_bwd_ms=min(t_k, t_k2), plain_fwd_bwd_ms=t_p)
+    res["dw_reduce"].update(ms=t_k5, plain_ms=t_k5_p)
+    return res, fails
+
+
+def time_reduce(ws, bs, cfg, act, n_pts):
+    """K5 alone over the chunks of one backward of n_pts points, and the
+    same dW products in torch (the plain version's) on the same workspace."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.ops import field_vjp_math as fvm
+    from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp
+
+    pk = vjp.pack_vjp_weights(ws, bs, cfg, act)
+    n_layers = len(pk.k)
+    work, rows = vjp.workspace(n_pts, 6, n_layers, ws[0].device)
+    work.normal_()
+    view = work.view(6, n_layers, rows, vjp.WMAX)
+    chunks = [min(vjp.CHUNK, n_pts - c0) for c0 in range(0, n_pts, vjp.CHUNK)]
+    dWs = [torch.zeros(n, k, device=work.device) for n, k in zip(pk.n, pk.k)]
+    dbs = [torch.zeros(n, device=work.device) for n in pk.n]
+    act_t = getattr(torch, act)
+
+    def kernel():
+        for m in chunks:
+            for l in range(n_layers):
+                vjp.dw_reduce(pk, work, rows, l, m, dWs[l], dbs[l])
+
+    def plain():  # kinds u, z, d, a, r_hat, g_tot (csrc/sdf_vjp.cu)
+        for m in chunks:
+            for l, (n, k) in enumerate(zip(pk.n, pk.k)):
+                dWs[l] += (fvm._mm(view[2, l, :m, :n].t(), view[4, l, :m, :k], act_t)
+                           + fvm._mm(view[5, l, :m, :n].t(), view[0, l, :m, :k], act_t))
+                dbs[l] += view[5, l, :m, :n].sum(dim=0)
+
+    return cuda_ms(kernel, reps=2), cuda_ms(plain, reps=2)
+
+
+def train_config(cfg, grad_mode: str, act: str = None):
+    from neuralrecon_w_tpu_torch.config import field_config_from_cfg
+
+    fc = field_config_from_cfg(cfg)._replace(grad_mode=grad_mode)
+    return fc._replace(act_dtype=act) if act else fc
+
+
+def make_steps(cfg, fc, fine_level: int):
+    from neuralrecon_w_tpu_torch.config import render_config_from_cfg
+    from neuralrecon_w_tpu_torch.datasets.mask_utils import get_label_id_mapping
+    from neuralrecon_w_tpu_torch.training.losses import loss_config_from_cfg
+    from neuralrecon_w_tpu_torch.training.step import make_train_step
+
+    rcfg = render_config_from_cfg(cfg, sfm_level=-1, fine_level=fine_level,
+                                  nerf_far_override=False)
+    lid = get_label_id_mapping()
+    return make_train_step(fc, rcfg, loss_config_from_cfg(cfg), int(cfg.NEUCONW.ANNEAL_END),
+                           tuple(lid[x] for x in cfg.NEUCONW.RAY_MASK_LIST),
+                           seed=int(cfg.TRAINER.SEED) + 1)
+
+
+def training_phase(cfg, state, scene, pool, fine_grid, fine_level, label, n_timed=TRAIN_TIMED):
+    """Steps of the training path at batch TRAIN_BATCH: one untimed step per
+    grad mode, then timed steps in turns, 'pallas' / 'vjp' / 'vjp' /
+    'pallas', each block n_timed // 2 steps. Returns (rays/s per mode,
+    the last aux per mode, fails)."""
+    import torch
+
+    steps = {m: make_steps(cfg, train_config(cfg, m), fine_level) for m in ("pallas", "vjp")}
+    seconds = {m: 0.0 for m in steps}
+    counts = {m: 0 for m in steps}
+    aux, fails = {}, []
+    for mode in ("pallas", "vjp"):
+        _, aux[mode] = steps[mode](state, scene, pool.next_batch(TRAIN_BATCH), fine_grid)
+    for mode in ("pallas", "vjp", "vjp", "pallas"):
+        for _ in range(n_timed // 2):
+            batch = pool.next_batch(TRAIN_BATCH)
+            sync()
+            t0 = time.perf_counter()
+            _, aux[mode] = steps[mode](state, scene, batch, fine_grid)
+            sync()
+            seconds[mode] += time.perf_counter() - t0
+            counts[mode] += 1
+            bad = [k for k, v in aux[mode].items() if not bool(torch.isfinite(v))]
+            if bad:
+                fails.append(f"{label} {mode} step {state.step}: {bad} not finite")
+    rps = {m: counts[m] * TRAIN_BATCH / seconds[m] for m in steps}
+    print(f"training {label}: {counts['pallas']} + {counts['vjp']} timed steps of "
+          f"{TRAIN_BATCH} rays: rays/s pallas {rps['pallas']:.1f}, vjp {rps['vjp']:.1f}; loss "
+          f"{float(aux['pallas']['loss']):.4f}, psnr {float(aux['pallas']['psnr']):.2f}, "
+          "terms " + ", ".join(f"{k} {float(v):.4g}" for k, v in aux["pallas"].items()))
+    return rps, aux, fails
+
+
+def profile_step(cfg, state, scene, pool, fine_grid, fine_level, label) -> None:
+    """torch.profiler over one warm training step per grad mode: the
+    device time by the step's spans (render and loss, optimiser) and the
+    renderer's, the busy share of the wall, the top kernels. The backward
+    runs on autograd's own thread, outside the spans: it is the rest of
+    the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for mode in ("pallas", "vjp"):
+        step = make_steps(cfg, train_config(cfg, mode), fine_level)
+        step(state, scene, pool.next_batch(TRAIN_BATCH), fine_grid)
+        batch = pool.next_batch(TRAIN_BATCH)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, scene, batch, fine_grid)
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        spans = {}
+        for e in events:
+            if e.key.startswith(("render.", "train.")):
+                spans[e.key] = max(spans.get(e.key, 0.0), e.device_time_total / 1e3)
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith(("render.", "train."))]
+        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+        top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+        print(f"profile training {label} {mode} step of {TRAIN_BATCH} rays: wall {wall_ms:.1f} ms, "
+              f"{sum(e.count for e in device)} kernels busy {busy_ms:.1f} ms "
+              f"({100 * busy_ms / wall_ms:.1f} %); device-timeline ms by span: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in sorted(spans.items())))
+        print("  top kernels, self device ms: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} (x{e.count})" for e in top))
+
+
+def step_parity(cfg, model, scene, batch, fine_grid, fine_level, label, step: int = 3):
+    """From one copy of the model and one batch, one step in 'pallas' and
+    one in 'vjp', in f32 and in the served dtype: the losses and every
+    parameter gradient. In f32 the two modes are held to each other; in
+    bf16 each is held to the f32 'vjp' gradient (PARITY_BF16_*)."""
+    from neuralrecon_w_tpu_torch.training.step import TrainState
+
+    fails, ref = [], None
+    for act in dict.fromkeys(("float32", train_config(cfg, "vjp").act_dtype)):
+        out = {}
+        for mode in ("pallas", "vjp"):
+            m = copy.deepcopy(model)
+            st = TrainState(m, GradCapture(m), step)
+            _, aux = make_steps(cfg, train_config(cfg, mode, act), fine_level)(
+                st, scene, batch, fine_grid)
+            out[mode] = (aux, st.optimizer.grads)
+        (a_k, g_k), (a_v, g_v) = out["pallas"], out["vjp"]
+        errs = {k: rel_l2(g_k[k], g_v[k]) for k in g_v}
+        if act == "float32":
+            ref, (loss_tol, bound) = g_v, PARITY_F32
+            bounds = dict.fromkeys(g_v, bound)
+            rule = f"bound {bound}"
+        else:
+            loss_tol = PARITY_BF16_LOSS
+            e_k = {k: rel_l2(g_k[k], ref[k]) for k in g_v}
+            e_v = {k: rel_l2(g_v[k], ref[k]) for k in g_v}
+            bounds = {k: max(PARITY_BF16_RATIO * e_v[k], PARITY_BF16_FLOOR) for k in g_v}
+            errs = e_k
+            rule = (f"to f32 'vjp', bound max({PARITY_BF16_RATIO} x vjp's, "
+                    f"{PARITY_BF16_FLOOR}); pallas / vjp / between the modes")
+        loss_bad = [k for k in a_v if abs(float(a_k[k]) - float(a_v[k]))
+                    > loss_tol * abs(float(a_v[k])) and k not in ("psnr", "s_val")]
+        bad = sorted(k for k, e in errs.items() if e > bounds[k])
+        worst = sorted(errs, key=lambda k: -errs[k] / bounds[k])[:4]
+        show = ((lambda k: f"{errs[k]:.2e}") if act == "float32" else
+                (lambda k: f"{e_k[k]:.2e}/{e_v[k]:.2e}/{rel_l2(g_k[k], g_v[k]):.2e}"))
+        print(f"parity {label} {act}, pallas vs vjp: losses "
+              + ", ".join(f"{k} {float(a_k[k]):.6g}/{float(a_v[k]):.6g}" for k in a_v)
+              + f"; grad rel-L2 ({rule}), nearest their bound: "
+              + ", ".join(f"{k} {show(k)}" for k in worst))
+        print("  grad rel-L2 of the SDF net: " + ", ".join(
+            f"{k.split('sdf_net.')[1]} {show(k)}" for k in errs if "sdf_net" in k))
+        if loss_bad or bad:
+            fails.append(f"parity {label} {act}: losses {loss_bad}, grads {bad}")
+    return fails
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="time one chunk per phase plain / kernels and profile it")
+                        help="time one chunk per serving phase plain / kernels and profile "
+                        "it, and profile one training step per phase and grad mode")
     args = parser.parse_args()
     import torch
 
@@ -429,7 +823,11 @@ def main() -> int:
     from neuralrecon_w_tpu_torch.ops.importance_sampler import up_sample_round
     from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
     from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head
+    from neuralrecon_w_tpu_torch.datasets.cache import RayPool
+    from neuralrecon_w_tpu_torch.ops.sdf_field_vjp import dw_reduce, sdf_vjp_bwd, sdf_vjp_fwd
     from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.training.schedule import make_optimizer
+    from neuralrecon_w_tpu_torch.training.step import init_state
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -491,19 +889,72 @@ def main() -> int:
     fails += check_frames(outs_steady, frames, "steady")
     fails += path_check(model, fc, rcfg_warm, scene, frames[1], None, sfm_grid, "warm-up")
     fails += path_check(model, fc, rcfg_steady, scene, frames[1], fine_grid, sfm_grid, "steady")
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"peak device memory after serving {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if args.profile:
         profile_chunk(model, fc, rcfg_warm, scene, frames[1], None, sfm_grid, "warm-up")
         profile_chunk(model, fc, rcfg_steady, scene, frames[1], fine_grid, sfm_grid, "steady")
-    print(f"rays/s ({card}): warm-up {rps_warm:.1f}, steady {rps_steady:.1f}")
+    print(f"serving rays/s ({card}): warm-up {rps_warm:.1f}, steady {rps_steady:.1f}")
+
+    # the SDF-VJP kernels against their plain version, and their times
+    vres, vfails = vjp_kernel_phase(model, fc)
+    fails += vfails
+    kres.update(vres)
+    del model
+
+    # training: Adam steps of make_train_step over RayPool batches
+    torch.cuda.reset_peak_memory_stats()
+    rows, rgbs = training_rays()
+    pool = RayPool(rows, rgbs, with_semantics=True, seed=int(cfg.TRAINER.SEED))
+    spec, _ = make_optimizer(cfg, TRAIN_BATCH)
+    state = init_state(train_config(cfg, "pallas"), spec, torch.Generator().manual_seed(SEED),
+                       dev)
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    print(f"training: {len(pool)} rays from {TRAIN_CAMS} ring cameras "
+          f"({int((rows[:, 9] == LABEL_SKY).sum())} sky, "
+          f"{int((rows[:, 9] == LABEL_PERSON).sum())} person, "
+          f"{int((rows[:, 11] > 0).sum())} with depth), batch {TRAIN_BATCH}, lr {spec.schedule}, "
+          f"SDF_GRAD_MODE pallas against vjp, act {fc.act_dtype}")
+    counters = (fused_sdf_head, up_sample_round, sdf_vjp_fwd, sdf_vjp_bwd, dw_reduce)
+    names = ("sdf_mlp", "up_sample", "sdf_vjp_fwd", "sdf_vjp_bwd", "dw_reduce")
+    train_launches, rps_train = {n: 0 for n in names}, {}
+    for label, fg, level in (("warm-up", None, -1), ("steady", fine_grid, fine_host.level)):
+        for c in counters:
+            c.launches = 0
+        rps_train[label], _, tfails = training_phase(cfg, state, scene, pool, fg, level, label)
+        fails += tfails
+        got = {n: c.launches for n, c in zip(names, counters)}
+        print(f"launches in training {label}: " + ", ".join(f"{n} {v}" for n, v in got.items()))
+        for n in names:
+            train_launches[n] += got[n]
+            if got[n] <= 0:
+                fails.append(f"{n} not launched in training {label}")
+    moved = [k for k, v in state.model.state_dict().items() if not torch.equal(v, before[k])]
+    if len(moved) < len(before) // 2:
+        fails.append(f"training moved only {len(moved)} of {len(before)} parameter tensors")
+    print(f"training moved {len(moved)} of {len(before)} parameter tensors in {state.step} steps; "
+          f"peak device memory in training {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if args.profile:
+        profile_step(cfg, state, scene, pool, None, -1, "warm-up")
+        profile_step(cfg, state, scene, pool, fine_grid, fine_host.level, "steady")
+    batch = pool.next_batch(TRAIN_BATCH)
+    fails += step_parity(cfg, state.model, scene, batch, None, -1, "warm-up")
+    fails += step_parity(cfg, state.model, scene, batch, fine_grid, fine_host.level, "steady")
+    print(f"training rays/s ({card}): " + "; ".join(
+        f"{label} pallas {r['pallas']:.1f}, vjp {r['vjp']:.1f}" for label, r in rps_train.items()))
 
     if fails:
         print("FAILED: " + "; ".join(fails), file=sys.stderr)
         return 1
+    vjp_src = "neuralrecon_w_tpu_torch/csrc/sdf_vjp.cu"
     sources = {"sdf_mlp": ("neuralrecon_w_tpu_torch/csrc/sdf_mlp.cu",
                            "neuralrecon_w_tpu/ops/pallas_mlp.py:130"),
                "up_sample": ("neuralrecon_w_tpu_torch/csrc/up_sample.cu",
-                             "neuralrecon_w_tpu/ops/pallas_sampler.py:445")}
+                             "neuralrecon_w_tpu/ops/pallas_sampler.py:445"),
+               "sdf_vjp_fwd": (vjp_src, "neuralrecon_w_tpu/ops/pallas_field_vjp.py:411"),
+               "sdf_vjp_bwd": (vjp_src, "neuralrecon_w_tpu/ops/pallas_field_vjp.py:482"),
+               "dw_reduce": (vjp_src, "neuralrecon_w_tpu/ops/pallas_field_vjp.py:482")}
+    # K1 and K2 count the serving path's launches, K3 to K5 the training path's
+    launches.update({n: train_launches[n] for n in ("sdf_vjp_fwd", "sdf_vjp_bwd", "dw_reduce")})
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **kres[name]}
                for name, (src, rep) in sources.items()]

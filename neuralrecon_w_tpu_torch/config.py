@@ -4,10 +4,10 @@ render configuration over it.
 The cfg tree is the JAX package's (``neuralrecon_w_tpu/config``): the
 same defaults and the same per-scene YAMLs under ``config/``, merged with
 the same rules (``_BASE_`` chains, unknown keys refused, values coerced
-toward the default's type). The port carries the two sections it reads,
-``NEUCONW`` and ``TPU``, so that it imports nothing of the JAX package;
-sections it does not read (``DATASET``, ``TRAINER``) are skipped.
-``tests/test_torch_config.py`` holds both sections equal to the JAX
+toward the default's type). The port carries the three sections it reads,
+``NEUCONW``, ``TPU`` and ``TRAINER``, so that it imports nothing of the
+JAX package; the section it does not read (``DATASET``) is skipped.
+``tests/test_torch_config.py`` holds the three sections equal to the JAX
 package's on every YAML in ``config/``.
 
 ``FieldConfig`` and ``RenderConfig`` are the counterparts of
@@ -36,7 +36,7 @@ __all__ = [
     "render_config_from_cfg", "get_cfg_defaults", "load_cfg",
 ]
 
-_SECTIONS = ("NEUCONW", "TPU")
+_SECTIONS = ("NEUCONW", "TPU", "TRAINER")
 _DEFAULTS = {
     "NEUCONW": {
         "N_SAMPLES": 512, "N_IMPORTANCE": 512, "USE_DISP": False, "PERTURB": 1.0,
@@ -73,6 +73,13 @@ _DEFAULTS = {
         "SAMPLER_LAYOUT": "lanes", "SURFACE_QUERY": "sampled",
         "SURFACE_QUERY_SAMPLES": 1024,
     },
+    "TRAINER": {
+        "WORLD_SIZE": 1, "TRUE_BATCH_SIZE": None, "CANONICAL_BS": 2048, "CANONICAL_LR": 1e-3,
+        "SCALING": None, "SAVE_DIR": "checkpoints", "VAL_FREQ": 0.125, "VAL_DOWNSCALE": -1,
+        "SAVE_FREQ": 5000, "OPTIMIZER": "adam", "LR": None, "WEIGHT_DECAY": 0,
+        "WARMUP_EPOCHS": 0, "WARMUP_MULTIPLIER": 1.0, "LR_SCHEDULER": "cosine",
+        "DECAY_STEP": [], "DECAY_GAMMA": 0.1, "POLY_EXP": 0.9, "SEED": 66, "GRAD_CLIP": 0.99,
+    },
 }
 
 
@@ -94,7 +101,7 @@ def _tree(d: dict) -> Cfg:
 
 
 def get_cfg_defaults() -> Cfg:
-    """A fresh copy of the NEUCONW and TPU defaults."""
+    """A fresh copy of the NEUCONW, TPU and TRAINER defaults."""
     return _tree(_DEFAULTS)
 
 
@@ -167,7 +174,7 @@ class FieldConfig(NamedTuple):
     n_a: int
     encode_a: bool
     encode_a_bg: bool
-    # only 'vjp' is ported: sdf gradient by one reverse pass (autograd)
+    # 'vjp' (autograd) | 'pallas' (the SDF-VJP kernels) | 'pallas_hybrid'
     grad_mode: str = "vjp"
     # 'float32' | 'bfloat16' — dtype the hidden activations flow in
     act_dtype: str = "float32"

@@ -36,9 +36,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "tile_mma.cuh"
 
-typedef __nv_bfloat16 bf16;
+using namespace nw;
+
+namespace {
 
 constexpr int MAX_LAYERS = 16;
 constexpr int NMAX = 512;   // widest layer (inputs and outputs)
@@ -66,11 +68,6 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as astype(bfloat16)
-}
-
-__device__ __forceinline__ float softplus100(float z) {
-  const float zb = z * 100.0f;
-  return zb > 20.0f ? z : log1pf(expf(fminf(zb, 20.0f))) / 100.0f;
 }
 
 // x * scale and its positional encoding for the block's points, as T,
@@ -208,24 +205,6 @@ constexpr int M_AST = NMAX + 8;    // activation row stride (bf16)
 constexpr int M_PST = PE_MAX + 8;  // positional-encoding row stride
 constexpr int M_KS = 32;           // k-columns per weight slab
 constexpr int M_WST = M_KS + 8;    // weight slab row stride
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));

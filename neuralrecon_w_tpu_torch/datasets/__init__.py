@@ -1,1 +1,2 @@
-"""Host-side dataset metadata the port reads."""
+"""Host-side dataset code the port reads: label names and the training
+``RayPool``."""

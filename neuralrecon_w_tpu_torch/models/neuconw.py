@@ -8,9 +8,13 @@ the reference builds but never runs (the wrapper-level
 ``neuconw.xyz_encoding_final`` and, with ENCODE_A_BG, the
 ``nerf.views_linears.0``) are not part of the tree.
 
-Only grad_mode 'vjp' is ported: the sdf gradient is one autograd reverse
-pass. The TPU-only 'fwd', 'pallas', 'pallas_hybrid' modes and the fused
-'pallas_field' kernel are not.
+The SDF gradient modes (``TPU.SDF_GRAD_MODE``): 'vjp', one autograd
+reverse pass, differentiated again by autograd in training (the double
+backward, create_graph=True); 'pallas', the SDF-VJP kernels K3 / K4 / K5
+(``ops/sdf_field_vjp.py``; their plain version on CPU tensors); and
+'pallas_hybrid', the plain forward with the kernels' backward. 'fwd' and
+the fused field kernel 'pallas_field' are not ported yet (ROADMAP.md,
+Queue 1).
 """
 
 from __future__ import annotations
@@ -22,6 +26,11 @@ from ..config import FieldConfig
 from .color import RenderingNetwork, apply_color
 from .nerf_bg import NeRF, apply_nerf_bg
 from .sdf import SDFNetwork, act_dtype_of, sdf_value, sdf_value_feat_grad
+
+_NOT_PORTED = {
+    "fwd": "the 'fwd' grad mode (ROADMAP.md, Queue 1)",
+    "pallas_field": "kernel 5, the fused field kernel (ROADMAP.md, Queue 2 row 5)",
+}
 
 
 class SingleVarianceNetwork(nn.Module):
@@ -60,13 +69,24 @@ def field_forward(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded,
                   n_samples=None, create_graph: bool = False):
     """Foreground field at flattened samples: rgb (N, 3), inv_s, sdf
     (N,), gradients (N, 3). dirs / a_embedded are per ray when
-    n_samples is set (``neuconw.py:117-182``)."""
-    if fc.grad_mode != "vjp":
-        raise NotImplementedError(
-            f"SDF_GRAD_MODE={fc.grad_mode!r} is not ported; use 'vjp'")
+    n_samples is set (``neuconw.py:117-182``). create_graph keeps the
+    'vjp' mode's sdf, feature and gradient in the autograd graph, as
+    training needs; the kernel modes are always differentiable."""
     act = act_dtype_of(fc.act_dtype)
-    sdf, feat, grad = sdf_value_feat_grad(
-        model.neuconw.sdf_net, fc.sdf_cfg, pts, act, create_graph=create_graph)
+    if fc.grad_mode in _NOT_PORTED:
+        raise NotImplementedError(f"SDF_GRAD_MODE={fc.grad_mode!r}: {_NOT_PORTED[fc.grad_mode]} "
+                                  "is not ported yet")
+    if fc.grad_mode in ("pallas", "pallas_hybrid"):
+        from ..ops.sdf_field_vjp import sdf_value_feat_grad_kernel
+
+        sdf, feat, grad = sdf_value_feat_grad_kernel(
+            model.neuconw.sdf_net, fc.sdf, pts, act,
+            fwd_impl="plain" if fc.grad_mode == "pallas_hybrid" else "kernel")
+    elif fc.grad_mode == "vjp":
+        sdf, feat, grad = sdf_value_feat_grad(
+            model.neuconw.sdf_net, fc.sdf_cfg, pts, act, create_graph=create_graph)
+    else:
+        raise ValueError(f"unknown SDF_GRAD_MODE {fc.grad_mode!r}")
     rgb = apply_color(model.neuconw.color_net, fc.color_cfg, fc.encode_a, pts, grad,
                       dirs, feat, a_embedded, act_dtype=act, n_samples=n_samples)
     return rgb, inv_s(model), sdf, grad

@@ -104,7 +104,7 @@ def init_sdf_(net: SDFNetwork, cfg: dict, generator: torch.Generator) -> None:
 
 def apply_sdf_split(net: SDFNetwork, cfg: dict, x: torch.Tensor,
                     act_dtype=torch.float32, with_feature: bool = True):
-    """(..., 3) -> (sdf (..., 1) f32, feature (..., d_out-1) in act_dtype
+    """(..., 3) -> (sdf (..., 1) f32 (or f64), feature (..., d_out-1) in act_dtype
     or None) (``sdf.py:100-155``): the skip layer runs as two row-block
     products, the last layer as [sdf | feature] column blocks."""
     act = act_dtype_of(act_dtype)
@@ -131,7 +131,8 @@ def apply_sdf_split(net: SDFNetwork, cfg: dict, x: torch.Tensor,
     last = net.layer(net.n_layers - 1)
     w = layer_weight(last).to(act)
     b = last.bias.to(act)
-    sdf = (h @ w[:1].t() + b[:1]).float() / scale
+    # sdf in float32 (float64 stays float64, for the tests' exact references)
+    sdf = (h @ w[:1].t() + b[:1]).to(torch.promote_types(act, torch.float32)) / scale
     feat = (h @ w[1:].t() + b[1:]) if with_feature else None
     return sdf.reshape(*shape, 1), (
         feat.reshape(*shape, feat.shape[-1]) if with_feature else None)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, on first
-use, into ``build/neuralrecon_w_tpu_torch/`` under the checkout root. The
+(``sm_90a``), one ``nvcc`` per source, all started together, and linked
+into one shared library with a plain C interface, on first use, into
+``build/neuralrecon_w_tpu_torch/`` under the checkout root. The
 library's name carries a hash of the sources and flags, so an edited
 source is rebuilt and a stale build is never loaded. It is loaded with
 ctypes; each entry returns a ``cudaError_t`` (or -1 for arguments the
@@ -24,12 +25,17 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "neuralrecon_w_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "nw_sdf_mlp": [_P, _LL, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "nw_up_sample": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _F, _I, _LL, _P, _P, _P, _P],
+    "nw_sdf_vjp_fwd": [_P, _LL, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _LL, _P, _P, _P],
+    "nw_sdf_vjp_bwd": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _LL, _P, _P],
+    "nw_sdf_vjp_reduce": [_P, _LL, _I, _I, _I, _I, _LL, _I, _P, _P, _P],
 }
 
 
@@ -46,8 +52,9 @@ def _sources() -> list:
 
 
 def library_path() -> str:
+    """The library's path, named by a hash of the flags, sources and headers."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libnw_kernels_{h.hexdigest()[:16]}.so")
@@ -67,12 +74,21 @@ def build() -> tuple:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()],
-                          capture_output=True, text=True)
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _sources()]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(outs)
+    if any(proc.returncode for proc in procs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    link = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, path)

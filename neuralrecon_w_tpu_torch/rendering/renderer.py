@@ -213,8 +213,10 @@ def render_core(model, fc, rcfg, rays_o, rays_d, z_vals, sample_dist, a_embedded
     pts_flat = pts.reshape(-1, 3)
     dirs_flat = rays_d[:, None, :].expand(pts.shape).reshape(-1, 3)
 
+    # in training the sdf, feature and gradient keep their graph, so the
+    # colour and eikonal losses reach the SDF net (serving runs under no_grad)
     rgb_flat, inv_s, sdf_flat, grad_flat = field_forward(
-        model, fc, pts_flat, rays_d, a_embedded, n)
+        model, fc, pts_flat, rays_d, a_embedded, n, create_graph=torch.is_grad_enabled())
     rgb = rgb_flat.reshape(batch, n, 3)
     sdf = sdf_flat.reshape(batch, n)
     gradients = grad_flat.reshape(batch, n, 3)

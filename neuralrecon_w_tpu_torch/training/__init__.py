@@ -1,1 +1,2 @@
-"""Serving entry points: the chunked render of ``make_render_fn``."""
+"""Training and serving entry points: the train step, its losses, metrics
+and optimiser, and the chunked render of ``make_render_fn``."""

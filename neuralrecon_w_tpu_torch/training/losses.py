@@ -1,0 +1,67 @@
+"""NeuS-W training loss (``neuralrecon_w_tpu/training/losses.py``).
+
+Masked L1 colour, eikonal error * igr_weight, semantic mask BCE *
+mask_weight (with MESH_MASK_LIST), SFM depth MSE * depth_weight (with
+DEPTH_LOSS) and the floor-normal term. The reference assigns
+``floor_weight = depth_weight``; ``replicate_floor_weight_bug`` (default
+True) keeps that for parity. Masked rays stay in the batch with zero weight.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class LossConfig(NamedTuple):
+    coef: float = 1.0
+    igr_weight: float = 0.1
+    mask_weight: float = 0.1
+    depth_weight: float = 0.1
+    floor_weight: float = 0.01
+    use_mesh_mask: bool = False
+    use_depth_loss: bool = False
+    use_floor_normal: bool = False
+    replicate_floor_weight_bug: bool = True
+
+
+def loss_config_from_cfg(cfg) -> LossConfig:
+    n = cfg.NEUCONW
+    w = n.LOSS
+    return LossConfig(
+        coef=float(w.coef),
+        igr_weight=float(w.igr_weight),
+        mask_weight=float(w.mask_weight),
+        depth_weight=float(w.depth_weight),
+        floor_weight=float(w.floor_weight),
+        use_mesh_mask=n.MESH_MASK_LIST is not None,
+        use_depth_loss=bool(n.DEPTH_LOSS),
+        use_floor_normal=bool(n.FLOOR_NORMAL),
+        replicate_floor_weight_bug=bool(w.replicate_floor_weight_bug),
+    )
+
+
+def loss_terms(lcfg: LossConfig, results: dict, rgbs: torch.Tensor) -> dict:
+    """Per-term losses of a render_rays result against (R, 3) target
+    colours; 'loss' is the weighted total (``losses.py:52-84``)."""
+    masks = results["ray_mask"][:, None]
+    mask_sum = torch.sum(masks) + 1e-5
+
+    color_error = (results["color"] - rgbs) * masks
+    ret = {"color_loss": torch.sum(torch.abs(color_error)) / mask_sum}
+    ret["normal_loss"] = lcfg.igr_weight * results["gradient_error"]
+    if lcfg.use_mesh_mask:
+        ret["mask_error"] = lcfg.mask_weight * torch.mean(results["mask_error"])
+    if lcfg.use_depth_loss:
+        valid = results["sfm_depth_valid"]
+        sfm = torch.sum(results["sfm_depth_sq"] * valid) / (torch.sum(valid) + 1e-5)
+        ret["sfm_depth_loss"] = lcfg.depth_weight * sfm
+    if lcfg.use_floor_normal:
+        fw = lcfg.depth_weight if lcfg.replicate_floor_weight_bug else lcfg.floor_weight
+        cnt = torch.clamp(results["floor_count"] * 3.0, min=1.0)
+        ret["floor_normal_error"] = fw * torch.sum(results["floor_normal_error"]) / cnt
+
+    ret = {k: lcfg.coef * v for k, v in ret.items()}
+    ret["loss"] = sum(ret.values())
+    return ret

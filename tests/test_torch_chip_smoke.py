@@ -111,3 +111,53 @@ print("ok")
     proc = run(["-c", code], ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_chip_smoke_training_without_jax_package():
+    """The training phases at a tiny width on the CPU, the SDF-VJP kernels'
+    plain versions standing in: the ring-camera ray cache through the port's
+    RayPool, steps in both grad modes, the parity of one step, and no JAX."""
+    code = """
+import sys
+import numpy as np
+import torch
+import chip_smoke as cs
+from neuralrecon_w_tpu_torch.config import load_cfg
+from neuralrecon_w_tpu_torch.datasets.cache import RayPool
+from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
+from neuralrecon_w_tpu_torch.training.schedule import make_optimizer
+from neuralrecon_w_tpu_torch.training.step import init_state
+
+torch.set_num_threads(1)
+cs.TRAIN_BATCH = 48
+rows, rgbs = cs.training_rays(n_cams=2, wh=(12, 8))
+assert rows.shape == (192, 12) and rgbs.shape == (192, 3)
+assert (rows[:, 9] == cs.LABEL_SKY).any() and (rows[:, 11] > 0).any()
+assert np.all(rows[:, 6] < rows[:, 7]) and np.all(rows[:, 6] > 0)
+cfg = load_cfg(cs.CONFIG)
+n = cfg.NEUCONW
+n.SDF_CONFIG.d_hidden, n.SDF_CONFIG.d_out, n.SDF_CONFIG.n_layers = 64, 65, 4
+n.SDF_CONFIG.skip_in = (2,)
+n.COLOR_CONFIG.d_feature, n.COLOR_CONFIG.d_hidden, n.COLOR_CONFIG.n_layers = 64, 32, 2
+n.N_VOCAB = 4
+pool = RayPool(rows, rgbs, seed=int(cfg.TRAINER.SEED))
+spec, _ = make_optimizer(cfg, cs.TRAIN_BATCH)
+state = init_state(cs.train_config(cfg, "pallas"), spec, torch.Generator().manual_seed(0))
+scene, _, fine_host, _ = cs.make_scene("cpu", fine_level=5, sfm_voxel=0.2, wh=(4, 3),
+                                       n_points=2000)
+before = [p.detach().clone() for p in state.model.parameters()]
+rps, aux, fails = cs.training_phase(cfg, state, scene, pool, None, -1, "warm-up", n_timed=2)
+fine = device_grid_from_host(fine_host)
+rps, aux, f2 = cs.training_phase(cfg, state, scene, pool, fine, fine_host.level, "steady",
+                                 n_timed=2)
+assert fails == [] and f2 == [], fails + f2
+assert state.step == 12 and set(rps) == {"pallas", "vjp"}
+assert all(not torch.equal(a, b) for a, b in zip(before, state.model.parameters()))
+assert cs.step_parity(cfg, state.model, scene, pool.next_batch(48), fine, fine_host.level,
+                      "steady") == []
+assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
+print("ok")
+"""
+    proc = run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")

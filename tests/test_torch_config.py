@@ -1,5 +1,5 @@
-"""PyTorch port, configuration: the port's cfg tree (the NEUCONW and TPU
-sections it reads) against the JAX package's, on the defaults and on
+"""PyTorch port, configuration: the port's cfg tree (the NEUCONW, TPU and
+TRAINER sections it reads) against the JAX package's, on the defaults and on
 every per-scene YAML, and the label names it maps."""
 
 import glob
@@ -15,6 +15,7 @@ from neuralrecon_w_tpu_torch import config  # noqa: E402
 from neuralrecon_w_tpu_torch.datasets.mask_utils import get_label_id_mapping  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SECTIONS = ("NEUCONW", "TPU", "TRAINER")
 YAMLS = sorted(glob.glob(os.path.join(ROOT, "config", "*.yaml")))
 
 
@@ -25,7 +26,7 @@ def plain(node):
 
 
 def sections(cfg):
-    return {s: plain(cfg[s]) for s in ("NEUCONW", "TPU")}
+    return {s: plain(cfg[s]) for s in SECTIONS}
 
 
 def test_defaults_match_jax():
@@ -40,7 +41,7 @@ def test_yaml_merge_matches_jax(path):
     want.merge_from_file(path)
     got = config.load_cfg(path)
     assert sections(got) == sections(want)
-    for s in ("NEUCONW", "TPU"):
+    for s in SECTIONS:
         for k, v in plain(want[s]).items():
             assert type(plain(got[s])[k]) is type(v), f"{s}.{k}"
     assert config.field_config_from_cfg(got) == config.field_config_from_cfg(want)

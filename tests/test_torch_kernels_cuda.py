@@ -5,6 +5,7 @@ needed here (on a machine without JAX run with ``--noconftest``):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
 
+import copy
 import os
 
 import pytest
@@ -134,3 +135,118 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev, flagship):
         smp.up_sample_round(o, d, wide, wide, None, None, 8, 512.0, True)
     with pytest.raises(ValueError):  # sdf rows that do not match z
         smp.up_sample_round(o, d, z, z[:, :4], None, None, 8, 512.0, True)
+
+
+# ---------------- K3, K4, K5: the SDF-VJP kernels ----------------
+
+# K3 f32: summation order only; bf16: the K1 bound
+K3_F32_TOL = 1e-4
+# K4 + K5 bf16 against the plain bf16 version (PERF.md, written before the
+# first run): rel-L2 per dW, db and dx
+VJP_BF16_REL = 5e-2
+
+
+def vjp_inputs(net, n_pts, seed):
+    from neuralrecon_w_tpu_torch.models.layers import layer_weight
+
+    g = torch.Generator().manual_seed(seed)
+    dev = net.lin0.bias.device
+    x = ((torch.rand(n_pts, 3, generator=g) * 2 - 1) * 0.9).to(dev)
+    n_out = net.layer(net.n_layers - 1).bias.shape[0]
+    c_out = torch.randn(n_pts, n_out, generator=g).to(dev)
+    c_grad = torch.randn(n_pts, 3, generator=g).to(dev)
+    with torch.no_grad():
+        ws = [layer_weight(net.layer(l)).detach().contiguous() for l in range(net.n_layers)]
+    bs = [net.layer(l).bias.detach() for l in range(net.n_layers)]
+    return ws, bs, x, c_out, c_grad
+
+
+def rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / max(float(b.double().norm()), 1e-30))
+
+
+@pytest.mark.parametrize("n_pts", [8192, 1000])
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_sdf_vjp_forward_kernel_matches_plain(dev, flagship, act, n_pts):
+    from neuralrecon_w_tpu_torch.ops import field_vjp_math as fvm
+    from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp
+
+    fc, net = flagship
+    ws, bs, x, _, _ = vjp_inputs(net, n_pts, 4)
+    cfg = dict(fc.sdf)
+    before = vjp.sdf_vjp_fwd.launches
+    out, grad = vjp.sdf_vjp_fwd(ws, bs, cfg, x, act)
+    want_out, want_grad = fvm.value_and_grad(ws, bs, tuple(cfg["skip_in"]), cfg["multires"],
+                                             float(cfg["scale"]), x, getattr(torch, act))
+    torch.cuda.synchronize()
+    assert vjp.sdf_vjp_fwd.launches == before + 1
+    if act == "float32":
+        torch.testing.assert_close(out, want_out, atol=K3_F32_TOL, rtol=K3_F32_TOL)
+        torch.testing.assert_close(grad, want_grad, atol=K3_F32_TOL, rtol=K3_F32_TOL)
+    else:
+        assert float((out[:, 0] - want_out[:, 0]).abs().max()) <= K1_BF16_ATOL
+        assert rel_l2(out, want_out) <= VJP_BF16_REL and rel_l2(grad, want_grad) <= VJP_BF16_REL
+
+
+def test_sdf_vjp_backward_kernels_f32_against_f64(dev, flagship):
+    """K4 + K5 in f32 lie as close to the float64 truth as the plain f32
+    version does (the beta = 100 softplus makes f32 second order inexact)."""
+    from neuralrecon_w_tpu_torch.ops import field_vjp_math as fvm
+    from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp
+
+    fc, net = flagship
+    ws, bs, x, c_out, c_grad = vjp_inputs(net, 2048, 5)
+    cfg = dict(fc.sdf)
+    args = (tuple(cfg["skip_in"]), cfg["multires"], float(cfg["scale"]))
+    got = vjp.sdf_vjp_bwd(ws, bs, cfg, x, c_out, c_grad, "float32")
+    plain = fvm.vjp(ws, bs, *args, x, c_out, c_grad)
+    truth = fvm.vjp([w.double() for w in ws], [b.double() for b in bs], *args, x.double(),
+                    c_out.double(), c_grad.double(), torch.float64)
+    torch.cuda.synchronize()
+    flat = lambda r: [*r[0], *r[1], r[2]]  # noqa: E731
+    for k, p, t in zip(flat(got), flat(plain), flat(truth)):
+        assert rel_l2(k, t) <= max(2 * rel_l2(p, t), 1e-5), (rel_l2(k, t), rel_l2(p, t))
+
+
+def test_sdf_vjp_backward_kernels_bf16_match_plain(dev, flagship, monkeypatch):
+    """bf16, over several point chunks (a ragged last one)."""
+    from neuralrecon_w_tpu_torch.ops import field_vjp_math as fvm
+    from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp
+
+    fc, net = flagship
+    monkeypatch.setattr(vjp, "CHUNK", 1024)
+    ws, bs, x, c_out, c_grad = vjp_inputs(net, 2500, 6)
+    cfg = dict(fc.sdf)
+    before = (vjp.sdf_vjp_bwd.launches, vjp.dw_reduce.launches)
+    got = vjp.sdf_vjp_bwd(ws, bs, cfg, x, c_out, c_grad, "bfloat16")
+    want = fvm.vjp(ws, bs, tuple(cfg["skip_in"]), cfg["multires"], float(cfg["scale"]), x,
+                   c_out, c_grad, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert vjp.sdf_vjp_bwd.launches == before[0] + 3
+    assert vjp.dw_reduce.launches == before[1] + 3 * net.n_layers
+    for k, w in zip([*got[0], *got[1], got[2]], [*want[0], *want[1], want[2]]):
+        assert rel_l2(k, w) <= VJP_BF16_REL
+
+
+def test_sdf_vjp_function_matches_double_backward(dev, flagship):
+    """Through the autograd.Function, weight norm included: the kernels'
+    gradients against the torch double backward, f32."""
+    from neuralrecon_w_tpu_torch.models.sdf import sdf_value_feat_grad
+    from neuralrecon_w_tpu_torch.ops.sdf_field_vjp import sdf_value_feat_grad_kernel
+
+    fc, net = flagship
+    net = copy.deepcopy(net).requires_grad_(True)
+    _, _, x, c_out, c_grad = vjp_inputs(net, 1024, 7)
+
+    def grads(fn):
+        net.zero_grad()
+        xx = x.clone().requires_grad_(True)
+        s, f, g = fn(xx)
+        (torch.sum(s * c_out[:, 0]) + torch.sum(f * c_out[:, 1:]) + torch.sum(g * c_grad)).backward()
+        return [p.grad.clone() for p in net.parameters()] + [xx.grad]
+
+    got = grads(lambda xx: sdf_value_feat_grad_kernel(net, fc.sdf, xx, "float32"))
+    want = grads(lambda xx: sdf_value_feat_grad(net, fc.sdf_cfg, xx, torch.float32,
+                                                create_graph=True))
+    for k, w in zip(got, want):
+        assert rel_l2(k, w) <= 1e-2
