@@ -43,10 +43,25 @@ and 'vjp' (the double backward) in turns; it counts the kernel launches
 of each phase, checks the losses are finite and the parameters move, and
 holds one step of 'pallas' against 'vjp' from one state and one batch.
 
+Then it extracts a mesh: K6 (``csrc/field_fwd.cu``, the fused field
+forward) against its plain version on the live field, f32 and bf16, and
+K1 in f32 at the SDF sweep's chunk; a phototourism-style workspace under
+``build/`` whose 500,000 SFM points sit on the served field's own zero
+set (a sign change found along seeded directions and bisected, with K1 in
+f32), that field saved with ``save_checkpoint``, and ``tools/extract_mesh_cli.main`` with
+the flags of ``scripts/sdf_extract.sh`` at ``--eval_level 10``. It checks
+the ply (non-empty, finite, normals unit, vertices on the field's zero
+set), counts the K1 and K6 launches of the extraction, prints each
+stage's seconds, and holds the path's SDF sweep (every grid point) and
+vertex colours against the plain versions.
+
 The last lines are the card line, a JSON object with one entry per
 kernel (K1 and K2 with their serving launches, K3 to K5 with their
-training launches), and ``{"ok": true, "device": {...}}``. It exits non-zero, with no
-result line, when there is no CUDA device or any check fails.
+training launches, K6 with its extraction launches; each with its time,
+its plain version's, and the least time the card could take for the
+same work, ``bound_ms``), and ``{"ok": true, "device": {...}}``. It exits
+non-zero, with no result line, when there is no CUDA device or any check
+fails.
 """
 
 from __future__ import annotations
@@ -56,8 +71,10 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -111,6 +128,49 @@ VJP_BF16_REL = 5e-2  # kernels vs the plain version in bf16, rel-L2 per output
 # moves a sum over the surface such as the last layer's sdf bias by percents).
 PARITY_F32 = (1e-4, 1e-2)
 PARITY_BF16_LOSS, PARITY_BF16_RATIO, PARITY_BF16_FLOOR = 3e-2, 2.0, 1e-1
+
+# extraction (PERF.md holds the bounds and why)
+EXTRACT_POINTS = 500_000  # SFM points on the field's zero set
+EXTRACT_LEVEL = 10
+EXTRACT_CHUNK = 102144  # scripts/sdf_extract.sh
+COLOR_CHUNK = 65536  # extraction/mesh.py's chunk_rgb
+MIN_TRACK = 2  # the workspace's min_track_length; every point has a longer track
+# Where the field's zero set lies is the field's own business: the seed-0
+# geometric init crosses at |x| 0.24-0.38 in unit coordinates, and training
+# moves it. So each seeded direction is scanned for a sign change and the
+# crossing bisected; the workspace's scene radius then puts the farthest
+# crossing EXTRACT_REACH SFM units from the origin, inside the +-1.5 eval
+# bbx (at the init, the surface ~1.1 SFM units out: ~110k level-8 cells).
+EXTRACT_REACH = 1.4
+ZERO_SCAN = (0.02, 0.98, 16)  # radii scanned per direction, unit coordinates
+ZERO_DIRS = 1.25  # directions drawn per SFM point wanted; some may not cross
+BISECT_TOL = 1e-6
+SDF_PROBE_CELLS = 0.05  # median |sdf| at the mesh's vertices, in level-10 cells
+NORMAL_SHORT_FRAC = 1e-4  # normals short of unit (sliver faces only), share of vertices
+COLOR_LEVELS, COLOR_FRAC = 2, 0.999  # vertex colours, kernel path vs plain
+K6_CHECK_PTS = COLOR_CHUNK
+
+# the H100 SXM's published peaks (NVIDIA's datasheet): dense bf16
+# tensor cores, float32 outside them, HBM3
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+
+def bound(flops: float, n_bytes: float, act: str) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the peak of their type and the bytes over the memory rate."""
+    t_ops = flops / (PEAK_BF16 if act == "bfloat16" else PEAK_F32)
+    t_mem = n_bytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_mem) * 1e3,
+            "bound_by": "operations" if t_ops >= t_mem else "bytes"}
+
+
+def gemm_flops(dims) -> int:
+    """2 k n per point over the (k, n) of each product."""
+    return 2 * sum(k * n for k, n in dims)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def card_line() -> str:
@@ -259,6 +319,15 @@ def live_sdf_net(net, seed: int = SEED, eps: float = LIVE_EPS):
     return live
 
 
+def live_field(model, seed: int = SEED):
+    """A copy of the field with ``live_sdf_net``'s SDF net. Its colour net
+    keeps the seeded torch-default init, U(+-1/sqrt(d_in)) on every weight
+    and bias, which already reaches every input."""
+    live = copy.deepcopy(model)
+    live.neuconw.sdf_net = live_sdf_net(model.neuconw.sdf_net, seed)
+    return live
+
+
 def kernel_phase(model, fc, rays_o, rays_d, z_base, n_pts_cmp: int):
     """Each kernel against its plain version at the serving shapes, on the
     live copy of the served SDF net."""
@@ -297,7 +366,11 @@ def kernel_phase(model, fc, rays_o, rays_d, z_base, n_pts_cmp: int):
     k1_ms2 = cuda_ms(lambda: sdf_mlp.fused_sdf_head(packed, pts_srv))
     print(f"K1 sdf_mlp {fc.act_dtype} at {pts_srv.shape[0]} pts: kernel {k1_ms:.3f} / "
           f"{k1_ms2:.3f} ms, plain {k1_plain:.3f} ms, max|err| {k1_err:.3e}")
-    res["sdf_mlp"] = {"max_abs_err": k1_err, "ms": min(k1_ms, k1_ms2), "plain_ms": k1_plain}
+    n_srv = pts_srv.shape[0]
+    res["sdf_mlp"] = {"max_abs_err": k1_err, "ms": min(k1_ms, k1_ms2), "plain_ms": k1_plain,
+                      "library_ms": None,
+                      **bound(n_srv * gemm_flops(zip(packed.k, packed.n)),
+                              nbytes(pts_srv, packed.w, packed.b) + 4 * n_srv, fc.act_dtype)}
 
     # K2 alone, the last round at the serving shapes (8 + 8 samples, 8 draws)
     sdf0 = sdf_mlp.sdf_mlp_plain(packed, pts_srv).view(z_base.shape)
@@ -317,7 +390,10 @@ def kernel_phase(model, fc, rays_o, rays_d, z_base, n_pts_cmp: int):
           f"plain {k2_plain:.3f} ms -> {'ok' if ok else 'FAIL'}")
     if not ok:
         fails.append("K2")
-    res["up_sample"] = {"max_abs_err": k2_err, "ms": min(k2_ms, k2_ms2), "plain_ms": k2_plain}
+    res["up_sample"] = {"max_abs_err": k2_err, "ms": min(k2_ms, k2_ms2), "plain_ms": k2_plain,
+                        "library_ms": None,
+                        **bound(0, nbytes(*(a for a in args if hasattr(a, "numel")), got),
+                                "float32")}
 
     # the whole importance stage, f32 and the serving dtype
     for act in ("float32", fc.act_dtype) if fc.act_dtype != "float32" else ("float32",):
@@ -627,10 +703,23 @@ def vjp_kernel_phase(model, fc):
           f"{t_k:.2f} / {t_k2:.2f}, plain {t_p:.2f}, torch double backward {t_d:.2f}; "
           f"forward K3 {t_fwd:.2f} / plain {t_fwd_p:.2f}; backward K4 + K5 {t_bwd:.2f} / plain "
           f"{t_bwd_p:.2f}, of which the dW reduction K5 {t_k5:.2f} / plain products {t_k5_p:.2f}")
-    res["sdf_vjp_fwd"].update(ms=t_fwd, plain_ms=t_fwd_p)
-    res["sdf_vjp_bwd"].update(ms=t_bwd - t_k5, plain_ms=t_bwd_p, double_backward_ms=t_d,
-                              fwd_bwd_ms=min(t_k, t_k2), plain_fwd_bwd_ms=t_p)
-    res["dw_reduce"].update(ms=t_k5, plain_ms=t_k5_p)
+    # work per point: F (every layer), G (the reverse sweep, no product for
+    # the last layer's seed), the adjoint of G and the backward of F; K5
+    # reduces two products per layer from four factor rows per layer
+    dims = [(w.shape[1], w.shape[0]) for w in ws]
+    f_all, f_hidden = gemm_flops(dims), gemm_flops(dims[:-1])
+    n, n_out = VJP_TIME_PTS, dims[-1][1]
+    wb = nbytes(*ws, *bs) // 2 if act == "bfloat16" else nbytes(*ws, *bs)
+    res["sdf_vjp_fwd"].update(ms=t_fwd, plain_ms=t_fwd_p, library_ms=None,
+                              **bound(n * (f_all + f_hidden), wb + n * (12 + 4 * n_out + 12), act))
+    res["sdf_vjp_bwd"].update(ms=t_bwd - t_k5, plain_ms=t_bwd_p, library_ms=None,
+                              double_backward_ms=t_d, fwd_bwd_ms=min(t_k, t_k2),
+                              plain_fwd_bwd_ms=t_p,
+                              **bound(n * (f_hidden + 2 * f_hidden + f_all),
+                                      wb + n * (12 + 4 * n_out + 12 + 12), act))
+    res["dw_reduce"].update(ms=t_k5, plain_ms=t_k5_p, library_ms=None,
+                            **bound(n * 2 * f_all, n * 4 * sum(2 * (k + m) for k, m in dims),
+                                    act))
     return res, fails
 
 
@@ -804,6 +893,356 @@ def step_parity(cfg, model, scene, batch, fine_grid, fine_level, label, step: in
     return fails
 
 
+# ------------------------------- extraction -------------------------------
+
+
+def unit_directions(n: int, seed: int = SEED):
+    import numpy as np
+
+    v = np.random.default_rng(seed + 11).standard_normal((n, 3))
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def zero_set_points(model, fc, n: int, seed: int = SEED):
+    """Up to n points on the field's zero set, unit coordinates. Along
+    ZERO_DIRS * n seeded unit directions the SDF (K1 in f32) is scanned at
+    ZERO_SCAN's radii; the first sign change brackets a crossing, bisected
+    to BISECT_TOL. Returns (the first n crossings (n', 3) float64, the
+    number of directions scanned without one, a line on the radial
+    profile)."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head, pack_sdf_weights
+
+    packed = pack_sdf_weights(model.neuconw.sdf_net, fc.sdf, "float32")
+    dev = packed.w.device
+    d = torch.from_numpy(unit_directions(int(math.ceil(ZERO_DIRS * n)), seed)).float().to(dev)
+
+    def sdf(r):
+        return fused_sdf_head(packed, (d * r[:, None]).contiguous())
+
+    radii = torch.linspace(*ZERO_SCAN, device=dev)
+    scan = torch.stack([sdf(torch.full((len(d),), float(r), device=dev)) for r in radii], 1)
+    change = (scan[:, 1:] < 0) != (scan[:, :-1] < 0)
+    crosses = change.any(1)
+    first = change.float().argmax(1)
+    profile = "; ".join(
+        f"r {float(radii[k]):.2f}: " + "/".join(f"{float(q):.3g}" for q in torch.quantile(
+            scan[:, k], torch.tensor([0.0, 0.5, 1.0], device=dev)))
+        for k in (0, len(radii) // 4, len(radii) // 2, 3 * len(radii) // 4, len(radii) - 1))
+    keep = torch.nonzero(crosses)[:n, 0]
+    d, first = d[keep], first[keep]
+    lo, hi = radii[first], radii[first + 1]
+    lo_neg = sdf(lo) < 0
+    while len(d) and float((hi - lo).max()) > BISECT_TOL:
+        mid = (lo + hi) / 2
+        same = (sdf(mid) < 0) == lo_neg
+        lo, hi = torch.where(same, mid, lo), torch.where(same, hi, mid)
+    r = (lo + hi) / 2
+    return (d * r[:, None]).double().cpu().numpy(), int((~crosses).sum()), profile
+
+
+def write_workspace(root: str, sfm_points, radius: float = 2.0, sfm_voxel: float = SFM_VOXEL,
+                    min_track: int = MIN_TRACK) -> dict:
+    """A phototourism-style workspace: ``config.yaml`` (origin 0, the scene
+    radius, identity sfm2gt, eval_bbx +-1.5, the SFM voxel size,
+    min_track_length) and ``dense/sparse/points3D.bin``, every point with a
+    track of min_track + 1 observations. Returns the scene config."""
+    import numpy as np
+    import yaml
+
+    from neuralrecon_w_tpu_torch.datasets.colmap import Point3D, write_points3d_binary
+
+    os.makedirs(os.path.join(root, "dense", "sparse"), exist_ok=True)
+    scene = {"name": "zero_set", "origin": [0.0, 0.0, 0.0], "radius": float(radius),
+             "sfm2gt": np.eye(4).tolist(), "eval_bbx": [[-1.5] * 3, [1.5] * 3],
+             "voxel_size": float(sfm_voxel), "min_track_length": int(min_track)}
+    with open(os.path.join(root, "config.yaml"), "w") as f:
+        yaml.safe_dump(scene, f)
+    track = np.arange(min_track + 1, dtype=np.int32)
+    rgb = np.full(3, 128, np.uint8)
+    points = {i + 1: Point3D(i + 1, p, rgb, 0.5, track, track) for i, p in enumerate(sfm_points)}
+    write_points3d_binary(points, os.path.join(root, "dense", "sparse", "points3D.bin"))
+    return scene
+
+
+def write_cfg(path: str, root: str, extra: dict | None = None) -> str:
+    """A cfg yaml over the operating point with DATASET.ROOT_DIR = root."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump({"_BASE_": CONFIG, "DATASET": {"ROOT_DIR": root}, **(extra or {})}, f)
+    return path
+
+
+def extraction_workspace(model, fc, root: str, n_points: int = EXTRACT_POINTS,
+                         extra_cfg: dict | None = None, step: int = 0,
+                         sfm_voxel: float = SFM_VOXEL):
+    """SFM points on ``model``'s zero set, the workspace (its scene radius
+    puts the farthest point EXTRACT_REACH from the origin), ``model`` saved
+    with save_checkpoint, and the cfg: (cfg path, checkpoint path, scene
+    config, fails)."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.training.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    pts, none, profile = zero_set_points(model, fc, n_points)
+    sync()
+    t1 = time.perf_counter()
+    print(f"field's SDF along {int(math.ceil(ZERO_DIRS * n_points))} seeded directions "
+          f"(min/median/max): {profile}")
+    if len(pts) < n_points:
+        return None, None, None, [f"only {len(pts)} of {n_points} directions cross the zero set"]
+    r = np.linalg.norm(pts, axis=1)
+    radius = EXTRACT_REACH / float(r.max())
+    scene = write_workspace(root, pts * radius, radius, sfm_voxel)
+    ckpt = save_checkpoint(os.path.join(root, "results", "checkpoints", "last.ckpt"), model, step)
+    cfg_path = write_cfg(os.path.join(root, "extract.yaml"), root, extra_cfg)
+    print(f"extraction workspace: {n_points} SFM points on the field's zero set at |x| "
+          f"{r.min():.4f}-{r.max():.4f} unit ({none} directions without a crossing; scan and "
+          f"bisection {t1 - t0:.2f} s), scene radius {radius:.4f}, written with the checkpoint "
+          f"in {time.perf_counter() - t1:.2f} s")
+    return cfg_path, ckpt, scene, []
+
+
+def run_extraction(cfg_path: str, ckpt: str, level: int = EXTRACT_LEVEL, device: str = "cuda"):
+    """``tools/extract_mesh_cli.main`` with the flags of scripts/sdf_extract.sh."""
+    from neuralrecon_w_tpu_torch.tools import extract_mesh_cli
+
+    return extract_mesh_cli.main(["--cfg_path", cfg_path, "--ckpt_path", ckpt, "--eval_level",
+                                  str(level), "--mesh_size", "1024", "--chunk",
+                                  str(EXTRACT_CHUNK), "--vertex_color", "--device", device])
+
+
+def check_mesh(model, fc, res, ckpt: str, radius: float, level: int = EXTRACT_LEVEL):
+    """The written ply: where the CLI names it, non-empty, finite, inside the
+    eval bbx, unit normals, faces in range; its vertices on the field's zero
+    set: median |sdf| (K1 in f32) within SDF_PROBE_CELLS level-``level``
+    cells. ``radius`` is the workspace's scene radius. Returns (fails,
+    median |sdf| in cells)."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head, pack_sdf_weights
+    from neuralrecon_w_tpu_torch.parallel.sweep import sweep
+    from neuralrecon_w_tpu_torch.utils.ply import read_ply
+
+    if res is None:
+        return ["extraction found an empty surface"], float("nan")
+    want = os.path.join(os.path.dirname(os.path.dirname(ckpt)),
+                        f"extracted_mesh_level_{level}_colored.ply")
+    ply = read_ply(res.path)
+    v, nrm, col, faces = ply["verts"], ply["normals"], ply["colors"], ply["faces"]
+    fails = [] if res.path == want else [f"ply at {res.path}, expected {want}"]
+    if len(v) == 0 or len(faces) == 0:
+        return fails + ["empty mesh"], float("nan")
+    if not (np.isfinite(v).all() and np.isfinite(nrm).all()):
+        fails.append("mesh vertices or normals not finite")
+    if np.abs(v).max() > 1.5:
+        fails.append("mesh vertices outside the eval bbx")
+    # vertex_normals leaves a normal short of unit where the area of the
+    # vertex's faces sums below its 1e-12 floor: slivers, where the surface
+    # passes within ~1e-7 of a cell corner
+    norm = np.linalg.norm(nrm, axis=-1)
+    short = int((np.abs(norm - 1.0) > 1e-3).sum())
+    if norm.max() > 1.0 + 1e-3 or short > NORMAL_SHORT_FRAC * len(v):
+        fails.append(f"mesh normals not unit: {short} short, longest {norm.max():.6f}")
+    if col.shape != v.shape or faces.min() < 0 or faces.max() >= len(v):
+        fails.append("mesh colours or faces malformed")
+    packed = pack_sdf_weights(model.neuconw.sdf_net, fc.sdf, "float32")
+    dev = packed.w.device
+    sdf = sweep(lambda b: fused_sdf_head(packed, b), EXTRACT_CHUNK,
+                (v / radius).astype(np.float32), device=dev)
+    cell = res.grid.voxel_size / radius  # level-``level`` cell, unit coordinates
+    med = float(np.median(np.abs(sdf))) / cell
+    print(f"mesh: {len(v)} verts, {len(faces)} faces, colours in [{col.min()}, {col.max()}], "
+          f"{short} normals short of unit; "
+          f"|sdf| at the vertices (K1 f32): median {med:.3e} cells, max "
+          f"{float(np.abs(sdf).max()) / cell:.3e} cells (cell {cell:.3e} unit)")
+    if not med <= SDF_PROBE_CELLS:
+        fails.append(f"mesh vertices off the zero set: median |sdf| {med:.3e} cells")
+    return fails, med
+
+
+def extraction_sweep_checks(model, fc, res, radius: float):
+    """The path's device sweeps against the plain versions: the SDF at every
+    grid point (K1 f32 against its plain f32 version), and the vertex
+    colours the path wrote (K6) against the plain version's, in uint8."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.ops import field_forward as ff
+    from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head, pack_sdf_weights, sdf_mlp_plain
+    from neuralrecon_w_tpu_torch.parallel.sweep import sweep
+
+    fails = []
+    packed = pack_sdf_weights(model.neuconw.sdf_net, fc.sdf, "float32")
+    dev = packed.w.device
+    pts = (res.grid.points_sfm / radius).astype(np.float32)
+    got = sweep(lambda b: fused_sdf_head(packed, b), EXTRACT_CHUNK, pts, device=dev)
+    want = sweep(lambda b: sdf_mlp_plain(packed, b), EXTRACT_CHUNK, pts, device=dev)
+    err = np.abs(got - want)
+    ok = bool((err <= K1_F32_ATOL + K1_F32_RTOL * np.abs(want)).all())
+    print(f"SDF sweep at {len(pts)} grid points, K1 f32 vs plain: max|err| {err.max():.3e} -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fails.append("extraction SDF sweep, K1 vs plain")
+
+    verts = (res.mesh.verts / radius).astype(np.float32)
+    n = len(verts)
+    a = model.embedding_a.weight[min(1123, model.embedding_a.weight.shape[0] - 1)]
+    a = a.detach().float().cpu().numpy()
+    pack = ff.pack_field(model, fc)
+    plain = sweep(lambda p, d, e: ff.field_forward_plain(pack, p, d, e)[0], COLOR_CHUNK, verts,
+                  np.broadcast_to(np.float32([0, 0, 1]), (n, 3)).copy(),
+                  np.broadcast_to(a, (n, a.shape[0])).copy(), device=dev)
+    plain = np.clip(plain * 255.0, 0, 255).astype(np.uint8)
+    diff = np.abs(plain.astype(np.int16) - res.mesh.colors.astype(np.int16)).max(axis=1)
+    frac = float((diff <= COLOR_LEVELS).mean())
+    print(f"vertex colours at {n} vertices, K6 path vs plain {fc.act_dtype}: within "
+          f"{COLOR_LEVELS} levels {frac:.6f}, max {int(diff.max())} -> "
+          f"{'ok' if frac >= COLOR_FRAC else 'FAIL'}")
+    if frac < COLOR_FRAC:
+        fails.append("extraction vertex colours, K6 vs plain")
+    return fails
+
+
+def field_kernel_phase(model, fc):
+    """K6 against its plain version on the live field at K6_CHECK_PTS
+    points, f32 and bf16, and its times at the colour sweep's chunk in the
+    served dtype; K1 in f32 at the SDF sweep's chunk against its plain
+    version, and its times."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.ops import field_forward as ff
+    from neuralrecon_w_tpu_torch.ops import sdf_mlp
+
+    live = live_field(model)
+    dev = next(live.parameters()).device
+    g = torch.Generator(device="cpu").manual_seed(SEED + 13)
+    n = K6_CHECK_PTS
+    pts = ((torch.rand(n, 3, generator=g) * 2 - 1) * 0.9).to(dev)
+    dirs = torch.randn(n, 3, generator=g)
+    dirs = (dirs / dirs.norm(dim=-1, keepdim=True)).to(dev)
+    a = torch.randn(n, fc.n_a, generator=g).to(dev)
+    res, fails = {}, []
+    for act in ("float32", "bfloat16"):
+        fca = fc._replace(act_dtype=act)
+        pack = ff.pack_field(live, fca)
+        got = ff.field_forward_kernel(pack, pts, dirs, a)
+        want = ff.field_forward_plain(pack, pts, dirs, a)
+        torch.cuda.synchronize()
+        errs = [float((k - p).abs().max()) for k, p in zip(got, want)]
+        rels = [rel_l2(k, p) for k, p in zip(got, want)]
+        if act == "float32":
+            ok = all(bool(((k - p).abs() <= K3_F32_TOL + K3_F32_TOL * p.abs()).all())
+                     for k, p in zip(got, want))
+        else:
+            ok = max(rels) <= VJP_BF16_REL
+        ok = ok and all(bool(torch.isfinite(k).all()) for k in got)
+        print(f"K6 field_fwd {act} on {n} pts, rgb / sdf / grad: max|err| "
+              + " / ".join(f"{e:.3e}" for e in errs) + ", rel-L2 "
+              + " / ".join(f"{r:.3e}" for r in rels) + f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"K6 {act}")
+        if act == fc.act_dtype:
+            res["field_fwd"] = {"max_abs_err": max(errs)}
+            t_k = cuda_ms(lambda: ff.field_forward_kernel(pack, pts, dirs, a))
+            t_p = cuda_ms(lambda: ff.field_forward_plain(pack, pts, dirs, a))
+            t_k2 = cuda_ms(lambda: ff.field_forward_kernel(pack, pts, dirs, a))
+            sp, cp = pack.sdf, pack.color
+            sdf_dims = list(zip(sp.k, sp.n))
+            flops = n * (gemm_flops(sdf_dims) + gemm_flops(sdf_dims[:-1])
+                         + gemm_flops(zip(cp.k, cp.n)))
+            b = bound(flops, nbytes(pts, dirs, a, sp.w, sp.b, cp.w, cp.b) + n * 28, act)
+            res["field_fwd"].update(ms=min(t_k, t_k2), plain_ms=t_p, library_ms=None, **b)
+            print(f"K6 field_fwd {act} at {n} pts: kernel {t_k:.3f} / {t_k2:.3f} ms, plain "
+                  f"{t_p:.3f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+
+    # K1 in f32 at the SDF sweep's chunk
+    packed = sdf_mlp.pack_sdf_weights(live.neuconw.sdf_net, fc.sdf, "float32")
+    x = ((torch.rand(EXTRACT_CHUNK, 3, generator=g) * 2 - 1) * 0.9).to(dev)
+    err = float((sdf_mlp.fused_sdf_head(packed, x) - sdf_mlp.sdf_mlp_plain(packed, x)).abs().max())
+    t_k = cuda_ms(lambda: sdf_mlp.fused_sdf_head(packed, x))
+    t_p = cuda_ms(lambda: sdf_mlp.sdf_mlp_plain(packed, x))
+    t_k2 = cuda_ms(lambda: sdf_mlp.fused_sdf_head(packed, x))
+    b = bound(EXTRACT_CHUNK * gemm_flops(zip(packed.k, packed.n)),
+              nbytes(x, packed.w, packed.b) + 4 * EXTRACT_CHUNK, "float32")
+    res["sdf_mlp_f32"] = {"max_abs_err": err, "ms": min(t_k, t_k2), "plain_ms": t_p, **b}
+    print(f"K1 sdf_mlp float32 at {EXTRACT_CHUNK} pts: kernel {t_k:.3f} / {t_k2:.3f} ms, plain "
+          f"{t_p:.3f} ms, bound {b['bound_ms']:.3f} ms ({b['bound_by']}), max|err| {err:.3e}")
+    return res, fails
+
+
+def pending_kernel_bounds(model, fc, n_field: int, n_bg: int) -> str:
+    """The least times of the two TPU kernels not ported yet, at their
+    training path's shapes in the activation dtype: kernel 5, the fused
+    field forward and backward at n_field points (K3 + K4 + K5's products
+    and the colour head's forward, dX and dW), and kernel 6, the fused
+    background forward and backward at n_bg points (every linear's
+    forward, dX and dW). Inputs, outputs and their cotangents read or
+    written once, dW in float32."""
+    from torch import nn
+
+    from neuralrecon_w_tpu_torch.ops import field_forward as ff
+
+    act = fc.act_dtype
+    ab = 2 if act == "bfloat16" else 4
+    pack = ff.pack_field(model, fc)
+    sdf = list(zip(pack.sdf.k, pack.sdf.n))
+    col = list(zip(pack.color.k, pack.color.n))
+    n_w = sum(k * n for k, n in sdf + col)
+    flops = n_field * (gemm_flops(sdf) + gemm_flops(sdf[:-1])  # K3
+                       + 3 * gemm_flops(sdf[:-1]) + gemm_flops(sdf)  # K4
+                       + 2 * gemm_flops(sdf) + 3 * gemm_flops(col))  # K5, the colour head
+    k5 = bound(flops, n_w * (ab + 4) + n_field * 2 * (12 + 12 + 4 * fc.n_a + 28), act)
+    bg = [(m.in_features, m.out_features) for m in model.nerf.modules()
+          if isinstance(m, nn.Linear)]
+    k6 = bound(3 * n_bg * gemm_flops(bg), sum(k * n for k, n in bg) * (ab + 4)
+               + n_bg * 2 * (16 + 12 + 4 * fc.n_a + 16), act)
+    return (f"bounds of the TPU kernels still to port, {act}: kernel 5 at {n_field} pts "
+            f"{k5['bound_ms']:.3f} ms ({k5['bound_by']}), kernel 6 at {n_bg} pts "
+            f"{k6['bound_ms']:.3f} ms ({k6['bound_by']})")
+
+
+def extraction_phase(model, fc, root: str, n_points: int = EXTRACT_POINTS,
+                     level: int = EXTRACT_LEVEL, extra_cfg: dict | None = None, step: int = 0,
+                     sfm_voxel: float = SFM_VOXEL):
+    """The workspace, then the CLI with the launch counts set to 0 just
+    before and read just after, then the checks. Returns (launches, fails)."""
+    from neuralrecon_w_tpu_torch.ops.field_forward import fused_field_forward
+    from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head
+
+    cfg_path, ckpt, scene, fails = extraction_workspace(model, fc, root, n_points, extra_cfg,
+                                                        step, sfm_voxel)
+    if fails:
+        return {"sdf_mlp": 0, "field_fwd": 0}, fails
+    dev = next(model.parameters()).device.type
+    fused_sdf_head.launches = fused_field_forward.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    res = run_extraction(cfg_path, ckpt, level, dev)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"sdf_mlp": fused_sdf_head.launches, "field_fwd": fused_field_forward.launches}
+    print(f"launches in extraction: K1 sdf_mlp {launches['sdf_mlp']}, K6 field_fwd "
+          f"{launches['field_fwd']}; CLI wall {wall:.2f} s")
+    if dev == "cuda":
+        fails += [f"{k} not launched in extraction" for k, v in launches.items() if v <= 0]
+    radius = float(scene["radius"])
+    mesh_fails, _ = check_mesh(model, fc, res, ckpt, radius, level)
+    fails += mesh_fails
+    if res is not None:
+        sec = res.seconds
+        n_grid, n_verts = len(res.grid.points_sfm), len(res.mesh.verts)
+        print(f"extraction stages, s: " + ", ".join(f"{k} {v:.3f}" for k, v in sec.items())
+              + f"; SDF sweep {n_grid / sec['sdf sweep']:.4g} points/s over {n_grid} grid "
+              f"points, colour sweep {n_verts / sec['colour sweep']:.4g} points/s over "
+              f"{n_verts} vertices")
+        if not mesh_fails:
+            fails += extraction_sweep_checks(model, fc, res, radius)
+    return launches, fails
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -819,7 +1258,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from neuralrecon_w_tpu_torch.config import (
         field_config_from_cfg, load_cfg, render_config_from_cfg)
-    from neuralrecon_w_tpu_torch.ops import build
+    from neuralrecon_w_tpu_torch.ops import build, native
     from neuralrecon_w_tpu_torch.ops.importance_sampler import up_sample_round
     from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
     from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head
@@ -841,6 +1280,9 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
     build.kernels()
+    t0 = time.perf_counter()
+    print(f"built {os.path.relpath(native.build(), ROOT)} (the host mesher) in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     cfg = load_cfg(CONFIG)
     fc = field_config_from_cfg(cfg)
@@ -899,7 +1341,6 @@ def main() -> int:
     vres, vfails = vjp_kernel_phase(model, fc)
     fails += vfails
     kres.update(vres)
-    del model
 
     # training: Adam steps of make_train_step over RayPool batches
     torch.cuda.reset_peak_memory_stats()
@@ -942,6 +1383,24 @@ def main() -> int:
     print(f"training rays/s ({card}): " + "; ".join(
         f"{label} pallas {r['pallas']:.1f}, vjp {r['vjp']:.1f}" for label, r in rps_train.items()))
 
+    # extraction: K6 and K1 f32 against their plain versions, then the
+    # served field through extract_mesh_cli at level 10. Not the trained
+    # one: 28 steps on the synthetic sphere leave it no closed surface
+    # (PERF.md, section 6)
+    del pool, rows, rgbs, batch, state
+    xres, xfails = field_kernel_phase(model, fc)
+    fails += xfails
+    kres.update(xres)
+    print(pending_kernel_bounds(model, fc, VJP_TIME_PTS, TRAIN_BATCH * rcfg_warm.bg_samples))
+    torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp(prefix="extract_", dir=os.path.join(ROOT, "build"))
+    try:
+        x_launches, xfails = extraction_phase(model, fc, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fails += xfails
+    print(f"peak device memory in extraction {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
     if fails:
         print("FAILED: " + "; ".join(fails), file=sys.stderr)
         return 1
@@ -952,9 +1411,15 @@ def main() -> int:
                              "neuralrecon_w_tpu/ops/pallas_sampler.py:445"),
                "sdf_vjp_fwd": (vjp_src, "neuralrecon_w_tpu/ops/pallas_field_vjp.py:411"),
                "sdf_vjp_bwd": (vjp_src, "neuralrecon_w_tpu/ops/pallas_field_vjp.py:482"),
-               "dw_reduce": (vjp_src, "neuralrecon_w_tpu/ops/pallas_field_vjp.py:482")}
-    # K1 and K2 count the serving path's launches, K3 to K5 the training path's
+               "dw_reduce": (vjp_src, "neuralrecon_w_tpu/ops/pallas_field_vjp.py:482"),
+               "field_fwd": ("neuralrecon_w_tpu_torch/csrc/field_fwd.cu",
+                             "neuralrecon_w_tpu/ops/pallas_field.py:274")}
+    # K1 and K2 count the serving path's launches, K3 to K5 the training
+    # path's, K6 the extraction's; K1's extraction launches and its f32
+    # numbers at the SDF sweep's chunk ride along in its entry
     launches.update({n: train_launches[n] for n in ("sdf_vjp_fwd", "sdf_vjp_bwd", "dw_reduce")})
+    launches["field_fwd"] = x_launches["field_fwd"]
+    kres["sdf_mlp"]["extraction"] = {"launches": x_launches["sdf_mlp"], **kres.pop("sdf_mlp_f32")}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **kres[name]}
                for name, (src, rep) in sources.items()]

@@ -4,11 +4,10 @@ render configuration over it.
 The cfg tree is the JAX package's (``neuralrecon_w_tpu/config``): the
 same defaults and the same per-scene YAMLs under ``config/``, merged with
 the same rules (``_BASE_`` chains, unknown keys refused, values coerced
-toward the default's type). The port carries the three sections it reads,
-``NEUCONW``, ``TPU`` and ``TRAINER``, so that it imports nothing of the
-JAX package; the section it does not read (``DATASET``) is skipped.
-``tests/test_torch_config.py`` holds the three sections equal to the JAX
-package's on every YAML in ``config/``.
+toward the default's type). The port carries its four sections,
+``NEUCONW``, ``DATASET``, ``TPU`` and ``TRAINER``, so that it imports
+nothing of the JAX package. ``tests/test_torch_config.py`` holds them
+equal to the JAX package's on every YAML in ``config/``.
 
 ``FieldConfig`` and ``RenderConfig`` are the counterparts of
 ``models/neuconw.py:FieldConfig`` and ``rendering/renderer.py:RenderConfig``.
@@ -36,7 +35,7 @@ __all__ = [
     "render_config_from_cfg", "get_cfg_defaults", "load_cfg",
 ]
 
-_SECTIONS = ("NEUCONW", "TPU", "TRAINER")
+_SECTIONS = ("NEUCONW", "DATASET", "TPU", "TRAINER")
 _DEFAULTS = {
     "NEUCONW": {
         "N_SAMPLES": 512, "N_IMPORTANCE": 512, "USE_DISP": False, "PERTURB": 1.0,
@@ -62,6 +61,14 @@ _DEFAULTS = {
         "LOSS": {
             "coef": 1.0, "igr_weight": 0.1, "mask_weight": 0.1, "depth_weight": 0.1,
             "floor_weight": 0.01, "replicate_floor_weight_bug": True,
+        },
+    },
+    "DATASET": {
+        "ROOT_DIR": None, "DATASET_NAME": None, "SPLIT": "train",
+        "PHOTOTOURISM": {
+            "IMG_DOWNSCALE": 1, "USE_CACHE": True, "CACHE_DIR": "cache_sgs",
+            "CACHE_TYPE": "npz", "SEMANTIC_MAP_PATH": "semantic_maps", "WITH_SEMANTICS": True,
+            "SFM_PATH": "sparse", "DEPTH_PERCENT": -1.0,
         },
     },
     "TPU": {
@@ -101,7 +108,7 @@ def _tree(d: dict) -> Cfg:
 
 
 def get_cfg_defaults() -> Cfg:
-    """A fresh copy of the NEUCONW, TPU and TRAINER defaults."""
+    """A fresh copy of the NEUCONW, DATASET, TPU and TRAINER defaults."""
     return _tree(_DEFAULTS)
 
 

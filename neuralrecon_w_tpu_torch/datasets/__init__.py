@@ -1,2 +1,2 @@
-"""Host-side dataset code the port reads: label names and the training
-``RayPool``."""
+"""Host-side dataset code the port reads: label names, the training
+``RayPool``, the scene's ``config.yaml`` and COLMAP's ``points3D.bin``."""

@@ -13,8 +13,16 @@ reverse pass, differentiated again by autograd in training (the double
 backward, create_graph=True); 'pallas', the SDF-VJP kernels K3 / K4 / K5
 (``ops/sdf_field_vjp.py``; their plain version on CPU tensors); and
 'pallas_hybrid', the plain forward with the kernels' backward. 'fwd' and
-the fused field kernel 'pallas_field' are not ported yet (ROADMAP.md,
-Queue 1).
+the fused field kernel with its backward, 'pallas_field' (kernel 5), are
+not ported yet (ROADMAP.md, Queue 1 and Queue 2 row 5).
+
+Gradient-free colour probes go through kernel 3's port instead: mesh
+vertex colouring (``parallel/sweep.sharded_rgb_sweep``) calls
+``ops/field_forward.fused_field_forward`` (K6, ``csrc/field_fwd.cu``)
+when the field has an appearance code, and ``field_rgb`` here otherwise.
+
+``NeuconWField`` is built on the card unless the caller names a device
+(``device.default_device``).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 from torch import nn
 
 from ..config import FieldConfig
+from ..device import default_device
 from .color import RenderingNetwork, apply_color
 from .nerf_bg import NeRF, apply_nerf_bg
 from .sdf import SDFNetwork, act_dtype_of, sdf_value, sdf_value_feat_grad
@@ -50,6 +59,7 @@ class NeuconWCore(nn.Module):
 class NeuconWField(nn.Module):
     def __init__(self, fc: FieldConfig, device=None):
         super().__init__()
+        device = default_device(device)
         self.embedding_a = nn.Embedding(fc.n_vocab, fc.n_a, device=device)
         self.neuconw = NeuconWCore(fc, device)
         self.nerf = NeRF(fc.encode_a_bg, fc.n_a, device)
@@ -90,6 +100,14 @@ def field_forward(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded,
     rgb = apply_color(model.neuconw.color_net, fc.color_cfg, fc.encode_a, pts, grad,
                       dirs, feat, a_embedded, act_dtype=act, n_samples=n_samples)
     return rgb, inv_s(model), sdf, grad
+
+
+def field_rgb(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded) -> torch.Tensor:
+    """Colour probe for mesh vertex colouring (``neuconw.py:185-189``), with
+    no autograd graph kept."""
+    with torch.no_grad():
+        rgb, _, _, _ = field_forward(model, fc, pts, dirs, a_embedded)
+    return rgb
 
 
 def field_background(model: NeuconWField, fc: FieldConfig, pts4, dirs, a_embedded,

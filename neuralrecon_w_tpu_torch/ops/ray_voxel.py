@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import default_device
 from .voxel_grid import VoxelGrid
 
 _INF = 1e10
@@ -40,7 +41,8 @@ class DeviceGrid(NamedTuple):
 
 def device_grid_from_host(grid: VoxelGrid, device=None) -> DeviceGrid:
     """A host grid (``ops/voxel_grid.VoxelGrid``, or the JAX package's,
-    which has the same fields) on ``device``."""
+    which has the same fields) on ``device`` (default: the card)."""
+    device = default_device(device)
     return DeviceGrid(
         occ=torch.from_numpy(grid.occupancy_words().view(np.int32)).to(device),
         origin=torch.as_tensor(np.asarray(grid.origin, np.float32), device=device),

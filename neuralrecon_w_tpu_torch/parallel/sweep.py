@@ -1,0 +1,94 @@
+"""Chunked field sweeps over large host point sets, on one card
+(``neuralrecon_w_tpu/parallel/sweep.py:31-217``).
+
+The point set streams to the card in host-side macro batches of 2^22
+points (a level-10 extraction sweeps millions of candidates); each macro
+batch is padded to a whole number of fixed-size chunks, evaluated chunk
+by chunk, and brought back. The SDF sweep runs K1 in float32
+(``ops/sdf_mlp.fused_field_sdf``); the colour sweep runs K6
+(``ops/field_forward.fused_field_forward``) in the field's activation
+dtype when the field has an appearance code, and ``models/neuconw.
+field_rgb`` otherwise, as the JAX package does. On CPU tensors each runs
+its plain version. The multi-process and multi-card sweeps of the JAX
+package (``_sweep_multihost``, the device mesh) are not ported.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from ..device import default_device
+
+MACRO = 1 << 22
+
+
+def _pad(pts: np.ndarray, multiple: int):
+    n = pts.shape[0]
+    target = ((max(n, 1) + multiple - 1) // multiple) * multiple
+    if target != n:
+        pts = np.concatenate([pts, np.zeros((target - n,) + pts.shape[1:], pts.dtype)], axis=0)
+    return pts, n
+
+
+def sweep(fn, chunk: int, *host_arrays, device=None, macro: int = MACRO) -> np.ndarray:
+    """fn(*chunks) -> (chunk, ...) tensor, over the arrays' leading axis in
+    chunks of ``chunk`` rows on ``device`` (default: the card); the result
+    as one host array of the arrays' length."""
+    device = default_device(device)
+    macro = max(chunk, (macro // chunk) * chunk)
+    n = host_arrays[0].shape[0]
+    arrays = [np.asarray(a) for a in host_arrays]
+    outs = []
+    with torch.no_grad():
+        for s in range(0, max(n, 1), macro):
+            piece_n = min(macro, n - s) if n else 0
+            padded = [torch.from_numpy(_pad(a[s:s + macro], chunk)[0]).to(device)
+                      for a in arrays]
+            out = torch.cat([fn(*(p[c:c + chunk] for p in padded))
+                             for c in range(0, padded[0].shape[0], chunk)])
+            outs.append(out.cpu().numpy()[:piece_n])
+    return np.concatenate(outs) if len(outs) > 1 else outs[0]
+
+
+def sharded_sdf_sweep(model, fc, pts: np.ndarray, chunk: int = 65536, device=None,
+                      macro: int = MACRO) -> np.ndarray:
+    """SDF at every point, float32 (N,), through K1 in float32."""
+    from ..ops.sdf_mlp import fused_sdf_head, pack_sdf_weights
+
+    packed = pack_sdf_weights(model.neuconw.sdf_net, fc.sdf, "float32")
+    return sweep(lambda b: fused_sdf_head(packed, b), chunk, np.asarray(pts, np.float32),
+                 device=device, macro=macro)
+
+
+def sharded_rgb_sweep(model, fc, pts: np.ndarray, view_dir, a_index: int,
+                      chunk: int = 65536, device=None, macro: int = MACRO) -> np.ndarray:
+    """Vertex colours (N, 3) at one view direction and appearance index
+    (reference utils/visualization.py:124-156). An index past the
+    vocabulary is clamped to its last entry, as ``sweep.py:201-209`` does."""
+    from ..models.neuconw import field_rgb
+    from ..ops.field_forward import fused_field_forward, pack_field
+
+    device = default_device(device)
+    pts = np.asarray(pts, np.float32)
+    dirs = np.broadcast_to(np.asarray(view_dir, np.float32), pts.shape).copy()
+    n_vocab = model.embedding_a.weight.shape[0]
+    if a_index >= n_vocab:
+        # the reference CLI hardcodes index 1123, which small vocabularies
+        # cannot cover
+        logging.getLogger(__name__).warning(
+            "appearance index %d >= N_VOCAB %d; clamping", a_index, n_vocab)
+        a_index = n_vocab - 1
+    a_vec = model.embedding_a.weight[a_index].detach().float().cpu().numpy()
+    a = np.broadcast_to(a_vec, (pts.shape[0], a_vec.shape[-1])).copy()
+    if fc.encode_a:
+        pack = pack_field(model, fc)
+
+        def fn(p, d, e):
+            return fused_field_forward(model, fc, p, d, e, pack)[0]
+    else:
+        def fn(p, d, e):
+            return field_rgb(model, fc, p, d, e)
+    return sweep(fn, chunk, pts, dirs, a, device=device, macro=macro)

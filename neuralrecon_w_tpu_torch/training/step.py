@@ -35,6 +35,7 @@ class TrainState:
 
 def init_state(fc: FieldConfig, optimizer_spec, generator: torch.Generator,
                device=None) -> TrainState:
+    """A fresh field and its optimiser state, on ``device`` (default: the card)."""
     model = init_field(fc, generator, device)
     return TrainState(model, optimizer_spec.init(model.parameters()), 0)
 

@@ -53,7 +53,7 @@ def test_live_sdf_net_reaches_every_input():
     n.SDF_CONFIG.skip_in = (2,)
     n.COLOR_CONFIG.d_feature, n.N_VOCAB = 64, 4
     fc = field_config_from_cfg(cfg)
-    net = init_field(fc, torch.Generator().manual_seed(0)).neuconw.sdf_net.requires_grad_(False)
+    net = init_field(fc, torch.Generator().manual_seed(0), "cpu").neuconw.sdf_net.requires_grad_(False)
     before = {k: v.clone() for k, v in net.state_dict().items()}
     live = live_sdf_net(net)
     assert all(torch.equal(before[k], v) for k, v in net.state_dict().items())
@@ -97,8 +97,8 @@ n.SDF_CONFIG.d_hidden, n.SDF_CONFIG.d_out, n.SDF_CONFIG.n_layers = 64, 65, 4
 n.SDF_CONFIG.skip_in = (2,)
 n.COLOR_CONFIG.d_feature, n.N_VOCAB = 64, 4
 fc = field_config_from_cfg(cfg)
-model = init_field(fc, torch.Generator().manual_seed(0)).requires_grad_(False)
-sfm, fine = device_grid_from_host(sfm_host), device_grid_from_host(fine_host)
+model = init_field(fc, torch.Generator().manual_seed(0), "cpu").requires_grad_(False)
+sfm, fine = device_grid_from_host(sfm_host, "cpu"), device_grid_from_host(fine_host, "cpu")
 rc = render_config_from_cfg(cfg, sfm_level=sfm_host.level, fine_level=fine_host.level,
                             nerf_far_override=True)
 outs = [render_image(make_render_fn(fc, rc), model, scene, frames[0], np.zeros(48, np.int64),
@@ -111,6 +111,40 @@ print("ok")
     proc = run(["-c", code], ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_chip_smoke_extraction_without_jax_package(tmp_path):
+    """The extraction phase at a tiny width on the CPU, the kernels' plain
+    versions standing in: SFM points on the field's zero set, the workspace
+    and checkpoint, extract_mesh_cli at level 6 with vertex colours, the
+    mesh and sweep checks all passing, and no JAX."""
+    code = f"""
+import sys
+import torch
+import chip_smoke as cs
+from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
+from neuralrecon_w_tpu_torch.tools.convert import init_field
+
+torch.set_num_threads(1)
+root = {str(tmp_path)!r}
+extra = {{"NEUCONW": {{"SDF_CONFIG": {{"d_hidden": 64, "d_out": 65, "n_layers": 4, "skip_in": [2]}},
+                     "COLOR_CONFIG": {{"d_feature": 64, "d_hidden": 32, "n_layers": 2}},
+                     "N_VOCAB": 4}}}}
+fc = field_config_from_cfg(load_cfg(cs.write_cfg(root + "/c.yaml", root, extra)))
+model = init_field(fc, torch.Generator().manual_seed(0), "cpu").requires_grad_(False)
+launches, fails = cs.extraction_phase(model, fc, root, n_points=3000, level=6, extra_cfg=extra,
+                                      sfm_voxel=0.1875)
+assert fails == [], fails
+assert set(launches) == {{"sdf_mlp", "field_fwd"}}
+print(cs.pending_kernel_bounds(model, fc, 4096, 1024))
+assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
+print("ok")
+"""
+    proc = run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout
+    assert "mesh: " in out and "vertex colours at " in out and out.strip().endswith("ok")
+    assert "kernel 5 at 4096 pts" in out and "kernel 6 at 1024 pts" in out
 
 
 def test_chip_smoke_training_without_jax_package():
@@ -142,12 +176,13 @@ n.COLOR_CONFIG.d_feature, n.COLOR_CONFIG.d_hidden, n.COLOR_CONFIG.n_layers = 64,
 n.N_VOCAB = 4
 pool = RayPool(rows, rgbs, seed=int(cfg.TRAINER.SEED))
 spec, _ = make_optimizer(cfg, cs.TRAIN_BATCH)
-state = init_state(cs.train_config(cfg, "pallas"), spec, torch.Generator().manual_seed(0))
+state = init_state(cs.train_config(cfg, "pallas"), spec, torch.Generator().manual_seed(0),
+                   "cpu")
 scene, _, fine_host, _ = cs.make_scene("cpu", fine_level=5, sfm_voxel=0.2, wh=(4, 3),
                                        n_points=2000)
 before = [p.detach().clone() for p in state.model.parameters()]
 rps, aux, fails = cs.training_phase(cfg, state, scene, pool, None, -1, "warm-up", n_timed=2)
-fine = device_grid_from_host(fine_host)
+fine = device_grid_from_host(fine_host, "cpu")
 rps, aux, f2 = cs.training_phase(cfg, state, scene, pool, fine, fine_host.level, "steady",
                                  n_timed=2)
 assert fails == [] and f2 == [], fails + f2

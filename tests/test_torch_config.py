@@ -1,5 +1,5 @@
-"""PyTorch port, configuration: the port's cfg tree (the NEUCONW, TPU and
-TRAINER sections it reads) against the JAX package's, on the defaults and on
+"""PyTorch port, configuration: the port's cfg tree (its NEUCONW, DATASET,
+TPU and TRAINER sections) against the JAX package's, on the defaults and on
 every per-scene YAML, and the label names it maps."""
 
 import glob
@@ -15,7 +15,7 @@ from neuralrecon_w_tpu_torch import config  # noqa: E402
 from neuralrecon_w_tpu_torch.datasets.mask_utils import get_label_id_mapping  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SECTIONS = ("NEUCONW", "TPU", "TRAINER")
+SECTIONS = ("NEUCONW", "DATASET", "TPU", "TRAINER")
 YAMLS = sorted(glob.glob(os.path.join(ROOT, "config", "*.yaml")))
 
 
@@ -30,7 +30,11 @@ def sections(cfg):
 
 
 def test_defaults_match_jax():
-    assert sections(config.get_cfg_defaults()) == sections(jax_cfg_defaults())
+    """Every section of the JAX tree, DATASET included (the extraction CLI
+    reads DATASET.ROOT_DIR)."""
+    want = jax_cfg_defaults()
+    assert set(plain(want)) == set(SECTIONS)
+    assert sections(config.get_cfg_defaults()) == sections(want)
 
 
 @pytest.mark.parametrize("path", YAMLS, ids=os.path.basename)

@@ -249,6 +249,6 @@ def test_unported_grad_modes_raise(mode):
     n.COLOR_CONFIG.d_feature, n.N_VOCAB = 64, 4
     cfg.TPU.SDF_GRAD_MODE = mode
     fc = field_config_from_cfg(cfg)
-    model = init_field(fc, torch.Generator().manual_seed(0))
+    model = init_field(fc, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         field_forward(model, fc, torch.zeros(4, 3), torch.zeros(4, 3), torch.zeros(4, 48))

@@ -250,3 +250,81 @@ def test_sdf_vjp_function_matches_double_backward(dev, flagship):
                                                 create_graph=True))
     for k, w in zip(got, want):
         assert rel_l2(k, w) <= 1e-2
+
+
+# ---------------- K6: the fused field forward ----------------
+
+# f32: sdf and rgb summation order only, grad the K3 bound; bf16: rel-L2
+# per output against the plain bf16 version, the SDF-VJP kernels' bound
+K6_F32_TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def field(dev):
+    """The full-width field with the live SDF net (``chip_smoke.live_field``)."""
+    from chip_smoke import live_field
+    from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
+    from neuralrecon_w_tpu_torch.tools.convert import init_field
+
+    fc = field_config_from_cfg(load_cfg(CONFIG))
+    model = init_field(fc, torch.Generator().manual_seed(0), dev).requires_grad_(False)
+    return fc, live_field(model)
+
+
+def field_inputs(fc, n_pts, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    pts = (torch.rand(n_pts, 3, generator=g) * 2 - 1) * 0.9
+    dirs = torch.randn(n_pts, 3, generator=g)
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    return pts.to(dev), dirs.to(dev), torch.randn(n_pts, fc.n_a, generator=g).to(dev)
+
+
+@pytest.mark.parametrize("n_pts", [8192, 1000])
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_field_forward_kernel_matches_plain(dev, field, act, n_pts):
+    from neuralrecon_w_tpu_torch.ops import field_forward as ff
+
+    fc, model = field
+    fc = fc._replace(act_dtype=act)
+    pts, dirs, a = field_inputs(fc, n_pts, dev, 8)
+    pack = ff.pack_field(model, fc)
+    before = ff.fused_field_forward.launches
+    got = ff.fused_field_forward(model, fc, pts, dirs, a, pack)
+    want = ff.field_forward_plain(pack, pts, dirs, a)
+    torch.cuda.synchronize()
+    assert ff.fused_field_forward.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        if act == "float32":
+            torch.testing.assert_close(g, w, atol=K6_F32_TOL, rtol=K6_F32_TOL)
+        else:
+            assert rel_l2(g, w) <= VJP_BF16_REL
+
+
+def test_field_forward_kernel_chunks(dev, field, monkeypatch):
+    """Several launches, a ragged last one, stitched in place."""
+    from neuralrecon_w_tpu_torch.ops import field_forward as ff
+
+    fc, model = field
+    fc = fc._replace(act_dtype="float32")
+    monkeypatch.setattr(ff, "CHUNK", 1024)
+    pts, dirs, a = field_inputs(fc, 2500, dev, 9)
+    pack = ff.pack_field(model, fc)
+    before = ff.fused_field_forward.launches
+    got = ff.fused_field_forward(model, fc, pts, dirs, a, pack)
+    want = ff.field_forward_plain(pack, pts, dirs, a)
+    torch.cuda.synchronize()
+    assert ff.fused_field_forward.launches == before + 3
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=K6_F32_TOL, rtol=K6_F32_TOL)
+
+
+def test_field_forward_wrapper_rejects_what_the_kernel_does_not_take(dev, field):
+    from neuralrecon_w_tpu_torch.ops import field_forward as ff
+
+    fc, model = field
+    pts, dirs, a = field_inputs(fc, 64, dev, 10)
+    with pytest.raises(ValueError):  # appearance rows that do not match the points
+        ff.fused_field_forward(model, fc, pts, dirs, a[:32])
+    with pytest.raises(ValueError):
+        ff.fused_field_forward(model, fc, pts.double(), dirs, a)

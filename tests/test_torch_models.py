@@ -50,7 +50,7 @@ def make_pair(cfg, seed=0):
                                seed)
     np_params = jax.tree.map(np.asarray, params)
     fc = field_config_from_cfg(cfg)
-    return params, field_from_jax(np_params, fc).requires_grad_(False), fc
+    return params, field_from_jax(np_params, fc, "cpu").requires_grad_(False), fc
 
 
 def inputs(seed, r=8, s=6):
@@ -143,7 +143,7 @@ def test_init_field_geometric_sphere():
     cfg = get_cfg_defaults()
     cfg.NEUCONW.N_VOCAB = 16
     fc = field_config_from_cfg(cfg)
-    model = init_field(fc, torch.Generator().manual_seed(0)).requires_grad_(False)
+    model = init_field(fc, torch.Generator().manual_seed(0), "cpu").requires_grad_(False)
     pts = (np.random.default_rng(6).standard_normal((256, 3)) * 0.4).astype(np.float32)
     sphere = np.linalg.norm(pts, axis=-1) - 0.5
     err = np.abs(field_sdf(model, fc, torch.from_numpy(pts)).numpy() - sphere)

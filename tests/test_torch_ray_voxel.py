@@ -39,7 +39,7 @@ def test_grid_near_far_matches_jax_and_oracle(first_only):
     o, d = random_rays()
     jn, jf, jh = jrv.grid_near_far(jrv.device_grid_from_host(host), host.level,
                                    jnp.asarray(o), jnp.asarray(d), first_only=first_only)
-    tn, tf, th = trv.grid_near_far(trv.device_grid_from_host(host), host.level,
+    tn, tf, th = trv.grid_near_far(trv.device_grid_from_host(host, "cpu"), host.level,
                                    torch.from_numpy(o), torch.from_numpy(d), first_only)
     np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
     np.testing.assert_allclose(tn.numpy(), np.asarray(jn), atol=1e-5, rtol=0)
@@ -61,7 +61,7 @@ def test_sampled_first_hit_matches_jax():
     jt, jh = jrv.sampled_first_hit(jrv.device_grid_from_host(host), host.level,
                                    jnp.asarray(o_norm, jnp.float32), jnp.asarray(d),
                                    jnp.asarray(t_lo), jnp.asarray(t_hi), 256)
-    tt, th = trv.sampled_first_hit(trv.device_grid_from_host(host), host.level,
+    tt, th = trv.sampled_first_hit(trv.device_grid_from_host(host, "cpu"), host.level,
                                    torch.from_numpy(o_norm.astype(np.float32)),
                                    torch.from_numpy(d), torch.from_numpy(t_lo),
                                    torch.from_numpy(t_hi), 256)
@@ -75,12 +75,12 @@ def test_occupancy_lookup_matches_jax():
     pts = np.random.default_rng(5).uniform(-1.1, 1.1, (7, 40, 3)).astype(np.float32)
     want = np.asarray(jrv.occupancy_lookup(jrv.device_grid_from_host(host), host.level,
                                            jnp.asarray(pts)))
-    got = trv.occupancy_lookup(trv.device_grid_from_host(host), host.level,
+    got = trv.occupancy_lookup(trv.device_grid_from_host(host, "cpu"), host.level,
                                torch.from_numpy(pts)).numpy()
     np.testing.assert_array_equal(got, want)
     # every occupied cell's centre reads occupied
     centers = ((host.coords + 0.5) / host.res * 2.0 - 1.0).astype(np.float32)
-    assert trv.occupancy_lookup(trv.device_grid_from_host(host), host.level,
+    assert trv.occupancy_lookup(trv.device_grid_from_host(host, "cpu"), host.level,
                                 torch.from_numpy(centers)).all()
 
 
@@ -90,7 +90,7 @@ def test_high_bit_words_read_correctly():
     idx = np.array([31, 63, 64 * 3 + 31])
     coords = np.stack([idx // (n * n), (idx // n) % n, idx % n], 1).astype(np.int32)
     host = VoxelGrid(3, np.zeros(3), 1.0, coords)
-    grid = trv.device_grid_from_host(host)
+    grid = trv.device_grid_from_host(host, "cpu")
     assert grid.occ.dtype == torch.int32 and int(grid.occ.min()) < 0
     lin = torch.from_numpy(idx)
     assert trv._bit(grid.occ, lin).all()
@@ -113,5 +113,5 @@ def test_grid_from_points_matches_jax(expand):
     np.testing.assert_array_equal(got.origin, want.origin)
     assert got.coords.dtype == np.int32 and len(got.coords) == len(want.coords) > 0
     np.testing.assert_array_equal(got.occupancy_words(), want.occupancy_words())
-    dg, jg = trv.device_grid_from_host(got), trv.device_grid_from_host(want)
+    dg, jg = trv.device_grid_from_host(got, "cpu"), trv.device_grid_from_host(want, "cpu")
     assert torch.equal(dg.occ, jg.occ) and (dg.scale, dg.voxel_size) == (jg.scale, jg.voxel_size)

@@ -56,7 +56,7 @@ def setup():
     cfg.TPU.FIELD_DTYPE = "float32"
     cfg.TPU.FUSED_SAMPLER_SDF = False  # JAX side: the jnp sampler on the CPU
     params = live_field_params(jax_init_field(jax.random.PRNGKey(0), jax_field_config(cfg)))
-    model = field_from_jax(jax.tree.map(np.asarray, params), field_config_from_cfg(cfg))
+    model = field_from_jax(jax.tree.map(np.asarray, params), field_config_from_cfg(cfg), "cpu")
     # a slab of occupied cells across the cube centre: the SFM grid and,
     # for the steady phase, the fine grid
     cc = np.stack(np.meshgrid(np.arange(5, 11), np.arange(5, 11), [8, 9], indexing="ij"),
@@ -100,7 +100,7 @@ def test_render_rays_matches_jax(phase, fused):
         jax.random.PRNGKey(0), 1.0, fine_grid=fg, sfm_grid=sg))(
         params, jnp.asarray(rays), jnp.asarray(ts), jnp.asarray(labels),
         jgrid if phase == "steady" else None, jgrid)
-    grid = device_grid_from_host(host)
+    grid = device_grid_from_host(host, "cpu")
     with torch.no_grad():
         got = render_rays(
             model, field_config_from_cfg(cfg), rc,
@@ -136,7 +136,7 @@ def test_render_rays_floor_loss_matches_jax():
             model, field_config_from_cfg(cfg), rc,
             SceneInfo(torch.zeros(3), torch.tensor(2.0), torch.from_numpy(sfm2gt)),
             torch.from_numpy(rays), torch.from_numpy(ts), torch.from_numpy(labels), None, 1.0,
-            sfm_grid=device_grid_from_host(host))
+            sfm_grid=device_grid_from_host(host, "cpu"))
     assert float(got["floor_count"]) == 10.0
     for k in ("floor_normal_error", "floor_y_error", "floor_count"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=ATOL, rtol=0,
@@ -149,7 +149,7 @@ def test_render_rays_perturbed_draws_from_its_generator():
     cfg, _, model, host = setup()
     rc = render_config_from_cfg(cfg, sfm_level=host.level, perturb=1.0)
     rays, ts, labels = make_rays(seed=3)
-    grid = device_grid_from_host(host)
+    grid = device_grid_from_host(host, "cpu")
 
     def render(seed):
         with torch.no_grad():
@@ -181,7 +181,7 @@ def test_render_image_matches_jax():
     want = jax_render_image(jax_make_render_fn(jax_field_config(cfg), jrc), params,
                             JaxSceneInfo(jnp.zeros(3), jnp.asarray(2.0), jnp.eye(4)),
                             rays, ts, labels, (5, 4), chunk=8, fine_grid=jgrid, sfm_grid=jgrid)
-    grid = device_grid_from_host(host)
+    grid = device_grid_from_host(host, "cpu")
     got = render_image(make_render_fn(field_config_from_cfg(cfg), rc), model,
                        SceneInfo(torch.zeros(3), torch.tensor(2.0), torch.eye(4)),
                        rays, ts, labels, (5, 4), chunk=8, fine_grid=grid, sfm_grid=grid)
@@ -212,12 +212,12 @@ n.SDF_CONFIG.d_hidden, n.SDF_CONFIG.d_out, n.SDF_CONFIG.n_layers = 64, 65, 4
 n.SDF_CONFIG.skip_in = (2,)
 n.COLOR_CONFIG.d_feature, n.N_VOCAB = 64, 4
 fc = field_config_from_cfg(cfg)
-model = init_field(fc, torch.Generator().manual_seed(0)).requires_grad_(False)
+model = init_field(fc, torch.Generator().manual_seed(0), "cpu").requires_grad_(False)
 cc = np.stack(np.meshgrid(range(5, 11), range(5, 11), [8], indexing="ij"), -1).reshape(-1, 3)
-grid = device_grid_from_host(VoxelGrid(4, np.zeros(3), 2.0, cc.astype(np.int32)))
+grid = device_grid_from_host(VoxelGrid(4, np.zeros(3), 2.0, cc.astype(np.int32)), "cpu")
 rc = render_config_from_cfg(cfg, sfm_level=4, fine_level=4)
 rays = np.tile(np.array([[0, 0, -3, 0, 0, 1, 1, 5, 0, 0]], np.float32), (6, 1))
-out = render_image(make_render_fn(fc, rc), model, scene_info({"origin": [0, 0, 0], "radius": 2.0}),
+out = render_image(make_render_fn(fc, rc), model, scene_info({"origin": [0, 0, 0], "radius": 2.0}, "cpu"),
                    rays, np.zeros(6, np.int32), np.zeros(6, np.int32), (3, 2), chunk=4,
                    fine_grid=grid, sfm_grid=grid)
 assert np.isfinite(out["color"]).all() and out["color"].shape == (2, 3, 3)

@@ -102,7 +102,8 @@ def test_fused_field_sdf_matches_pallas_interpret():
     cfg.NEUCONW.SDF_CONFIG.d_out = 129
     jfc = jax_field_config(cfg)
     params = live_field_params(init_field(jax.random.PRNGKey(0), jfc))
-    model = field_from_jax(jax.tree.map(np.asarray, params), field_config_from_cfg(cfg))
+    model = field_from_jax(jax.tree.map(np.asarray, params), field_config_from_cfg(cfg),
+                           "cpu")
     pts = (np.random.default_rng(1).standard_normal((5, 7, 3)) * 0.4).astype(np.float32)
     want = np.asarray(jax_fused_field_sdf(params, jfc, jnp.asarray(pts), tile=64,
                                           interpret=True))

@@ -131,12 +131,12 @@ def port_step(cfg, params, batch, fine, grad_mode):
                                        fine_level=fine.level if fine else -1,
                                        nerf_far_override=False)
     assert rc.perturb == 0.0 and fc.grad_mode == grad_mode
-    model = field_from_jax(jax.tree.map(np.asarray, params), fc)
+    model = field_from_jax(jax.tree.map(np.asarray, params), fc, "cpu")
     state = TrainState(model, Capture(model), 3)
     step = make_train_step(fc, rc, loss_config_from_cfg(pcfg), int(cfg.NEUCONW.ANNEAL_END),
                            ray_mask_ids(cfg))
     scene = SceneInfo(torch.zeros(3), torch.tensor(2.0), torch.eye(4))
-    state, aux = step(state, scene, batch, device_grid_from_host(fine) if fine else None)
+    state, aux = step(state, scene, batch, device_grid_from_host(fine, "cpu") if fine else None)
     assert state.step == 4
     return {k: float(v) for k, v in aux.items()}, state.optimizer.grads
 
@@ -206,7 +206,7 @@ def test_foreground_gradient_reaches_sdf_net(term):
 
     want = params_from_jax(jax.tree.map(np.asarray, jax.jit(jax.grad(jloss))(params)))
     fc = config.field_config_from_cfg(cfg)
-    model = field_from_jax(jax.tree.map(np.asarray, params), fc)
+    model = field_from_jax(jax.tree.map(np.asarray, params), fc, "cpu")
     res = render_rays(model, fc, config.render_config_from_cfg(cfg, nerf_far_override=False),
                       SceneInfo(torch.zeros(3), torch.tensor(2.0), torch.eye(4)),
                       torch.from_numpy(batch["rays"]), torch.from_numpy(batch["ts"]),
