@@ -55,13 +55,28 @@ set), counts the K1 and K6 launches of the extraction, prints each
 stage's seconds, and holds the path's SDF sweep (every grid point) and
 vertex colours against the plain versions.
 
+The training and serving paths also run with ``SDF_GRAD_MODE``
+'pallas_field' and ``FUSED_BG`` on, the fused field and background
+kernels: ``field_train_kernel_phase`` holds kernel 5's port (K6 forward,
+K7 ``csrc/field_bwd.cu`` + K5 backward) against its plain version, which
+takes the colour ReLU masks K7 applied (f32 against float64, and bf16 at
+8192 and at 245,760 points), and times it at 245,760 points beside the
+torch double backward; ``bg_kernel_phase`` holds kernel 6's port (K8
+forward, K9 ``csrc/nerf_bg.cu`` + K5 backward) against its plain version
+and times it at the path's 8192 x 11 background points beside the 'xla'
+path's autograd; training takes turns over 'pallas', 'vjp' and
+'pallas_field' (with FUSED_BG) in both phases, the launches counted per
+mode; ``step_parity`` holds one step of each kernel mode to 'vjp', and
+one frame per serving phase is served in the fused mode and held to the
+default mode's chunk in f32.
+
 The last lines are the card line, a JSON object with one entry per
-kernel (K1 and K2 with their serving launches, K3 to K5 with their
-training launches, K6 with its extraction launches; each with its time,
-its plain version's, and the least time the card could take for the
-same work, ``bound_ms``), and ``{"ok": true, "device": {...}}``. It exits
-non-zero, with no result line, when there is no CUDA device or any check
-fails.
+kernel (K1 and K2 with their serving launches, K3 to K5 and K7 to K9 with
+their training launches, K6 with its launches on every path; each with
+its time, its plain version's, and the least time the card could take
+for the same work, ``bound_ms``), and ``{"ok": true, "device": {...}}``.
+It exits non-zero, with no result line, when there is no CUDA device or
+any check fails.
 """
 
 from __future__ import annotations
@@ -128,6 +143,27 @@ VJP_BF16_REL = 5e-2  # kernels vs the plain version in bf16, rel-L2 per output
 # moves a sum over the surface such as the last layer's sdf bias by percents).
 PARITY_F32 = (1e-4, 1e-2)
 PARITY_BF16_LOSS, PARITY_BF16_RATIO, PARITY_BF16_FLOOR = 3e-2, 2.0, 1e-1
+
+# kernel 5 (K6 forward, K7 + K5 backward) and kernel 6 (K8, K9 + K5); PERF.md
+# holds the bounds and why. K7 + K5 f32 against the plain version in float64
+# within max(2 x the plain f32's rel-L2, 1e-5), as K4 + K5; bf16 per output
+# within VJP_BF16_REL of the plain bf16. A colour pre-activation within
+# rounding of 0 takes another sign in another summation order, and one such
+# flipped ReLU mask moves a colour dW by ~1e-3 at 8192 points; so the plain
+# versions take the masks K7 applied (field_train.color_masks), and those
+# masks may differ from the reference's own signs only where its
+# pre-activation lies within FLIP_Z[act] x its layer's rms of 0.
+# K9 + K5 f32 within BG_GRAD_REL of the plain f32.
+FIELD_CHECK_PTS = 8192
+FLIP_Z = {"float32": 1e-3, "bfloat16": 5e-2}
+BG_GRAD_REL = 1e-5
+# the kernels each training mode launches ('pallas_field' with FUSED_BG);
+# every other kernel stays at 0 launches in that mode
+MODE_KERNELS = {"pallas": ("sdf_mlp", "up_sample", "sdf_vjp_fwd", "sdf_vjp_bwd", "dw_reduce"),
+                "vjp": ("sdf_mlp", "up_sample"),
+                "pallas_field": ("sdf_mlp", "up_sample", "dw_reduce", "field_fwd", "field_bwd",
+                                 "nerf_bg_fwd", "nerf_bg_bwd")}
+TRAIN_MODES = ("pallas", "vjp", "pallas_field")  # 'pallas_field' with FUSED_BG
 
 # extraction (PERF.md holds the bounds and why)
 EXTRACT_POINTS = 500_000  # SFM points on the field's zero set
@@ -454,13 +490,14 @@ def check_frames(outs, frames, label, wh=IMG_WH):
     return fails
 
 
-def path_check(model, fc, rcfg, scene, rays, fine_grid, sfm_grid, label):
+def path_check(model, fc, rcfg, scene, rays, fine_grid, sfm_grid, label, ref_fc=None):
     """One chunk through the kernel path and the plain path (the plain
     sampler, ``importance_sampler_plain``), in f32 and in the served
     activation dtype. The foreground color (``color_sphere``) must lie in
     [0, 1]; the composite color need not with random weights, because the
     background NeRF's rgb head is linear, as in the JAX package
-    (models/nerf_bg.py:102)."""
+    (models/nerf_bg.py:102). With ``ref_fc`` (another field mode) the f32
+    kernel-path chunk is also held to ref_fc's, as to the plain path."""
     import torch
 
     from neuralrecon_w_tpu_torch.training.step import make_render_fn
@@ -476,16 +513,22 @@ def path_check(model, fc, rcfg, scene, rays, fine_grid, sfm_grid, label):
         cs = outs[0]["color_sphere"]
         if not bool(torch.isfinite(cs).all()) or cs.min() < 0.0 or cs.max() > 1.0:
             fails.append(f"{label} {act} foreground color outside [0, 1]")
-        for k in ("color", "depth"):
-            diff = (outs[0][k] - outs[1][k]).abs().reshape(r.shape[0], -1).amax(dim=1)
-            frac = (diff <= PATH_ATOL).float().mean().item()
-            print(f"{label} {act} chunk, kernel vs plain path: {k} max|diff| "
-                  f"{float(diff.max()):.3e}, mean {float(diff.mean()):.3e}, rays within "
-                  f"{PATH_ATOL} {frac:.5f}")
-            if act == "float32" and frac < PATH_RAY_FRAC:
-                fails.append(f"{label} kernel vs plain {k}")
-            if act != "float32" and float(diff.mean()) > PATH_BF16_MEAN:
-                fails.append(f"{label} {act} kernel vs plain {k}")
+        pairs = [("plain path", outs[1])]
+        if ref_fc is not None and act == "float32":
+            pairs.append((f"{ref_fc.grad_mode} / {ref_fc.bg_mode} mode", make_render_fn(
+                ref_fc._replace(act_dtype=act), rcfg._replace(fused_sampler_sdf=True))(
+                model, scene, r, ts, ts, None, fine_grid, sfm_grid)))
+        for other, out in pairs:
+            for k in ("color", "depth"):
+                diff = (outs[0][k] - out[k]).abs().reshape(r.shape[0], -1).amax(dim=1)
+                frac = (diff <= PATH_ATOL).float().mean().item()
+                print(f"{label} {act} chunk, kernel path vs {other}: {k} max|diff| "
+                      f"{float(diff.max()):.3e}, mean {float(diff.mean()):.3e}, rays within "
+                      f"{PATH_ATOL} {frac:.5f}")
+                if act == "float32" and frac < PATH_RAY_FRAC:
+                    fails.append(f"{label} kernel path vs {other} {k}")
+                if act != "float32" and float(diff.mean()) > PATH_BF16_MEAN:
+                    fails.append(f"{label} {act} kernel path vs {other} {k}")
     return fails
 
 
@@ -597,6 +640,103 @@ def rel_l2(a, b) -> float:
     return float((a.double() - b.double()).norm() / max(float(b.double().norm()), 1e-30))
 
 
+def check_forward(label, names, got, want, act: str) -> tuple:
+    """A forward kernel's outputs against its plain version on one printed
+    line: in f32 within atol / rtol K3_F32_TOL, in bf16 within rel-L2
+    VJP_BF16_REL per output; all finite. Returns (ok, the largest
+    |error|)."""
+    import torch
+
+    errs = [float((k - p).abs().max()) for k, p in zip(got, want)]
+    rels = [rel_l2(k, p) for k, p in zip(got, want)]
+    if act == "float32":
+        ok = all(bool(((k - p).abs() <= K3_F32_TOL + K3_F32_TOL * p.abs()).all())
+                 for k, p in zip(got, want))
+    else:
+        ok = max(rels) <= VJP_BF16_REL
+    ok = ok and all(bool(torch.isfinite(k).all()) for k in got)
+    print(f"{label}, {' / '.join(names)}: max|err| " + " / ".join(f"{e:.3e}" for e in errs)
+          + ", rel-L2 " + " / ".join(f"{r:.3e}" for r in rels) + f" -> {'ok' if ok else 'FAIL'}")
+    return ok, max(errs)
+
+
+def check_outputs(label, names, got, ref, bound, plain=None) -> list:
+    """A kernel's outputs against a reference, rel-L2 per output, on one
+    printed line: each within `bound`, or, given `plain` (the plain f32
+    version; ref is it in float64), within max(2 x plain's rel-L2 to ref,
+    bound), the f32 rule of K4 + K5. Returns the names past their bound."""
+    errs = [rel_l2(k, r) for k, r in zip(got, ref)]
+    lims = ([bound] * len(errs) if plain is None else
+            [max(2 * rel_l2(p, r), bound) for p, r in zip(plain, ref)])
+    bad = [nm for nm, e, b in zip(names, errs, lims) if e > b]
+    print(f"{label}, rel-L2 / bound: " + ", ".join(
+        f"{nm} {e:.2e}/{b:.1e}" for nm, e, b in zip(names, errs, lims))
+          + f" -> {'ok' if not bad else 'FAIL ' + str(bad)}")
+    return bad
+
+
+def check_flips(label, masks, zs, tol: float) -> list:
+    """The colour ReLU masks K7 applied against a reference's
+    pre-activations zs (one per ReLU layer): a mask may differ from the
+    reference's sign only where its pre-activation lies within tol x that
+    layer's rms of 0, a flip under rounding. Prints the count; returns the
+    layers (1-based colour indices) with a flip past it."""
+    bad, n_flip, worst = [], 0, 0.0
+    for i, (m, z) in enumerate(zip(masks, zs), start=1):
+        flip = m != (z > 0)
+        n_flip += int(flip.sum())
+        if bool(flip.any()):
+            r = float(z[flip].abs().max()) / float(z.double().square().mean().sqrt())
+            worst = max(worst, r)
+            if r > tol:
+                bad.append(i)
+    print(f"{label}: {n_flip} of {sum(m.numel() for m in masks)} colour ReLU masks differ from "
+          f"the reference's signs, the largest |z| there {worst:.2e} x its layer's rms (bound "
+          f"{tol}) -> {'ok' if not bad else 'FAIL ' + str(bad)}")
+    return bad
+
+
+def time_in_turns(fwd, bwd, fwd_plain, bwd_plain, other, reduce_only, reps: int = 2) -> dict:
+    """Milliseconds on the card, in turns: the kernels' forward and backward
+    (the backward with its K5 reduction), the plain versions, `other` (a
+    torch autograd forward + backward of the same function), the kernels
+    again (the lesser of the two kept), then K5 alone over the backward's
+    chunks on a workspace of the same shape."""
+    t = {}
+    for k, fn in (("fwd", fwd), ("bwd", bwd), ("fwd_plain", fwd_plain), ("bwd_plain", bwd_plain),
+                  ("other", other), ("bwd2", bwd), ("fwd2", fwd), ("reduce", reduce_only)):
+        t[k] = cuda_ms(fn, reps)
+    t["fwd"], t["bwd"] = min(t["fwd"], t.pop("fwd2")), min(t["bwd"], t.pop("bwd2"))
+    return t
+
+
+def timed_entries(res, t, bounds, fwd: str, bwd: str, other: str) -> None:
+    """A forward / backward kernel pair's times into their kernels-line
+    entries. The backward kernel's `ms` is derived, (backward + K5) less K5
+    alone, both timed in this run (`ms_from` says so)."""
+    res[fwd].update(ms=t["fwd"], plain_ms=t["fwd_plain"], library_ms=None, **bounds[fwd])
+    res[bwd].update(ms=t["bwd"] - t["reduce"], ms_from="(backward + K5) - K5 alone",
+                    plain_ms=t["bwd_plain"], library_ms=None, fwd_bwd_ms=t["fwd"] + t["bwd"],
+                    plain_fwd_bwd_ms=t["fwd_plain"] + t["bwd_plain"], **{other: t["other"]},
+                    dw_reduce_ms=t["reduce"], dw_reduce_bound_ms=bounds["dw_reduce"]["bound_ms"],
+                    **bounds[bwd])
+
+
+def sdf_vjp_bound(ws, bs, act: str, n: int) -> dict:
+    """Least times of the SDF-VJP kernels at n points: K3 (F of every layer,
+    G the reverse sweep, no product for the last layer's seed), K4 (the
+    adjoint of G and the backward of F) and K5 (two products per layer from
+    four factor rows per layer)."""
+    dims = [(w.shape[1], w.shape[0]) for w in ws]
+    f_all, f_hidden = gemm_flops(dims), gemm_flops(dims[:-1])
+    n_out = dims[-1][1]
+    wb = nbytes(*ws, *bs) // 2 if act == "bfloat16" else nbytes(*ws, *bs)
+    return {"sdf_vjp_fwd": bound(n * (f_all + f_hidden), wb + n * (12 + 4 * n_out + 12), act),
+            "sdf_vjp_bwd": bound(n * (f_hidden + 2 * f_hidden + f_all),
+                                 wb + n * (12 + 4 * n_out + 12 + 12), act),
+            "dw_reduce": bound(n * 2 * f_all, n * 4 * sum(2 * (k + m) for k, m in dims), act)}
+
+
 def vjp_kernel_phase(model, fc):
     """K3 and K4 + K5 against their plain version (``ops/field_vjp_math.py``)
     on the live copy of the SDF net at the full width; the backward also
@@ -625,6 +765,8 @@ def vjp_kernel_phase(model, fc):
 
     res, fails = {}, []
     x, c_out, c_grad = inputs(VJP_CHECK_PTS)
+    flat = lambda r: [*r[0], *r[1], r[2]]  # noqa: E731
+    names = [f"dW{l}" for l in range(len(ws))] + [f"db{l}" for l in range(len(ws))] + ["dx"]
     for act in ("float32", "bfloat16"):
         act_t = getattr(torch, act)
         out, grad = vjp.sdf_vjp_fwd(ws, bs, cfg, x, act)
@@ -644,30 +786,21 @@ def vjp_kernel_phase(model, fc):
         if act == fc.act_dtype:
             res["sdf_vjp_fwd"] = {"max_abs_err": err}
 
-        got = vjp.sdf_vjp_bwd(ws, bs, cfg, x, c_out, c_grad, act)
-        plain = fvm.vjp(ws, bs, *args, x, c_out, c_grad, act_t)
-        flat = lambda r: [*r[0], *r[1], r[2]]  # noqa: E731
-        names = ([f"dW{l}" for l in range(len(ws))] + [f"db{l}" for l in range(len(ws))]
-                 + ["dx"])
+        got = flat(vjp.sdf_vjp_bwd(ws, bs, cfg, x, c_out, c_grad, act))
+        plain = flat(fvm.vjp(ws, bs, *args, x, c_out, c_grad, act_t))
         if act == "float32":
-            truth = fvm.vjp([w.double() for w in ws], [b.double() for b in bs], *args,
-                            x.double(), c_out.double(), c_grad.double(), torch.float64)
-            rows = [(n, rel_l2(k, t), rel_l2(p, t))
-                    for n, k, p, t in zip(names, flat(got), flat(plain), flat(truth))]
-            bad = [n for n, k, p in rows if k > max(2 * p, 1e-5)]
-            print(f"K4+K5 sdf_vjp_bwd f32 on {VJP_CHECK_PTS} pts, rel-L2 to f64 kernel / plain: "
-                  + ", ".join(f"{n} {k:.2e}/{p:.2e}" for n, k, p in rows)
-                  + f" -> {'ok' if not bad else 'FAIL ' + str(bad)}")
+            truth = flat(fvm.vjp([w.double() for w in ws], [b.double() for b in bs], *args,
+                                 x.double(), c_out.double(), c_grad.double(), torch.float64))
+            bad = check_outputs(f"K4+K5 sdf_vjp_bwd f32 on {VJP_CHECK_PTS} pts to the plain "
+                                "f64, max(2 x the plain f32's, 1e-5)", names, got, truth, 1e-5,
+                                plain)
         else:
-            rows = [(n, rel_l2(k, p)) for n, k, p in zip(names, flat(got), flat(plain))]
-            bad = [n for n, e in rows if e > VJP_BF16_REL]
-            print(f"K4+K5 sdf_vjp_bwd bf16 on {VJP_CHECK_PTS} pts, rel-L2 to plain bf16: "
-                  + ", ".join(f"{n} {e:.2e}" for n, e in rows)
-                  + f" -> {'ok' if not bad else 'FAIL ' + str(bad)}")
+            bad = check_outputs(f"K4+K5 sdf_vjp_bwd bf16 on {VJP_CHECK_PTS} pts to the plain "
+                                "bf16", names, got, plain, VJP_BF16_REL)
         if bad:
             fails.append(f"K4+K5 {act}")
         if act == fc.act_dtype:
-            err = max(float((k - p).abs().max()) for k, p in zip(flat(got), flat(plain)))
+            err = max(float((k - p).abs().max()) for k, p in zip(got, plain))
             res["sdf_vjp_bwd"], res["dw_reduce"] = {"max_abs_err": err}, {"max_abs_err": err}
 
     # times at the steady phase's shape, in the served dtype
@@ -676,56 +809,33 @@ def vjp_kernel_phase(model, fc):
     act_t = getattr(torch, act)
     dnet = copy.deepcopy(net).requires_grad_(True)
 
-    def kern():
-        vjp.sdf_vjp_fwd(ws, bs, cfg, x, act)
-        vjp.sdf_vjp_bwd(ws, bs, cfg, x, c_out, c_grad, act)
-
-    def plain():
-        fvm.value_and_grad(ws, bs, *args, x, act_t)
-        fvm.vjp(ws, bs, *args, x, c_out, c_grad, act_t)
-
     def double_backward():
         xx = x.clone().requires_grad_(True)
         s, f, gr = sdf_value_feat_grad(dnet, cfg, xx, act_t, create_graph=True)
         (torch.sum(s * c_out[:, 0]) + torch.sum(f.float() * c_out[:, 1:])
          + torch.sum(gr * c_grad)).backward()
 
-    t_k = cuda_ms(kern, reps=2)
-    t_p = cuda_ms(plain, reps=2)
-    t_d = cuda_ms(double_backward, reps=2)
-    t_k2 = cuda_ms(kern, reps=2)
-    t_fwd = cuda_ms(lambda: vjp.sdf_vjp_fwd(ws, bs, cfg, x, act), reps=2)
-    t_fwd_p = cuda_ms(lambda: fvm.value_and_grad(ws, bs, *args, x, act_t), reps=2)
-    t_bwd = cuda_ms(lambda: vjp.sdf_vjp_bwd(ws, bs, cfg, x, c_out, c_grad, act), reps=2)
-    t_bwd_p = cuda_ms(lambda: fvm.vjp(ws, bs, *args, x, c_out, c_grad, act_t), reps=2)
-    t_k5, t_k5_p = time_reduce(ws, bs, cfg, act, VJP_TIME_PTS)
-    print(f"SDF-VJP {act} at {VJP_TIME_PTS} pts, ms forward + backward in turns: kernels "
-          f"{t_k:.2f} / {t_k2:.2f}, plain {t_p:.2f}, torch double backward {t_d:.2f}; "
-          f"forward K3 {t_fwd:.2f} / plain {t_fwd_p:.2f}; backward K4 + K5 {t_bwd:.2f} / plain "
-          f"{t_bwd_p:.2f}, of which the dW reduction K5 {t_k5:.2f} / plain products {t_k5_p:.2f}")
-    # work per point: F (every layer), G (the reverse sweep, no product for
-    # the last layer's seed), the adjoint of G and the backward of F; K5
-    # reduces two products per layer from four factor rows per layer
-    dims = [(w.shape[1], w.shape[0]) for w in ws]
-    f_all, f_hidden = gemm_flops(dims), gemm_flops(dims[:-1])
-    n, n_out = VJP_TIME_PTS, dims[-1][1]
-    wb = nbytes(*ws, *bs) // 2 if act == "bfloat16" else nbytes(*ws, *bs)
-    res["sdf_vjp_fwd"].update(ms=t_fwd, plain_ms=t_fwd_p, library_ms=None,
-                              **bound(n * (f_all + f_hidden), wb + n * (12 + 4 * n_out + 12), act))
-    res["sdf_vjp_bwd"].update(ms=t_bwd - t_k5, plain_ms=t_bwd_p, library_ms=None,
-                              double_backward_ms=t_d, fwd_bwd_ms=min(t_k, t_k2),
-                              plain_fwd_bwd_ms=t_p,
-                              **bound(n * (f_hidden + 2 * f_hidden + f_all),
-                                      wb + n * (12 + 4 * n_out + 12 + 12), act))
-    res["dw_reduce"].update(ms=t_k5, plain_ms=t_k5_p, library_ms=None,
-                            **bound(n * 2 * f_all, n * 4 * sum(2 * (k + m) for k, m in dims),
-                                    act))
+    k5, k5_plain = reduce_calls(ws, bs, cfg, act, VJP_TIME_PTS)
+    t = time_in_turns(lambda: vjp.sdf_vjp_fwd(ws, bs, cfg, x, act),
+                      lambda: vjp.sdf_vjp_bwd(ws, bs, cfg, x, c_out, c_grad, act),
+                      lambda: fvm.value_and_grad(ws, bs, *args, x, act_t),
+                      lambda: fvm.vjp(ws, bs, *args, x, c_out, c_grad, act_t),
+                      double_backward, k5)
+    t_k5_p = cuda_ms(k5_plain, reps=2)
+    print(f"SDF-VJP {act} at {VJP_TIME_PTS} pts, ms in turns: forward K3 {t['fwd']:.2f} / plain "
+          f"{t['fwd_plain']:.2f}; backward K4 + K5 {t['bwd']:.2f} / plain {t['bwd_plain']:.2f}, "
+          f"of which the dW reduction K5 {t['reduce']:.2f} / plain products {t_k5_p:.2f}; "
+          f"forward + backward {t['fwd'] + t['bwd']:.2f}, torch double backward {t['other']:.2f}")
+    b = sdf_vjp_bound(ws, bs, act, VJP_TIME_PTS)
+    timed_entries(res, t, b, "sdf_vjp_fwd", "sdf_vjp_bwd", "double_backward_ms")
+    res["dw_reduce"].update(ms=t["reduce"], plain_ms=t_k5_p, library_ms=None, **b["dw_reduce"])
     return res, fails
 
 
-def time_reduce(ws, bs, cfg, act, n_pts):
-    """K5 alone over the chunks of one backward of n_pts points, and the
-    same dW products in torch (the plain version's) on the same workspace."""
+def reduce_calls(ws, bs, cfg, act, n_pts):
+    """K5 alone over the chunks of one SDF-VJP backward of n_pts points, and
+    the same dW products in torch (the plain version's), both on one
+    workspace of random factor rows: two callables."""
     import torch
 
     from neuralrecon_w_tpu_torch.ops import field_vjp_math as fvm
@@ -753,13 +863,16 @@ def time_reduce(ws, bs, cfg, act, n_pts):
                            + fvm._mm(view[5, l, :m, :n].t(), view[0, l, :m, :k], act_t))
                 dbs[l] += view[5, l, :m, :n].sum(dim=0)
 
-    return cuda_ms(kernel, reps=2), cuda_ms(plain, reps=2)
+    return kernel, plain
 
 
 def train_config(cfg, grad_mode: str, act: str = None):
+    """The FieldConfig of a training mode: 'pallas_field' with FUSED_BG on
+    (the fused field and background kernels), the others with it off."""
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg
 
-    fc = field_config_from_cfg(cfg)._replace(grad_mode=grad_mode)
+    fc = field_config_from_cfg(cfg)._replace(
+        grad_mode=grad_mode, bg_mode="pallas" if grad_mode == "pallas_field" else "xla")
     return fc._replace(act_dtype=act) if act else fc
 
 
@@ -777,37 +890,75 @@ def make_steps(cfg, fc, fine_level: int):
                            seed=int(cfg.TRAINER.SEED) + 1)
 
 
+def launch_counters() -> dict:
+    """Each kernel's wrapper by its name in the kernels line; the wrapper's
+    ``launches`` counts the launches of its kernel."""
+    from neuralrecon_w_tpu_torch.ops.field_forward import fused_field_forward
+    from neuralrecon_w_tpu_torch.ops.field_train import field_train_bwd
+    from neuralrecon_w_tpu_torch.ops.importance_sampler import up_sample_round
+    from neuralrecon_w_tpu_torch.ops.nerf_bg_fused import nerf_bg_bwd, nerf_bg_fwd
+    from neuralrecon_w_tpu_torch.ops.sdf_field_vjp import dw_reduce, sdf_vjp_bwd, sdf_vjp_fwd
+    from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head
+
+    return {"sdf_mlp": fused_sdf_head, "up_sample": up_sample_round, "sdf_vjp_fwd": sdf_vjp_fwd,
+            "sdf_vjp_bwd": sdf_vjp_bwd, "dw_reduce": dw_reduce, "field_fwd": fused_field_forward,
+            "field_bwd": field_train_bwd, "nerf_bg_fwd": nerf_bg_fwd, "nerf_bg_bwd": nerf_bg_bwd}
+
+
 def training_phase(cfg, state, scene, pool, fine_grid, fine_level, label, n_timed=TRAIN_TIMED):
     """Steps of the training path at batch TRAIN_BATCH: one untimed step per
-    grad mode, then timed steps in turns, 'pallas' / 'vjp' / 'vjp' /
-    'pallas', each block n_timed // 2 steps. Returns (rays/s per mode,
-    the last aux per mode, fails)."""
+    mode of TRAIN_MODES, then timed steps in turns, the modes in order and
+    back ('pallas' / 'vjp' / 'pallas_field' / 'pallas_field' / 'vjp' /
+    'pallas'), each block n_timed // 2 steps. The launch counts are set to 0
+    just before each step and read just after it, into that step's mode; on
+    the card a mode fails if it leaves a kernel of MODE_KERNELS at 0 or
+    launches one that is not its own. Returns (rays/s per mode, the last
+    aux per mode, launches per mode and kernel, fails)."""
     import torch
 
-    steps = {m: make_steps(cfg, train_config(cfg, m), fine_level) for m in ("pallas", "vjp")}
+    steps = {m: make_steps(cfg, train_config(cfg, m), fine_level) for m in TRAIN_MODES}
+    counters = launch_counters()
+    launches = {m: dict.fromkeys(counters, 0) for m in steps}
     seconds = {m: 0.0 for m in steps}
     counts = {m: 0 for m in steps}
     aux, fails = {}, []
-    for mode in ("pallas", "vjp"):
-        _, aux[mode] = steps[mode](state, scene, pool.next_batch(TRAIN_BATCH), fine_grid)
-    for mode in ("pallas", "vjp", "vjp", "pallas"):
+
+    def step(mode, batch):
+        for c in counters.values():
+            c.launches = 0
+        _, aux[mode] = steps[mode](state, scene, batch, fine_grid)
+        sync()
+        for n, c in counters.items():
+            launches[mode][n] += c.launches
+
+    for mode in TRAIN_MODES:
+        step(mode, pool.next_batch(TRAIN_BATCH))
+    for mode in TRAIN_MODES + TRAIN_MODES[::-1]:
         for _ in range(n_timed // 2):
             batch = pool.next_batch(TRAIN_BATCH)
             sync()
             t0 = time.perf_counter()
-            _, aux[mode] = steps[mode](state, scene, batch, fine_grid)
-            sync()
+            step(mode, batch)
             seconds[mode] += time.perf_counter() - t0
             counts[mode] += 1
             bad = [k for k, v in aux[mode].items() if not bool(torch.isfinite(v))]
             if bad:
                 fails.append(f"{label} {mode} step {state.step}: {bad} not finite")
     rps = {m: counts[m] * TRAIN_BATCH / seconds[m] for m in steps}
-    print(f"training {label}: {counts['pallas']} + {counts['vjp']} timed steps of "
-          f"{TRAIN_BATCH} rays: rays/s pallas {rps['pallas']:.1f}, vjp {rps['vjp']:.1f}; loss "
-          f"{float(aux['pallas']['loss']):.4f}, psnr {float(aux['pallas']['psnr']):.2f}, "
-          "terms " + ", ".join(f"{k} {float(v):.4g}" for k, v in aux["pallas"].items()))
-    return rps, aux, fails
+    print(f"training {label}: {counts['pallas']} timed steps per mode of {TRAIN_BATCH} rays: "
+          "rays/s " + ", ".join(f"{m} {rps[m]:.1f}" for m in TRAIN_MODES) + "; " + "; ".join(
+              f"{m} loss {float(aux[m]['loss']):.4f}, psnr {float(aux[m]['psnr']):.2f}"
+              for m in TRAIN_MODES)
+          + "; terms (pallas) " + ", ".join(f"{k} {float(v):.4g}" for k, v in aux["pallas"].items()))
+    for m in TRAIN_MODES:
+        print(f"launches in training {label} {m} ({counts[m] + 1} steps): " + ", ".join(
+            f"{n} {v}" for n, v in launches[m].items() if v))
+        if next(state.model.parameters()).device.type == "cuda":
+            fails += [f"{n} not launched in training {label} {m}"
+                      for n in MODE_KERNELS[m] if launches[m][n] <= 0]
+            fails += [f"{n} launched in training {label} {m}, not its kernel"
+                      for n, v in launches[m].items() if v and n not in MODE_KERNELS[m]]
+    return rps, aux, launches, fails
 
 
 def profile_step(cfg, state, scene, pool, fine_grid, fine_level, label) -> None:
@@ -819,7 +970,7 @@ def profile_step(cfg, state, scene, pool, fine_grid, fine_level, label) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for mode in ("pallas", "vjp"):
+    for mode in TRAIN_MODES:
         step = make_steps(cfg, train_config(cfg, mode), fine_level)
         step(state, scene, pool.next_batch(TRAIN_BATCH), fine_grid)
         batch = pool.next_batch(TRAIN_BATCH)
@@ -847,49 +998,54 @@ def profile_step(cfg, state, scene, pool, fine_grid, fine_level, label) -> None:
 
 
 def step_parity(cfg, model, scene, batch, fine_grid, fine_level, label, step: int = 3):
-    """From one copy of the model and one batch, one step in 'pallas' and
-    one in 'vjp', in f32 and in the served dtype: the losses and every
-    parameter gradient. In f32 the two modes are held to each other; in
-    bf16 each is held to the f32 'vjp' gradient (PARITY_BF16_*)."""
+    """From one copy of the model and one batch, one step in each mode of
+    TRAIN_MODES, in f32 and in the served dtype: the losses and every
+    parameter gradient. In f32 each kernel mode ('pallas', 'pallas_field'
+    with FUSED_BG) is held to 'vjp'; in bf16 each is held to the f32 'vjp'
+    gradient (PARITY_BF16_*), as 'vjp' in bf16 is."""
     from neuralrecon_w_tpu_torch.training.step import TrainState
 
     fails, ref = [], None
     for act in dict.fromkeys(("float32", train_config(cfg, "vjp").act_dtype)):
         out = {}
-        for mode in ("pallas", "vjp"):
+        for mode in TRAIN_MODES:
             m = copy.deepcopy(model)
             st = TrainState(m, GradCapture(m), step)
             _, aux = make_steps(cfg, train_config(cfg, mode, act), fine_level)(
                 st, scene, batch, fine_grid)
             out[mode] = (aux, st.optimizer.grads)
-        (a_k, g_k), (a_v, g_v) = out["pallas"], out["vjp"]
-        errs = {k: rel_l2(g_k[k], g_v[k]) for k in g_v}
+        a_v, g_v = out["vjp"]
         if act == "float32":
-            ref, (loss_tol, bound) = g_v, PARITY_F32
-            bounds = dict.fromkeys(g_v, bound)
-            rule = f"bound {bound}"
-        else:
-            loss_tol = PARITY_BF16_LOSS
-            e_k = {k: rel_l2(g_k[k], ref[k]) for k in g_v}
-            e_v = {k: rel_l2(g_v[k], ref[k]) for k in g_v}
-            bounds = {k: max(PARITY_BF16_RATIO * e_v[k], PARITY_BF16_FLOOR) for k in g_v}
-            errs = e_k
-            rule = (f"to f32 'vjp', bound max({PARITY_BF16_RATIO} x vjp's, "
-                    f"{PARITY_BF16_FLOOR}); pallas / vjp / between the modes")
-        loss_bad = [k for k in a_v if abs(float(a_k[k]) - float(a_v[k]))
-                    > loss_tol * abs(float(a_v[k])) and k not in ("psnr", "s_val")]
-        bad = sorted(k for k, e in errs.items() if e > bounds[k])
-        worst = sorted(errs, key=lambda k: -errs[k] / bounds[k])[:4]
-        show = ((lambda k: f"{errs[k]:.2e}") if act == "float32" else
-                (lambda k: f"{e_k[k]:.2e}/{e_v[k]:.2e}/{rel_l2(g_k[k], g_v[k]):.2e}"))
-        print(f"parity {label} {act}, pallas vs vjp: losses "
-              + ", ".join(f"{k} {float(a_k[k]):.6g}/{float(a_v[k]):.6g}" for k in a_v)
-              + f"; grad rel-L2 ({rule}), nearest their bound: "
-              + ", ".join(f"{k} {show(k)}" for k in worst))
-        print("  grad rel-L2 of the SDF net: " + ", ".join(
-            f"{k.split('sdf_net.')[1]} {show(k)}" for k in errs if "sdf_net" in k))
-        if loss_bad or bad:
-            fails.append(f"parity {label} {act}: losses {loss_bad}, grads {bad}")
+            ref = g_v
+        for mode in (m for m in TRAIN_MODES if m != "vjp"):
+            a_k, g_k = out[mode]
+            errs = {k: rel_l2(g_k[k], g_v[k]) for k in g_v}
+            if act == "float32":
+                loss_tol, bound = PARITY_F32
+                bounds = dict.fromkeys(g_v, bound)
+                rule = f"bound {bound}"
+            else:
+                loss_tol = PARITY_BF16_LOSS
+                e_k = {k: rel_l2(g_k[k], ref[k]) for k in g_v}
+                e_v = {k: rel_l2(g_v[k], ref[k]) for k in g_v}
+                bounds = {k: max(PARITY_BF16_RATIO * e_v[k], PARITY_BF16_FLOOR) for k in g_v}
+                errs = e_k
+                rule = (f"to f32 'vjp', bound max({PARITY_BF16_RATIO} x vjp's, "
+                        f"{PARITY_BF16_FLOOR}); {mode} / vjp / between the modes")
+            loss_bad = [k for k in a_v if abs(float(a_k[k]) - float(a_v[k]))
+                        > loss_tol * abs(float(a_v[k])) and k not in ("psnr", "s_val")]
+            bad = sorted(k for k, e in errs.items() if e > bounds[k])
+            worst = sorted(errs, key=lambda k: -errs[k] / bounds[k])[:4]
+            show = ((lambda k: f"{errs[k]:.2e}") if act == "float32" else
+                    (lambda k: f"{e_k[k]:.2e}/{e_v[k]:.2e}/{rel_l2(g_k[k], g_v[k]):.2e}"))
+            print(f"parity {label} {act}, {mode} vs vjp: losses "
+                  + ", ".join(f"{k} {float(a_k[k]):.6g}/{float(a_v[k]):.6g}" for k in a_v)
+                  + f"; grad rel-L2 ({rule}), nearest their bound: "
+                  + ", ".join(f"{k} {show(k)}" for k in worst))
+            print("  grad rel-L2 of the SDF net: " + ", ".join(
+                f"{k.split('sdf_net.')[1]} {show(k)}" for k in errs if "sdf_net" in k))
+            if loss_bad or bad:
+                fails.append(f"parity {label} {act} {mode}: losses {loss_bad}, grads {bad}")
     return fails
 
 
@@ -1128,24 +1284,13 @@ def field_kernel_phase(model, fc):
     for act in ("float32", "bfloat16"):
         fca = fc._replace(act_dtype=act)
         pack = ff.pack_field(live, fca)
-        got = ff.field_forward_kernel(pack, pts, dirs, a)
-        want = ff.field_forward_plain(pack, pts, dirs, a)
-        torch.cuda.synchronize()
-        errs = [float((k - p).abs().max()) for k, p in zip(got, want)]
-        rels = [rel_l2(k, p) for k, p in zip(got, want)]
-        if act == "float32":
-            ok = all(bool(((k - p).abs() <= K3_F32_TOL + K3_F32_TOL * p.abs()).all())
-                     for k, p in zip(got, want))
-        else:
-            ok = max(rels) <= VJP_BF16_REL
-        ok = ok and all(bool(torch.isfinite(k).all()) for k in got)
-        print(f"K6 field_fwd {act} on {n} pts, rgb / sdf / grad: max|err| "
-              + " / ".join(f"{e:.3e}" for e in errs) + ", rel-L2 "
-              + " / ".join(f"{r:.3e}" for r in rels) + f" -> {'ok' if ok else 'FAIL'}")
+        ok, err = check_forward(f"K6 field_fwd {act} on {n} pts", ("rgb", "sdf", "grad"),
+                                ff.field_forward_kernel(pack, pts, dirs, a),
+                                ff.field_forward_plain(pack, pts, dirs, a), act)
         if not ok:
             fails.append(f"K6 {act}")
         if act == fc.act_dtype:
-            res["field_fwd"] = {"max_abs_err": max(errs)}
+            res["field_fwd"] = {"max_abs_err": err}
             t_k = cuda_ms(lambda: ff.field_forward_kernel(pack, pts, dirs, a))
             t_p = cuda_ms(lambda: ff.field_forward_plain(pack, pts, dirs, a))
             t_k2 = cuda_ms(lambda: ff.field_forward_kernel(pack, pts, dirs, a))
@@ -1173,35 +1318,236 @@ def field_kernel_phase(model, fc):
     return res, fails
 
 
-def pending_kernel_bounds(model, fc, n_field: int, n_bg: int) -> str:
-    """The least times of the two TPU kernels not ported yet, at their
-    training path's shapes in the activation dtype: kernel 5, the fused
-    field forward and backward at n_field points (K3 + K4 + K5's products
-    and the colour head's forward, dX and dW), and kernel 6, the fused
-    background forward and backward at n_bg points (every linear's
-    forward, dX and dW). Inputs, outputs and their cotangents read or
-    written once, dW in float32."""
-    from torch import nn
+def field_train_bound(pack, n: int) -> dict:
+    """Least times of kernel 5's port at n points in the pack's dtype:
+    'field_fwd' (K6: F, G and the colour head), 'field_bwd' (K7: F and G
+    recomputed, the adjoint of G, the backward of F, the colour head's
+    forward and dX) and 'dw_reduce' (K5's dW products for every layer).
+    Inputs and outputs read or written once; K5 reads K7's factor rows."""
+    act = str(pack.sdf.act).removeprefix("torch.")
+    sdf, col = list(zip(pack.sdf.k, pack.sdf.n)), list(zip(pack.color.k, pack.color.n))
+    f_all, f_hidden, f_col = gemm_flops(sdf), gemm_flops(sdf[:-1]), gemm_flops(col)
+    w = nbytes(pack.sdf.w, pack.color.w) // 2 + nbytes(pack.sdf.b, pack.color.b)
+    n_a = pack.color.k[1] - pack.color.n[0] - 3 * (1 + 2 * pack.color.multires_view)
+    io = 12 + 12 + 4 * n_a  # pts, dirs, a
+    rows = sum(2 * (k + m) for k, m in sdf) + sum(k + m for k, m in col)
+    return {"field_fwd": bound(n * (f_all + f_hidden + f_col), w + n * (io + 28), act),
+            "field_bwd": bound(n * (2 * f_all + 2 * f_hidden + 2 * f_col), w + n * (2 * io + 28),
+                               act),
+            "dw_reduce": bound(n * (2 * f_all + f_col), n * 4 * rows, act)}
 
+
+def bg_bound(pk, n: int, n_a: int) -> dict:
+    """Least times of kernel 6's port at n points in the pack's dtype:
+    'nerf_bg_fwd' (K8: every layer), 'nerf_bg_bwd' (K9: the forward
+    recomputed and dX) and 'dw_reduce' (K5: every layer's dW)."""
+    act = str(pk.act).removeprefix("torch.")
+    flops = gemm_flops(zip(pk.k, pk.n))
+    w = nbytes(pk.w) // 2 + nbytes(pk.b)
+    io = 16 + 12 + 4 * n_a  # pts4, dirs, a
+    return {"nerf_bg_fwd": bound(n * flops, w + n * (io + 16), act),
+            "nerf_bg_bwd": bound(n * 2 * flops, w + n * (2 * io + 16), act),
+            "dw_reduce": bound(n * flops, n * 4 * sum(k + m for k, m in zip(pk.k, pk.n)), act)}
+
+
+def field_train_kernel_phase(model, fc, n_time: int):
+    """Kernel 5's port on the live field: K6 forward and K7 + K5 backward
+    against their plain versions, the plain versions taking the colour ReLU
+    masks K7 applied (``check_flips`` holds those to the reference's own
+    signs): at FIELD_CHECK_PTS points in f32 (the backward against the
+    plain version in float64) and bf16, and at n_time points (the steady
+    phase's samples per step, several K7 chunks) in the served dtype. Then,
+    at n_time, the times of K6, K7 + K5 and K5 alone beside the plain
+    versions and the torch double backward ('vjp' mode, per-sample dirs and
+    a)."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.models.neuconw import field_forward
     from neuralrecon_w_tpu_torch.ops import field_forward as ff
+    from neuralrecon_w_tpu_torch.ops import field_train as ft
 
-    act = fc.act_dtype
-    ab = 2 if act == "bfloat16" else 4
-    pack = ff.pack_field(model, fc)
-    sdf = list(zip(pack.sdf.k, pack.sdf.n))
-    col = list(zip(pack.color.k, pack.color.n))
-    n_w = sum(k * n for k, n in sdf + col)
-    flops = n_field * (gemm_flops(sdf) + gemm_flops(sdf[:-1])  # K3
-                       + 3 * gemm_flops(sdf[:-1]) + gemm_flops(sdf)  # K4
-                       + 2 * gemm_flops(sdf) + 3 * gemm_flops(col))  # K5, the colour head
-    k5 = bound(flops, n_w * (ab + 4) + n_field * 2 * (12 + 12 + 4 * fc.n_a + 28), act)
-    bg = [(m.in_features, m.out_features) for m in model.nerf.modules()
-          if isinstance(m, nn.Linear)]
-    k6 = bound(3 * n_bg * gemm_flops(bg), sum(k * n for k, n in bg) * (ab + 4)
-               + n_bg * 2 * (16 + 12 + 4 * fc.n_a + 16), act)
-    return (f"bounds of the TPU kernels still to port, {act}: kernel 5 at {n_field} pts "
-            f"{k5['bound_ms']:.3f} ms ({k5['bound_by']}), kernel 6 at {n_bg} pts "
-            f"{k6['bound_ms']:.3f} ms ({k6['bound_by']})")
+    live = live_field(model)
+    dev = next(live.parameters()).device
+    with torch.no_grad():
+        wb = [t.detach().contiguous() for t in ft.field_weights(live)]
+    g = torch.Generator(device="cpu").manual_seed(SEED + 17)
+
+    def inputs(n):
+        dirs = torch.randn(n, 3, generator=g)
+        x = [(torch.rand(n, 3, generator=g) * 2 - 1) * 0.9, dirs / dirs.norm(dim=-1, keepdim=True),
+             torch.randn(n, fc.n_a, generator=g), torch.randn(n, 3, generator=g),
+             torch.randn(n, generator=g), torch.randn(n, 3, generator=g)]
+        return [t.to(dev) for t in x]
+
+    col_names = ["xyz_final"] + [f"static{i}" for i in range(
+        live.neuconw.color_net.static_encoding.n_layers)] + [
+        f"lin{i}" for i in range(live.neuconw.color_net.n_layers)]
+    n_sdf = live.neuconw.sdf_net.n_layers
+    names = ([f"W{l}" for l in range(n_sdf)] + [f"b{l}" for l in range(n_sdf)]
+             + [f"{c}.W" for c in col_names] + [f"{c}.b" for c in col_names]
+             + ["dx", "d_dirs", "d_a"])
+    flat = lambda r: [*r[0], *r[1], *r[2], *r[3], *r[4:]]  # noqa: E731
+    res, fails = {}, []
+
+    def check(act, x, f64: bool):
+        """K6 and K7 + K5 at x's size in act against the plain versions;
+        returns the failures and the kernels' largest |error| to them."""
+        spec = ft.field_spec(live, fc._replace(act_dtype=act))
+        pack = ft.pack_field_tensors(spec, wb)
+        n, out = x[0].shape[0], []
+        ok_f, err_f = check_forward(f"K6 as kernel 5's forward {act} on {n} pts",
+                                    ("rgb", "sdf", "grad"), ff.field_forward_kernel(pack, *x[:3]),
+                                    ff.field_forward_plain(pack, *x[:3]), act)
+        if not ok_f:
+            out.append(f"K6 as kernel 5's forward {act} at {n} pts")
+        masks = []
+        got = flat(ft.field_train_bwd(pack, *x, masks=masks))
+        plain = flat(ft.field_train_bwd_plain(spec, wb, *x, masks=masks))
+        if f64:
+            wb64, x64 = [w.double() for w in wb], [t.double() for t in x]
+            truth = flat(ft.field_train_bwd_plain(spec, wb64, *x64, masks=masks))
+            zs = ft.color_preacts(spec, wb64, *x64[:3])
+            bad = check_outputs(f"K7+K5 field_bwd {act} on {n} pts to the plain f64, max(2 x "
+                                "the plain f32's, 1e-5)", names, got, truth, 1e-5, plain)
+            del truth
+        else:
+            zs = ft.color_preacts(spec, wb, *x[:3])
+            bad = check_outputs(f"K7+K5 field_bwd {act} on {n} pts to the plain {act}", names,
+                                got, plain, VJP_BF16_REL)
+        bad += check_flips(f"K7 {act} on {n} pts", masks, zs, FLIP_Z[act])
+        if bad:
+            out.append(f"K7+K5 {act} at {n} pts")
+        return out, err_f, max(float((k - p).abs().max()) for k, p in zip(got, plain))
+
+    for act in ("float32", "bfloat16"):
+        bad, err_f, err_b = check(act, inputs(FIELD_CHECK_PTS), act == "float32")
+        fails += bad
+        if act == fc.act_dtype:
+            res["field_fwd"], res["field_bwd"] = {"max_abs_err": err_f}, {"max_abs_err": err_b}
+    x = inputs(n_time)
+    bad, _, _ = check(fc.act_dtype, x, False)
+    fails += bad
+
+    # times at the steady phase's shape, in the served dtype
+    spec = ft.field_spec(live, fc)
+    pack = ft.pack_field_tensors(spec, wb)
+    dmodel = copy.deepcopy(live).requires_grad_(True)
+    fc_vjp = fc._replace(grad_mode="vjp")
+
+    def double_backward():
+        xx = x[0].clone().requires_grad_(True)
+        rgb, _, sdf, gr = field_forward(dmodel, fc_vjp, xx, x[1], x[2], create_graph=True)
+        (torch.sum(rgb * x[3]) + torch.sum(sdf * x[4]) + torch.sum(gr * x[5])).backward()
+
+    work, rows = ft.workspace(n_time, pack, dev)
+    work.normal_()
+    grads = [[torch.zeros(n, k, device=dev) for n, k in zip(p.n, p.k)] for p in (pack.sdf, pack.color)]
+    biases = [[torch.zeros(n, device=dev) for n in p.n] for p in (pack.sdf, pack.color)]
+    chunks = [min(ft.CHUNK, n_time - c0) for c0 in range(0, n_time, ft.CHUNK)]
+
+    def reduce_only():
+        for m in chunks:
+            ft.reduce_chunk(pack, work, rows, m, grads[0], biases[0], grads[1], biases[1])
+
+    t = time_in_turns(lambda: ff.field_forward_kernel(pack, *x[:3]),
+                      lambda: ft.field_train_bwd(pack, *x),
+                      lambda: ff.field_forward_plain(pack, *x[:3]),
+                      lambda: ft.field_train_bwd_plain(spec, wb, *x), double_backward, reduce_only)
+    del work
+    b = field_train_bound(pack, n_time)
+    print(f"kernel 5 {fc.act_dtype} at {n_time} pts, ms in turns: forward K6 {t['fwd']:.2f}, "
+          f"plain {t['fwd_plain']:.2f}, bound {b['field_fwd']['bound_ms']:.3f}; backward K7 + K5 "
+          f"{t['bwd']:.2f}, plain {t['bwd_plain']:.2f}, of which K5 alone {t['reduce']:.2f}, K7 "
+          f"bound {b['field_bwd']['bound_ms']:.3f}; forward + backward {t['fwd'] + t['bwd']:.2f}, "
+          f"plain {t['fwd_plain'] + t['bwd_plain']:.2f}, torch double backward ('vjp') "
+          f"{t['other']:.2f}")
+    timed_entries(res, t, b, "field_fwd", "field_bwd", "double_backward_ms")
+    return res, fails
+
+
+def bg_kernel_phase(model, fc, n_rays: int, k: int):
+    """Kernel 6's port: K8 and K9 + K5 against their plain versions at the
+    training path's n_rays x k background points (per-ray dirs and a
+    repeated per sample), f32 (K8 atol / rtol K3_F32_TOL, K9 + K5 rel-L2
+    BG_GRAD_REL) and bf16 (rel-L2 VJP_BF16_REL); then, in the served dtype,
+    the times of K8, K9 + K5 and K5 alone beside the plain versions and
+    the 'xla' path's autograd forward and backward (per-ray, as training
+    runs it)."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.models.neuconw import field_background
+    from neuralrecon_w_tpu_torch.ops import nerf_bg_fused as bgf
+
+    dev = next(model.parameters()).device
+    layers = bgf.bg_layers(model.nerf, fc.encode_a_bg)
+    ws = [m.weight.detach() for m in layers]
+    bs = [m.bias.detach() for m in layers]
+    g = torch.Generator(device="cpu").manual_seed(SEED + 19)
+    n = n_rays * k
+    xyz = torch.randn(n, 3, generator=g)
+    pts4 = torch.cat([xyz / xyz.norm(dim=-1, keepdim=True),
+                      torch.rand(n, 1, generator=g) * 0.95 + 0.05], dim=-1).to(dev)
+    dirs_ray = torch.randn(n_rays, 3, generator=g)
+    dirs_ray = (dirs_ray / dirs_ray.norm(dim=-1, keepdim=True)).to(dev)
+    a_ray = torch.randn(n_rays, fc.n_a, generator=g).to(dev)
+    c_den, c_rgb = torch.randn(n, 1, generator=g).to(dev), torch.randn(n, 3, generator=g).to(dev)
+    dirs = dirs_ray.repeat_interleave(k, dim=0)
+    a = a_ray.repeat_interleave(k, dim=0) if fc.encode_a_bg else None
+    names = [f"{nm}.W" for nm in bgf.bg_layer_names(fc.encode_a_bg)] + [
+        f"{nm}.b" for nm in bgf.bg_layer_names(fc.encode_a_bg)] + ["d_pts4", "d_dirs", "d_a"]
+    flat = lambda r: [*r[0], *r[1], *[t for t in r[2:] if t is not None]]  # noqa: E731
+    res, fails = {}, []
+    for act in ("float32", "bfloat16"):
+        pk = bgf.pack_bg_weights(ws, bs, act)
+        ok_f, err_f = check_forward(f"K8 nerf_bg_fwd {act} on {n} pts", ("density", "rgb"),
+                                    bgf.nerf_bg_fwd(pk, pts4, dirs, a),
+                                    bgf.bg_fwd_plain(ws, bs, pts4, dirs, a, act), act)
+        if not ok_f:
+            fails.append(f"K8 {act}")
+        got_b = flat(bgf.nerf_bg_bwd(pk, pts4, dirs, a, c_den, c_rgb))
+        want_b = flat(bgf.bg_bwd_plain(ws, bs, pts4, dirs, a, c_den, c_rgb, act))
+        if check_outputs(f"K9+K5 nerf_bg_bwd {act} on {n} pts to the plain {act}", names, got_b,
+                         want_b, BG_GRAD_REL if act == "float32" else VJP_BF16_REL):
+            fails.append(f"K9+K5 {act}")
+        if act == fc.act_dtype:
+            res["nerf_bg_fwd"] = {"max_abs_err": err_f}
+            res["nerf_bg_bwd"] = {"max_abs_err": max(float((kk - w).abs().max())
+                                                     for kk, w in zip(got_b, want_b))}
+
+    # times in the served dtype
+    pk = bgf.pack_bg_weights(ws, bs, fc.act_dtype)
+    dmodel = copy.deepcopy(model).requires_grad_(True)
+    fc_xla = fc._replace(bg_mode="xla")
+
+    def xla():
+        den, rgb = field_background(dmodel, fc_xla, pts4, dirs_ray, a_ray, k)
+        (torch.sum(den * c_den) + torch.sum(rgb * c_rgb)).backward()
+
+    work, rows = bgf.workspace(n, bgf.bwd_slots(pk.n_head), dev)
+    work.normal_()
+    dWs = [torch.zeros(nn, kk, device=dev) for nn, kk in zip(pk.n, pk.k)]
+    dbs = [torch.zeros(nn, device=dev) for nn in pk.n]
+    chunks = [min(bgf.CHUNK, n - c0) for c0 in range(0, n, bgf.CHUNK)]
+
+    def reduce_only():
+        for m in chunks:
+            bgf.reduce_chunk(pk, work, rows, m, dWs, dbs)
+
+    t = time_in_turns(lambda: bgf.nerf_bg_fwd(pk, pts4, dirs, a),
+                      lambda: bgf.nerf_bg_bwd(pk, pts4, dirs, a, c_den, c_rgb),
+                      lambda: bgf.bg_fwd_plain(ws, bs, pts4, dirs, a, fc.act_dtype),
+                      lambda: bgf.bg_bwd_plain(ws, bs, pts4, dirs, a, c_den, c_rgb, fc.act_dtype),
+                      xla, reduce_only, reps=5)
+    del work
+    b = bg_bound(pk, n, fc.n_a if fc.encode_a_bg else 0)
+    print(f"kernel 6 {fc.act_dtype} at {n_rays} x {k} = {n} pts, ms in turns: K8 {t['fwd']:.3f}, "
+          f"plain {t['fwd_plain']:.3f}, bound {b['nerf_bg_fwd']['bound_ms']:.4f}; K9 + K5 "
+          f"{t['bwd']:.3f}, plain {t['bwd_plain']:.3f}, of which K5 alone {t['reduce']:.3f}, K9 "
+          f"bound {b['nerf_bg_bwd']['bound_ms']:.4f}; forward + backward "
+          f"{t['fwd'] + t['bwd']:.3f}, the 'xla' path's autograd forward + backward "
+          f"{t['other']:.3f}")
+    timed_entries(res, t, b, "nerf_bg_fwd", "nerf_bg_bwd", "xla_fwd_bwd_ms")
+    return res, fails
 
 
 def extraction_phase(model, fc, root: str, n_points: int = EXTRACT_POINTS,
@@ -1263,7 +1609,9 @@ def main() -> int:
     from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
     from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head
     from neuralrecon_w_tpu_torch.datasets.cache import RayPool
-    from neuralrecon_w_tpu_torch.ops.sdf_field_vjp import dw_reduce, sdf_vjp_bwd, sdf_vjp_fwd
+    from neuralrecon_w_tpu_torch.ops.field_forward import fused_field_forward
+    from neuralrecon_w_tpu_torch.ops.nerf_bg_fused import nerf_bg_fwd
+    from neuralrecon_w_tpu_torch.rendering.renderer import bg_eval_idx
     from neuralrecon_w_tpu_torch.tools.convert import init_field
     from neuralrecon_w_tpu_torch.training.schedule import make_optimizer
     from neuralrecon_w_tpu_torch.training.step import init_state
@@ -1331,16 +1679,43 @@ def main() -> int:
     fails += check_frames(outs_steady, frames, "steady")
     fails += path_check(model, fc, rcfg_warm, scene, frames[1], None, sfm_grid, "warm-up")
     fails += path_check(model, fc, rcfg_steady, scene, frames[1], fine_grid, sfm_grid, "steady")
+    # one frame per serving phase with SDF_GRAD_MODE 'pallas_field' and
+    # FUSED_BG: K6 and K8 serve the field and the background
+    fc_fused = train_config(cfg, "pallas_field")
+    serve_fused = {"field_fwd": 0, "nerf_bg_fwd": 0}
+    for label, rc, fg in (("warm-up", rcfg_warm, None), ("steady", rcfg_steady, fine_grid)):
+        fused_field_forward.launches = nerf_bg_fwd.launches = 0
+        _, outs = serving_phase(model, fc_fused, rc, scene, frames[:2], fg, sfm_grid,
+                                f"{label} pallas_field + FUSED_BG")
+        got = {"field_fwd": fused_field_forward.launches, "nerf_bg_fwd": nerf_bg_fwd.launches}
+        print(f"launches serving one {label} frame with pallas_field + FUSED_BG: " + ", ".join(
+            f"{n} {v}" for n, v in got.items()))
+        for n, v in got.items():
+            serve_fused[n] += v
+            if v <= 0:
+                fails.append(f"{n} not launched serving {label} with pallas_field + FUSED_BG")
+        fails += check_frames(outs, frames[:2], f"{label} pallas_field + FUSED_BG")
+        fails += path_check(model, fc_fused, rc, scene, frames[1], fg, sfm_grid,
+                            f"{label} pallas_field + FUSED_BG", ref_fc=fc)
     print(f"peak device memory after serving {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if args.profile:
         profile_chunk(model, fc, rcfg_warm, scene, frames[1], None, sfm_grid, "warm-up")
         profile_chunk(model, fc, rcfg_steady, scene, frames[1], fine_grid, sfm_grid, "steady")
     print(f"serving rays/s ({card}): warm-up {rps_warm:.1f}, steady {rps_steady:.1f}")
 
-    # the SDF-VJP kernels against their plain version, and their times
+    # the SDF-VJP kernels against their plain version, and their times; then
+    # kernel 5's port (K6, K7 + K5) and kernel 6's (K8, K9 + K5) at the
+    # training path's shapes: 8192 x 30 foreground and 8192 x 11 background
+    # points in the steady phase
     vres, vfails = vjp_kernel_phase(model, fc)
     fails += vfails
     kres.update(vres)
+    n_bg = len(bg_eval_idx(rcfg_warm, rcfg_warm.n_samples + rcfg_warm.n_importance
+                           + rcfg_warm.n_outside))
+    fres, ffails = field_train_kernel_phase(model, fc, VJP_TIME_PTS)
+    fails += ffails
+    bres, bfails = bg_kernel_phase(model, fc, TRAIN_BATCH, n_bg)
+    fails += bfails
 
     # training: Adam steps of make_train_step over RayPool batches
     torch.cuda.reset_peak_memory_stats()
@@ -1354,26 +1729,23 @@ def main() -> int:
           f"({int((rows[:, 9] == LABEL_SKY).sum())} sky, "
           f"{int((rows[:, 9] == LABEL_PERSON).sum())} person, "
           f"{int((rows[:, 11] > 0).sum())} with depth), batch {TRAIN_BATCH}, lr {spec.schedule}, "
-          f"SDF_GRAD_MODE pallas against vjp, act {fc.act_dtype}")
-    counters = (fused_sdf_head, up_sample_round, sdf_vjp_fwd, sdf_vjp_bwd, dw_reduce)
-    names = ("sdf_mlp", "up_sample", "sdf_vjp_fwd", "sdf_vjp_bwd", "dw_reduce")
-    train_launches, rps_train = {n: 0 for n in names}, {}
+          f"SDF_GRAD_MODE pallas, vjp and pallas_field with FUSED_BG in turns, act {fc.act_dtype}")
+    # launches per training mode, both phases
+    train_launches, rps_train = {m: {} for m in TRAIN_MODES}, {}
     for label, fg, level in (("warm-up", None, -1), ("steady", fine_grid, fine_host.level)):
-        for c in counters:
-            c.launches = 0
-        rps_train[label], _, tfails = training_phase(cfg, state, scene, pool, fg, level, label)
+        torch.cuda.reset_peak_memory_stats()
+        rps_train[label], _, got, tfails = training_phase(cfg, state, scene, pool, fg, level,
+                                                          label)
         fails += tfails
-        got = {n: c.launches for n, c in zip(names, counters)}
-        print(f"launches in training {label}: " + ", ".join(f"{n} {v}" for n, v in got.items()))
-        for n in names:
-            train_launches[n] += got[n]
-            if got[n] <= 0:
-                fails.append(f"{n} not launched in training {label}")
+        print(f"peak device memory in training {label} "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for m in TRAIN_MODES:
+            for n, v in got[m].items():
+                train_launches[m][n] = train_launches[m].get(n, 0) + v
     moved = [k for k, v in state.model.state_dict().items() if not torch.equal(v, before[k])]
     if len(moved) < len(before) // 2:
         fails.append(f"training moved only {len(moved)} of {len(before)} parameter tensors")
-    print(f"training moved {len(moved)} of {len(before)} parameter tensors in {state.step} steps; "
-          f"peak device memory in training {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"training moved {len(moved)} of {len(before)} parameter tensors in {state.step} steps")
     if args.profile:
         profile_step(cfg, state, scene, pool, None, -1, "warm-up")
         profile_step(cfg, state, scene, pool, fine_grid, fine_host.level, "steady")
@@ -1381,7 +1753,8 @@ def main() -> int:
     fails += step_parity(cfg, state.model, scene, batch, None, -1, "warm-up")
     fails += step_parity(cfg, state.model, scene, batch, fine_grid, fine_host.level, "steady")
     print(f"training rays/s ({card}): " + "; ".join(
-        f"{label} pallas {r['pallas']:.1f}, vjp {r['vjp']:.1f}" for label, r in rps_train.items()))
+        f"{label} " + ", ".join(f"{m} {r[m]:.1f}" for m in TRAIN_MODES)
+        for label, r in rps_train.items()))
 
     # extraction: K6 and K1 f32 against their plain versions, then the
     # served field through extract_mesh_cli at level 10. Not the trained
@@ -1391,7 +1764,6 @@ def main() -> int:
     xres, xfails = field_kernel_phase(model, fc)
     fails += xfails
     kres.update(xres)
-    print(pending_kernel_bounds(model, fc, VJP_TIME_PTS, TRAIN_BATCH * rcfg_warm.bg_samples))
     torch.cuda.reset_peak_memory_stats()
     root = tempfile.mkdtemp(prefix="extract_", dir=os.path.join(ROOT, "build"))
     try:
@@ -1413,13 +1785,39 @@ def main() -> int:
                "sdf_vjp_bwd": (vjp_src, "neuralrecon_w_tpu/ops/pallas_field_vjp.py:482"),
                "dw_reduce": (vjp_src, "neuralrecon_w_tpu/ops/pallas_field_vjp.py:482"),
                "field_fwd": ("neuralrecon_w_tpu_torch/csrc/field_fwd.cu",
-                             "neuralrecon_w_tpu/ops/pallas_field.py:274")}
-    # K1 and K2 count the serving path's launches, K3 to K5 the training
-    # path's, K6 the extraction's; K1's extraction launches and its f32
-    # numbers at the SDF sweep's chunk ride along in its entry
-    launches.update({n: train_launches[n] for n in ("sdf_vjp_fwd", "sdf_vjp_bwd", "dw_reduce")})
-    launches["field_fwd"] = x_launches["field_fwd"]
+                             "neuralrecon_w_tpu/ops/pallas_field.py:274"),
+               "field_bwd": ("neuralrecon_w_tpu_torch/csrc/field_bwd.cu",
+                             "neuralrecon_w_tpu/ops/pallas_field_train.py:490"),
+               "nerf_bg_fwd": ("neuralrecon_w_tpu_torch/csrc/nerf_bg.cu",
+                               "neuralrecon_w_tpu/ops/pallas_nerf_bg.py:370"),
+               "nerf_bg_bwd": ("neuralrecon_w_tpu_torch/csrc/nerf_bg.cu",
+                               "neuralrecon_w_tpu/ops/pallas_nerf_bg.py:403")}
+    # K1 and K2 count the serving path's launches; K3, K4 the training
+    # path's in 'pallas', K7 to K9 in 'pallas_field', K5 in both (by_mode);
+    # K6 its launches on every path (kernel 5's forward in training, the
+    # fused serving frames, the extraction's colour sweep), K8 in training
+    # and serving. K1's extraction launches and its f32 numbers at the SDF
+    # sweep's chunk ride along in its entry, and K6's extraction numbers (the
+    # colour sweep's chunk) in its own
+    pallas, fused = train_launches["pallas"], train_launches["pallas_field"]
+    launches.update(sdf_vjp_fwd=pallas["sdf_vjp_fwd"], sdf_vjp_bwd=pallas["sdf_vjp_bwd"],
+                    dw_reduce=pallas["dw_reduce"] + fused["dw_reduce"],
+                    field_bwd=fused["field_bwd"], nerf_bg_bwd=fused["nerf_bg_bwd"],
+                    field_fwd=fused["field_fwd"] + serve_fused["field_fwd"]
+                    + x_launches["field_fwd"],
+                    nerf_bg_fwd=fused["nerf_bg_fwd"] + serve_fused["nerf_bg_fwd"])
     kres["sdf_mlp"]["extraction"] = {"launches": x_launches["sdf_mlp"], **kres.pop("sdf_mlp_f32")}
+    kres["field_fwd_extraction"] = kres.pop("field_fwd")
+    kres.update(fres)
+    kres.update(bres)
+    kres["dw_reduce"]["by_mode"] = {"pallas": pallas["dw_reduce"],
+                                    "pallas_field": fused["dw_reduce"]}
+    kres["field_fwd"]["by_path"] = {"training": fused["field_fwd"],
+                                    "serving": serve_fused["field_fwd"],
+                                    "extraction": x_launches["field_fwd"]}
+    kres["field_fwd"]["extraction"] = kres.pop("field_fwd_extraction")
+    kres["nerf_bg_fwd"]["by_path"] = {"training": fused["nerf_bg_fwd"],
+                                      "serving": serve_fused["nerf_bg_fwd"]}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **kres[name]}
                for name, (src, rep) in sources.items()]

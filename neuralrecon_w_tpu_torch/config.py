@@ -182,10 +182,12 @@ class FieldConfig(NamedTuple):
     encode_a: bool
     encode_a_bg: bool
     # 'vjp' (autograd) | 'pallas' (the SDF-VJP kernels) | 'pallas_hybrid'
+    # | 'pallas_field' (the fused field kernels, SDF and colour head)
     grad_mode: str = "vjp"
     # 'float32' | 'bfloat16' — dtype the hidden activations flow in
     act_dtype: str = "float32"
-    # only 'xla' (plain torch) is ported; 'pallas' is a later kernel
+    # 'xla' (plain torch, autograd) | 'pallas' (the fused background
+    # kernels, ops/nerf_bg_fused.py)
     bg_mode: str = "xla"
     # TPU tile override; read from the cfg, unused by the port
     kernel_tile: int = -1
@@ -202,8 +204,10 @@ class FieldConfig(NamedTuple):
 def field_config_from_cfg(cfg) -> FieldConfig:
     n = cfg.NEUCONW
     fused_bg = getattr(cfg.TPU, "FUSED_BG", False)
-    if fused_bg == "auto":  # the fused background kernel is not ported
-        fused_bg = False
+    if fused_bg == "auto":  # on the accelerator, as the JAX package's on_tpu()
+        import torch
+
+        fused_bg = torch.cuda.is_available()
     return FieldConfig(
         sdf=tuple(sorted(dict(n.SDF_CONFIG).items())),
         color=tuple(sorted(dict(n.COLOR_CONFIG).items())),

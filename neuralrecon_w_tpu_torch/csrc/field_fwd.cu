@@ -24,9 +24,10 @@
 //    tile GEMM (no second kernel, no output array for the feature);
 //  * x, grad, PE_view(dirs) and a staged per tile into workspace rows;
 //  * the colour layers as tile GEMMs with fused epilogues (bias, ReLU,
-//    sigmoid). The static head's first layer takes [xyz_final | PE_view |
-//    a], 587 wide, past the workspace row: it runs as two products into
-//    one f32 sum, the second over columns 512.. of the same packed weight.
+//    sigmoid), color_tile.cuh's pass, shared with K7. The static head's
+//    first layer takes [xyz_final | PE_view | a], 587 wide, past the
+//    workspace row: it runs as two products into one f32 sum, the second
+//    over columns 512.. of the same packed weight.
 // Every GEMM operand is rounded to the activation dtype as it is staged,
 // every sum is f32 and biases are added in f32, as in the TPU kernel.
 // wgmma / TMA and keeping the tile's activations in shared memory come
@@ -35,41 +36,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sdf_tile.cuh"
+#include "color_tile.cuh"
 
 namespace {
 
-constexpr int CMAXL = 16;
 // workspace slots of the colour head, free once the SDF's last layer has
 // read its input
 enum Slot { S_OUT = 0, S_LIN_IN, S_VIEW, S_XYZ, S_PART, S_A, S_B, N_COLOR_SLOTS };
-
-struct Color {  // layer 0 xyz_final, 1 .. S the static head, then lin0 ..
-  int n_layers, n_static, multires_view, d_view, n_a;
-  int k[CMAXL], n[CMAXL], kpad[CMAXL], b_off[CMAXL];
-  long long w_off[CMAXL];
-};
-
-struct LinEpi {  // out = acc + b, optionally through a ReLU
-  const float* b; float* out; bool relu;
-  __device__ void operator()(int p, int j, float acc) const {
-    const float z = acc + b[j];
-    out[(long long)p * WMAX + j] = relu ? fmaxf(z, 0.0f) : z;
-  }
-};
-
-struct StoreEpi {  // a partial sum
-  float* out;
-  __device__ void operator()(int p, int j, float acc) const { out[(long long)p * WMAX + j] = acc; }
-};
-
-struct SumReluEpi {  // relu(acc + partial + b)
-  const float* b; const float* part; float* out;
-  __device__ void operator()(int p, int j, float acc) const {
-    const long long o = (long long)p * WMAX + j;
-    out[o] = fmaxf(acc + part[o] + b[j], 0.0f);
-  }
-};
 
 struct RgbEpi {  // sigmoid, for the tile's real points
   const float* b; float* rgb; long long n_valid;
@@ -123,75 +96,17 @@ field_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
   }
   __syncthreads();
 
-  // xyz_final on the feature (columns 1 .. of O)
-  float* X = wk.slot(S_XYZ, p0);
-  {
-    LinEpi e{cb + col.b_off[0], X, false};
-    gemm(O + 1, col.k[0], cw + col.w_off[0], col.kpad[0], col.n[0], t.gemm, e);
-  }
-  // the static head; its last layer writes lin0's input after [x, grad]
+  // the colour head: its layers' inputs in turns in S_A / S_B (the static
+  // head's first in S_XYZ, lin0's in S_LIN_IN)
   const int S = col.n_static;
-  auto head_out = [&](int s) {
-    return s == S - 1 ? I0 + 6 : wk.slot((s & 1) ? S_B : S_A, p0);
-  };
-  {
-    float* part = wk.slot(S_PART, p0);
-    StoreEpi e1{part};
-    gemm(X, col.n[0], cw + col.w_off[1], col.kpad[1], col.n[1], t.gemm, e1);
-    SumReluEpi e2{cb + col.b_off[1], part, head_out(0)};
-    gemm(V, col.d_view + col.n_a, cw + col.w_off[1] + col.n[0], col.kpad[1], col.n[1], t.gemm,
-         e2);
+  ColorRows rows{O, V, wk.slot(S_PART, p0), {}};
+  rows.in[1] = wk.slot(S_XYZ, p0);
+  for (int i = 2; i < col.n_layers; ++i) {
+    const int turn = i <= S ? i - 2 : i - 2 - S;
+    rows.in[i] = i == 1 + S ? I0 : wk.slot((turn & 1) ? S_B : S_A, p0);
   }
-  for (int s = 1; s < S; ++s) {
-    LinEpi e{cb + col.b_off[1 + s], head_out(s), true};
-    gemm(head_out(s - 1), col.k[1 + s], cw + col.w_off[1 + s], col.kpad[1 + s], col.n[1 + s],
-         t.gemm, e);
-  }
-  // the main branch, ReLU between, sigmoid at the end
-  const float* A = I0;
-  for (int i = 1 + S; i < col.n_layers; ++i) {
-    if (i == col.n_layers - 1) {
-      RgbEpi e{cb + col.b_off[i], rgb + p0 * 3, n_valid};
-      gemm(A, col.k[i], cw + col.w_off[i], col.kpad[i], col.n[i], t.gemm, e);
-    } else {
-      float* out = wk.slot(((i - 1 - S) & 1) ? S_B : S_A, p0);
-      LinEpi e{cb + col.b_off[i], out, true};
-      gemm(A, col.k[i], cw + col.w_off[i], col.kpad[i], col.n[i], t.gemm, e);
-      A = out;
-    }
-  }
-}
-
-int make_color(int n_layers, int n_static, int multires_view, int n_a, int d_feat, const int* k,
-               const int* n, const int* kpad, const long long* w_off, const int* b_off,
-               Color* col) {
-  const int n_lin = n_layers - 1 - n_static;
-  const int d_view = 3 * (1 + 2 * multires_view);
-  if (n_layers > CMAXL || n_static < 1 || n_lin < 1 || multires_view < 0 || n_a < 0)
-    return -1;
-  col->n_layers = n_layers;
-  col->n_static = n_static;
-  col->multires_view = multires_view;
-  col->d_view = d_view;
-  col->n_a = n_a;
-  for (int i = 0; i < n_layers; ++i) {
-    int want_k = i == 0 ? d_feat : i == 1 ? n[0] + d_view + n_a : i == 1 + n_static ? 6 + n[i - 1]
-                                                                                      : n[i - 1];
-    if (k[i] != want_k || n[i] <= 0 || n[i] > NMAX || kpad[i] != ((k[i] + 15) & ~15) ||
-        w_off[i] % 8)
-      return -1;
-    col->k[i] = k[i];
-    col->n[i] = n[i];
-    col->kpad[i] = kpad[i];
-    col->w_off[i] = w_off[i];
-    col->b_off[i] = b_off[i];
-  }
-  // widths the workspace rows hold; the static head's second product starts
-  // at column n[0] of its weight, 16-byte aligned in bf16
-  if (n[0] != d_feat || d_feat + 1 > WMAX || n[0] % 8 || d_view + n_a > WMAX ||
-      6 + n[n_static] > WMAX || n[n_layers - 1] != 3)
-    return -1;
-  return 0;
+  RgbEpi e{cb + col.b_off[col.n_layers - 1], rgb + p0 * 3, n_valid};
+  color_forward<T>(cw, cb, col, rows, t.gemm, e);
 }
 
 }  // namespace
@@ -219,7 +134,7 @@ extern "C" int nw_field_fwd(const float* pts, const float* dirs, const float* ap
   if (make_net(n_layers, multires, scale, skip_mask, k, n, kpad, npad, w_off, wt_off, b_off,
                &net) ||
       make_color(c_layers, n_static, multires_view, n_a, n[n_layers - 1] - 1, ck, cn, ckpad,
-                 cw_off, cb_off, &col) ||
+                 nullptr, cw_off, nullptr, cb_off, &col) ||
       work_rows < ((n_pts + 63) / 64) * 64 || work_slots < n_layers + 3 ||
       work_slots < N_COLOR_SLOTS)
     return -1;

@@ -1,7 +1,8 @@
-// The SDF tile pass shared by K3 / K4 (sdf_vjp.cu) and K6 (field_fwd.cu):
-// the per-layer tile GEMMs with fused epilogues, the forward F and the
-// reverse sweep G for d sdf / d x over one tile of points, and the layer
-// table the entries validate.
+// The SDF tile pass shared by K3 / K4 (sdf_vjp.cu), K6 (field_fwd.cu) and
+// K7 (field_bwd.cu): the per-layer tile GEMMs with fused epilogues, the
+// forward F and the reverse sweep G for d sdf / d x over one tile of
+// points, the second-order backward of both (tile_backward), and the layer
+// table the entries validate. K8 / K9 (nerf_bg.cu) use the tile GEMMs.
 //
 // A block owns P points and runs every layer of its tile in turn as a tile
 // GEMM out[p][j] = sum_i A[p][i] M[j][i]: A comes from the block's own rows
@@ -231,7 +232,9 @@ struct RevEpi {  // r_l = d_l W_l -> a_l (and d_{l-1}), the PE part into g_pe
 
 struct Tile {
   float* xs;    // P x 3, x * scale
-  float* dxs;   // P x 3, the x-cotangent of Jpe's own x-dependence
+  float* dxs;   // P x 3, the x-cotangent of Jpe's own x-dependence, then dx
+  float* cg;    // P x 3, the cotangent on grad that tile_backward takes
+  float* aux;   // P x 3, the caller's (K7: the colour head's d_pts)
   float* pea;   // P x PE_MAX, PE rounded to the activation dtype
   float* gpe;   // P x PE_MAX, g_pe
   float* ghat;  // P x PE_MAX, Jpe c_grad
@@ -324,7 +327,9 @@ template <typename T, int P>
 __device__ void tile_smem(float* sm, Tile& t) {
   t.xs = sm;
   t.dxs = sm + P * 3;
-  t.pea = sm + P * 8;
+  t.cg = sm + P * 6;
+  t.aux = sm + P * 9;
+  t.pea = sm + P * 12;
   t.gpe = t.pea + P * PE_MAX;
   t.ghat = t.gpe + P * PE_MAX;
   t.pehat = t.ghat + P * PE_MAX;
@@ -333,10 +338,102 @@ __device__ void tile_smem(float* sm, Tile& t) {
 
 template <typename T, int P>
 size_t smem_bytes() {
-  const size_t tile = (size_t)P * (8 + 4 * PE_MAX) * sizeof(float);
+  const size_t tile = (size_t)P * (12 + 4 * PE_MAX) * sizeof(float);
   const size_t g = sizeof(T) == 4 ? (size_t)(F_P * F_KC + F_KC * NMAX) * sizeof(float)
                                   : (size_t)(M_P + NMAX) * M_ST * sizeof(bf16);
   return tile + g;
+}
+
+// ------------------------- the second-order backward -------------------------
+
+struct BupEpi {  // a_hat = r_hat_l W_l^T is the cotangent on d_l
+  float* G; const float* Anext; const float* Z; float* Rnext; float cs;
+  __device__ void operator()(int p, int j, float dhat) const {
+    const long long o = (long long)p * WMAX + j;
+    const float z = Z[o];
+    G[o] = dhat * Anext[o] * sp2(z);   // z2_l
+    Rnext[o] = dhat * sp1(z) * cs;     // r_hat_{l+1}, h part
+  }
+};
+
+struct TdEpi {  // beta = g_tot_l W_l -> gamma_{l-1} (added onto z2_{l-1}) or pe_hat
+  float* Gprev; const float* Zprev; float* pehat; int dh; float cs;
+  __device__ void operator()(int p, int i, float beta) const {
+    const long long o = (long long)p * WMAX + i;
+    if (i < dh) {
+      const float hh = beta * cs;
+      if (Gprev) Gprev[o] += hh * sp1(Zprev[o]);
+      else pehat[p * PE_MAX + i] += hh;
+    } else {
+      pehat[p * PE_MAX + i - dh] += beta * C_SKIP;
+    }
+  }
+};
+
+// After tile_forward (into a full workspace, every kind per layer): the
+// adjoint of G bottom-up (the z2 second-order cotangents), the backward of
+// F top-down with z2 injected, and the PE terms, for the cotangents c_out,
+// already in the tile's g_tot rows of the last layer (zero rows past the
+// tile's points), and c_grad in t.cg. Leaves per layer the dW factor pairs
+// (d_l, r_hat_l) and (g_tot_l, u_l) in the workspace and dx (scaled) in
+// t.dxs.
+template <typename T, int P>
+__device__ void tile_backward(const Net& net, const T* w, const Work& wk, long long p0, Tile& t) {
+  const int L = net.L, n_last = net.n[L - 1];
+  // the PE terms of the adjoint of G: ghat_pe = Jpe c_grad (also r_hat_0)
+  // and the x-dependence of Jpe; d_{L-1} = e_0
+  float* R0 = wk.at(KR, 0, p0);
+  float* DL = wk.at(KD, L - 1, p0);
+  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+    const float* xs = t.xs + p * 3;
+    for (int a = 0; a < 3; ++a) {
+      const float cg = t.cg[p * 3 + a];
+      float* gh = t.ghat + p * PE_MAX;
+      const float* gp = t.gpe + p * PE_MAX;
+      gh[a] = cg;
+      float dxs = 0.0f, f = 1.0f;
+      for (int i = 0; i < net.multires; ++i, f *= 2.0f) {
+        const float s = sinf(f * xs[a]), c = cosf(f * xs[a]);
+        gh[3 + 6 * i + a] = cg * f * c;
+        gh[6 + 6 * i + a] = -cg * f * s;
+        dxs -= (gp[3 + 6 * i + a] * s + gp[6 + 6 * i + a] * c) * (f * f) * cg;
+      }
+      t.dxs[p * 3 + a] = dxs;
+    }
+    for (int c = 0; c < net.d_pe; ++c) {
+      R0[(long long)p * WMAX + c] = t.ghat[p * PE_MAX + c];
+      t.pehat[p * PE_MAX + c] = 0.0f;
+    }
+    for (int j = 0; j < n_last; ++j) DL[(long long)p * WMAX + j] = j == 0 ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+
+  // adjoint of G, bottom-up
+  for (int l = 0; l < L - 1; ++l) {
+    BupEpi e{wk.at(KG, l, p0), wk.at(KA, l + 1, p0), wk.at(KZ, l, p0), wk.at(KR, l + 1, p0),
+             is_skip(net, l + 1) ? C_SKIP : 1.0f};
+    gemm(wk.at(KR, l, p0), net.k[l], w + net.w_off[l], net.kpad[l], net.n[l], t.gemm, e);
+    if (is_skip(net, l + 1)) {
+      float* R = wk.at(KR, l + 1, p0) + net.dh[l + 1];
+      for (int e2 = threadIdx.x; e2 < P * net.d_pe; e2 += blockDim.x) {
+        const int p = e2 / net.d_pe, c = e2 - p * net.d_pe;
+        R[(long long)p * WMAX + c] = t.ghat[p * PE_MAX + c] * C_SKIP;
+      }
+      __syncthreads();
+    }
+  }
+  // backward of F, top-down, z2 already in G
+  for (int l = L - 1; l >= 0; --l) {
+    TdEpi e{l > 0 ? wk.at(KG, l - 1, p0) : nullptr, l > 0 ? wk.at(KZ, l - 1, p0) : nullptr,
+            t.pehat, net.dh[l], is_skip(net, l) ? C_SKIP : 1.0f};
+    gemm(wk.at(KG, l, p0), net.n[l], w + net.wt_off[l], net.npad[l], net.k[l], t.gemm, e);
+  }
+  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+    float g[3];
+    pe_jac_T(t.xs + p * 3, net.multires, t.pehat + p * PE_MAX, g);
+    for (int a = 0; a < 3; ++a) t.dxs[p * 3 + a] = (t.dxs[p * 3 + a] + g[a]) * net.scale;
+  }
+  __syncthreads();
 }
 
 // ------------------------------ host side ------------------------------

@@ -36,7 +36,9 @@
 // hold the weights and all dW accumulators) has no counterpart: dW is
 // reduced outside the per-tile kernel. The wrapper runs K3 and K4 + K5 over
 // point chunks so the workspace stays a few GB.
-// The tile GEMMs, F and G live in sdf_tile.cuh, shared with K6.
+// The tile GEMMs, F and G and K4's per-tile backward (tile_backward) live in
+// sdf_tile.cuh, shared with K6 and K7; K7 and K9 reduce their dW factor
+// pairs through K5 (nw_dw_reduce, one pair per call).
 // wgmma / TMA, and keeping the residuals in shared memory, come later.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,32 +47,6 @@
 #include "sdf_tile.cuh"
 
 namespace {
-
-// ------------------------------ K4 epilogues ------------------------------
-
-struct BupEpi {  // a_hat = r_hat_l W_l^T is the cotangent on d_l
-  float* G; const float* Anext; const float* Z; float* Rnext; float cs;
-  __device__ void operator()(int p, int j, float dhat) const {
-    const long long o = (long long)p * WMAX + j;
-    const float z = Z[o];
-    G[o] = dhat * Anext[o] * sp2(z);   // z2_l
-    Rnext[o] = dhat * sp1(z) * cs;     // r_hat_{l+1}, h part
-  }
-};
-
-struct TdEpi {  // beta = g_tot_l W_l -> gamma_{l-1} (added onto z2_{l-1}) or pe_hat
-  float* Gprev; const float* Zprev; float* pehat; int dh; float cs;
-  __device__ void operator()(int p, int i, float beta) const {
-    const long long o = (long long)p * WMAX + i;
-    if (i < dh) {
-      const float hh = beta * cs;
-      if (Gprev) Gprev[o] += hh * sp1(Zprev[o]);
-      else pehat[p * PE_MAX + i] += hh;
-    } else {
-      pehat[p * PE_MAX + i - dh] += beta * C_SKIP;
-    }
-  }
-};
 
 // K3
 template <typename T, int P, int THREADS>
@@ -107,77 +83,32 @@ sdf_vjp_bwd_kernel(const float* __restrict__ pts, long long n_pts, const float* 
   const long long n_valid = n_pts - p0;
   tile_forward<T, P>(pts + p0 * 3, n_valid, net, w, b, wk, p0, t, nullptr);
   __syncthreads();
-
-  // the PE terms of the adjoint of G: ghat_pe = Jpe c_grad (also r_hat_0)
-  // and the x-dependence of Jpe; d_{L-1} = e_0 and g_tot_{L-1} = c_out
-  float* R0 = wk.at(KR, 0, p0);
-  float* DL = wk.at(KD, L - 1, p0);
+  // the cotangents into the tile: g_tot_{L-1} = c_out, c_grad
   float* GL = wk.at(KG, L - 1, p0);
   for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const float* xs = t.xs + p * 3;
-    for (int a = 0; a < 3; ++a) {
-      const float cg = p < n_valid ? c_grad[(p0 + p) * 3 + a] : 0.0f;
-      float* gh = t.ghat + p * PE_MAX;
-      const float* gp = t.gpe + p * PE_MAX;
-      gh[a] = cg;
-      float dxs = 0.0f, f = 1.0f;
-      for (int i = 0; i < net.multires; ++i, f *= 2.0f) {
-        const float s = sinf(f * xs[a]), c = cosf(f * xs[a]);
-        gh[3 + 6 * i + a] = cg * f * c;
-        gh[6 + 6 * i + a] = -cg * f * s;
-        dxs -= (gp[3 + 6 * i + a] * s + gp[6 + 6 * i + a] * c) * (f * f) * cg;
-      }
-      t.dxs[p * 3 + a] = dxs;
-    }
-    for (int c = 0; c < net.d_pe; ++c) {
-      R0[(long long)p * WMAX + c] = t.ghat[p * PE_MAX + c];
-      t.pehat[p * PE_MAX + c] = 0.0f;
-    }
-    for (int j = 0; j < n_last; ++j) {
-      DL[(long long)p * WMAX + j] = j == 0 ? 1.0f : 0.0f;
+    for (int a = 0; a < 3; ++a) t.cg[p * 3 + a] = p < n_valid ? c_grad[(p0 + p) * 3 + a] : 0.0f;
+    for (int j = 0; j < n_last; ++j)
       GL[(long long)p * WMAX + j] = p < n_valid ? c_out[(p0 + p) * n_last + j] : 0.0f;
-    }
   }
   __syncthreads();
-
-  // adjoint of G, bottom-up
-  for (int l = 0; l < L - 1; ++l) {
-    BupEpi e{wk.at(KG, l, p0), wk.at(KA, l + 1, p0), wk.at(KZ, l, p0), wk.at(KR, l + 1, p0),
-             is_skip(net, l + 1) ? C_SKIP : 1.0f};
-    gemm(wk.at(KR, l, p0), net.k[l], w + net.w_off[l], net.kpad[l], net.n[l], t.gemm, e);
-    if (is_skip(net, l + 1)) {
-      float* R = wk.at(KR, l + 1, p0) + net.dh[l + 1];
-      for (int e2 = threadIdx.x; e2 < P * net.d_pe; e2 += blockDim.x) {
-        const int p = e2 / net.d_pe, c = e2 - p * net.d_pe;
-        R[(long long)p * WMAX + c] = t.ghat[p * PE_MAX + c] * C_SKIP;
-      }
-      __syncthreads();
-    }
-  }
-  // backward of F, top-down, z2 already in G
-  for (int l = L - 1; l >= 0; --l) {
-    TdEpi e{l > 0 ? wk.at(KG, l - 1, p0) : nullptr, l > 0 ? wk.at(KZ, l - 1, p0) : nullptr,
-            t.pehat, net.dh[l], is_skip(net, l) ? C_SKIP : 1.0f};
-    gemm(wk.at(KG, l, p0), net.n[l], w + net.wt_off[l], net.npad[l], net.k[l], t.gemm, e);
-  }
-  for (int p = threadIdx.x; p < P && p < n_valid; p += blockDim.x) {
-    float g[3];
-    const float* ph = t.pehat + p * PE_MAX;
-    pe_jac_T(t.xs + p * 3, net.multires, ph, g);
-    for (int a = 0; a < 3; ++a) dx[(p0 + p) * 3 + a] = (t.dxs[p * 3 + a] + g[a]) * net.scale;
-  }
+  tile_backward<T, P>(net, w, wk, p0, t);
+  for (int p = threadIdx.x; p < P && p < n_valid; p += blockDim.x)
+    for (int a = 0; a < 3; ++a) dx[(p0 + p) * 3 + a] = t.dxs[p * 3 + a];
 }
 
 // ------------------------------ K5 ------------------------------
-// dW[r][c] += sum_p X[p][r] Y[p][c] over the pairs (X, Y) = (d, r_hat) and
-// (g_tot, u) of one layer, for the block's 64 x 64 tile and point range;
-// db[r] += sum_p g_tot[p][r] in the blocks of the first column tile.
+// dW[r][c] += sum_p X[p][r] Y[p][c] over one or two factor pairs, for the
+// block's 64 x 64 tile and point range: an SDF layer's (d, r_hat) and
+// (g_tot, u), or a colour or background layer's (cotangent, input) from K7
+// or K9; db[r] += sum_p X[p][r] of the last pair (g_tot, or the cotangent)
+// in the blocks of the first column tile, unless db is null. Rows are WMAX
+// floats apart; dW rows ldw.
 
 constexpr int R_T = 64;
 
 __device__ void colsum_db(const float* G, int n, long long lo, long long hi, float* db) {
   const int r = blockIdx.x * R_T + threadIdx.x;
-  if (blockIdx.y != 0 || threadIdx.x >= R_T || r >= n) return;
+  if (!db || blockIdx.y != 0 || threadIdx.x >= R_T || r >= n) return;
   float s = 0.0f;
   for (long long p = lo; p < hi; ++p) s += G[p * WMAX + r];
   atomicAdd(db + r, s);
@@ -185,18 +116,19 @@ __device__ void colsum_db(const float* G, int n, long long lo, long long hi, flo
 
 constexpr int RF_THREADS = 256, RF_PC = 16;
 
+template <int PAIRS>
 __global__ void __launch_bounds__(RF_THREADS)
-reduce_f32_kernel(const float* D, const float* R, const float* G, const float* U, int n, int k,
-                  long long n_rows, long long per, float* dW, float* db) {
+reduce_f32_kernel(const float* X0, const float* Y0, const float* X1, const float* Y1, int n,
+                  int k, long long n_rows, long long per, float* dW, int ldw, float* db) {
   __shared__ __align__(16) float Xs[RF_PC][R_T];
   __shared__ __align__(16) float Ys[RF_PC][R_T];
   const int tid = threadIdx.x, tn = tid >> 4, tk = tid & 15;
   const int r0 = blockIdx.x * R_T, c0 = blockIdx.y * R_T;
   const long long lo = blockIdx.z * per, hi = min(n_rows, lo + per);
   float acc[4][4] = {};
-  for (int pair = 0; pair < 2; ++pair) {
-    const float* X = pair ? G : D;
-    const float* Y = pair ? U : R;
+  for (int pair = 0; pair < PAIRS; ++pair) {
+    const float* X = pair ? X1 : X0;
+    const float* Y = pair ? Y1 : Y0;
     for (long long q = lo; q < hi; q += RF_PC) {
       __syncthreads();
       for (int e = tid; e < RF_PC * R_T; e += RF_THREADS) {
@@ -221,16 +153,17 @@ reduce_f32_kernel(const float* D, const float* R, const float* G, const float* U
   for (int i = 0; i < 4; ++i)
     for (int j = 0; j < 4; ++j) {
       const int r = r0 + 4 * tn + i, c = c0 + 4 * tk + j;
-      if (r < n && c < k) atomicAdd(dW + (long long)r * k + c, acc[i][j]);
+      if (r < n && c < k) atomicAdd(dW + (long long)r * ldw + c, acc[i][j]);
     }
-  colsum_db(G, n, lo, hi, db);
+  colsum_db(PAIRS == 2 ? X1 : X0, n, lo, hi, db);
 }
 
 constexpr int RB_THREADS = 128, RB_PC = 32, RB_ST = RB_PC + 8;
 
+template <int PAIRS>
 __global__ void __launch_bounds__(RB_THREADS)
-reduce_bf16_kernel(const float* D, const float* R, const float* G, const float* U, int n, int k,
-                   long long n_rows, long long per, float* dW, float* db) {
+reduce_bf16_kernel(const float* X0, const float* Y0, const float* X1, const float* Y1, int n,
+                   int k, long long n_rows, long long per, float* dW, int ldw, float* db) {
   // transposed staging: row = output index, the points contiguous, so the
   // fragments load as in the tile GEMM (A = X^T row-major, B = Y^T as N x K)
   __shared__ __align__(16) bf16 Xs[R_T * RB_ST];
@@ -240,9 +173,9 @@ reduce_bf16_kernel(const float* D, const float* R, const float* G, const float* 
   const int r0 = blockIdx.x * R_T, c0 = blockIdx.y * R_T;
   const long long lo = blockIdx.z * per, hi = min(n_rows, lo + per);
   float acc[2][4][4] = {};
-  for (int pair = 0; pair < 2; ++pair) {
-    const float* X = pair ? G : D;
-    const float* Y = pair ? U : R;
+  for (int pair = 0; pair < PAIRS; ++pair) {
+    const float* X = pair ? X1 : X0;
+    const float* Y = pair ? Y1 : Y0;
     for (long long q = lo; q < hi; q += RB_PC) {
       __syncthreads();
       for (int e = tid; e < RB_PC * R_T; e += RB_THREADS) {
@@ -277,9 +210,9 @@ reduce_bf16_kernel(const float* D, const float* R, const float* G, const float* 
       for (int e = 0; e < 4; ++e) {
         const int r = r0 + row0 + 16 * mi + (lane >> 2) + (e >> 1) * 8;
         const int c = c0 + col0 + 8 * ni + 2 * (lane & 3) + (e & 1);
-        if (r < n && c < k) atomicAdd(dW + (long long)r * k + c, acc[mi][ni][e]);
+        if (r < n && c < k) atomicAdd(dW + (long long)r * ldw + c, acc[mi][ni][e]);
       }
-  colsum_db(G, n, lo, hi, db);
+  colsum_db(PAIRS == 2 ? X1 : X0, n, lo, hi, db);
 }
 
 }  // namespace
@@ -351,8 +284,33 @@ extern "C" int nw_sdf_vjp_bwd(const float* pts, long long n_pts, const float* c_
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+int launch_reduce(const float* X0, const float* Y0, const float* X1, const float* Y1, int n,
+                  int k, long long n_pts, int bf16_act, float* dW, int ldw, float* db,
+                  void* stream) {
+  const unsigned gx = (n + R_T - 1) / R_T, gy = (k + R_T - 1) / R_T;
+  long long splits = (1024 + gx * gy - 1) / (gx * gy);
+  splits = splits < 1 ? 1 : splits;
+  splits = splits > (n_pts + 255) / 256 ? (n_pts + 255) / 256 : splits;
+  const long long per = (n_pts + splits - 1) / splits;
+  dim3 grid(gx, gy, (unsigned)splits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_act && X1)
+    reduce_bf16_kernel<2><<<grid, RB_THREADS, 0, s>>>(X0, Y0, X1, Y1, n, k, n_pts, per, dW, ldw, db);
+  else if (bf16_act)
+    reduce_bf16_kernel<1><<<grid, RB_THREADS, 0, s>>>(X0, Y0, X1, Y1, n, k, n_pts, per, dW, ldw, db);
+  else if (X1)
+    reduce_f32_kernel<2><<<grid, RF_THREADS, 0, s>>>(X0, Y0, X1, Y1, n, k, n_pts, per, dW, ldw, db);
+  else
+    reduce_f32_kernel<1><<<grid, RF_THREADS, 0, s>>>(X0, Y0, X1, Y1, n, k, n_pts, per, dW, ldw, db);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // Adds layer l's dW (n x k, row-major) and db (n) over the first n_pts rows
-// of the backward workspace.
+// of the backward workspace (K4's, or the SDF part of K7's).
 extern "C" int nw_sdf_vjp_reduce(const float* work, long long work_rows, int n_layers, int layer,
                                  int n, int k, long long n_pts, int bf16_act, float* dW,
                                  float* db, void* stream) {
@@ -365,16 +323,15 @@ extern "C" int nw_sdf_vjp_reduce(const float* work, long long work_rows, int n_l
   const float* R = work + (long long)(KR * n_layers + layer) * lw;
   const float* G = work + (long long)(KG * n_layers + layer) * lw;
   const float* U = work + (long long)(KU * n_layers + layer) * lw;
-  const unsigned gx = (n + R_T - 1) / R_T, gy = (k + R_T - 1) / R_T;
-  long long splits = (1024 + gx * gy - 1) / (gx * gy);
-  splits = splits < 1 ? 1 : splits;
-  splits = splits > (n_pts + 255) / 256 ? (n_pts + 255) / 256 : splits;
-  const long long per = (n_pts + splits - 1) / splits;
-  dim3 grid(gx, gy, (unsigned)splits);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16_act)
-    reduce_bf16_kernel<<<grid, RB_THREADS, 0, s>>>(D, R, G, U, n, k, n_pts, per, dW, db);
-  else
-    reduce_f32_kernel<<<grid, RF_THREADS, 0, s>>>(D, R, G, U, n, k, n_pts, per, dW, db);
-  return (int)cudaGetLastError();
+  return launch_reduce(D, R, G, U, n, k, n_pts, bf16_act, dW, k, db, stream);
+}
+
+// One factor pair: dW[r][c] (row stride ldw) += sum_p x_p[r] y_p[c] and,
+// unless db is null, db[r] += sum_p x_p[r], over n_pts rows of WMAX floats
+// from x and from y.
+extern "C" int nw_dw_reduce(const float* x, const float* y, int n, int k, long long n_pts,
+                            int bf16_act, float* dW, int ldw, float* db, void* stream) {
+  if (n <= 0 || k <= 0 || n > WMAX || k > WMAX || ldw < k) return -1;
+  if (n_pts <= 0) return 0;
+  return launch_reduce(x, y, nullptr, nullptr, n, k, n_pts, bf16_act, dW, ldw, db, stream);
 }

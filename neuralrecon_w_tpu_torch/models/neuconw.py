@@ -11,10 +11,13 @@ the reference builds but never runs (the wrapper-level
 The SDF gradient modes (``TPU.SDF_GRAD_MODE``): 'vjp', one autograd
 reverse pass, differentiated again by autograd in training (the double
 backward, create_graph=True); 'pallas', the SDF-VJP kernels K3 / K4 / K5
-(``ops/sdf_field_vjp.py``; their plain version on CPU tensors); and
-'pallas_hybrid', the plain forward with the kernels' backward. 'fwd' and
-the fused field kernel with its backward, 'pallas_field' (kernel 5), are
-not ported yet (ROADMAP.md, Queue 1 and Queue 2 row 5).
+(``ops/sdf_field_vjp.py``; their plain version on CPU tensors);
+'pallas_hybrid', the plain forward with the kernels' backward; and
+'pallas_field', the whole field (SDF, gradient and colour head, per sample)
+through the fused field kernels, K6 forward and K7 + K5 backward
+(``ops/field_train.py``). 'fwd' is not ported yet (ROADMAP.md, Queue 1).
+``TPU.FUSED_BG`` (``bg_mode`` 'pallas') sends the background through the
+fused NeRF++ kernels K8 / K9 (``ops/nerf_bg_fused.py``).
 
 Gradient-free colour probes go through kernel 3's port instead: mesh
 vertex colouring (``parallel/sweep.sharded_rgb_sweep``) calls
@@ -36,10 +39,7 @@ from .color import RenderingNetwork, apply_color
 from .nerf_bg import NeRF, apply_nerf_bg
 from .sdf import SDFNetwork, act_dtype_of, sdf_value, sdf_value_feat_grad
 
-_NOT_PORTED = {
-    "fwd": "the 'fwd' grad mode (ROADMAP.md, Queue 1)",
-    "pallas_field": "kernel 5, the fused field kernel (ROADMAP.md, Queue 2 row 5)",
-}
+_NOT_PORTED = {"fwd": "the 'fwd' grad mode (ROADMAP.md, Queue 1)"}
 
 
 class SingleVarianceNetwork(nn.Module):
@@ -75,6 +75,14 @@ def field_sdf(model: NeuconWField, fc: FieldConfig, pts: torch.Tensor) -> torch.
     return sdf_value(model.neuconw.sdf_net, fc.sdf_cfg, pts, act_dtype_of(fc.act_dtype))
 
 
+def _per_sample(t, n_samples: int):
+    """Per-ray rows (R, d) repeated for each of a ray's n_samples samples;
+    autograd sums their cotangents back per ray."""
+    if t is None:
+        return None
+    return t[:, None, :].expand(t.shape[0], n_samples, t.shape[-1]).reshape(-1, t.shape[-1])
+
+
 def field_forward(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded,
                   n_samples=None, create_graph: bool = False):
     """Foreground field at flattened samples: rgb (N, 3), inv_s, sdf
@@ -86,6 +94,14 @@ def field_forward(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded,
     if fc.grad_mode in _NOT_PORTED:
         raise NotImplementedError(f"SDF_GRAD_MODE={fc.grad_mode!r}: {_NOT_PORTED[fc.grad_mode]} "
                                   "is not ported yet")
+    if fc.grad_mode == "pallas_field":
+        # the fused kernels take per-sample dirs and a (neuconw.py:132-149)
+        from ..ops.field_train import field_rgb_sdf_grad_kernel
+
+        if n_samples is not None:
+            dirs, a_embedded = _per_sample(dirs, n_samples), _per_sample(a_embedded, n_samples)
+        rgb, sdf, grad = field_rgb_sdf_grad_kernel(model, fc, pts, dirs, a_embedded)
+        return rgb, inv_s(model), sdf, grad
     if fc.grad_mode in ("pallas", "pallas_hybrid"):
         from ..ops.sdf_field_vjp import sdf_value_feat_grad_kernel
 
@@ -112,9 +128,16 @@ def field_rgb(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded) -> to
 
 def field_background(model: NeuconWField, fc: FieldConfig, pts4, dirs, a_embedded,
                      n_samples=None):
-    """Background NeRF at (N, 4) inverted-sphere coordinates."""
-    if fc.bg_mode != "xla":
-        raise NotImplementedError("the fused background kernel is not ported")
+    """Background NeRF at (N, 4) inverted-sphere coordinates; with
+    bg_mode 'pallas' through the fused kernels (``neuconw.py:192-213``)."""
     a = a_embedded if fc.encode_a_bg else None
+    if fc.bg_mode == "pallas":
+        from ..ops.nerf_bg_fused import nerf_bg_kernel
+
+        if n_samples is not None:
+            dirs, a = _per_sample(dirs, n_samples), _per_sample(a, n_samples)
+        return nerf_bg_kernel(model.nerf, fc.encode_a_bg, pts4, dirs, a, fc.act_dtype)
+    if fc.bg_mode != "xla":
+        raise ValueError(f"unknown bg_mode {fc.bg_mode!r}")
     return apply_nerf_bg(model.nerf, fc.encode_a_bg, pts4, dirs, a,
                          act_dtype=act_dtype_of(fc.act_dtype), n_samples=n_samples)

@@ -36,8 +36,16 @@ _SIGNATURES = {
     "nw_sdf_vjp_bwd": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P,
                        _P, _P, _LL, _P, _P],
     "nw_sdf_vjp_reduce": [_P, _LL, _I, _I, _I, _I, _LL, _I, _P, _P, _P],
+    "nw_dw_reduce": [_P, _P, _I, _I, _LL, _I, _P, _I, _P, _P],
     "nw_field_fwd": [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P,
                      _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _P, _P],
+    "nw_field_bwd": [_P, _P, _P, _P, _LL, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P,
+                     _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P,
+                     _P, _P],
+    "nw_bg_fwd": [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                  _I, _P, _P, _P],
+    "nw_bg_bwd": [_P, _P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                  _LL, _I, _P, _P, _P, _P],
 }
 
 

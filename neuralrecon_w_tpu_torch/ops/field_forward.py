@@ -32,7 +32,7 @@ from ..models.layers import layer_weight
 from ..models.sdf import act_dtype_of
 from . import field_vjp_math as fvm
 from .build import check, kernels, stream_handle
-from .sdf_field_vjp import VJPPack, _net_args, pack_vjp_weights
+from .sdf_field_vjp import VJPPack, _net_args, pack_layers, pack_vjp_weights
 
 WMAX = 528  # the workspace's row stride (csrc/sdf_tile.cuh)
 CHUNK = 65536  # points per K6 launch: the colour sweep's chunk
@@ -42,8 +42,10 @@ _COLOR_SLOTS = 7  # workspace rows per point the colour head uses (csrc/field_fw
 
 class ColorPack(NamedTuple):
     """The colour net's effective weights, layer by layer xyz_final,
-    static0.., lin0.., each zero-padded to (round_up(n, 16),
-    round_up(k, 16)) in the activation dtype, k contiguous; biases f32."""
+    static0.., lin0.., packed as ``sdf_field_vjp.pack_layers`` packs: W
+    zero-padded to (npad, kpad) = (round_up(n, 16), round_up(k, 16)) at
+    w_off and W^T at wt_off (K7's transposed products), in the activation
+    dtype; biases f32."""
 
     w: torch.Tensor
     b: torch.Tensor
@@ -53,13 +55,14 @@ class ColorPack(NamedTuple):
     k: tuple
     n: tuple
     kpad: tuple
+    npad: tuple
     w_off: tuple
+    wt_off: tuple
     b_off: tuple
 
     def layer(self, i: int):
         """(W (n, k) in the activation dtype, b (n,) f32) of layer i."""
-        k, kpad, n = self.k[i], self.kpad[i], self.n[i]
-        npad = _r16(n)
+        k, kpad, n, npad = self.k[i], self.kpad[i], self.n[i], self.npad[i]
         w = self.w[self.w_off[i]:self.w_off[i] + npad * kpad].view(npad, kpad)[:n, :k]
         return w, self.b[self.b_off[i]:self.b_off[i] + n]
 
@@ -69,8 +72,20 @@ class FieldPack(NamedTuple):
     color: ColorPack
 
 
-def _r16(x: int) -> int:
-    return (x + 15) // 16 * 16
+def color_layers(net: RenderingNetwork) -> list:
+    """The colour net's linears in packing order: xyz_final, static0..,
+    lin0.."""
+    if not hasattr(net, "xyz_encoding_final"):
+        raise ValueError("the fused field kernels take the colour net with the appearance head")
+    return ([net.xyz_encoding_final]
+            + [net.static_encoding.layer(s) for s in range(net.static_encoding.n_layers)]
+            + [net.layer(l) for l in range(net.n_layers)])
+
+
+def pack_color_tensors(weights, biases, n_static: int, multires_view: int, act) -> ColorPack:
+    """Effective colour weights (W (d_out, d_in), b) in packing order."""
+    return ColorPack(n_static=n_static, multires_view=multires_view,
+                     **pack_layers([w.float() for w in weights], biases, act))
 
 
 @torch.no_grad()
@@ -79,30 +94,10 @@ def pack_color_weights(net: RenderingNetwork, color_cfg_items: tuple, act) -> Co
     (``pallas_field.py:38-74``): the weight norm of the main branch taken
     in float32, then each layer padded to multiples of 16 (the TPU pads to
     128 lanes); the padding stays zero."""
-    cfg = dict(color_cfg_items)
-    if not hasattr(net, "xyz_encoding_final"):
-        raise ValueError("the fused field kernel takes the colour net with the appearance head")
-    layers = ([net.xyz_encoding_final]
-              + [net.static_encoding.layer(s) for s in range(net.static_encoding.n_layers)]
-              + [net.layer(l) for l in range(net.n_layers)])
-    ws, bs, k, n, kpad, w_off, b_off = [], [], [], [], [], [], []
-    wo = bo = 0
-    for layer in layers:
-        w = layer_weight(layer).float()
-        d_out, d_in = w.shape
-        w_p = torch.zeros(_r16(d_out), _r16(d_in), dtype=torch.float32, device=w.device)
-        w_p[:d_out, :d_in] = w
-        ws.append(w_p.reshape(-1))
-        bs.append(layer.bias.float())
-        k.append(d_in), n.append(d_out), kpad.append(_r16(d_in))
-        w_off.append(wo), b_off.append(bo)
-        wo += w_p.numel()
-        bo += d_out
-    return ColorPack(
-        w=torch.cat(ws).to(act_dtype_of(act)).contiguous(), b=torch.cat(bs).contiguous(),
-        act=act_dtype_of(act), n_static=net.static_encoding.n_layers,
-        multires_view=int(cfg["multires_view"]), k=tuple(k), n=tuple(n), kpad=tuple(kpad),
-        w_off=tuple(w_off), b_off=tuple(b_off))
+    layers = color_layers(net)
+    return pack_color_tensors([layer_weight(m) for m in layers], [m.bias for m in layers],
+                              net.static_encoding.n_layers,
+                              int(dict(color_cfg_items)["multires_view"]), act)
 
 
 def pack_field(model, fc) -> FieldPack:
@@ -147,19 +142,27 @@ def field_forward_plain(pack: FieldPack, pts, dirs, a):
     return torch.sigmoid(x), out[:, 0] / sp.scale, grad
 
 
+def check_rows(kernel: str, dev, n_pts: int, *named) -> None:
+    """Raises unless each (name, tensor, width) is an (n_pts, width) float32
+    tensor on the CUDA device dev (width None: any)."""
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} takes CUDA tensors; got tensors on {dev}")
+    for name, t, width in named:
+        if t.dim() != 2 or t.shape[0] != n_pts or t.dtype != torch.float32 or t.device != dev \
+                or (width is not None and t.shape[1] != width):
+            raise ValueError(f"{kernel}: {name} expected ({n_pts}, {width or 'n'}) float32 on "
+                             f"{dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
 def field_forward_kernel(pack: FieldPack, pts, dirs, a):
     """K6 on CUDA tensors, one launch per CHUNK points: (rgb, sdf, grad)."""
     sp, cp = pack.sdf, pack.color
     dev = pts.device
-    if dev.type != "cuda" or sp.w.device != dev or cp.w.device != dev:
+    if sp.w.device != dev or cp.w.device != dev:
         raise ValueError(f"K6 takes CUDA tensors on one device; points on {dev}, "
                          f"weights on {sp.w.device} / {cp.w.device}")
     n_pts = pts.shape[0]
-    for name, t, width in (("pts", pts, 3), ("dirs", dirs, 3), ("a", a, None)):
-        if t.dim() != 2 or t.shape[0] != n_pts or t.dtype != torch.float32 or t.device != dev \
-                or (width is not None and t.shape[1] != width):
-            raise ValueError(f"{name}: expected ({n_pts}, {width or 'n_a'}) float32 on {dev}, "
-                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    check_rows("K6", dev, n_pts, ("pts", pts, 3), ("dirs", dirs, 3), ("a", a, None))
     pts, dirs, a = pts.contiguous(), dirs.contiguous(), a.contiguous()
     rgb = torch.empty(n_pts, 3, dtype=torch.float32, device=dev)
     sdf = torch.empty(n_pts, dtype=torch.float32, device=dev)

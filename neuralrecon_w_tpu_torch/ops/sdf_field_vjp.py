@@ -59,7 +59,11 @@ def _r16(x: int) -> int:
 
 
 @torch.no_grad()
-def pack_vjp_weights(weights, biases, cfg: dict, act) -> VJPPack:
+def pack_layers(weights, biases, act) -> dict:
+    """Linear layers (W (d_out, d_in), b) packed for the tile GEMMs: per
+    layer W as (npad, kpad) at w_off, then W^T as (kpad, npad) at wt_off,
+    zero-padded to multiples of 16, flat in the activation dtype; biases
+    float32 at b_off. Returns the VJPPack fields of that layout."""
     ws, bs, k, n, kpad, npad, w_off, wt_off, b_off = [], [], [], [], [], [], [], [], []
     wo = bo = 0
     for w, b in zip(weights, biases):
@@ -73,12 +77,15 @@ def pack_vjp_weights(weights, biases, cfg: dict, act) -> VJPPack:
         w_off.append(wo), wt_off.append(wo + np_ * kp), b_off.append(bo)
         wo += 2 * np_ * kp
         bo += d_out
-    return VJPPack(
-        w=torch.cat(ws).to(act_dtype_of(act)).contiguous(), b=torch.cat(bs).contiguous(),
-        act=act_dtype_of(act), multires=int(cfg["multires"]), scale=float(cfg["scale"]),
-        skip_mask=sum(1 << s for s in cfg["skip_in"]), k=tuple(k), n=tuple(n),
-        kpad=tuple(kpad), npad=tuple(npad), w_off=tuple(w_off), wt_off=tuple(wt_off),
-        b_off=tuple(b_off))
+    return dict(w=torch.cat(ws).to(act_dtype_of(act)).contiguous(), b=torch.cat(bs).contiguous(),
+                act=act_dtype_of(act), k=tuple(k), n=tuple(n), kpad=tuple(kpad),
+                npad=tuple(npad), w_off=tuple(w_off), wt_off=tuple(wt_off), b_off=tuple(b_off))
+
+
+def pack_vjp_weights(weights, biases, cfg: dict, act) -> VJPPack:
+    return VJPPack(multires=int(cfg["multires"]), scale=float(cfg["scale"]),
+                   skip_mask=sum(1 << s for s in cfg["skip_in"]),
+                   **pack_layers(weights, biases, act))
 
 
 def _net_args(pk: VJPPack):
@@ -141,7 +148,7 @@ sdf_vjp_fwd.launches = 0
 
 def dw_reduce(pk: VJPPack, work, rows: int, layer: int, n_pts: int, dW, db) -> None:
     """K5: adds layer ``layer``'s dW (n, k) and db (n) over the first n_pts
-    rows of K4's workspace."""
+    rows of K4's workspace (or of K7's, whose SDF part is laid out alike)."""
     err = kernels().nw_sdf_vjp_reduce(
         work.data_ptr(), rows, len(pk.k), layer, pk.n[layer], pk.k[layer], n_pts,
         int(pk.act == torch.bfloat16), dW.data_ptr(), db.data_ptr(), stream_handle(dW.device))
@@ -150,6 +157,24 @@ def dw_reduce(pk: VJPPack, work, rows: int, layer: int, n_pts: int, dW, db) -> N
 
 
 dw_reduce.launches = 0
+
+
+def dw_reduce_rows(work, x_off: int, y_off: int, n: int, k: int, n_pts: int, act, dW,
+                   db=None) -> None:
+    """K5 on one factor pair: adds sum_p x_p^T y_p into dW (n, k columns of a
+    float32 matrix whose rows may be wider, as a column slice of a larger
+    dW is) and sum_p x_p into db (skipped when None), over n_pts workspace
+    rows of WMAX floats, x_p starting at element x_off of ``work`` and y_p
+    at y_off. The rows are rounded to the activation dtype as in K5."""
+    if dW.dtype != torch.float32 or dW.stride(1) != 1 or dW.shape != (n, k) or (
+            db is not None and (db.shape != (n,) or not db.is_contiguous())):
+        raise ValueError(f"dw_reduce_rows: dW {tuple(dW.shape)} / db for ({n}, {k})")
+    err = kernels().nw_dw_reduce(
+        work.data_ptr() + 4 * x_off, work.data_ptr() + 4 * y_off, n, k, n_pts,
+        int(act_dtype_of(act) == torch.bfloat16), dW.data_ptr(), dW.stride(0),
+        0 if db is None else db.data_ptr(), stream_handle(dW.device))
+    check("nw_dw_reduce", err)
+    dw_reduce.launches += 1
 
 
 def sdf_vjp_bwd(weights, biases, cfg: dict, x, c_out, c_grad, act="float32"):

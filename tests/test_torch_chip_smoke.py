@@ -105,6 +105,10 @@ outs = [render_image(make_render_fn(fc, rc), model, scene, frames[0], np.zeros(4
                      np.zeros(48, np.int64), wh, 32, fine, sfm)]
 assert cs.check_frames(outs, frames[:1], "steady", wh) == []
 assert cs.path_check(model, fc, rc, scene, frames[1], fine, sfm, "steady") == []
+# the fused field and background: the served chunk held to the default mode's
+fused = cs.train_config(cfg, "pallas_field")
+assert (fused.grad_mode, fused.bg_mode) == ("pallas_field", "pallas")
+assert cs.path_check(model, fused, rc, scene, frames[1], fine, sfm, "steady fused", ref_fc=fc) == []
 assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
 print("ok")
 """
@@ -136,7 +140,6 @@ launches, fails = cs.extraction_phase(model, fc, root, n_points=3000, level=6, e
                                       sfm_voxel=0.1875)
 assert fails == [], fails
 assert set(launches) == {{"sdf_mlp", "field_fwd"}}
-print(cs.pending_kernel_bounds(model, fc, 4096, 1024))
 assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
 print("ok")
 """
@@ -144,13 +147,50 @@ print("ok")
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = proc.stdout
     assert "mesh: " in out and "vertex colours at " in out and out.strip().endswith("ok")
-    assert "kernel 5 at 4096 pts" in out and "kernel 6 at 1024 pts" in out
+
+
+def test_chip_smoke_kernel_bounds():
+    """The bounds of kernel 5's and kernel 6's ports at the path's shapes:
+    every entry bound by operations at the brandenburg width, with bf16 at
+    least 14x below f32 (989 against 67 TFLOP/s), and linear in the points."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
+    from neuralrecon_w_tpu_torch.ops import field_train as ft
+    from neuralrecon_w_tpu_torch.ops import nerf_bg_fused as bgf
+    from neuralrecon_w_tpu_torch.tools.convert import init_field
+
+    fc = field_config_from_cfg(load_cfg(cs.CONFIG))
+    model = init_field(fc, torch.Generator().manual_seed(0), "cpu").requires_grad_(False)
+    wb = [t.detach() for t in ft.field_weights(model)]
+    layers = bgf.bg_layers(model.nerf, True)
+    bounds = {}
+    for act in ("float32", "bfloat16"):
+        pack = ft.pack_field_tensors(ft.field_spec(model, fc._replace(act_dtype=act)), wb)
+        pk = bgf.pack_bg_weights([m.weight for m in layers], [m.bias for m in layers], act)
+        bounds[act] = (cs.field_train_bound(pack, 245760), cs.bg_bound(pk, 90112, fc.n_a),
+                       cs.field_train_bound(pack, 2 * 245760))
+    for act, (field, bg, double) in bounds.items():
+        assert set(field) == {"field_fwd", "field_bwd", "dw_reduce"}
+        assert set(bg) == {"nerf_bg_fwd", "nerf_bg_bwd", "dw_reduce"}
+        for b in (field["field_fwd"], field["field_bwd"], bg["nerf_bg_fwd"], bg["nerf_bg_bwd"]):
+            assert b["bound_by"] == "operations" and b["bound_ms"] > 0
+        # the backward recomputes the forward and runs its transpose
+        assert field["field_bwd"]["bound_ms"] == pytest.approx(2 * field["field_fwd"]["bound_ms"])
+        assert bg["nerf_bg_bwd"]["bound_ms"] == pytest.approx(2 * bg["nerf_bg_fwd"]["bound_ms"])
+        assert double["field_bwd"]["bound_ms"] == pytest.approx(2 * field["field_bwd"]["bound_ms"],
+                                                                rel=1e-3)
+    for i in range(2):
+        for k in bounds["float32"][i]:
+            assert bounds["float32"][i][k]["bound_ms"] > 14 * bounds["bfloat16"][i][k]["bound_ms"] \
+                or bounds["bfloat16"][i][k]["bound_by"] == "bytes"
 
 
 def test_chip_smoke_training_without_jax_package():
-    """The training phases at a tiny width on the CPU, the SDF-VJP kernels'
-    plain versions standing in: the ring-camera ray cache through the port's
-    RayPool, steps in both grad modes, the parity of one step, and no JAX."""
+    """The training phases at a tiny width on the CPU, the kernels' plain
+    versions standing in: the ring-camera ray cache through the port's
+    RayPool, steps in the three modes ('pallas', 'vjp', 'pallas_field' with
+    FUSED_BG), the parity of one step of each kernel mode, and no JAX."""
     code = """
 import sys
 import numpy as np
@@ -181,12 +221,19 @@ state = init_state(cs.train_config(cfg, "pallas"), spec, torch.Generator().manua
 scene, _, fine_host, _ = cs.make_scene("cpu", fine_level=5, sfm_voxel=0.2, wh=(4, 3),
                                        n_points=2000)
 before = [p.detach().clone() for p in state.model.parameters()]
-rps, aux, fails = cs.training_phase(cfg, state, scene, pool, None, -1, "warm-up", n_timed=2)
+rps, aux, launches, fails = cs.training_phase(cfg, state, scene, pool, None, -1, "warm-up",
+                                              n_timed=2)
 fine = device_grid_from_host(fine_host, "cpu")
-rps, aux, f2 = cs.training_phase(cfg, state, scene, pool, fine, fine_host.level, "steady",
-                                 n_timed=2)
+rps, aux, launches, f2 = cs.training_phase(cfg, state, scene, pool, fine, fine_host.level,
+                                           "steady", n_timed=2)
 assert fails == [] and f2 == [], fails + f2
-assert state.step == 12 and set(rps) == {"pallas", "vjp"}
+# CPU tensors take the plain versions: no mode launches a kernel
+assert set(launches) == set(cs.MODE_KERNELS) and set(launches["pallas"]) == set(
+    cs.launch_counters())
+assert all(v == 0 for m in launches.values() for v in m.values()), launches
+assert state.step == 18 and set(rps) == {"pallas", "vjp", "pallas_field"}
+assert cs.train_config(cfg, "pallas_field").bg_mode == "pallas"
+assert cs.train_config(cfg, "pallas").bg_mode == "xla"
 assert all(not torch.equal(a, b) for a, b in zip(before, state.model.parameters()))
 assert cs.step_parity(cfg, state.model, scene, pool.next_batch(48), fine, fine_host.level,
                       "steady") == []
@@ -196,3 +243,33 @@ print("ok")
     proc = run(["-c", code], ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_chip_smoke_check_helpers():
+    """check_forward holds f32 outputs to atol / rtol and bf16 ones to
+    rel-L2; check_outputs holds each output to its bound, or under the f32
+    rule to twice the plain version's error; check_flips lets a mask differ
+    from the reference's sign only near 0."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    g = torch.Generator().manual_seed(0)
+    ref = [torch.randn(64, 8, generator=g) for _ in range(3)]
+    near = [r * (1 + 1e-6) for r in ref]
+    assert cs.check_forward("t", ["a", "b", "c"], near, ref, "float32") == (
+        True, max(float((n - r).abs().max()) for n, r in zip(near, ref)))
+    assert not cs.check_forward("t", ["a", "b", "c"], [r + 1e-3 for r in ref], ref, "float32")[0]
+    assert cs.check_forward("t", ["a", "b", "c"], [r + 1e-3 for r in ref], ref, "bfloat16")[0]
+    assert not cs.check_forward("t", ["a"], [ref[0] * float("nan")], ref[:1], "bfloat16")[0]
+    off = [ref[0], ref[1], ref[2] * 1.1]
+    assert cs.check_outputs("t", ["a", "b", "c"], near, ref, 1e-5) == []
+    assert cs.check_outputs("t", ["a", "b", "c"], off, ref, 1e-5) == ["c"]
+    plain = [r * (1 + 0.1) for r in ref]  # the f32 rule: within 2 x 0.1
+    assert cs.check_outputs("t", ["a", "b", "c"], off, ref, 1e-5, plain) == []
+    z = torch.randn(256, 16, generator=g)
+    z[3, 4] = 1e-7
+    masks = [z > 0, (z > 0).clone()]
+    masks[1][3, 4] = ~masks[1][3, 4]
+    assert cs.check_flips("t", masks, [z, z], 1e-3) == []
+    masks[1][5, 6] = ~masks[1][5, 6]  # a flip far from 0 is a fault
+    assert cs.check_flips("t", masks, [z, z], 1e-3) == [2]

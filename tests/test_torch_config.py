@@ -65,6 +65,27 @@ def test_operating_point():
     assert rc.mesh_mask_ids == (2,) and rc.floor_label_ids == (6,)
 
 
+@pytest.mark.parametrize("fused_bg", [True, False, "auto"])
+def test_fused_field_and_background_config_matches_jax(fused_bg):
+    """SDF_GRAD_MODE 'pallas_field' with FUSED_BG on, off and 'auto': the
+    same FieldConfig as the JAX package's on the CPU ('auto' means "on the
+    accelerator": the JAX package's on_tpu(), the port's CUDA device, so off
+    here, as in the JAX package on the CPU)."""
+    from neuralrecon_w_tpu.models import field_config_from_cfg as jax_field_config
+
+    path = os.path.join(ROOT, "config", "train_brandenburg_gate_tpu.yaml")
+    want_cfg = jax_cfg_defaults()
+    want_cfg.merge_from_file(path)
+    got_cfg = config.load_cfg(path)
+    for cfg in (want_cfg, got_cfg):
+        cfg.TPU.SDF_GRAD_MODE, cfg.TPU.FUSED_BG = "pallas_field", fused_bg
+    got, want = config.field_config_from_cfg(got_cfg), jax_field_config(want_cfg)
+    assert tuple(got) == tuple(want) and got._fields == want._fields
+    assert got.grad_mode == "pallas_field"
+    assert got.bg_mode == ("pallas" if fused_bg is True or (
+        fused_bg == "auto" and torch.cuda.is_available()) else "xla")
+
+
 def test_merge_refuses_unknown_keys_and_cycles(tmp_path):
     bad = tmp_path / "bad.yaml"
     bad.write_text("NEUCONW:\n  N_SAMPLEZ: 8\n")

@@ -237,6 +237,9 @@ def test_pack_layout():
 
 @pytest.mark.parametrize("mode", ["fwd", "pallas_field"])
 def test_unported_grad_modes_raise(mode):
+    """'fwd' is not ported: it raises, pointing at ROADMAP.md. 'pallas_field'
+    was not either until kernel 5's port; it now runs (on the CPU through
+    the plain versions) and gives per-sample rgb, sdf and grad."""
     from neuralrecon_w_tpu.config import get_cfg_defaults
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg
     from neuralrecon_w_tpu_torch.models.neuconw import field_forward
@@ -250,5 +253,11 @@ def test_unported_grad_modes_raise(mode):
     cfg.TPU.SDF_GRAD_MODE = mode
     fc = field_config_from_cfg(cfg)
     model = init_field(fc, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        field_forward(model, fc, torch.zeros(4, 3), torch.zeros(4, 3), torch.zeros(4, 48))
+    args = (model, fc, torch.zeros(4, 3), torch.zeros(4, 3), torch.zeros(4, 48))
+    if mode == "fwd":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            field_forward(*args)
+    else:
+        rgb, _, sdf, grad = field_forward(*args)
+        assert rgb.shape == (4, 3) and sdf.shape == (4,) and grad.shape == (4, 3)
+        assert all(bool(torch.isfinite(t).all()) for t in (rgb, sdf, grad))

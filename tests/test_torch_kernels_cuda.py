@@ -328,3 +328,224 @@ def test_field_forward_wrapper_rejects_what_the_kernel_does_not_take(dev, field)
         ff.fused_field_forward(model, fc, pts, dirs, a[:32])
     with pytest.raises(ValueError):
         ff.fused_field_forward(model, fc, pts.double(), dirs, a)
+
+
+# ---------------- K7 (+ K6, K5): the fused field in training ----------------
+
+# K7 + K5 f32 are held to the plain version in float64, as K4 + K5 are: the
+# beta = 100 softplus makes f32 second order inexact. bf16 against the plain
+# bf16 version, per output rel-L2, the SDF-VJP kernels' bound. The plain
+# versions take the colour ReLU masks K7 applied: a pre-activation within
+# rounding of 0 takes another sign in another summation order, and those
+# masks may differ from the reference's own signs only there
+# (chip_smoke.FLIP_Z, PERF.md)
+FIELD_TRAIN_BF16_REL = 5e-2
+FLIP_Z = {"float32": 1e-3, "bfloat16": 5e-2}
+
+
+def assert_flips_near_zero(masks, zs, tol):
+    for m, z in zip(masks, zs):
+        flip = m != (z > 0)
+        if bool(flip.any()):
+            assert float(z[flip].abs().max()) <= tol * float(z.double().square().mean().sqrt())
+
+
+def field_train_case(fc, model, act, n_pts, dev, seed):
+    from neuralrecon_w_tpu_torch.ops import field_train as ft
+
+    spec = ft.field_spec(model, fc._replace(act_dtype=act))
+    with torch.no_grad():
+        wb = [t.detach().contiguous() for t in ft.field_weights(model)]
+    pts, dirs, a = field_inputs(fc, n_pts, dev, seed)
+    g = torch.Generator().manual_seed(seed + 100)
+    cots = [torch.randn(n_pts, 3, generator=g).to(dev), torch.randn(n_pts, generator=g).to(dev),
+            torch.randn(n_pts, 3, generator=g).to(dev)]
+    return spec, wb, (pts, dirs, a, *cots)
+
+
+def flat_field_grads(r):
+    return [*r[0], *r[1], *r[2], *r[3], r[4], r[5], r[6]]
+
+
+def test_field_train_backward_f32_against_f64(dev, field):
+    from neuralrecon_w_tpu_torch.ops import field_train as ft
+
+    fc, model = field
+    spec, wb, args = field_train_case(fc, model, "float32", 2048, dev, 11)
+    before = ft.field_train_bwd.launches
+    masks = []
+    got = ft.field_train_bwd(ft.pack_field_tensors(spec, wb), *args, masks=masks)
+    plain = ft.field_train_bwd_plain(spec, wb, *args, masks=masks)
+    wb64, args64 = [w.double() for w in wb], [t.double() for t in args]
+    truth = ft.field_train_bwd_plain(spec, wb64, *args64, masks=masks)
+    torch.cuda.synchronize()
+    assert ft.field_train_bwd.launches == before + 1
+    assert_flips_near_zero(masks, ft.color_preacts(spec, wb64, *args64[:3]), FLIP_Z["float32"])
+    for k, p, t in zip(flat_field_grads(got), flat_field_grads(plain), flat_field_grads(truth)):
+        assert k.shape == t.shape and bool(torch.isfinite(k).all())
+        assert rel_l2(k, t) <= max(2 * rel_l2(p, t), 1e-5), (rel_l2(k, t), rel_l2(p, t))
+
+
+def test_field_train_backward_bf16_matches_plain(dev, field, monkeypatch):
+    """bf16, over several point chunks (a ragged last one)."""
+    from neuralrecon_w_tpu_torch.ops import field_train as ft
+    from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp
+
+    fc, model = field
+    monkeypatch.setattr(ft, "CHUNK", 1024)
+    spec, wb, args = field_train_case(fc, model, "bfloat16", 2500, dev, 12)
+    before = (ft.field_train_bwd.launches, vjp.dw_reduce.launches)
+    masks = []
+    got = ft.field_train_bwd(ft.pack_field_tensors(spec, wb), *args, masks=masks)
+    want = ft.field_train_bwd_plain(spec, wb, *args, masks=masks)
+    torch.cuda.synchronize()
+    n_color = len(wb) // 2 - spec.n_sdf
+    assert ft.field_train_bwd.launches == before[0] + 3
+    # per chunk: every SDF layer, every colour layer, the static head's first twice
+    assert vjp.dw_reduce.launches == before[1] + 3 * (spec.n_sdf + n_color + 1)
+    assert [m.shape[0] for m in masks] == [2500] * (n_color - 2)
+    assert_flips_near_zero(masks, ft.color_preacts(spec, wb, *args[:3]), FLIP_Z["bfloat16"])
+    for k, w in zip(flat_field_grads(got), flat_field_grads(want)):
+        assert rel_l2(k, w) <= FIELD_TRAIN_BF16_REL
+
+
+def test_field_train_function_matches_double_backward(dev, field):
+    """Through field_forward's 'pallas_field' mode (K6 forward, K7 + K5
+    backward, the weight norm in autograd) against the 'vjp' mode's torch
+    double backward, f32, per-ray dirs and a, every parameter's gradient."""
+    from neuralrecon_w_tpu_torch.models.neuconw import field_forward
+
+    fc, model = field
+    fc = fc._replace(act_dtype="float32")
+    n_rays, n_samples = 128, 16
+    pts, dirs, a = field_inputs(fc, n_rays * n_samples, dev, 13)
+    dirs, a = dirs[:n_rays], a[:n_rays]
+    g = torch.Generator().manual_seed(14)
+    c = [torch.randn(n_rays * n_samples, 3, generator=g).to(dev),
+         torch.randn(n_rays * n_samples, generator=g).to(dev),
+         torch.randn(n_rays * n_samples, 3, generator=g).to(dev)]
+
+    def grads(mode):
+        m = copy.deepcopy(model).requires_grad_(True)
+        xs = [t.clone().requires_grad_(True) for t in (pts, dirs, a)]
+        rgb, _, sdf, grad = field_forward(m, fc._replace(grad_mode=mode), *xs, n_samples,
+                                          create_graph=True)
+        (torch.sum(rgb * c[0]) + torch.sum(sdf * c[1]) + torch.sum(grad * c[2])).backward()
+        return {k: p.grad for k, p in m.named_parameters() if "_net." in k} | {
+            f"x{i}": x.grad for i, x in enumerate(xs)}
+
+    got, want = grads("pallas_field"), grads("vjp")
+    assert set(got) == set(want)
+    for k in want:
+        assert rel_l2(got[k], want[k]) <= 1e-2, k
+
+
+# ---------------- K8, K9 (+ K5): the fused background ----------------
+
+# f32: K8 summation order only; K9's gradients against the plain f32 version
+# (first order: f32 sums in another order). bf16: per output rel-L2.
+BG_F32_TOL, BG_GRAD_REL, BG_BF16_REL = 1e-4, 1e-5, 5e-2
+
+
+def bg_case(encode_a, n_pts, dev, seed):
+    from neuralrecon_w_tpu_torch.models.nerf_bg import NeRF, init_nerf_bg_
+    from neuralrecon_w_tpu_torch.ops import nerf_bg_fused as bgf
+
+    net = NeRF(encode_a, 48, dev)
+    init_nerf_bg_(net, torch.Generator().manual_seed(seed))
+    layers = bgf.bg_layers(net, encode_a)
+    ws = [m.weight.detach() for m in layers]
+    bs = [m.bias.detach() for m in layers]
+    g = torch.Generator().manual_seed(seed + 1)
+    xyz = torch.randn(n_pts, 3, generator=g)
+    pts4 = torch.cat([xyz / xyz.norm(dim=-1, keepdim=True),
+                      torch.rand(n_pts, 1, generator=g) * 0.95 + 0.05], dim=-1)
+    dirs = torch.randn(n_pts, 3, generator=g)
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    a = torch.randn(n_pts, 48, generator=g) if encode_a else None
+    cots = [torch.randn(n_pts, 1, generator=g), torch.randn(n_pts, 3, generator=g)]
+    to = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    return ws, bs, [to(t) for t in (pts4, dirs, a)], [to(t) for t in cots]
+
+
+def flat_bg_grads(r):
+    return [*r[0], *r[1], *[t for t in r[2:] if t is not None]]
+
+
+@pytest.mark.parametrize("encode_a", [True, False])
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_nerf_bg_kernels_match_plain(dev, encode_a, act, monkeypatch):
+    """K8 and K9 + K5 over several point chunks (a ragged last one)."""
+    from neuralrecon_w_tpu_torch.ops import nerf_bg_fused as bgf
+
+    monkeypatch.setattr(bgf, "CHUNK", 2048)
+    ws, bs, x, cots = bg_case(encode_a, 5000, dev, 15)
+    pk = bgf.pack_bg_weights(ws, bs, act)
+    before = (bgf.nerf_bg_fwd.launches, bgf.nerf_bg_bwd.launches)
+    got = bgf.nerf_bg_fwd(pk, *x)
+    want = bgf.bg_fwd_plain(ws, bs, *x, act)
+    got_b = bgf.nerf_bg_bwd(pk, *x, *cots)
+    want_b = bgf.bg_bwd_plain(ws, bs, *x, *cots, act)
+    torch.cuda.synchronize()
+    assert (bgf.nerf_bg_fwd.launches, bgf.nerf_bg_bwd.launches) == (before[0] + 3, before[1] + 3)
+    assert (got_b[4] is None) == (not encode_a)
+    for k, w in zip(got, want):
+        if act == "float32":
+            torch.testing.assert_close(k, w, atol=BG_F32_TOL, rtol=BG_F32_TOL)
+        else:
+            assert rel_l2(k, w) <= BG_BF16_REL
+    for k, w in zip(flat_bg_grads(got_b), flat_bg_grads(want_b)):
+        assert k.shape == w.shape
+        assert rel_l2(k, w) <= (BG_GRAD_REL if act == "float32" else BG_BF16_REL)
+
+
+def test_nerf_bg_function_matches_autograd(dev):
+    """Through field_background's 'pallas' mode (K8, K9 + K5) against the
+    'xla' mode's autograd, f32, per-ray dirs and a."""
+    from neuralrecon_w_tpu_torch.models.neuconw import field_background
+
+    fc, model = field_config_and_model(dev)
+    n_rays, k = 256, 11
+    ws, bs, (pts4, dirs, a), (c_den, c_rgb) = bg_case(True, n_rays * k, dev, 16)
+
+    def grads(mode):
+        m = copy.deepcopy(model).requires_grad_(True)
+        xs = [t.clone().requires_grad_(True) for t in (pts4, dirs[:n_rays], a[:n_rays])]
+        den, rgb = field_background(m, fc._replace(bg_mode=mode, act_dtype="float32"), *xs, k)
+        (torch.sum(den * c_den) + torch.sum(rgb * c_rgb)).backward()
+        return {n: p.grad for n, p in m.named_parameters() if n.startswith("nerf.")} | {
+            f"x{i}": x.grad for i, x in enumerate(xs)}
+
+    got, want = grads("pallas"), grads("xla")
+    assert set(got) == set(want)
+    for name in want:
+        assert rel_l2(got[name], want[name]) <= 1e-4, name
+
+
+def field_config_and_model(dev):
+    from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
+    from neuralrecon_w_tpu_torch.tools.convert import init_field
+
+    fc = field_config_from_cfg(load_cfg(CONFIG))
+    return fc, init_field(fc, torch.Generator().manual_seed(0), dev).requires_grad_(False)
+
+
+def test_dw_reduce_rows_matches_torch(dev):
+    """K5's one-pair entry into a column slice of a wider dW, with and
+    without db, f32 and bf16."""
+    from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp
+
+    rows, n_pts = 3000, 2900
+    work = torch.randn(2 * rows * vjp.WMAX, device=dev)
+    x = work[:rows * vjp.WMAX].view(rows, vjp.WMAX)[:n_pts, :100]
+    y = work[rows * vjp.WMAX:].view(rows, vjp.WMAX)[:n_pts, 3:300]
+    for act in ("float32", "bfloat16"):
+        dW = torch.zeros(100, 400, device=dev)
+        db = torch.zeros(100, device=dev)
+        vjp.dw_reduce_rows(work, 0, rows * vjp.WMAX + 3, 100, 297, n_pts, act, dW[:, 50:347], db)
+        vjp.dw_reduce_rows(work, 0, rows * vjp.WMAX + 3, 100, 297, n_pts, act, dW[:, 50:347])
+        rnd = (lambda t: t) if act == "float32" else (lambda t: t.bfloat16().float())
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dW[:, 50:347], 2 * rnd(x).t() @ rnd(y), atol=1e-2, rtol=1e-4)
+        assert float(dW[:, :50].abs().max()) == 0.0 and float(dW[:, 347:].abs().max()) == 0.0
+        torch.testing.assert_close(db, x.sum(dim=0), atol=1e-3, rtol=1e-4)

@@ -114,6 +114,37 @@ def test_render_rays_matches_jax(phase, fused):
                                    err_msg=k)
 
 
+@pytest.mark.parametrize("phase", ["warmup", "steady"])
+def test_render_rays_fused_field_and_background_match_jax(phase):
+    """One served chunk with SDF_GRAD_MODE 'pallas_field' and FUSED_BG on
+    (the fused field and background kernels' plain versions on the CPU)
+    against the JAX render in its default modes, f32."""
+    cfg, params, model, host = setup()
+    fine_level = host.level if phase == "steady" else -1
+    jrc = jax_render_config(cfg, sfm_level=host.level, fine_level=fine_level, perturb=0.0)
+    rc = render_config_from_cfg(cfg, sfm_level=host.level, fine_level=fine_level, perturb=0.0)
+    rays, ts, labels = make_rays(seed=4)
+    jgrid = jax_device_grid(host)
+    jfc = jax_field_config(cfg)
+    want = jax.jit(lambda p, r, t, lab, fg, sg: jax_render_rays(
+        p, jfc, jrc, JaxSceneInfo(jnp.zeros(3), jnp.asarray(2.0), jnp.eye(4)), r, t, lab,
+        jax.random.PRNGKey(0), 1.0, fine_grid=fg, sfm_grid=sg))(
+        params, jnp.asarray(rays), jnp.asarray(ts), jnp.asarray(labels),
+        jgrid if phase == "steady" else None, jgrid)
+    cfg.TPU.SDF_GRAD_MODE, cfg.TPU.FUSED_BG = "pallas_field", True
+    fc = field_config_from_cfg(cfg)
+    assert (fc.grad_mode, fc.bg_mode) == ("pallas_field", "pallas")
+    grid = device_grid_from_host(host, "cpu")
+    with torch.no_grad():
+        got = render_rays(
+            model, fc, rc, SceneInfo(torch.zeros(3), torch.tensor(2.0), torch.eye(4)),
+            torch.from_numpy(rays), torch.from_numpy(ts), torch.from_numpy(labels), None, 1.0,
+            fine_grid=grid if phase == "steady" else None, sfm_grid=grid)
+    for k in KEYS + ("color_bg", "gradient_error"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=ATOL, rtol=0,
+                                   err_msg=k)
+
+
 def test_render_rays_floor_loss_matches_jax():
     """FLOOR_NORMAL on (off at the operating point): the floor-normal and
     floor-height terms over road-labelled rays, under a rotated sfm2gt."""

@@ -126,7 +126,9 @@ def jax_step(cfg, params, batch, fine):
 def port_step(cfg, params, batch, fine, grad_mode):
     pcfg = copy.deepcopy(cfg)
     pcfg.TPU.SDF_GRAD_MODE = grad_mode
+    pcfg.TPU.FUSED_BG = grad_mode == "pallas_field"  # the fused kernels' mode, as trained
     fc = config.field_config_from_cfg(pcfg)
+    assert fc.bg_mode == ("pallas" if grad_mode == "pallas_field" else "xla")
     rc = config.render_config_from_cfg(pcfg, sfm_level=-1,
                                        fine_level=fine.level if fine else -1,
                                        nerf_far_override=False)
@@ -151,12 +153,14 @@ def rel_l2(got, want):
     return float(np.linalg.norm(got - want)) / den if den > 0 else float(np.linalg.norm(got))
 
 
-@pytest.mark.parametrize("grad_mode", ["vjp", "pallas"])
+@pytest.mark.parametrize("grad_mode", ["vjp", "pallas", "pallas_field"])
 @pytest.mark.parametrize("phase", ["warmup", "steady"])
 def test_train_step_matches_jax(phase, grad_mode):
     """One step on live weights (seeded noise on the SDF): the port in
-    'vjp' (torch double backward) and 'pallas' (the SDF-VJP kernels' plain
-    version on the CPU) against the JAX step in 'vjp'."""
+    'vjp' (torch double backward), 'pallas' (the SDF-VJP kernels' plain
+    version on the CPU) and 'pallas_field' with FUSED_BG (the fused field
+    and background kernels' plain versions) against the JAX step in 'vjp'
+    (in f32 the per-sample and per-ray colour heads agree to rounding)."""
     cfg = setup_cfg()
     params = live_field_params(jax_init_field(jax.random.PRNGKey(0), jax_field_config(cfg)))
     batch = make_batch()
