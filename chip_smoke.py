@@ -73,8 +73,10 @@ default mode's chunk in f32.
 The last lines are the card line, a JSON object with one entry per
 kernel (K1 and K2 with their serving launches, K3 to K5 and K7 to K9 with
 their training launches, K6 with its launches on every path; each with
-its time, its plain version's, and the least time the card could take
-for the same work, ``bound_ms``), and ``{"ok": true, "device": {...}}``.
+its time, its plain version's, one PyTorch call's for the same function
+where there is one (K5: one ``addmm`` per factor pair on the same rows,
+``library_ms``), and the least time the card could take for the same
+work, ``bound_ms``), and ``{"ok": true, "device": {...}}``.
 It exits non-zero, with no result line, when there is no CUDA device or
 any check fails.
 """
@@ -91,6 +93,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "config", "train_brandenburg_gate_tpu.yaml")
@@ -186,14 +189,19 @@ NORMAL_SHORT_FRAC = 1e-4  # normals short of unit (sliver faces only), share of 
 COLOR_LEVELS, COLOR_FRAC = 2, 0.999  # vertex colours, kernel path vs plain
 K6_CHECK_PTS = COLOR_CHUNK
 
-# the H100 SXM's published peaks (NVIDIA's datasheet): dense bf16
-# tensor cores, float32 outside them, HBM3
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# the H100 SXM's published peaks (NVIDIA's datasheet): dense bf16 tensor
+# cores; float32 products at the fastest f32-accurate route, three TF32
+# tensor-core products per f32 product (495 TFLOP/s / 3; the FMA pipes give
+# 67); HBM3
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 495e12 / 3, 3.35e12
 
 
 def bound(flops: float, n_bytes: float, act: str) -> dict:
     """The least time the card could take: the larger of the operations over
-    the peak of their type and the bytes over the memory rate."""
+    the peak of their type and the bytes over the memory rate. An f32
+    product is reckoned at 165 TFLOP/s, the split-TF32 route (3 TF32
+    products at 495 TFLOP/s) that keeps f32 accuracy, so no f32 kernel can
+    beat its bound by taking it."""
     t_ops = flops / (PEAK_BF16 if act == "bfloat16" else PEAK_F32)
     t_mem = n_bytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_mem) * 1e3,
@@ -696,30 +704,37 @@ def check_flips(label, masks, zs, tol: float) -> list:
     return bad
 
 
-def time_in_turns(fwd, bwd, fwd_plain, bwd_plain, other, reduce_only, reps: int = 2) -> dict:
+def time_in_turns(fwd, bwd, fwd_plain, bwd_plain, other, reduce_only, reduce_library,
+                  reps: int = 2) -> dict:
     """Milliseconds on the card, in turns: the kernels' forward and backward
     (the backward with its K5 reduction), the plain versions, `other` (a
     torch autograd forward + backward of the same function), the kernels
     again (the lesser of the two kept), then K5 alone over the backward's
-    chunks on a workspace of the same shape."""
+    chunks on a workspace of the same shape and the same products as one
+    PyTorch call per factor pair (``library_reduce``), in turns (K5,
+    library, library, K5; the lesser of each kept)."""
     t = {}
     for k, fn in (("fwd", fwd), ("bwd", bwd), ("fwd_plain", fwd_plain), ("bwd_plain", bwd_plain),
-                  ("other", other), ("bwd2", bwd), ("fwd2", fwd), ("reduce", reduce_only)):
+                  ("other", other), ("bwd2", bwd), ("fwd2", fwd), ("reduce", reduce_only),
+                  ("library", reduce_library), ("library2", reduce_library),
+                  ("reduce2", reduce_only)):
         t[k] = cuda_ms(fn, reps)
-    t["fwd"], t["bwd"] = min(t["fwd"], t.pop("fwd2")), min(t["bwd"], t.pop("bwd2"))
+    for k in ("fwd", "bwd", "reduce", "library"):
+        t[k] = min(t[k], t.pop(f"{k}2"))
     return t
 
 
 def timed_entries(res, t, bounds, fwd: str, bwd: str, other: str) -> None:
     """A forward / backward kernel pair's times into their kernels-line
     entries. The backward kernel's `ms` is derived, (backward + K5) less K5
-    alone, both timed in this run (`ms_from` says so)."""
+    alone, both timed in this run (`ms_from` says so); K5's share carries
+    the time of one PyTorch call per factor pair on the same rows."""
     res[fwd].update(ms=t["fwd"], plain_ms=t["fwd_plain"], library_ms=None, **bounds[fwd])
     res[bwd].update(ms=t["bwd"] - t["reduce"], ms_from="(backward + K5) - K5 alone",
                     plain_ms=t["bwd_plain"], library_ms=None, fwd_bwd_ms=t["fwd"] + t["bwd"],
                     plain_fwd_bwd_ms=t["fwd_plain"] + t["bwd_plain"], **{other: t["other"]},
-                    dw_reduce_ms=t["reduce"], dw_reduce_bound_ms=bounds["dw_reduce"]["bound_ms"],
-                    **bounds[bwd])
+                    dw_reduce_ms=t["reduce"], dw_reduce_library_ms=t["library"],
+                    dw_reduce_bound_ms=bounds["dw_reduce"]["bound_ms"], **bounds[bwd])
 
 
 def sdf_vjp_bound(ws, bs, act: str, n: int) -> dict:
@@ -815,27 +830,83 @@ def vjp_kernel_phase(model, fc):
         (torch.sum(s * c_out[:, 0]) + torch.sum(f.float() * c_out[:, 1:])
          + torch.sum(gr * c_grad)).backward()
 
-    k5, k5_plain = reduce_calls(ws, bs, cfg, act, VJP_TIME_PTS)
+    k5, k5_plain, k5_lib, _ = reduce_calls(ws, bs, cfg, act, VJP_TIME_PTS)
     t = time_in_turns(lambda: vjp.sdf_vjp_fwd(ws, bs, cfg, x, act),
                       lambda: vjp.sdf_vjp_bwd(ws, bs, cfg, x, c_out, c_grad, act),
                       lambda: fvm.value_and_grad(ws, bs, *args, x, act_t),
                       lambda: fvm.vjp(ws, bs, *args, x, c_out, c_grad, act_t),
-                      double_backward, k5)
+                      double_backward, k5, k5_lib)
     t_k5_p = cuda_ms(k5_plain, reps=2)
     print(f"SDF-VJP {act} at {VJP_TIME_PTS} pts, ms in turns: forward K3 {t['fwd']:.2f} / plain "
           f"{t['fwd_plain']:.2f}; backward K4 + K5 {t['bwd']:.2f} / plain {t['bwd_plain']:.2f}, "
-          f"of which the dW reduction K5 {t['reduce']:.2f} / plain products {t_k5_p:.2f}; "
+          f"of which the dW reduction K5 {t['reduce']:.2f} / plain products {t_k5_p:.2f} / one "
+          f"addmm per factor pair {t['library']:.2f} (K5 {t['reduce'] / t['library']:.2f}x it); "
           f"forward + backward {t['fwd'] + t['bwd']:.2f}, torch double backward {t['other']:.2f}")
     b = sdf_vjp_bound(ws, bs, act, VJP_TIME_PTS)
     timed_entries(res, t, b, "sdf_vjp_fwd", "sdf_vjp_bwd", "double_backward_ms")
-    res["dw_reduce"].update(ms=t["reduce"], plain_ms=t_k5_p, library_ms=None, **b["dw_reduce"])
+    res["dw_reduce"].update(ms=t["reduce"], plain_ms=t_k5_p, library_ms=t["library"],
+                            **b["dw_reduce"])
     return res, fails
 
 
+def library_rows(work, x_off: int, y_off: int, n: int, k: int, n_pts: int, act, dW,
+                 db=None) -> None:
+    """K5's yardstick for one factor pair (``sdf_field_vjp.dw_reduce_rows``'s
+    arguments): dW += X^T Y as one ``addmm`` on the same float32 workspace
+    rows K5 reads, and db += X.sum(0). A bf16 run multiplies in TF32, which
+    rounds the operands and sums in f32 over the same bytes as K5; an f32
+    run in full f32. The port never calls it."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.ops.sdf_field_vjp import WMAX
+
+    x = work.as_strided((n_pts, n), (WMAX, 1), work.storage_offset() + x_off)
+    y = work.as_strided((n_pts, k), (WMAX, 1), work.storage_offset() + y_off)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = str(act).removeprefix("torch.") == "bfloat16"
+    try:
+        dW.addmm_(x.t(), y)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if db is not None:
+        db += x.sum(0)
+
+
+def library_layer(pk, work, rows: int, layer: int, n_pts: int, dW, db) -> None:
+    """K5's yardstick for one SDF layer (``sdf_field_vjp.dw_reduce``'s
+    arguments): one ``addmm`` per factor pair, (d, r_hat) then (g_tot, u),
+    and db from g_tot (kinds u, z, d, a, r_hat, g_tot; csrc/sdf_vjp.cu)."""
+    from neuralrecon_w_tpu_torch.ops.sdf_field_vjp import WMAX
+
+    at = lambda kind: (kind * len(pk.k) + layer) * rows * WMAX  # noqa: E731
+    n, k = pk.n[layer], pk.k[layer]
+    library_rows(work, at(2), at(4), n, k, n_pts, pk.act, dW)
+    library_rows(work, at(5), at(0), n, k, n_pts, pk.act, dW, db)
+
+
+def library_reduce(fn):
+    """fn() with K5's wrappers, as the modules that reduce through them
+    (``ops/sdf_field_vjp``, ``ops/field_train``, ``ops/nerf_bg_fused``) call
+    them, replaced by ``library_layer`` / ``library_rows``: the same factor
+    pairs, each as one PyTorch call."""
+    from neuralrecon_w_tpu_torch.ops import field_train as ft
+    from neuralrecon_w_tpu_torch.ops import nerf_bg_fused as bgf
+    from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp
+
+    def run():
+        with mock.patch.object(vjp, "dw_reduce", library_layer), \
+                mock.patch.object(ft, "dw_reduce", library_layer), \
+                mock.patch.object(ft, "dw_reduce_rows", library_rows), \
+                mock.patch.object(bgf, "dw_reduce_rows", library_rows):
+            fn()
+    return run
+
+
 def reduce_calls(ws, bs, cfg, act, n_pts):
-    """K5 alone over the chunks of one SDF-VJP backward of n_pts points, and
-    the same dW products in torch (the plain version's), both on one
-    workspace of random factor rows: two callables."""
+    """K5 alone over the chunks of one SDF-VJP backward of n_pts points, the
+    same dW products in torch (the plain version's), and as one PyTorch
+    call per factor pair (``library_layer``), all on one workspace of
+    random factor rows: three callables, and the (dWs, dbs) they add into."""
     import torch
 
     from neuralrecon_w_tpu_torch.ops import field_vjp_math as fvm
@@ -863,7 +934,7 @@ def reduce_calls(ws, bs, cfg, act, n_pts):
                            + fvm._mm(view[5, l, :m, :n].t(), view[0, l, :m, :k], act_t))
                 dbs[l] += view[5, l, :m, :n].sum(dim=0)
 
-    return kernel, plain
+    return kernel, plain, library_reduce(kernel), (dWs, dbs)
 
 
 def train_config(cfg, grad_mode: str, act: str = None):
@@ -1452,12 +1523,14 @@ def field_train_kernel_phase(model, fc, n_time: int):
     t = time_in_turns(lambda: ff.field_forward_kernel(pack, *x[:3]),
                       lambda: ft.field_train_bwd(pack, *x),
                       lambda: ff.field_forward_plain(pack, *x[:3]),
-                      lambda: ft.field_train_bwd_plain(spec, wb, *x), double_backward, reduce_only)
+                      lambda: ft.field_train_bwd_plain(spec, wb, *x), double_backward, reduce_only,
+                      library_reduce(reduce_only))
     del work
     b = field_train_bound(pack, n_time)
     print(f"kernel 5 {fc.act_dtype} at {n_time} pts, ms in turns: forward K6 {t['fwd']:.2f}, "
           f"plain {t['fwd_plain']:.2f}, bound {b['field_fwd']['bound_ms']:.3f}; backward K7 + K5 "
-          f"{t['bwd']:.2f}, plain {t['bwd_plain']:.2f}, of which K5 alone {t['reduce']:.2f}, K7 "
+          f"{t['bwd']:.2f}, plain {t['bwd_plain']:.2f}, of which K5 alone {t['reduce']:.2f} (one "
+          f"addmm per factor pair {t['library']:.2f}), K7 "
           f"bound {b['field_bwd']['bound_ms']:.3f}; forward + backward {t['fwd'] + t['bwd']:.2f}, "
           f"plain {t['fwd_plain'] + t['bwd_plain']:.2f}, torch double backward ('vjp') "
           f"{t['other']:.2f}")
@@ -1537,12 +1610,13 @@ def bg_kernel_phase(model, fc, n_rays: int, k: int):
                       lambda: bgf.nerf_bg_bwd(pk, pts4, dirs, a, c_den, c_rgb),
                       lambda: bgf.bg_fwd_plain(ws, bs, pts4, dirs, a, fc.act_dtype),
                       lambda: bgf.bg_bwd_plain(ws, bs, pts4, dirs, a, c_den, c_rgb, fc.act_dtype),
-                      xla, reduce_only, reps=5)
+                      xla, reduce_only, library_reduce(reduce_only), reps=5)
     del work
     b = bg_bound(pk, n, fc.n_a if fc.encode_a_bg else 0)
     print(f"kernel 6 {fc.act_dtype} at {n_rays} x {k} = {n} pts, ms in turns: K8 {t['fwd']:.3f}, "
           f"plain {t['fwd_plain']:.3f}, bound {b['nerf_bg_fwd']['bound_ms']:.4f}; K9 + K5 "
-          f"{t['bwd']:.3f}, plain {t['bwd_plain']:.3f}, of which K5 alone {t['reduce']:.3f}, K9 "
+          f"{t['bwd']:.3f}, plain {t['bwd_plain']:.3f}, of which K5 alone {t['reduce']:.3f} (one "
+          f"addmm per factor pair {t['library']:.3f}), K9 "
           f"bound {b['nerf_bg_bwd']['bound_ms']:.4f}; forward + backward "
           f"{t['fwd'] + t['bwd']:.3f}, the 'xla' path's autograd forward + backward "
           f"{t['other']:.3f}")

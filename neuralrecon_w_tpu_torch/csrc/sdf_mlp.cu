@@ -12,26 +12,32 @@
 // bias added in f32 (the Pallas sampler's preferred_element_type dots).
 //
 // What bounds it: about 3.7 MFLOP per point at the 8 x 512 width against
-// 12 bytes in and 4 out, so arithmetic bounds it, not device memory. The
-// weights (8.5 MB in f32, 4.3 MB in bf16) are re-read by every block
-// from the 50 MB L2.
+// 12 bytes in and 4 out, so arithmetic bounds it, not device memory: in
+// bf16 the tensor cores' 989 TFLOP/s, in f32 the fastest f32-accurate
+// route, three TF32 products per f32 one at 495 / 3 = 165 TFLOP/s (the FMA
+// pipes give 67). The weights (8.5 MB in f32, 4.3 MB in bf16) are re-read
+// by every block from the 50 MB L2, so points per block set the L2 traffic.
 //
-// The design: one block per tile of points. The hidden activations
-// ping-pong between two shared-memory buffers and never leave the SM; the
-// last layer's 512-wide feature is never formed (only column 0 is
-// computed, one warp per point). Weights are packed (N_pad, K_pad) with k
-// contiguous, as torch's (d_out, d_in) layout is.
-//  * bf16: 64 points, 16 warps. Products run on the tensor cores with
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate); each warp owns a
-//    32 x 64 output tile. Weight slabs of 32 k-columns stream into shared
-//    memory with cp.async, double-buffered, while the previous slab is
-//    multiplied. ldmatrix feeds both operands; row strides are padded by
-//    16 bytes so its eight row reads hit distinct banks.
-//  * float: 32 points, 8 warps, FMA pipes (the tensor cores have no exact
-//    f32 product). Each thread owns 8 points x 8 columns, so one float4
-//    weight read feeds 32 FMAs; weight slabs of 16 k-rows are staged in
-//    shared memory.
-// wgmma and TMA-fed slabs are the next step for the bf16 path.
+// The design: one block per tile of points. The hidden activations stay in
+// one shared-memory buffer and never leave the SM: each layer's output is
+// written over its input after its products, behind a barrier. The last
+// layer's 512-wide feature is never formed (only column 0 is computed, one
+// warp per point). Weights are packed (N_pad, K_pad) with k contiguous, as
+// torch's (d_out, d_in) layout is, and stream through a cp.async ring of
+// k-slabs that runs ahead across layer boundaries; one barrier per slab.
+// The softplus epilogue uses the fast exp / log (softplus100_fast): with
+// the accurate ones it took as long as the products.
+//  * bf16: 64 points, 16 warps, mma.sync m16n8k16 (bf16 in, f32
+//    accumulate); a three-stage ring of 32-wide slabs (see the bf16
+//    section).
+//  * float: 64 points, 16 warps, split-TF32 mma.sync m16n8k8 (see the float
+//    section); a two-stage ring of 16-wide slabs.
+// wgmma is not used: a 64-row warpgroup tile holds 128 f32 accumulators a
+// thread per 256 columns, so the in-place output of a 512-wide layer caps a
+// block at 64 points, as here, and 64-point blocks re-read the weights
+// from L2 (4.4 GB at 65,536 points), which would bound a wgmma kernel near
+// the time of this one; 128-point blocks need the weight slabs multicast to
+// a cluster of SMs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,212 +122,214 @@ __device__ void last_column(const T* in, int ast, int tp, int K, const T* w, flo
   }
 }
 
-// ------------------------------ float: FMA ------------------------------
-
-constexpr int F_TP = 32;       // points per block
-constexpr int F_THREADS = 256;
-constexpr int F_PT = 8;        // points per thread
-constexpr int F_KC = 16;       // weight k-rows per staged slab
-
-// out[p][col] = softplus(sum_k in[p][k] W[col][k] + b[col])
-__device__ void dense_f32(const float* in, int in_stride, int K, const float* W, int kpad,
-                          int N, const float* bias, float* out, float* wt) {
-  const int tid = threadIdx.x;
-  const int c = tid & 63;   // column group: [4c, 4c+4) and [256+4c, 256+4c+4)
-  const int g = tid >> 6;   // point group: points [g*F_PT, g*F_PT+F_PT)
-  float acc[F_PT][8];
-#pragma unroll
-  for (int i = 0; i < F_PT; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += F_KC) {
-    __syncthreads();  // the previous slab is consumed
-    for (int col = tid; col < N; col += F_THREADS) {
-      const float* src = W + (long long)col * kpad + k0;
-      for (int r = 0; r < F_KC; ++r) wt[r * NMAX + col] = k0 + r < K ? src[r] : 0.0f;
-    }
-    __syncthreads();
-    const int kend = min(F_KC, K - k0);
-    for (int kk = 0; kk < kend; ++kk) {
-      const float4 w0 = *reinterpret_cast<const float4*>(&wt[kk * NMAX + 4 * c]);
-      const float4 w1 = *reinterpret_cast<const float4*>(&wt[kk * NMAX + 256 + 4 * c]);
-#pragma unroll
-      for (int i = 0; i < F_PT; ++i) {
-        const float a = in[(g * F_PT + i) * in_stride + k0 + kk];
-        acc[i][0] += a * w0.x; acc[i][1] += a * w0.y;
-        acc[i][2] += a * w0.z; acc[i][3] += a * w0.w;
-        acc[i][4] += a * w1.x; acc[i][5] += a * w1.y;
-        acc[i][6] += a * w1.z; acc[i][7] += a * w1.w;
-      }
-    }
+// The weight stream: the k-slabs of KS columns of layers 0 .. L-2 in order,
+// every weight row of a layer in each. The cursor names the next slab to
+// load; it runs ahead of the layer being multiplied, across layer
+// boundaries, so the ring never drains.
+template <int KS>
+struct Cursor {
+  int l = 0, k0 = 0;
+  __device__ bool valid(const Dims& d) const { return l < d.n_layers - 1; }
+  __device__ void advance(const Dims& d) {
+    k0 += KS;
+    if (k0 >= d.kpad[l]) k0 = 0, ++l;
   }
-#pragma unroll
-  for (int i = 0; i < F_PT; ++i) {
-    const int p = g * F_PT + i;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = (j < 4 ? 4 * c : 256 + 4 * c) + (j & 3);
-      if (col < N) out[p * NMAX + col] = softplus100(acc[i][j] + bias[col]);
-    }
+};
+
+// rows [0, npad) of k-columns [k0, k0 + KS) of layer l's (npad, kpad) weight
+// -> slab (row stride WST), 16-byte cp.async copies, consecutive threads on
+// consecutive 16 bytes of a row
+template <typename T, int KS, int WST, int THREADS>
+__device__ __forceinline__ void load_slab(T* slab, const T* W, const Dims& d, const Cursor<KS>& c) {
+  constexpr int V = 16 / sizeof(T);  // elements per copy
+  const T* w = W + d.woff[c.l] + c.k0;
+  const int chunks = min(KS, d.kpad[c.l] - c.k0) / V;  // per row
+  for (int e = threadIdx.x; e < d.npad[c.l] * chunks; e += THREADS) {
+    const int r = e / chunks, j = e - r * chunks;
+    cp_async16(slab + r * WST + V * j, w + (long long)r * d.kpad[c.l] + V * j);
   }
 }
 
-__global__ void __launch_bounds__(F_THREADS)
-sdf_mlp_f32_kernel(const float* __restrict__ pts, long long n_pts, const float* __restrict__ W,
-                   const float* __restrict__ B, Dims dims, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* bufs[2] = {reinterpret_cast<float*>(smem), reinterpret_cast<float*>(smem) + F_TP * NMAX};
-  float* pe = bufs[1] + F_TP * NMAX;
-  float* wt = pe + F_TP * PE_MAX;
-  const long long p0 = (long long)blockIdx.x * F_TP;
+// 64 points a block, 16 warps, each a 32 x 64 output tile. The activations
+// stay in one 64-row buffer, each layer's output written over its input
+// behind a barrier (the accumulators hold it until then). Row strides are
+// padded by 16 bytes so the fragment reads hit distinct banks.
+//  * float: split-TF32 mma.sync m16n8k8. Every f32 operand is split as hi +
+//    lo in TF32 and c += a_lo b_hi + a_hi b_lo + a_hi b_hi, summed in f32,
+//    which keeps f32 accuracy (~2^-22 per product) at up to 495 / 3 = 165
+//    TFLOP/s. 16-wide k-slabs in a two-stage ring: the 64 x 516 f32
+//    activations leave no room for a third.
+//  * bf16: mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix;
+//    32-wide k-slabs in a three-stage ring. (A 128-point tile halves the
+//    weights' L2 traffic, but its 128 x 512 f32 accumulators do not fit in
+//    registers: a layer then runs in two passes of 256 columns, the first
+//    pass's output waiting in registers, which leaves two warps per
+//    scheduler, and it ran slower on the H100.)
 
-  positional_encoding<float>(pts, n_pts, p0, F_TP, dims, pe, PE_MAX);
-  __syncthreads();
-  const float* in = pe;
-  int in_stride = PE_MAX, cur = 0;
-  const int L = dims.n_layers;
-  for (int l = 0; l < L - 1; ++l) {
-    if ((dims.skip_mask >> l) & 1) {
-      skip_concat<float>(bufs[cur ^ 1], NMAX, pe, PE_MAX, F_TP, dims.k[l], dims.d_pe);
-      __syncthreads();
-    }
-    dense_f32(in, in_stride, dims.k[l], W + dims.woff[l], dims.kpad[l], dims.n[l],
-              B + dims.boff[l], bufs[cur], wt);
-    __syncthreads();
-    in = bufs[cur];
-    in_stride = NMAX;
-    cur ^= 1;
-  }
-  last_column<float>(in, NMAX, F_TP, dims.k[L - 1], W + dims.woff[L - 1],
-                     B[dims.boff[L - 1]], dims.scale, p0, n_pts, out);
+constexpr int K1_TP = 64, K1_THREADS = 512;
+
+template <typename T> struct K1Cfg;
+template <> struct K1Cfg<float> {
+  static constexpr int KS = 16, STAGES = 2, AST = NMAX + 4, PST = PE_MAX + 4, WST = KS + 4;
+};
+template <> struct K1Cfg<bf16> {
+  static constexpr int KS = 32, STAGES = 3, AST = NMAX + 8, PST = PE_MAX + 8, WST = KS + 8;
+};
+
+template <typename T>
+constexpr size_t k1_smem() {
+  using C = K1Cfg<T>;
+  return (K1_TP * C::AST + K1_TP * C::PST + C::STAGES * NMAX * C::WST) * sizeof(T);
 }
 
-// --------------------------- bf16: tensor cores ---------------------------
-
-constexpr int M_TP = 64;           // points per block
-constexpr int M_THREADS = 512;     // 16 warps: 2 row blocks x 8 column blocks
-constexpr int M_AST = NMAX + 8;    // activation row stride (bf16)
-constexpr int M_PST = PE_MAX + 8;  // positional-encoding row stride
-constexpr int M_KS = 32;           // k-columns per weight slab
-constexpr int M_WST = M_KS + 8;    // weight slab row stride
-
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-// rows [0, npad) of k-columns [k0, k0 + M_KS) of W (npad, kpad) -> slab
-__device__ __forceinline__ void load_slab(bf16* slab, const bf16* W, int npad, int kpad, int k0) {
-  const int chunks = min(M_KS, kpad - k0) / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < npad * chunks; c += M_THREADS) {
-    const int n = c / chunks, j = c - n * chunks;
-    cp_async16(slab + n * M_WST + 8 * j, W + (long long)n * kpad + k0 + 8 * j);
-  }
-}
-
-// out[p][col] = softplus(sum_k in[p][k] W[col][k] + b[col]) for the
-// block's 64 points; kpad and npad are multiples of 16 and 8
-__device__ void dense_mma(const bf16* in, int ist, int kpad, const bf16* W, int npad,
-                          const float* bias, bf16* out, bf16* slabs) {
+// the products of kw k-columns of a slab of npad weight rows: warp (row0,
+// col0)'s 32 x 64 tile
+__device__ __forceinline__ void slab_products(const float* in, int ist, int k0, const float* slab,
+                                              int kw, int npad, float (&acc)[2][8][4]) {
+  constexpr int WST = K1Cfg<float>::WST;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = (warp & 1) * 32, col0 = (warp >> 1) * 64;
-  float acc[2][8][4];
+  const int g = lane >> 2, c = lane & 3;
+  if (col0 >= npad) return;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int kk = 0; kk < K1Cfg<float>::KS; kk += 8) {
+    if (kk >= kw) break;
+    unsigned ah[2][4], al[2][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  const int n_slabs = (kpad + M_KS - 1) / M_KS;
-  load_slab(slabs, W, npad, kpad, 0);
-  cp_async_commit();
-  for (int s = 0; s < n_slabs; ++s) {
-    if (s + 1 < n_slabs) load_slab(slabs + ((s + 1) & 1) * NMAX * M_WST, W, npad, kpad, (s + 1) * M_KS);
-    cp_async_commit();
-    cp_async_wait_one();  // slab s has landed
-    __syncthreads();
-    const bf16* slab = slabs + (s & 1) * NMAX * M_WST;
-    const int k0 = s * M_KS, kw = min(M_KS, kpad - k0);
-    if (col0 < npad) {
-      for (int kk = 0; kk < kw; kk += 16) {
-        unsigned a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldmatrix_x4(a[mi], in + (row0 + 16 * mi + (lane & 15)) * ist + k0 + kk + (lane >> 4) * 8);
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-          const int n = col0 + 16 * nj;
-          if (n < npad) {
-            unsigned b[4];
-            ldmatrix_x4(b, slab + (n + (lane & 7) + ((lane >> 4) << 3)) * M_WST + kk +
-                               ((lane >> 3) & 1) * 8);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-              mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
-              if (n + 8 < npad) mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
-            }
-          }
-        }
-      }
+    for (int mi = 0; mi < 2; ++mi) {
+      const float* a = in + (row0 + 16 * mi + g) * ist + k0 + kk + c;
+      tf32_split(a[0], ah[mi][0], al[mi][0]);
+      tf32_split(a[8 * ist], ah[mi][1], al[mi][1]);
+      tf32_split(a[4], ah[mi][2], al[mi][2]);
+      tf32_split(a[8 * ist + 4], ah[mi][3], al[mi][3]);
     }
-    __syncthreads();  // slab s is consumed before it is refilled
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni) {
-      const int n = col0 + 8 * ni + 2 * (lane & 3);
-      if (n >= npad) continue;
-      const int r = row0 + 16 * mi + (lane >> 2);
-      const float b0 = bias[n], b1 = bias[n + 1];
-      *reinterpret_cast<__nv_bfloat162*>(out + r * M_AST + n) = __floats2bfloat162_rn(
-          softplus100(acc[mi][ni][0] + b0), softplus100(acc[mi][ni][1] + b1));
-      *reinterpret_cast<__nv_bfloat162*>(out + (r + 8) * M_AST + n) = __floats2bfloat162_rn(
-          softplus100(acc[mi][ni][2] + b0), softplus100(acc[mi][ni][3] + b1));
+      const int n = col0 + 8 * ni;
+      if (n >= npad) break;
+      const float* b = slab + (n + g) * WST + kk + c;
+      unsigned bh0, bl0, bh1, bl1;
+      tf32_split(b[0], bh0, bl0);
+      tf32_split(b[4], bh1, bl1);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) mma_3xtf32(acc[mi][ni], ah[mi], al[mi], bh0, bh1, bl0, bl1);
     }
+  }
 }
 
-__global__ void __launch_bounds__(M_THREADS)
-sdf_mlp_bf16_kernel(const float* __restrict__ pts, long long n_pts, const bf16* __restrict__ W,
-                    const float* __restrict__ B, Dims dims, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* bufs[2] = {reinterpret_cast<bf16*>(smem), reinterpret_cast<bf16*>(smem) + M_TP * M_AST};
-  bf16* pe = bufs[1] + M_TP * M_AST;
-  bf16* slabs = pe + M_TP * M_PST;
-  const long long p0 = (long long)blockIdx.x * M_TP;
+__device__ __forceinline__ void slab_products(const bf16* in, int ist, int k0, const bf16* slab,
+                                              int kw, int npad, float (&acc)[2][8][4]) {
+  constexpr int WST = K1Cfg<bf16>::WST;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = (warp & 1) * 32, col0 = (warp >> 1) * 64;
+  if (col0 >= npad) return;
+#pragma unroll
+  for (int kk = 0; kk < K1Cfg<bf16>::KS; kk += 16) {
+    if (kk >= kw) break;
+    unsigned a[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      ldmatrix_x4(a[mi], in + (row0 + 16 * mi + (lane & 15)) * ist + k0 + kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const int n = col0 + 16 * nj;
+      if (n >= npad) break;
+      unsigned b[4];
+      ldmatrix_x4(b, slab + (n + (lane & 7) + ((lane >> 4) << 3)) * WST + kk +
+                         ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
+        if (n + 8 < npad) mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+      }
+    }
+  }
+}
 
-  positional_encoding<bf16>(pts, n_pts, p0, M_TP, dims, pe, M_PST);
-  __syncthreads();
-  const bf16* in = pe;
-  int in_stride = M_PST, cur = 0;
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(K1_THREADS, 1)
+sdf_mlp_kernel(const float* __restrict__ pts, long long n_pts, const T* __restrict__ W,
+               const float* __restrict__ B, Dims dims, float* __restrict__ out) {
+  using C = K1Cfg<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* act = reinterpret_cast<T*>(smem);  // K1_TP x AST
+  T* pe = act + K1_TP * C::AST;         // K1_TP x PST
+  T* ring = pe + K1_TP * C::PST;        // STAGES x NMAX x WST
+  const long long p0 = (long long)blockIdx.x * K1_TP;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = (warp & 1) * 32, col0 = (warp >> 1) * 64;
   const int L = dims.n_layers;
+
+  Cursor<C::KS> ld;
+  for (int st = 0; st < C::STAGES - 1; ++st) {
+    if (ld.valid(dims)) {
+      load_slab<T, C::KS, C::WST, K1_THREADS>(ring + st * NMAX * C::WST, W, dims, ld);
+      ld.advance(dims);
+    }
+    cp_async_commit();
+  }
+  positional_encoding<T>(pts, n_pts, p0, K1_TP, dims, pe, C::PST);
+  __syncthreads();
+  const T* in = pe;
+  int ist = C::PST, t = 0;
   for (int l = 0; l < L - 1; ++l) {
     if ((dims.skip_mask >> l) & 1) {
-      skip_concat<bf16>(bufs[cur ^ 1], M_AST, pe, M_PST, M_TP, dims.k[l], dims.d_pe);
-      __syncthreads();
+      skip_concat<T>(act, C::AST, pe, C::PST, K1_TP, dims.k[l], dims.d_pe);
+      in = act;
+      ist = C::AST;
     }
-    dense_mma(in, in_stride, dims.kpad[l], W + dims.woff[l], dims.npad[l], B + dims.boff[l],
-              bufs[cur], slabs);
+    float acc[2][8][4] = {};
+    for (int k0 = 0; k0 < dims.kpad[l]; k0 += C::KS, ++t) {
+      cp_async_wait<C::STAGES - 2>();  // slab t has landed
+      __syncthreads();  // for every thread, and slab t - 1 is consumed
+      if (ld.valid(dims)) {
+        load_slab<T, C::KS, C::WST, K1_THREADS>(
+            ring + ((t + C::STAGES - 1) % C::STAGES) * NMAX * C::WST, W, dims, ld);
+        ld.advance(dims);
+      }
+      cp_async_commit();
+      slab_products(in, ist, k0, ring + (t % C::STAGES) * NMAX * C::WST,
+                    min(C::KS, dims.kpad[l] - k0), dims.npad[l], acc);
+    }
+    __syncthreads();  // every warp has read the layer's input
+    const float* bias = B + dims.boff[l];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const int n = col0 + 8 * ni + 2 * (lane & 3);
+        if (n >= dims.npad[l]) continue;
+        const int r = row0 + 16 * mi + (lane >> 2);
+        const float b0 = bias[n], b1 = bias[n + 1];
+        store_pair(act + r * C::AST + n, softplus100_fast(acc[mi][ni][0] + b0),
+                   softplus100_fast(acc[mi][ni][1] + b1));
+        store_pair(act + (r + 8) * C::AST + n, softplus100_fast(acc[mi][ni][2] + b0),
+                   softplus100_fast(acc[mi][ni][3] + b1));
+      }
     __syncthreads();
-    in = bufs[cur];
-    in_stride = M_AST;
-    cur ^= 1;
+    in = act;
+    ist = C::AST;
   }
-  last_column<bf16>(in, M_AST, M_TP, dims.k[L - 1], W + dims.woff[L - 1],
-                    B[dims.boff[L - 1]], dims.scale, p0, n_pts, out);
+  last_column<T>(in, ist, K1_TP, dims.k[L - 1], W + dims.woff[L - 1], B[dims.boff[L - 1]],
+                 dims.scale, p0, n_pts, out);
 }
 
-template <typename WT>
-int launch(void (*kernel)(const float*, long long, const WT*, const float*, Dims, float*), int tp,
-           int threads, size_t smem, const float* pts, long long n_pts, const WT* w,
-           const float* b, const Dims& dims, float* out, cudaStream_t stream) {
+template <typename T>
+int launch(const float* pts, long long n_pts, const T* w, const float* b, const Dims& dims,
+           float* out, cudaStream_t stream) {
+  const auto kernel = sdf_mlp_kernel<T>;
+  const size_t smem = k1_smem<T>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n_pts + tp - 1) / tp;
-  if (blocks > 0) kernel<<<(unsigned)blocks, threads, smem, stream>>>(pts, n_pts, w, b, dims, out);
+  const long long blocks = (n_pts + K1_TP - 1) / K1_TP;
+  if (blocks > 0) kernel<<<(unsigned)blocks, K1_THREADS, smem, stream>>>(pts, n_pts, w, b, dims, out);
   return (int)cudaGetLastError();
 }
 
@@ -349,13 +357,12 @@ extern "C" int nw_sdf_mlp(const float* pts, long long n_pts, const void* w, cons
     const bool hidden = l < n_layers - 1;
     if (k[l] > NMAX || kpad[l] < k[l] || (hidden && (n[l] > NMAX || npad[l] > NMAX)))
       return -1;
-    // the tensor-core path reads every input column below kpad: it must
-    // lie in what the previous layer wrote (or the skip concat / the PE)
+    // the tensor-core products read every input column below kpad: it
+    // must lie in what the previous layer wrote (or the skip concat / the PE)
     const bool skip = (skip_mask >> l) & 1;
-    if (bf16_act && (kpad[l] % 16 || kpad[l] > (l == 0 ? PE_MAX : NMAX) ||
-                     (hidden && (npad[l] % 8 || npad[l] < n[l])) ||
-                     (skip && kpad[l] != k[l]) ||
-                     (l > 0 && hidden && !skip && kpad[l] > npad[l - 1])))
+    if (kpad[l] % 16 || kpad[l] > (l == 0 ? PE_MAX : NMAX) ||
+        (hidden && (npad[l] % 8 || npad[l] < n[l])) || (skip && kpad[l] != k[l]) ||
+        (l > 0 && hidden && !skip && kpad[l] > npad[l - 1]))
       return -1;
     dims.k[l] = k[l];
     dims.kpad[l] = kpad[l];
@@ -366,12 +373,6 @@ extern "C" int nw_sdf_mlp(const float* pts, long long n_pts, const void* w, cons
   }
   if (dims.k[0] != dims.d_pe) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16_act) {
-    const size_t smem = (2 * M_TP * M_AST + M_TP * M_PST + 2 * NMAX * M_WST) * sizeof(bf16);
-    return launch(sdf_mlp_bf16_kernel, M_TP, M_THREADS, smem, pts, n_pts,
-                  static_cast<const bf16*>(w), b, dims, out, s);
-  }
-  const size_t smem = (2 * F_TP * NMAX + F_TP * PE_MAX + F_KC * NMAX) * sizeof(float);
-  return launch(sdf_mlp_f32_kernel, F_TP, F_THREADS, smem, pts, n_pts,
-                static_cast<const float*>(w), b, dims, out, s);
+  if (bf16_act) return launch(pts, n_pts, static_cast<const bf16*>(w), b, dims, out, s);
+  return launch(pts, n_pts, static_cast<const float*>(w), b, dims, out, s);
 }

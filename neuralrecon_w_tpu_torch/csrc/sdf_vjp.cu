@@ -30,8 +30,15 @@
 //    backward of F, writes dx and leaves per layer the dW factor pairs
 //    (d_l, r_hat_l) and (g_tot_l, u_l) in the workspace.
 //  * K5 (nw_sdf_vjp_reduce): dW_l = d_l^T r_hat_l + g_tot_l^T u_l and
-//    db_l = sum g_tot_l over the points, a split-K reduction (mma.sync in
-//    bf16, FMA in float) with f32 atomics into dW.
+//    db_l = sum g_tot_l over the points. It only reads: the f32 factor rows
+//    once (5.1 ms at 245,760 points on the H100's 3.35 TB/s) against ~2.3
+//    ms of bf16 tensor-core products, so bytes bound it. A split-K GEMM
+//    over the points (the K5 section below): 256 x 128 dW tiles, which read
+//    each factor row 3x through L2 at the 512 width (a 64 x 64 tile read it
+//    8x); coalesced 16-byte cp.async copies three slabs ahead of the
+//    products; db summed in the same pass; one atomic pass per block.
+//    Fusing the reduction into K4 per tile is ruled out: a 64-point tile
+//    touches every dW of the 9 layers, ~2.4 M f32 atomics per tile.
 // The TPU kernel's split of the layer set over two calls (VMEM could not
 // hold the weights and all dW accumulators) has no counterpart: dW is
 // reduced outside the per-tile kernel. The wrapper runs K3 and K4 + K5 over
@@ -97,122 +104,240 @@ sdf_vjp_bwd_kernel(const float* __restrict__ pts, long long n_pts, const float* 
 }
 
 // ------------------------------ K5 ------------------------------
-// dW[r][c] += sum_p X[p][r] Y[p][c] over one or two factor pairs, for the
-// block's 64 x 64 tile and point range: an SDF layer's (d, r_hat) and
-// (g_tot, u), or a colour or background layer's (cotangent, input) from K7
-// or K9; db[r] += sum_p X[p][r] of the last pair (g_tot, or the cotangent)
-// in the blocks of the first column tile, unless db is null. Rows are WMAX
-// floats apart; dW rows ldw.
+// dW[r][c] += sum_p X[p][r] Y[p][c] over one or two factor pairs: an SDF
+// layer's (d, r_hat) and (g_tot, u), or a colour or background layer's
+// (cotangent, input) from K7 or K9; db[r] += sum_p X[p][r] of the last pair
+// (g_tot, or the cotangent), unless db is null. Rows are WMAX floats apart;
+// dW rows ldw.
+//
+// A split-K GEMM over the points. A block owns a 256 x 128 tile of dW (at
+// the 512 width each x row is read by 4 blocks and each y row by 2, through
+// L2) and a contiguous share of the points (blockIdx.y), and adds its
+// partial sums into dW with one atomic pass at its end. K5 only reads, so
+// the bytes in flight set its speed: slabs of 32 points stream through a
+// four-stage cp.async ring of the f32 rows (16-byte copies along the rows,
+// a warp copying 512 contiguous bytes of one row; 4-byte ones where a row
+// is not 16-byte aligned), three slabs (144 KB) ahead of the products.
+// bf16: each landed slab is rounded once to bf16 into a point-major
+// staging tile, which 16 warps of 64 x 32 mma.sync m16n8k16 tiles read
+// through ldmatrix.trans (both operands are point-major, the transpose of
+// what mma wants), f32 accumulation; f32: each thread adds 8 x 8 FMA
+// products straight from the ring (exact f32 products; the bf16 runs are
+// the ones that train at the operating point). db is summed in the same
+// pass by the blocks of the first column tile, from the f32 values as
+// landed, by all their threads.
 
-constexpr int R_T = 64;
+constexpr int R_TM = 256, R_TN = 128, R_THREADS = 512, R_PC = 32, R_STAGES = 4;
+constexpr int R_STAGE = R_PC * (R_TM + R_TN);  // floats of one ring stage: x then y rows
+constexpr int R_XST = R_TM + 8, R_YST = R_TN + 8;  // bf16 staging row strides
+constexpr int R_XLD = R_PC * R_TM / 4 / R_THREADS, R_YLD = R_PC * R_TN / 4 / R_THREADS;
 
-__device__ void colsum_db(const float* G, int n, long long lo, long long hi, float* db) {
-  const int r = blockIdx.x * R_T + threadIdx.x;
-  if (!db || blockIdx.y != 0 || threadIdx.x >= R_T || r >= n) return;
-  float s = 0.0f;
-  for (long long p = lo; p < hi; ++p) s += G[p * WMAX + r];
-  atomicAdd(db + r, s);
+struct FactorPair {
+  const float* x;
+  const float* y;
+};
+
+__device__ __forceinline__ void cp_async_zfill(float* dst, const float* src, int bytes, bool vec) {
+  if (vec)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(smem_addr(dst)), "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 ::"r"(smem_addr(dst)), "l"(src), "r"(bytes));
 }
 
-constexpr int RF_THREADS = 256, RF_PC = 16;
-
-template <int PAIRS>
-__global__ void __launch_bounds__(RF_THREADS)
-reduce_f32_kernel(const float* X0, const float* Y0, const float* X1, const float* Y1, int n,
-                  int k, long long n_rows, long long per, float* dW, int ldw, float* db) {
-  __shared__ __align__(16) float Xs[RF_PC][R_T];
-  __shared__ __align__(16) float Ys[RF_PC][R_T];
-  const int tid = threadIdx.x, tn = tid >> 4, tk = tid & 15;
-  const int r0 = blockIdx.x * R_T, c0 = blockIdx.y * R_T;
-  const long long lo = blockIdx.z * per, hi = min(n_rows, lo + per);
-  float acc[4][4] = {};
-  for (int pair = 0; pair < PAIRS; ++pair) {
-    const float* X = pair ? X1 : X0;
-    const float* Y = pair ? Y1 : Y0;
-    for (long long q = lo; q < hi; q += RF_PC) {
-      __syncthreads();
-      for (int e = tid; e < RF_PC * R_T; e += RF_THREADS) {
-        const int pp = e / R_T, i = e - pp * R_T;
-        const bool in = q + pp < hi;
-        Xs[pp][i] = in && r0 + i < n ? X[(q + pp) * WMAX + r0 + i] : 0.0f;
-        Ys[pp][i] = in && c0 + i < k ? Y[(q + pp) * WMAX + c0 + i] : 0.0f;
-      }
-      __syncthreads();
+// columns c .. c + 3 of a factor row into dst: zero at and past lim, and
+// zero for a point past the block's share (in false; row is then any row
+// of the share, which is never read)
+__device__ __forceinline__ void copy_cols(float* dst, const float* row, int c, int lim, bool vec,
+                                          bool in) {
+  if (vec) {
+    const int m = in ? min(max(lim - c, 0), 4) : 0;
+    cp_async_zfill(dst, row + (m ? c : 0), 4 * m, true);
+  } else {
 #pragma unroll
-      for (int pp = 0; pp < RF_PC; ++pp) {
-        const float4 x = *reinterpret_cast<const float4*>(&Xs[pp][4 * tn]);
-        const float4 y = *reinterpret_cast<const float4*>(&Ys[pp][4 * tk]);
-        const float xv[4] = {x.x, x.y, x.z, x.w}, yv[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += xv[i] * yv[j];
-      }
-    }
-  }
-  for (int i = 0; i < 4; ++i)
     for (int j = 0; j < 4; ++j) {
-      const int r = r0 + 4 * tn + i, c = c0 + 4 * tk + j;
-      if (r < n && c < k) atomicAdd(dW + (long long)r * ldw + c, acc[i][j]);
+      const bool ok = in && c + j < lim;
+      cp_async_zfill(dst + j, row + (ok ? c + j : 0), ok ? 4 : 0, false);
     }
-  colsum_db(PAIRS == 2 ? X1 : X0, n, lo, hi, db);
+  }
 }
 
-constexpr int RB_THREADS = 128, RB_PC = 32, RB_ST = RB_PC + 8;
-
-template <int PAIRS>
-__global__ void __launch_bounds__(RB_THREADS)
-reduce_bf16_kernel(const float* X0, const float* Y0, const float* X1, const float* Y1, int n,
-                   int k, long long n_rows, long long per, float* dW, int ldw, float* db) {
-  // transposed staging: row = output index, the points contiguous, so the
-  // fragments load as in the tile GEMM (A = X^T row-major, B = Y^T as N x K)
-  __shared__ __align__(16) bf16 Xs[R_T * RB_ST];
-  __shared__ __align__(16) bf16 Ys[R_T * RB_ST];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = (warp & 1) * 32, col0 = (warp >> 1) * 32;
-  const int r0 = blockIdx.x * R_T, c0 = blockIdx.y * R_T;
-  const long long lo = blockIdx.z * per, hi = min(n_rows, lo + per);
-  float acc[2][4][4] = {};
-  for (int pair = 0; pair < PAIRS; ++pair) {
-    const float* X = pair ? X1 : X0;
-    const float* Y = pair ? Y1 : Y0;
-    for (long long q = lo; q < hi; q += RB_PC) {
-      __syncthreads();
-      for (int e = tid; e < RB_PC * R_T; e += RB_THREADS) {
-        const int pp = e / R_T, i = e - pp * R_T;
-        const bool in = q + pp < hi;
-        Xs[i * RB_ST + pp] = __float2bfloat16(in && r0 + i < n ? X[(q + pp) * WMAX + r0 + i] : 0.0f);
-        Ys[i * RB_ST + pp] = __float2bfloat16(in && c0 + i < k ? Y[(q + pp) * WMAX + c0 + i] : 0.0f);
-      }
-      __syncthreads();
+// one slab of bf16 products: warp (wm, wn) adds its 64 x 32 part of the tile
+__device__ __forceinline__ void slab_products(const bf16* X, const bf16* Y, float (&acc)[4][4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = (warp >> 2) * 64, n0 = (warp & 3) * 32;
+  const int i = lane & 7, j = lane >> 3;
 #pragma unroll
-      for (int kk = 0; kk < RB_PC; kk += 16) {
-        unsigned a[2][4];
+  for (int kk = 0; kk < R_PC; kk += 16) {
+    unsigned a[4][4];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldmatrix_x4(a[mi], Xs + (row0 + 16 * mi + (lane & 15)) * RB_ST + kk + (lane >> 4) * 8);
+    for (int mi = 0; mi < 4; ++mi)
+      ldmatrix_x4_trans(a[mi], X + (kk + i + ((j >> 1) << 3)) * R_XST + m0 + 16 * mi + ((j & 1) << 3));
 #pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-          unsigned bb[4];
-          ldmatrix_x4(bb, Ys + (col0 + 16 * nj + (lane & 7) + ((lane >> 4) << 3)) * RB_ST + kk +
-                              ((lane >> 3) & 1) * 8);
+    for (int nj = 0; nj < 2; ++nj) {
+      unsigned b[4];
+      ldmatrix_x4_trans(b, Y + (kk + i + ((j & 1) << 3)) * R_YST + n0 + 16 * nj + ((j >> 1) << 3));
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_bf16(acc[mi][2 * nj], a[mi], bb[0], bb[1]);
-            mma_bf16(acc[mi][2 * nj + 1], a[mi], bb[2], bb[3]);
-          }
-        }
+      for (int mi = 0; mi < 4; ++mi) {
+        mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
+        mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
       }
     }
   }
-  for (int mi = 0; mi < 2; ++mi)
+}
+
+// one slab of f32 products: thread (tr, tc) adds rows {4 tr, 128 + 4 tr} +
+// 0..3 by columns {4 tc, 64 + 4 tc} + 0..3
+__device__ __forceinline__ void slab_products(const float* X, const float* Y, float (&acc)[8][8]) {
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+#pragma unroll 4
+  for (int pp = 0; pp < R_PC; ++pp) {
+    const float4 x0 = *reinterpret_cast<const float4*>(X + pp * R_TM + 4 * tr);
+    const float4 x1 = *reinterpret_cast<const float4*>(X + pp * R_TM + 128 + 4 * tr);
+    const float4 y0 = *reinterpret_cast<const float4*>(Y + pp * R_TN + 4 * tc);
+    const float4 y1 = *reinterpret_cast<const float4*>(Y + pp * R_TN + 64 + 4 * tc);
+    const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[a][b] += xv[a] * yv[b];
+  }
+}
+
+template <typename T> struct RedAcc;
+template <> struct RedAcc<bf16> { float v[4][4][4]; };
+template <> struct RedAcc<float> { float v[8][8]; };
+
+__device__ __forceinline__ void add_tile(const float (&acc)[4][4][4], int r0, int c0, int n, int k,
+                                         float* dW, int ldw) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = r0 + (warp >> 2) * 64, n0 = c0 + (warp & 3) * 32;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
     for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = r0 + row0 + 16 * mi + (lane >> 2) + (e >> 1) * 8;
-        const int c = c0 + col0 + 8 * ni + 2 * (lane & 3) + (e & 1);
+        const int r = m0 + 16 * mi + (lane >> 2) + (e >> 1) * 8;
+        const int c = n0 + 8 * ni + 2 * (lane & 3) + (e & 1);
         if (r < n && c < k) atomicAdd(dW + (long long)r * ldw + c, acc[mi][ni][e]);
       }
-  colsum_db(PAIRS == 2 ? X1 : X0, n, lo, hi, db);
+}
+
+__device__ __forceinline__ void add_tile(const float (&acc)[8][8], int r0, int c0, int n, int k,
+                                         float* dW, int ldw) {
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const int r = r0 + (a >> 2) * 128 + 4 * tr + (a & 3);
+      const int c = c0 + (b >> 2) * 64 + 4 * tc + (b & 3);
+      if (r < n && c < k) atomicAdd(dW + (long long)r * ldw + c, acc[a][b]);
+    }
+}
+
+template <typename T>
+constexpr size_t reduce_smem() {
+  return R_STAGES * R_STAGE * sizeof(float) +
+         (sizeof(T) == 2 ? R_PC * (R_XST + R_YST) * sizeof(bf16) : 0);
+}
+
+// vec: bit 0, the x rows are 16-byte aligned; bit 1, the y rows
+template <typename T, int PAIRS>
+__global__ void __launch_bounds__(R_THREADS)
+reduce_kernel(FactorPair f0, FactorPair f1, int n, int k, long long n_pts, long long per,
+              int tiles_c, float* dW, int ldw, float* db, int vec) {
+  extern __shared__ __align__(16) unsigned char red_smem[];
+  float* ring = reinterpret_cast<float*>(red_smem);                 // R_STAGES x R_STAGE
+  bf16* xs = reinterpret_cast<bf16*>(ring + R_STAGES * R_STAGE);    // bf16: R_PC x R_XST
+  bf16* ys = xs + R_PC * R_XST;                                      //       R_PC x R_YST
+  const int tid = threadIdx.x;
+  const int r0 = (blockIdx.x / tiles_c) * R_TM, c0 = (blockIdx.x % tiles_c) * R_TN;
+  const long long lo = blockIdx.y * per, hi = min(n_pts, lo + per);
+  const int slabs = (int)((hi - lo + R_PC - 1) / R_PC), total = PAIRS * slabs;
+  const bool with_db = db != nullptr && c0 == 0;
+  const bool vx = vec & 1, vy = vec & 2;
+  // thread tid copies (and rounds, and sums for db) columns 4 xc .. 4 xc + 3
+  // of x at points xp + 8 i, and of y columns 4 yc .. at points yp + 16 i
+  const int xc = tid & (R_TM / 4 - 1), xp = tid / (R_TM / 4);
+  const int yc = tid & (R_TN / 4 - 1), yp = tid / (R_TN / 4);
+  float4 dsum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  RedAcc<T> acc = {};
+
+  // slab s of the pairs in turn into ring stage s % R_STAGES
+  auto issue = [&](int s) {
+    if (s < total) {
+      const bool second = PAIRS == 2 && s >= slabs;
+      const FactorPair f = second ? f1 : f0;
+      const long long q = lo + (long long)(second ? s - slabs : s) * R_PC;
+      float* st = ring + (s % R_STAGES) * R_STAGE;
+#pragma unroll
+      for (int i = 0; i < R_XLD; ++i) {
+        const int pp = xp + (R_THREADS / (R_TM / 4)) * i;
+        const bool in = q + pp < hi;
+        copy_cols(st + pp * R_TM + 4 * xc, f.x + (in ? q + pp : lo) * WMAX + r0, 4 * xc, n - r0,
+                  vx, in);
+      }
+#pragma unroll
+      for (int i = 0; i < R_YLD; ++i) {
+        const int pp = yp + (R_THREADS / (R_TN / 4)) * i;
+        const bool in = q + pp < hi;
+        copy_cols(st + R_PC * R_TM + pp * R_TN + 4 * yc, f.y + (in ? q + pp : lo) * WMAX + c0,
+                  4 * yc, k - c0, vy, in);
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int s = 0; s < R_STAGES - 1; ++s) issue(s);
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<R_STAGES - 2>();  // slab s has landed
+    __syncthreads();  // for every thread; slab s - 1's stage and the staging tile are free
+    issue(s + R_STAGES - 1);
+    const float* X = ring + (s % R_STAGES) * R_STAGE;
+    const float* Y = X + R_PC * R_TM;
+    const bool sum_db = with_db && (PAIRS == 1 || s >= slabs);
+#pragma unroll
+    for (int i = 0; i < R_XLD; ++i) {
+      const int pp = xp + (R_THREADS / (R_TM / 4)) * i;
+      const float4 x = *reinterpret_cast<const float4*>(X + pp * R_TM + 4 * xc);
+      if (sum_db) dsum.x += x.x, dsum.y += x.y, dsum.z += x.z, dsum.w += x.w;
+      if constexpr (sizeof(T) == 2) {
+        __nv_bfloat162 h[2] = {__floats2bfloat162_rn(x.x, x.y), __floats2bfloat162_rn(x.z, x.w)};
+        *reinterpret_cast<uint2*>(xs + pp * R_XST + 4 * xc) = *reinterpret_cast<uint2*>(h);
+      }
+    }
+    if constexpr (sizeof(T) == 2) {
+#pragma unroll
+      for (int i = 0; i < R_YLD; ++i) {
+        const int pp = yp + (R_THREADS / (R_TN / 4)) * i;
+        const float4 y = *reinterpret_cast<const float4*>(Y + pp * R_TN + 4 * yc);
+        __nv_bfloat162 h[2] = {__floats2bfloat162_rn(y.x, y.y), __floats2bfloat162_rn(y.z, y.w)};
+        *reinterpret_cast<uint2*>(ys + pp * R_YST + 4 * yc) = *reinterpret_cast<uint2*>(h);
+      }
+      __syncthreads();
+      slab_products(xs, ys, acc.v);
+    } else {
+      slab_products(X, Y, acc.v);
+    }
+  }
+  add_tile(acc.v, r0, c0, n, k, dW, ldw);
+  if (with_db) {  // the block's column sums: the partial sums of each column's threads
+    constexpr int GROUPS = R_THREADS / (R_TM / 4);
+    __syncthreads();
+    float* red = ring;
+    *reinterpret_cast<float4*>(red + xp * R_TM + 4 * xc) = dsum;
+    __syncthreads();
+    if (tid < R_TM && r0 + tid < n) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int g = 0; g < GROUPS; ++g) sum += red[g * R_TM + tid];
+      atomicAdd(db + r0 + tid, sum);
+    }
+  }
 }
 
 }  // namespace
@@ -289,22 +414,33 @@ namespace {
 int launch_reduce(const float* X0, const float* Y0, const float* X1, const float* Y1, int n,
                   int k, long long n_pts, int bf16_act, float* dW, int ldw, float* db,
                   void* stream) {
-  const unsigned gx = (n + R_T - 1) / R_T, gy = (k + R_T - 1) / R_T;
-  long long splits = (1024 + gx * gy - 1) / (gx * gy);
-  splits = splits < 1 ? 1 : splits;
-  splits = splits > (n_pts + 255) / 256 ? (n_pts + 255) / 256 : splits;
-  const long long per = (n_pts + splits - 1) / splits;
-  dim3 grid(gx, gy, (unsigned)splits);
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return (int)cudaGetLastError();
+  }
+  // one wave: one block (its ring fills most of shared memory) on each SM
+  // that has one, each over at least four slabs of points
+  const int tiles_c = (k + R_TN - 1) / R_TN, tiles = ((n + R_TM - 1) / R_TM) * tiles_c;
+  long long splits = max(1, sms / tiles);
+  splits = max(1LL, min(splits, (n_pts + 4 * R_PC - 1) / (4 * R_PC)));
+  const long long per = ((n_pts + splits - 1) / splits + R_PC - 1) / R_PC * R_PC;
+  splits = (n_pts + per - 1) / per;
+  const auto aligned = [](const float* p) { return ((uintptr_t)p & 15) == 0; };
+  const int vec = (aligned(X0) && (!X1 || aligned(X1))) | (aligned(Y0) && (!Y1 || aligned(Y1))) << 1;
+  const FactorPair f0{X0, Y0}, f1{X1, Y1};
+  const dim3 grid((unsigned)tiles, (unsigned)splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16_act && X1)
-    reduce_bf16_kernel<2><<<grid, RB_THREADS, 0, s>>>(X0, Y0, X1, Y1, n, k, n_pts, per, dW, ldw, db);
-  else if (bf16_act)
-    reduce_bf16_kernel<1><<<grid, RB_THREADS, 0, s>>>(X0, Y0, X1, Y1, n, k, n_pts, per, dW, ldw, db);
-  else if (X1)
-    reduce_f32_kernel<2><<<grid, RF_THREADS, 0, s>>>(X0, Y0, X1, Y1, n, k, n_pts, per, dW, ldw, db);
-  else
-    reduce_f32_kernel<1><<<grid, RF_THREADS, 0, s>>>(X0, Y0, X1, Y1, n, k, n_pts, per, dW, ldw, db);
-  return (int)cudaGetLastError();
+  const auto run = [&](auto kern, size_t smem) {
+    if (int err = prepare(kern, smem)) return err;
+    kern<<<grid, R_THREADS, smem, s>>>(f0, f1, n, k, n_pts, per, tiles_c, dW, ldw, db, vec);
+    return (int)cudaGetLastError();
+  };
+  const size_t sb = reduce_smem<bf16>(), sf = reduce_smem<float>();
+  if (bf16_act) return X1 ? run(reduce_kernel<bf16, 2>, sb) : run(reduce_kernel<bf16, 1>, sb);
+  return X1 ? run(reduce_kernel<float, 2>, sf) : run(reduce_kernel<float, 1>, sf);
 }
 
 }  // namespace

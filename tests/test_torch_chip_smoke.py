@@ -151,8 +151,9 @@ print("ok")
 
 def test_chip_smoke_kernel_bounds():
     """The bounds of kernel 5's and kernel 6's ports at the path's shapes:
-    every entry bound by operations at the brandenburg width, with bf16 at
-    least 14x below f32 (989 against 67 TFLOP/s), and linear in the points."""
+    every entry bound by operations at the brandenburg width, with bf16 ~6x
+    below f32 (989 against 165 TFLOP/s, an f32 product reckoned at three
+    TF32 ones), and linear in the points."""
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
@@ -180,9 +181,10 @@ def test_chip_smoke_kernel_bounds():
         assert bg["nerf_bg_bwd"]["bound_ms"] == pytest.approx(2 * bg["nerf_bg_fwd"]["bound_ms"])
         assert double["field_bwd"]["bound_ms"] == pytest.approx(2 * field["field_bwd"]["bound_ms"],
                                                                 rel=1e-3)
+    assert cs.PEAK_BF16 / cs.PEAK_F32 == pytest.approx(989 / 165, rel=1e-3)
     for i in range(2):
         for k in bounds["float32"][i]:
-            assert bounds["float32"][i][k]["bound_ms"] > 14 * bounds["bfloat16"][i][k]["bound_ms"] \
+            assert bounds["float32"][i][k]["bound_ms"] > 5.99 * bounds["bfloat16"][i][k]["bound_ms"] \
                 or bounds["bfloat16"][i][k]["bound_by"] == "bytes"
 
 
@@ -273,3 +275,48 @@ def test_chip_smoke_check_helpers():
     assert cs.check_flips("t", masks, [z, z], 1e-3) == []
     masks[1][5, 6] = ~masks[1][5, 6]  # a flip far from 0 is a fault
     assert cs.check_flips("t", masks, [z, z], 1e-3) == [2]
+
+
+@pytest.mark.parametrize("pairs", [1, 2])
+def test_chip_smoke_reduce_library_matches_plain(pairs):
+    """K5's yardstick, one PyTorch call per factor pair on the same float32
+    workspace rows, adds the dW / db the plain version adds: an SDF layer's
+    two pairs (``reduce_calls``' library and plain callables over several
+    chunks), or one pair into a column slice of a wider dW from a row that
+    starts one float in (``library_rows``, as ``dw_reduce_rows`` is called)."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from neuralrecon_w_tpu_torch.ops import field_vjp_math as fvm
+    from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp
+
+    g = torch.Generator().manual_seed(0)
+    if pairs == 2:
+        ws = [torch.randn(64, 39, generator=g), torch.randn(48, 64, generator=g),
+              torch.randn(65, 48, generator=g)]
+        bs = [torch.randn(w.shape[0], generator=g) for w in ws]
+        cfg = {"skip_in": (), "multires": 6, "scale": 1.0}
+        old = vjp.CHUNK
+        vjp.CHUNK = 100
+        try:
+            _, plain, library, (dWs, dbs) = cs.reduce_calls(ws, bs, cfg, "float32", 250)
+            library()
+            got = [t.clone() for t in dWs + dbs]
+            for t in dWs + dbs:
+                t.zero_()
+            plain()
+        finally:
+            vjp.CHUNK = old
+        want = dWs + dbs
+        assert [t.shape for t in got] == [(64, 39), (48, 64), (65, 48), (64,), (48,), (65,)]
+    else:
+        rows, n_pts, n, k = 40, 37, 20, 13
+        work = torch.randn(2 * rows * vjp.WMAX, generator=g)
+        dW, db = torch.zeros(n, 30), torch.zeros(n)
+        cs.library_rows(work, 5, rows * vjp.WMAX + 1, n, k, n_pts, torch.float32, dW[:, 7:7 + k],
+                        db)
+        x = work[5:5 + rows * vjp.WMAX].view(rows, vjp.WMAX)[:n_pts, :n]
+        y = work[rows * vjp.WMAX + 1:].as_strided((n_pts, k), (vjp.WMAX, 1))
+        assert float(dW[:, :7].abs().sum()) == 0.0 and float(dW[:, 7 + k:].abs().sum()) == 0.0
+        got, want = [dW[:, 7:7 + k], db], [fvm._mm(x.t(), y, torch.float32), x.sum(dim=0)]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)

@@ -61,7 +61,8 @@ def rays(dev, seed=1):
     return o.to(dev), d.to(dev), z.to(dev)
 
 
-@pytest.mark.parametrize("n_pts", [N_RAYS, 1000])  # 1000: a ragged last tile
+# 1000: a ragged last tile; 102,144: the SDF sweep's chunk (scripts/sdf_extract.sh)
+@pytest.mark.parametrize("n_pts", [N_RAYS, 1000, 102144])
 @pytest.mark.parametrize("act", ["float32", "bfloat16"])
 def test_sdf_mlp_kernel_matches_plain(dev, flagship, act, n_pts):
     from neuralrecon_w_tpu_torch.ops import sdf_mlp
@@ -530,22 +531,61 @@ def field_config_and_model(dev):
     return fc, init_field(fc, torch.Generator().manual_seed(0), dev).requires_grad_(False)
 
 
-def test_dw_reduce_rows_matches_torch(dev):
-    """K5's one-pair entry into a column slice of a wider dW, with and
-    without db, f32 and bf16."""
+
+# K5 at the widths the paths give it: an SDF layer's two factor pairs (the
+# first layer's k 39, the output layer's n 513, a 3-wide and a 256-wide
+# layer) and one pair at a dW row stride past k (the static head's 587-wide
+# input splits into 512 + 75 columns), from 16-byte aligned rows and from
+# rows one float off (a colour layer's input starts at column 1); point
+# counts off the 32-point slabs and below the split count
+@pytest.mark.parametrize("n_pts", [2900, 37])
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_dw_reduce_layer_matches_torch(dev, act, n_pts):
     from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp
 
-    rows, n_pts = 3000, 2900
-    work = torch.randn(2 * rows * vjp.WMAX, device=dev)
-    x = work[:rows * vjp.WMAX].view(rows, vjp.WMAX)[:n_pts, :100]
-    y = work[rows * vjp.WMAX:].view(rows, vjp.WMAX)[:n_pts, 3:300]
-    for act in ("float32", "bfloat16"):
-        dW = torch.zeros(100, 400, device=dev)
-        db = torch.zeros(100, device=dev)
-        vjp.dw_reduce_rows(work, 0, rows * vjp.WMAX + 3, 100, 297, n_pts, act, dW[:, 50:347], db)
-        vjp.dw_reduce_rows(work, 0, rows * vjp.WMAX + 3, 100, 297, n_pts, act, dW[:, 50:347])
-        rnd = (lambda t: t) if act == "float32" else (lambda t: t.bfloat16().float())
+    g = torch.Generator().manual_seed(17)
+    shapes = [(513, 39), (3, 256), (256, 512)]  # (n, k) per layer
+    ws = [torch.randn(n, k, generator=g).to(dev) for n, k in shapes]
+    bs = [torch.randn(n, generator=g).to(dev) for n, _ in shapes]
+    pk = vjp.pack_vjp_weights(ws, bs, {"multires": 6, "scale": 1.0, "skip_in": ()}, act)
+    work, rows = vjp.workspace(n_pts, 6, len(shapes), dev)
+    work.normal_(generator=torch.Generator(dev).manual_seed(18))
+    view = work.view(6, len(shapes), rows, vjp.WMAX)
+    rnd = (lambda t: t.double()) if act == "float32" else (lambda t: t.bfloat16().double())
+    before = vjp.dw_reduce.launches
+    for l, (n, k) in enumerate(shapes):
+        dW = torch.zeros(n, k, device=dev)
+        db = torch.zeros(n, device=dev)
+        vjp.dw_reduce(pk, work, rows, l, n_pts, dW, db)
+        d, r, gt, u = (view[kind, l, :n_pts] for kind in (2, 4, 5, 0))
+        want = rnd(d[:, :n]).t() @ rnd(r[:, :k]) + rnd(gt[:, :n]).t() @ rnd(u[:, :k])
         torch.cuda.synchronize()
-        torch.testing.assert_close(dW[:, 50:347], 2 * rnd(x).t() @ rnd(y), atol=1e-2, rtol=1e-4)
-        assert float(dW[:, :50].abs().max()) == 0.0 and float(dW[:, 347:].abs().max()) == 0.0
-        torch.testing.assert_close(db, x.sum(dim=0), atol=1e-3, rtol=1e-4)
+        torch.testing.assert_close(dW.double(), want, atol=1e-2, rtol=1e-4)
+        torch.testing.assert_close(db.double(), gt[:, :n].double().sum(0), atol=1e-3, rtol=1e-4)
+    assert vjp.dw_reduce.launches == before + len(shapes)
+
+
+@pytest.mark.parametrize("x_shift", [0, 1])
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_dw_reduce_rows_matches_torch(dev, act, x_shift):
+    """K5's one-pair entry into a column slice of a wider dW, with and
+    without db."""
+    from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp
+
+    rows, n_pts = 3000, 2899
+    work = torch.randn(2 * rows * vjp.WMAX, device=dev,
+                       generator=torch.Generator(dev).manual_seed(19))
+    rnd = (lambda t: t.double()) if act == "float32" else (lambda t: t.bfloat16().double())
+    y_off = rows * vjp.WMAX + 1  # a colour layer's input row starts at column 1
+    for n, k, c0 in [(128, 512, 0), (128, 75, 512), (513, 39, 3), (100, 297, 50)]:
+        dW = torch.zeros(n, 600, device=dev)
+        db = torch.zeros(n, device=dev)
+        vjp.dw_reduce_rows(work, x_shift, y_off, n, k, n_pts, act, dW[:, c0:c0 + k], db)
+        vjp.dw_reduce_rows(work, x_shift, y_off, n, k, n_pts, act, dW[:, c0:c0 + k])
+        x = work[x_shift:x_shift + rows * vjp.WMAX].view(rows, vjp.WMAX)[:n_pts, :n]
+        y = work[y_off:].as_strided((n_pts, k), (vjp.WMAX, 1))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dW[:, c0:c0 + k].double(), 2 * rnd(x).t() @ rnd(y),
+                                   atol=1e-2, rtol=1e-4)
+        assert float(dW[:, :c0].abs().sum()) == 0.0 and float(dW[:, c0 + k:].abs().sum()) == 0.0
+        torch.testing.assert_close(db.double(), x.double().sum(0), atol=1e-3, rtol=1e-4)
