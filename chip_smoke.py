@@ -1663,6 +1663,43 @@ def extraction_phase(model, fc, root: str, n_points: int = EXTRACT_POINTS,
     return launches, fails
 
 
+# the kernels redesigned in the latest slice: (label, entry function)
+REDESIGNED = (("K3", "sdf_vjp_fwd_kernel"), ("K4", "sdf_vjp_bwd_kernel"),
+              ("K6", "field_fwd_kernel"), ("K7", "field_bwd_kernel"))
+
+
+def ptxas_report(log: str) -> list:
+    """One line per kernel instantiation of the build's ``-Xptxas -v``
+    output: registers, stack frame and spills, the redesigned kernels
+    (REDESIGNED) marked."""
+    import re
+
+    out, name = [], None
+    props = {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            props[name] = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            stack, st, ld = props.get(name, ("?", "?", "?"))
+            kern = re.search(r"([a-z][a-z_]*_kernel)I?(13__nv_bfloat16|f)?", name)
+            base = kern.group(1) if kern else name
+            dtype = {"13__nv_bfloat16": "bf16", "f": "float"}.get(kern.group(2) if kern else "", "")
+            mark = next((f"{lab} (redesigned) " for lab, k in REDESIGNED if k == base), "")
+            out.append(f"{mark}{base}<{dtype}>: {m.group(1)} registers, {stack} bytes stack frame, "
+                       f"{st} bytes spill stores, {ld} bytes spill loads")
+            name = None
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1698,9 +1735,8 @@ def main() -> int:
 
     path, secs, log = build.build()
     print(f"built {os.path.relpath(path, ROOT)} in {secs:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for line in ptxas_report(log):
+        print("  ptxas:", line)
     build.kernels()
     t0 = time.perf_counter()
     print(f"built {os.path.relpath(native.build(), ROOT)} (the host mesher) in "
@@ -1895,6 +1931,12 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **kres[name]}
                for name, (src, rep) in sources.items()]
+    ratio = lambda r: r["ms"] / r["bound_ms"]  # noqa: E731
+    fw = kres["field_fwd"]
+    print(f"redesigned kernels, ms / bound_ms ({card}): K6 field_fwd "
+          f"{ratio(fw['extraction']):.1f} at {K6_CHECK_PTS} pts, {ratio(fw):.1f} at {VJP_TIME_PTS}; "
+          f"K7 field_bwd {ratio(kres['field_bwd']):.1f}; K3 sdf_vjp_fwd "
+          f"{ratio(kres['sdf_vjp_fwd']):.1f}; K4 sdf_vjp_bwd {ratio(kres['sdf_vjp_bwd']):.1f}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -204,10 +204,12 @@ class FieldConfig(NamedTuple):
 def field_config_from_cfg(cfg) -> FieldConfig:
     n = cfg.NEUCONW
     fused_bg = getattr(cfg.TPU, "FUSED_BG", False)
-    if fused_bg == "auto":  # on the accelerator, as the JAX package's on_tpu()
-        import torch
-
-        fused_bg = torch.cuda.is_available()
+    if fused_bg == "auto":
+        # the background path that is faster on the card: the JAX package
+        # reads 'auto' as "on a TPU", where its Pallas kernel won; on the H100
+        # K8 / K9 + K5 lose to the 'xla' autograd (PERF.md), so 'auto' is off
+        # until they beat it in chip_smoke.py
+        fused_bg = False
     return FieldConfig(
         sdf=tuple(sorted(dict(n.SDF_CONFIG).items())),
         color=tuple(sorted(dict(n.COLOR_CONFIG).items())),

@@ -8,36 +8,42 @@
 // (rgb, sdf, grad). The plain version is
 // ops/field_train.field_train_bwd_plain.
 //
-// What bounds it: at the 8 x 512 SDF with the 512 / 128 / 256-wide colour
-// head a point costs ~21 MFLOP (the SDF forward and reverse sweep ~7.9, its
-// second-order backward ~11.5, the colour forward and backward ~2.2), so
-// arithmetic bounds it. Per point the residuals are 6 kinds x 9 SDF layers
-// plus two rows per colour layer, 528 floats each (~143 KB); far beyond
-// 227 KB of shared memory for a tile of 64.
+// What bounds it, by the counts: at the 8 x 512 SDF with the 512 / 128 /
+// 256-wide colour head a point costs ~20.9 MFLOP (the SDF forward and
+// reverse sweep ~7.9, its second-order backward ~11.5, the colour forward
+// and backward ~2.4): 4.5 ms per 245,760 points at the bf16 tensor-core
+// peak. K5 reads the factor rows it leaves, so it must write them: 6 kinds
+// x 9 SDF layers plus 15 colour rows, ~560 used floats each, ~150 KB a
+// point, 37 GB per 245,760 points, ~11 ms at 3.35 TB/s. So the rows it must
+// write bound it, then the products.
 //
-// The design, simple first, per tile of points (bf16: 64 points, 16 warps,
-// mma.sync; float: 32 points, 8 warps, FMA), every product a tile GEMM
-// over the block's own rows of a float32 workspace (sdf_tile.cuh):
-//  * K4's forward pass (tile_forward: F and G, every kind per layer);
-//  * the SDF's last layer into a row [sdf * scale | feature], then K6's
-//    colour pass (color_tile.cuh) with each layer's input kept in a row of
-//    its own, the last layer's epilogue turning c_rgb into the cotangent on
-//    its z (sigmoid');
-//  * the colour backward as tile GEMMs over the packed W^T, the ReLU masks
-//    read off the kept inputs: lin_L .. lin0 (whose input cotangent splits
-//    into d_pts, d_grad and the static head's), the static head, then its
-//    first layer's 587-wide input cotangent in two products, split into
-//    xyz_final's, d_PE_view (-> d_dirs through the view PE's Jacobian) and
-//    d_a; xyz_final's W^T gives d_feature;
+// The design: one block per tile of points runs the shared tile pass
+// (sdf_tile.cuh, color_tile.cuh) with the running operand in shared memory
+// in the activation dtype and every product's weights streaming through
+// one cp.async ring that runs ahead across products:
+//  * F writing u and z per layer; the SDF's last layer into the feature
+//    (and the row [sdf * scale | feature]); xyz_final and the static head;
+//    G writing a and d per layer; lin0 .. rgb, whose epilogue turns c_rgb
+//    into the cotangent on its z (sigmoid');
+//  * the colour backward over the packed W^T, each cotangent over the last
+//    in shared memory, the ReLU masks read off the kept inputs: lin_L ..
+//    lin0 (whose input cotangent splits into d_pts, d_grad and the static
+//    head's), the static head, then its first layer's 587-wide input
+//    cotangent in two products (the one past NMAX first: the other writes
+//    over the operand), split into xyz_final's, d_PE_view (-> d_dirs
+//    through the view PE's Jacobian) and d_a; xyz_final's W^T gives
+//    d_feature;
 //  * the injection: the SDF output's cotangent [c_sdf / scale | d_feature]
 //    and c_grad + d_grad, then K4's per-tile backward (tile_backward):
 //    dx = its x-cotangent + d_pts.
-// The TPU kernel emits dW from the kernel, split over n_groups calls
-// because VMEM could not hold every accumulator; here the per-layer factor
-// pairs stay in the workspace, (d, r_hat) and (g_tot, u) per SDF layer as
-// K4 leaves them and (cotangent, input) per colour layer, and K5 reduces
-// them (nw_sdf_vjp_reduce, nw_dw_reduce). wgmma / TMA and keeping the
-// residuals in shared memory come later.
+// Every row is written as paired stores from the fragment layout: (d,
+// r_hat) and (g_tot, u) per SDF layer and (cotangent, input) per colour
+// layer for K5, z, a and z2 for the later passes. The TPU kernel emitted
+// dW itself, split over n_groups calls because VMEM could not hold every
+// accumulator; here K5 reduces the factor pairs (nw_sdf_vjp_reduce,
+// nw_dw_reduce). Shared memory: as K6 (field_fwd.cu), 228,896 bytes in
+// bf16 (64 points, 8 warps), 202,272 in float (32 points, 8 warps, f32
+// FMA). Registers and spills: PERF.md (ptxas -v).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,149 +52,176 @@
 
 namespace {
 
+template <typename T>
 struct SigmoidGradEpi {  // the cotangent on the last layer's z: c_rgb s (1 - s)
-  const float* b; const float* cot; float* G; long long n_valid;
-  __device__ void operator()(int p, int j, float acc) const {
+  Tile<T> t; const float* b; const float* cot; float* G; int n_valid;
+  __device__ float one(int p, int j, float acc) const {
+    if (j >= 3 || p >= n_valid) return 0.0f;
     const float s = 1.0f / (1.0f + expf(-(acc + b[j])));
-    G[(long long)p * WMAX + j] = p < n_valid ? cot[(long long)p * 7 + j] * s * (1.0f - s) : 0.0f;
+    return cot[(long long)p * 7 + j] * s * (1.0f - s);
+  }
+  __device__ void operator()(int p, int j, float a0, float a1) const {
+    const float g0 = one(p, j, a0), g1 = one(p, j + 1, a1);
+    st2(G + (long long)p * WMAX, j, 3, g0, g1);
+    at2(t.act() + p * Cfg<T>::AST, j, 3, g0, g1);
   }
 };
 
-struct MaskEpi {  // through a ReLU: r where the layer's output H is positive
-  float* G; const float* H;
-  __device__ void operator()(int p, int j, float r) const {
-    const long long o = (long long)p * WMAX + j;
-    G[o] = r * (H[o] > 0.0f ? 1.0f : 0.0f);
+template <typename T>
+struct MaskEpi {  // through a ReLU: r where the layer's output H is positive -> G, operand
+  Tile<T> t; float* G; const float* H; int n;
+  __device__ void operator()(int p, int j, float r0, float r1) const {
+    if (j >= n) return;
+    const long long o = (long long)p * WMAX;
+    const float2 h = j + 1 < n ? ld2(H + o, j) : make_float2(H[o + j], 0.0f);
+    const float g0 = h.x > 0.0f ? r0 : 0.0f, g1 = h.y > 0.0f ? r1 : 0.0f;
+    st2(G + o, j, n, g0, g1);
+    at2(t.act() + p * Cfg<T>::AST, j, n, g0, g1);
   }
 };
 
+template <typename T>
 struct Lin0BackEpi {  // r on lin0's input [x, grad, h]: d_pts, d_grad, h's cotangent
-  float* dpts; float* cg; float* G; const float* H;
-  __device__ void operator()(int p, int j, float r) const {
-    if (j < 3) {
-      dpts[p * 3 + j] = r;
-    } else if (j < 6) {
-      cg[p * 3 + j - 3] += r;
+  Tile<T> t; float* G; const float* H; int n;  // n: 6 + h's width
+  __device__ void one(int p, int j, float r) const {
+    if (j < 3) t.aux()[p * 3 + j] = r;
+    else if (j < 6) t.cg()[p * 3 + j - 3] += r;
+  }
+  __device__ void operator()(int p, int j, float r0, float r1) const {
+    if (j < 6) {
+      one(p, j, r0);
+      one(p, j + 1, r1);
+      return;
+    }
+    if (j >= n) return;
+    const long long o = (long long)p * WMAX;
+    const float2 h = j + 1 < n ? ld2(H + o, j) : make_float2(H[o + j], 0.0f);
+    const float g0 = h.x > 0.0f ? r0 : 0.0f, g1 = h.y > 0.0f ? r1 : 0.0f;
+    st2(G + o, j - 6, n - 6, g0, g1);
+    at2(t.act() + p * Cfg<T>::AST, j - 6, n - 6, g0, g1);
+  }
+};
+
+template <typename T>
+struct Static0BackEpi {  // r on [xyz_final | PE_view | a], columns j0 + j
+  Tile<T> t; float* Gx; float* da; int n0, d_view, n_a, j0, n_valid;
+  __device__ void one(int p, int j, float r) const {
+    if (j < n0 + d_view) t.ghat()[p * PE_MAX + j - n0] = r;
+    else if (j < n0 + d_view + n_a && p < n_valid) da[(long long)p * n_a + j - n0 - d_view] = r;
+  }
+  __device__ void operator()(int p, int j, float r0, float r1) const {
+    j += j0;
+    if (j < n0) {  // n0 is even: a pair lies on one side
+      st2(Gx + (long long)p * WMAX, j, n0, r0, r1);
+      at2(t.act() + p * Cfg<T>::AST, j, n0, r0, r1);
     } else {
-      const long long o = (long long)p * WMAX;
-      G[o + j - 6] = r * (H[o + j] > 0.0f ? 1.0f : 0.0f);
+      one(p, j, r0);
+      one(p, j + 1, r1);
     }
   }
 };
 
-struct Static0BackEpi {  // r on [xyz_final | PE_view | a], columns j0 + j
-  float* Gx; float* dpev; float* da; int n0, d_view, n_a, j0; long long n_valid;
-  __device__ void operator()(int p, int j, float r) const {
-    j += j0;
-    if (j < n0) Gx[(long long)p * WMAX + j] = r;
-    else if (j < n0 + d_view) dpev[p * PE_MAX + j - n0] = r;
-    else if (p < n_valid) da[(long long)p * n_a + j - n0 - d_view] = r;
-  }
-};
-
 struct FeatEpi {  // d_feature into the SDF output's cotangent, columns 1..
-  float* GL;
-  __device__ void operator()(int p, int j, float r) const { GL[(long long)p * WMAX + 1 + j] = r; }
+  float* GL; int n;
+  __device__ void operator()(int p, int j, float r0, float r1) const {
+    st2(GL + (long long)p * WMAX + 1, j, n, r0, r1);
+  }
 };
 
 // slots past the SDF's 6 L: the SDF output row, [PE_view | a], colour layer
 // i's input (i >= 1), colour layer i's cotangent
 __host__ __device__ inline int color_slots(int n_color) { return 2 * n_color + 1; }
 
-template <typename T, int P, int THREADS>
-__global__ void __launch_bounds__(THREADS)
+template <typename T>
+__global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
 field_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
                  const float* __restrict__ app, const float* __restrict__ cot, long long n_pts,
                  const T* __restrict__ w, const float* __restrict__ b, Net net,
-                 const T* __restrict__ cw, const float* __restrict__ cb, Color col, Work wk,
-                 float* __restrict__ dx, float* __restrict__ d_dirs, float* __restrict__ d_a) {
-  extern __shared__ __align__(16) float smem[];
-  Tile t;
-  tile_smem<T, P>(smem, t);
-  const long long p0 = (long long)blockIdx.x * P;
-  const long long n_valid = n_pts - p0;
-  tile_forward<T, P>(pts + p0 * 3, n_valid, net, w, b, wk, p0, t, nullptr);
-  __syncthreads();
+                 const T* __restrict__ cw, const float* __restrict__ cb, Color col, Sched sched,
+                 Work wk, float* __restrict__ dx, float* __restrict__ d_dirs,
+                 float* __restrict__ d_a) {
+  using C = Cfg<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tile<T> t{smem};
+  Stream<T> s = start_stream(sched, w, cw, t);
+  const long long p0 = (long long)blockIdx.x * C::P;
+  const int n_valid = (int)min(n_pts - p0, (long long)C::P);  // the tile's real points
+  const int L = net.L, CL = col.n_layers, S = col.n_static, base = 6 * L;
+  auto G = [&](int i) { return wk.slot(base + CL + 1 + i, p0); };
+  ColorRows rows{wk.slot(base, p0), wk.slot(base + 1, p0), {}};
+  for (int i = 1; i < CL; ++i) rows.in[i] = wk.slot(base + 1 + i, p0);
 
-  const int L = net.L, C = col.n_layers, S = col.n_static, base = 6 * L;
-  auto in = [&](int i) { return wk.slot(base + 1 + i, p0); };
-  auto G = [&](int i) { return wk.slot(base + C + 1 + i, p0); };
-  float* O = wk.slot(base, p0);
-  float* V = wk.slot(base + 1, p0);
-
-  // the SDF's last layer, every row: [sdf * scale | feature]
-  for (int j0 = 0; j0 < net.n[L - 1]; j0 += NMAX) {
-    OutEpi e{b + net.b_off[L - 1], O, WMAX, j0, P};
-    gemm(wk.at(KU, L - 1, p0), net.k[L - 1], w + net.w_off[L - 1] + (long long)j0 * net.kpad[L - 1],
-         net.kpad[L - 1], min(NMAX, net.n[L - 1] - j0), t.gemm, e);
-  }
-
-  // x, grad -> lin0's input, [PE_view(dirs) | a] -> V; the cotangents:
-  // c_sdf / scale into column 0 of the SDF output's, c_grad into t.cg
-  float* I0 = in(1 + S);
-  float* GL = wk.at(KG, L - 1, p0);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+  // the cotangents: c_grad into t.cg, c_sdf / scale into column 0 of the
+  // SDF output's
+  for (int p = threadIdx.x; p < C::P; p += C::THREADS) {
     const bool ok = p < n_valid;
-    const long long o = (long long)p * WMAX;
-    float g[3], d[3];
-    pe_jac_T(t.xs + p * 3, net.multires, t.gpe + p * PE_MAX, g);
-    for (int a = 0; a < 3; ++a) {
-      d[a] = ok ? dirs[(p0 + p) * 3 + a] : 0.0f;
-      I0[o + a] = ok ? pts[(p0 + p) * 3 + a] : 0.0f;
-      I0[o + 3 + a] = g[a];
-      t.cg[p * 3 + a] = ok ? cot[(p0 + p) * 7 + 4 + a] : 0.0f;
-    }
-    GL[o] = ok ? cot[(p0 + p) * 7 + 3] / net.scale : 0.0f;
-    for (int c = 0; c < col.d_view; ++c) V[o + c] = pe_value(d, c);
-    for (int c = 0; c < col.n_a; ++c)
-      V[o + col.d_view + c] = ok ? app[(p0 + p) * col.n_a + c] : 0.0f;
+    for (int a = 0; a < 3; ++a) t.cg()[p * 3 + a] = ok ? cot[(p0 + p) * 7 + 4 + a] : 0.0f;
+    wk.at(KG, L - 1, p0)[(long long)p * WMAX] = ok ? cot[(p0 + p) * 7 + 3] / net.scale : 0.0f;
   }
-  __syncthreads();
 
-  // the colour head forward, each layer's input in its own row (the static
-  // head's first product in layer 1's cotangent row, free until the
-  // backward); the last layer's epilogue gives its cotangent
-  ColorRows rows{O, V, G(1), {}};
-  for (int i = 1; i < C; ++i) rows.in[i] = in(i);
-  SigmoidGradEpi last{cb + col.b_off[C - 1], cot + p0 * 7, G(C - 1), n_valid};
-  color_forward<T>(cw, cb, col, rows, t.gemm, last);
+  // the forward: F, the feature, the static head, G, lin0 .. rgb
+  tile_pe(pts + p0 * 3, n_valid, net, wk, p0, t, true);
+  tile_F(net, b, wk, p0, s, t, true);
+  sdf_out_layer(net, w, b, col, s, t, rows.O, nullptr, n_valid);
+  color_static(col, cb, s, t, dirs + p0 * 3, app + p0 * col.n_a, n_valid, rows);
+  tile_G(net, w, wk, p0, s, t, true);
+  {
+    auto e = [&] {
+      return SigmoidGradEpi<T>{t, cb + col.b_off[CL - 1], cot + p0 * 7, G(CL - 1), n_valid};
+    };
+    color_lin(net, col, cb, s, t, pts + p0 * 3, n_valid, rows, nullptr, e);
+    zero_cols(t.act(), 3, col.npad[CL - 1]);
+  }
 
   // the colour head backward, r = g W per layer
-  for (int i = C - 1; i > 1 + S; --i) {
-    MaskEpi e{G(i - 1), in(i)};
-    gemm(G(i), col.n[i], cw + col.wt_off[i], col.npad[i], col.k[i], t.gemm, e);
+  for (int i = CL - 1; i >= 2; --i) {
+    if (i == 1 + S) {
+      auto e = [&] { return Lin0BackEpi<T>{t, G(S), rows.in[1 + S], col.k[1 + S]}; };
+      tgemm(s, t, t.act(), C::AST, e);
+    } else {
+      auto e = [&] { return MaskEpi<T>{t, G(i - 1), rows.in[i], col.n[i - 1]}; };
+      tgemm(s, t, t.act(), C::AST, e);
+    }
+    zero_cols(t.act(), col.n[i - 1], col.npad[i - 1]);
+  }
+  // the static head's first input: the columns past NMAX first
+  for (int j0 = ((col.k[1] - 1) / NMAX) * NMAX; j0 >= 0; j0 -= NMAX) {
+    auto e = [&] {
+      return Static0BackEpi<T>{t, G(0), d_a + p0 * col.n_a, col.n[0], col.d_view, col.n_a, j0,
+                               n_valid};
+    };
+    tgemm(s, t, t.act(), C::AST, e);
   }
   {
-    Lin0BackEpi e{t.aux, t.cg, G(S), I0};
-    gemm(G(1 + S), col.n[1 + S], cw + col.wt_off[1 + S], col.npad[1 + S], col.k[1 + S], t.gemm,
-         e);
-  }
-  for (int i = S; i >= 2; --i) {
-    MaskEpi e{G(i - 1), in(i)};
-    gemm(G(i), col.n[i], cw + col.wt_off[i], col.npad[i], col.k[i], t.gemm, e);
-  }
-  for (int j0 = 0; j0 < col.k[1]; j0 += NMAX) {
-    Static0BackEpi e{G(0), t.ghat, d_a + p0 * col.n_a, col.n[0], col.d_view, col.n_a, j0,
-                     n_valid};
-    gemm(G(1), col.n[1], cw + col.wt_off[1] + (long long)j0 * col.npad[1], col.npad[1],
-         min(NMAX, col.k[1] - j0), t.gemm, e);
+    auto e = [&] { return FeatEpi{wk.at(KG, L - 1, p0), col.k[0]}; };
+    tgemm(s, t, t.act(), C::AST, e);
   }
   // d_dirs through the view PE's Jacobian
-  for (int p = threadIdx.x; p < P && p < n_valid; p += blockDim.x) {
+  for (int p = threadIdx.x; p < C::P && p < n_valid; p += C::THREADS) {
     float d[3], g[3];
     for (int a = 0; a < 3; ++a) d[a] = dirs[(p0 + p) * 3 + a];
-    pe_jac_T(d, col.multires_view, t.ghat + p * PE_MAX, g);
+    pe_jac_T(d, col.multires_view, t.ghat() + p * PE_MAX, g);
     for (int a = 0; a < 3; ++a) d_dirs[(p0 + p) * 3 + a] = g[a];
-  }
-  {
-    FeatEpi e{GL};
-    gemm(G(0), col.n[0], cw + col.wt_off[0], col.npad[0], col.k[0], t.gemm, e);
   }
 
   // the SDF's second-order backward with the colour cotangents injected
-  tile_backward<T, P>(net, w, wk, p0, t);
-  for (int p = threadIdx.x; p < P && p < n_valid; p += blockDim.x)
-    for (int a = 0; a < 3; ++a) dx[(p0 + p) * 3 + a] = t.dxs[p * 3 + a] + t.aux[p * 3 + a];
+  tile_backward(net, wk, p0, s, t);
+  for (int p = threadIdx.x; p < C::P && p < n_valid; p += C::THREADS)
+    for (int a = 0; a < 3; ++a) dx[(p0 + p) * 3 + a] = t.dxs()[p * 3 + a] + t.aux()[p * 3 + a];
+}
+
+template <typename T>
+int launch(const float* pts, const float* dirs, const float* app, const float* cot,
+           long long n_pts, const void* w, const float* b, const Net& net, const void* cw,
+           const float* cb, const Color& col, const Sched& sched, const Work& wk, float* dx,
+           float* d_dirs, float* d_a, cudaStream_t s) {
+  auto kern = field_bwd_kernel<T>;
+  constexpr size_t smem = tile_bytes<T>();
+  if (int err = prepare(kern, smem)) return err;
+  kern<<<(unsigned)((n_pts + Cfg<T>::P - 1) / Cfg<T>::P), Cfg<T>::THREADS, smem, s>>>(
+      pts, dirs, app, cot, n_pts, static_cast<const T*>(w), b, net, static_cast<const T*>(cw), cb,
+      col, sched, wk, dx, d_dirs, d_a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -221,26 +254,30 @@ extern "C" int nw_field_bwd(const float* pts, const float* dirs, const float* ap
                &net) ||
       make_color(c_layers, n_static, multires_view, n_a, n[n_layers - 1] - 1, ck, cn, ckpad,
                  cnpad, cw_off, cwt_off, cb_off, &col) ||
+      !(bf16_act ? color_fits<bf16>(col) : color_fits<float>(col)) ||
       work_rows < ((n_pts + 63) / 64) * 64 ||
       work_slots < 6 * n_layers + color_slots(c_layers))
     return -1;
+  SchedBuilder sb;
+  sb.F(net);
+  sb.last(net);
+  color_fwd_sched(sb, col, 0, n_static + 1);
+  sb.G(net);
+  color_fwd_sched(sb, col, n_static + 1, c_layers);
+  for (int i = c_layers - 1; i >= 2; --i)
+    sb.add(1, col.wt_off[i], col.npad[i], col.kpad[i], col.npad[i]);
+  for (int j0 = ((col.k[1] - 1) / NMAX) * NMAX; j0 >= 0; j0 -= NMAX) {
+    const int rows = col.kpad[1] - j0 < NMAX ? col.kpad[1] - j0 : NMAX;
+    sb.add(1, col.wt_off[1] + (long long)j0 * col.npad[1], col.npad[1], rows, col.npad[1]);
+  }
+  sb.add(1, col.wt_off[0], col.npad[0], col.kpad[0], col.npad[0]);
+  sb.backward(net);
+  if (!sb.ok) return -1;
   Work wk{work, work_rows, n_layers, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_pts <= 0) return 0;
-  if (bf16_act) {
-    auto kern = field_bwd_kernel<bf16, M_P, M_THREADS>;
-    const size_t smem = smem_bytes<bf16, M_P>();
-    if (int err = prepare(kern, smem)) return err;
-    kern<<<(unsigned)((n_pts + M_P - 1) / M_P), M_THREADS, smem, s>>>(
-        pts, dirs, app, cot, n_pts, static_cast<const bf16*>(w), b, net,
-        static_cast<const bf16*>(cw), cb, col, wk, dx, d_dirs, d_a);
-  } else {
-    auto kern = field_bwd_kernel<float, F_P, F_THREADS>;
-    const size_t smem = smem_bytes<float, F_P>();
-    if (int err = prepare(kern, smem)) return err;
-    kern<<<(unsigned)((n_pts + F_P - 1) / F_P), F_THREADS, smem, s>>>(
-        pts, dirs, app, cot, n_pts, static_cast<const float*>(w), b, net,
-        static_cast<const float*>(cw), cb, col, wk, dx, d_dirs, d_a);
-  }
-  return (int)cudaGetLastError();
+  return bf16_act ? launch<bf16>(pts, dirs, app, cot, n_pts, w, b, net, cw, cb, col, sb.s, wk, dx,
+                                 d_dirs, d_a, s)
+                  : launch<float>(pts, dirs, app, cot, n_pts, w, b, net, cw, cb, col, sb.s, wk,
+                                  dx, d_dirs, d_a, s);
 }

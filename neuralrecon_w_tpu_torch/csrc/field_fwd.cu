@@ -7,31 +7,31 @@
 // split and the PE Jacobian, then the IDR colour head on
 // [x, grad, relu-static-head(xyz_final(feature), PE_view(dirs), a)] and
 // the sigmoid. Mesh vertex colouring (parallel/sweep.sharded_rgb_sweep)
-// runs it. The plain version is ops/field_forward.field_forward_plain.
+// runs it, and the forward of SDF_GRAD_MODE="pallas_field". The plain
+// version is ops/field_forward.field_forward_plain.
 //
-// What bounds it: at the 8 x 512 SDF with the 512 / 128 / 256-wide colour
-// head a point costs ~9 MFLOP (SDF forward ~4.2, reverse sweep ~3.7, colour
-// ~1.0) against 52 bytes of input and 28 of output, so arithmetic bounds
-// it, ~9 us per million points at the bf16 tensor-core peak.
+// What bounds it, by the counts: at the 8 x 512 SDF with the 512 / 128 /
+// 256-wide colour head a point costs ~9.1 MFLOP (SDF forward ~4.2, reverse
+// sweep ~3.7, colour ~1.2) against 52 bytes of input and 28 of output, so
+// the tensor cores bound it: 0.60 ms per 65,536 points at the bf16 peak.
+// The only rows it writes are G's inputs, z per hidden layer: 8 x 2 KB a
+// point, 1.1 GB at 65,536 points, written and read back once (~0.6 ms at
+// 3.35 TB/s, most of it served by L2).
 //
-// The design, simple first: K3's tile pass (sdf_tile.cuh: the tile GEMMs,
-// F and G, one block per 64 points in bf16 / 32 in float) runs unchanged on
-// a lean workspace: the reverse sweep needs z per layer, so the workspace
-// keeps that one kind per layer and two rows each for u and d, in turns,
-// L + 3 rows per point where K3 keeps 4 L. Then, in the same block:
-//  * the SDF's last layer into the block's own workspace rows,
-//    [sdf * scale | feature], and from there straight into xyz_final's
-//    tile GEMM (no second kernel, no output array for the feature);
-//  * x, grad, PE_view(dirs) and a staged per tile into workspace rows;
-//  * the colour layers as tile GEMMs with fused epilogues (bias, ReLU,
-//    sigmoid), color_tile.cuh's pass, shared with K7. The static head's
-//    first layer takes [xyz_final | PE_view | a], 587 wide, past the
-//    workspace row: it runs as two products into one f32 sum, the second
-//    over columns 512.. of the same packed weight.
-// Every GEMM operand is rounded to the activation dtype as it is staged,
-// every sum is f32 and biases are added in f32, as in the TPU kernel.
-// wgmma / TMA and keeping the tile's activations in shared memory come
-// later.
+// The design: one block per tile of points runs the shared tile pass
+// (sdf_tile.cuh) in the order F, the SDF's last layer, xyz_final and the
+// static head (color_tile.cuh), G, lin0 ... rgb. The running operand stays
+// in shared memory in the activation dtype, each layer's output written
+// over its input; the weights of all ~25 products stream through one
+// cp.async ring of k-slabs that runs ahead across products. The static
+// head's output waits in a stash while G holds the operand; its first
+// layer takes [xyz_final | PE_view | a] as one product over two shared
+// operands. The workspace holds z per hidden layer and nothing else.
+// Shared memory (bf16: 64 points, 8 warps) 228,896 bytes: the operand 64 x
+// 536 bf16, a three-stage ring of swizzled 512 x 32 bf16 slabs, the GEMM
+// list, the per-point PE vectors; float: 32 points, 8 warps, f32 FMA,
+// 202,272.
+// Registers and spills: see PERF.md (ptxas -v, printed by chip_smoke.py).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,73 +40,50 @@
 
 namespace {
 
-// workspace slots of the colour head, free once the SDF's last layer has
-// read its input
-enum Slot { S_OUT = 0, S_LIN_IN, S_VIEW, S_XYZ, S_PART, S_A, S_B, N_COLOR_SLOTS };
-
 struct RgbEpi {  // sigmoid, for the tile's real points
   const float* b; float* rgb; long long n_valid;
-  __device__ void operator()(int p, int j, float acc) const {
-    if (p < n_valid) rgb[(long long)p * 3 + j] = 1.0f / (1.0f + expf(-(acc + b[j])));
+  __device__ void operator()(int p, int j, float a0, float a1) const {
+    if (p >= n_valid) return;
+    if (j < 3) rgb[(long long)p * 3 + j] = 1.0f / (1.0f + expf(-(a0 + b[j])));
+    if (j + 1 < 3) rgb[(long long)p * 3 + j + 1] = 1.0f / (1.0f + expf(-(a1 + b[j + 1])));
   }
 };
 
-template <typename T, int P, int THREADS>
-__global__ void __launch_bounds__(THREADS)
+template <typename T>
+__global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
 field_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
                  const float* __restrict__ app, long long n_pts, const T* __restrict__ w,
                  const float* __restrict__ b, Net net, const T* __restrict__ cw,
-                 const float* __restrict__ cb, Color col, Work wk, float* __restrict__ rgb,
-                 float* __restrict__ sdf, float* __restrict__ grad) {
-  extern __shared__ __align__(16) float smem[];
-  Tile t;
-  tile_smem<T, P>(smem, t);
-  const long long p0 = (long long)blockIdx.x * P;
+                 const float* __restrict__ cb, Color col, Sched sched, Work wk,
+                 float* __restrict__ rgb, float* __restrict__ sdf, float* __restrict__ grad) {
+  using C = Cfg<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tile<T> t{smem};
+  Stream<T> s = start_stream(sched, w, cw, t);
+  const long long p0 = (long long)blockIdx.x * C::P;
   const long long n_valid = n_pts - p0;
-  tile_forward<T, P>(pts + p0 * 3, n_valid, net, w, b, wk, p0, t, nullptr);
-  __syncthreads();
+  const ColorRows none{};
+  tile_pe(pts + p0 * 3, n_valid, net, wk, p0, t, false);
+  tile_F(net, b, wk, p0, s, t, false);
+  sdf_out_layer(net, w, b, col, s, t, nullptr, sdf + p0, n_valid);
+  color_static(col, cb, s, t, dirs + p0 * 3, app + p0 * col.n_a, n_valid, none);
+  tile_G(net, w, wk, p0, s, t, false);
+  auto e = [&] { return RgbEpi{cb + col.b_off[col.n_layers - 1], rgb + p0 * 3, n_valid}; };
+  color_lin(net, col, cb, s, t, pts + p0 * 3, n_valid, none, grad + p0 * 3, e);
+}
 
-  // the SDF's last layer, every row: [sdf * scale | feature]
-  const int L = net.L;
-  float* O = wk.slot(S_OUT, p0);
-  for (int j0 = 0; j0 < net.n[L - 1]; j0 += NMAX) {
-    OutEpi e{b + net.b_off[L - 1], O, WMAX, j0, P};
-    gemm(wk.at(KU, L - 1, p0), net.k[L - 1], w + net.w_off[L - 1] + (long long)j0 * net.kpad[L - 1],
-         net.kpad[L - 1], min(NMAX, net.n[L - 1] - j0), t.gemm, e);
-  }
-
-  // sdf and grad out; x, grad -> lin0's input, [PE_view(dirs) | a] -> V
-  float* I0 = wk.slot(S_LIN_IN, p0);
-  float* V = wk.slot(S_VIEW, p0);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    const bool ok = p < n_valid;
-    const long long o = (long long)p * WMAX;
-    float g[3], d[3];
-    pe_jac_T(t.xs + p * 3, net.multires, t.gpe + p * PE_MAX, g);
-    for (int a = 0; a < 3; ++a) {
-      d[a] = ok ? dirs[(p0 + p) * 3 + a] : 0.0f;
-      I0[o + a] = ok ? pts[(p0 + p) * 3 + a] : 0.0f;
-      I0[o + 3 + a] = g[a];
-      if (ok) grad[(p0 + p) * 3 + a] = g[a];
-    }
-    if (ok) sdf[p0 + p] = O[o] / net.scale;
-    for (int c = 0; c < col.d_view; ++c) V[o + c] = pe_value(d, c);
-    for (int c = 0; c < col.n_a; ++c)
-      V[o + col.d_view + c] = ok ? app[(p0 + p) * col.n_a + c] : 0.0f;
-  }
-  __syncthreads();
-
-  // the colour head: its layers' inputs in turns in S_A / S_B (the static
-  // head's first in S_XYZ, lin0's in S_LIN_IN)
-  const int S = col.n_static;
-  ColorRows rows{O, V, wk.slot(S_PART, p0), {}};
-  rows.in[1] = wk.slot(S_XYZ, p0);
-  for (int i = 2; i < col.n_layers; ++i) {
-    const int turn = i <= S ? i - 2 : i - 2 - S;
-    rows.in[i] = i == 1 + S ? I0 : wk.slot((turn & 1) ? S_B : S_A, p0);
-  }
-  RgbEpi e{cb + col.b_off[col.n_layers - 1], rgb + p0 * 3, n_valid};
-  color_forward<T>(cw, cb, col, rows, t.gemm, e);
+template <typename T>
+int launch(const float* pts, const float* dirs, const float* app, long long n_pts, const void* w,
+           const float* b, const Net& net, const void* cw, const float* cb, const Color& col,
+           const Sched& sched, const Work& wk, float* rgb, float* sdf, float* grad,
+           cudaStream_t s) {
+  auto kern = field_fwd_kernel<T>;
+  constexpr size_t smem = tile_bytes<T>();
+  if (int err = prepare(kern, smem)) return err;
+  kern<<<(unsigned)((n_pts + Cfg<T>::P - 1) / Cfg<T>::P), Cfg<T>::THREADS, smem, s>>>(
+      pts, dirs, app, n_pts, static_cast<const T*>(w), b, net, static_cast<const T*>(cw), cb,
+      col, sched, wk, rgb, sdf, grad);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -117,8 +94,8 @@ field_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
 // branch) are packed as (round_up(n, 16), kpad) row-major blocks at cw_off
 // in the activation dtype, biases f32 at cb_off. app holds n_a floats per
 // point. work is a float32 workspace of work_slots * work_rows * 528
-// elements, work_slots >= max(n_layers + 3, 7), work_rows >= n_pts rounded
-// up to 64.
+// elements, work_slots >= n_layers - 1 (z per hidden layer), work_rows >=
+// n_pts rounded up to 64.
 extern "C" int nw_field_fwd(const float* pts, const float* dirs, const float* app,
                             long long n_pts, const void* w, const float* b, int bf16_act,
                             int n_layers, int multires, float scale, int skip_mask, const int* k,
@@ -135,26 +112,21 @@ extern "C" int nw_field_fwd(const float* pts, const float* dirs, const float* ap
                &net) ||
       make_color(c_layers, n_static, multires_view, n_a, n[n_layers - 1] - 1, ck, cn, ckpad,
                  nullptr, cw_off, nullptr, cb_off, &col) ||
-      work_rows < ((n_pts + 63) / 64) * 64 || work_slots < n_layers + 3 ||
-      work_slots < N_COLOR_SLOTS)
+      !(bf16_act ? color_fits<bf16>(col) : color_fits<float>(col)) ||
+      work_rows < ((n_pts + 63) / 64) * 64 || work_slots < n_layers - 1)
     return -1;
+  SchedBuilder sb;
+  sb.F(net);
+  sb.last(net);
+  color_fwd_sched(sb, col, 0, n_static + 1);
+  sb.G(net);
+  color_fwd_sched(sb, col, n_static + 1, c_layers);
+  if (!sb.ok) return -1;
   Work wk{work, work_rows, n_layers, 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_pts <= 0) return 0;
-  if (bf16_act) {
-    auto kern = field_fwd_kernel<bf16, M_P, M_THREADS>;
-    const size_t smem = smem_bytes<bf16, M_P>();
-    if (int err = prepare(kern, smem)) return err;
-    kern<<<(unsigned)((n_pts + M_P - 1) / M_P), M_THREADS, smem, s>>>(
-        pts, dirs, app, n_pts, static_cast<const bf16*>(w), b, net,
-        static_cast<const bf16*>(cw), cb, col, wk, rgb, sdf, grad);
-  } else {
-    auto kern = field_fwd_kernel<float, F_P, F_THREADS>;
-    const size_t smem = smem_bytes<float, F_P>();
-    if (int err = prepare(kern, smem)) return err;
-    kern<<<(unsigned)((n_pts + F_P - 1) / F_P), F_THREADS, smem, s>>>(
-        pts, dirs, app, n_pts, static_cast<const float*>(w), b, net,
-        static_cast<const float*>(cw), cb, col, wk, rgb, sdf, grad);
-  }
-  return (int)cudaGetLastError();
+  return bf16_act ? launch<bf16>(pts, dirs, app, n_pts, w, b, net, cw, cb, col, sb.s, wk, rgb, sdf,
+                                 grad, s)
+                  : launch<float>(pts, dirs, app, n_pts, w, b, net, cw, cb, col, sb.s, wk, rgb,
+                                  sdf, grad, s);
 }

@@ -9,23 +9,24 @@
 // second-order cotangents with sp''), the backward of F top-down with z2
 // injected, and the PE terms.
 //
-// What bounds it: at the 8 x 512 width a point costs ~4 MFLOP forward and
-// ~16 MFLOP backward, so arithmetic bounds it. Per point the residuals are
-// 9 layers x 512 wide, and the backward needs six such families (u, z, d,
-// a, r_hat, g_tot); at 64 points a tile that is ~9 MB, far beyond 227 KB
-// of shared memory.
+// What bounds them, by the counts, at the 8 x 512 width: K3 ~8 MFLOP a
+// point (F with the 513-wide last layer, G) against 12 bytes in and ~2 KB
+// out (the 513-wide out), 2.0 ms per 245,760 points at the bf16 peak; its
+// z rows (8 x 2 KB a point) are written and read back once. K4 ~15.5 MFLOP
+// a point (3.8 ms), and it must write the factor rows K5 reads: 6 kinds x 9
+// layers x ~512 used floats, ~110 KB a point, 27 GB per 245,760 points,
+// ~8 ms at 3.35 TB/s: the rows bound K4, then the products.
 //
-// The design, simple first:
-//  * One block per tile of points (bf16: 64 points, 16 warps, mma.sync
-//    m16n8k16 with f32 accumulation; float: 32 points, 8 warps, FMA). The
-//    block runs every layer of its tile in turn as a tile GEMM
-//    out[p][j] = sum_i A[p][i] M[j][i] with its epilogue fused; A comes
-//    from the block's own rows of a float32 workspace in device memory
-//    (the per-layer residuals), M is a packed weight (W for the forward
-//    products, a packed transpose W^T for the reverse ones), both staged
-//    through shared memory in k-slabs. GEMM operands are rounded to the
-//    activation dtype as they are staged; everything else stays f32.
-//  * K3 (nw_sdf_vjp_fwd): F and G per tile -> out (N, d_out), grad (N, 3).
+// The design (sdf_tile.cuh): one block per tile of points (bf16: 64
+// points, 8 warps of 64 x 64 output tiles, mma.sync m16n8k16; float: 32
+// points, 8 warps, f32 FMA). The running operand of each pass stays in
+// shared memory in the activation dtype, each layer's output written over
+// its input behind one barrier; the weight k-slabs of every product of the
+// kernel stream through one three-stage cp.async ring that runs ahead across
+// products. Rows go to the float32 workspace only where a later pass or K5
+// reads them, as paired stores from the fragment layout.
+//  * K3 (nw_sdf_vjp_fwd): F and G per tile -> out (N, d_out), grad (N, 3);
+//    its workspace holds z per hidden layer only.
 //  * K4 (nw_sdf_vjp_bwd): recomputes F and G, runs the adjoint of G and the
 //    backward of F, writes dx and leaves per layer the dW factor pairs
 //    (d_l, r_hat_l) and (g_tot_l, u_l) in the workspace.
@@ -39,14 +40,14 @@
 //    products; db summed in the same pass; one atomic pass per block.
 //    Fusing the reduction into K4 per tile is ruled out: a 64-point tile
 //    touches every dW of the 9 layers, ~2.4 M f32 atomics per tile.
+// Shared memory of K3 / K4: 228,896 bytes in bf16, 202,272 in float (the
+// operand, the ring, the GEMM list, the per-point PE vectors); registers
+// and spills in PERF.md (ptxas -v, printed by chip_smoke.py).
 // The TPU kernel's split of the layer set over two calls (VMEM could not
 // hold the weights and all dW accumulators) has no counterpart: dW is
 // reduced outside the per-tile kernel. The wrapper runs K3 and K4 + K5 over
-// point chunks so the workspace stays a few GB.
-// The tile GEMMs, F and G and K4's per-tile backward (tile_backward) live in
-// sdf_tile.cuh, shared with K6 and K7; K7 and K9 reduce their dW factor
-// pairs through K5 (nw_dw_reduce, one pair per call).
-// wgmma / TMA, and keeping the residuals in shared memory, come later.
+// point chunks so the workspace stays a few GB. K7 and K9 reduce their dW
+// factor pairs through K5 too (nw_dw_reduce, one pair per call).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,51 +57,72 @@
 namespace {
 
 // K3
-template <typename T, int P, int THREADS>
-__global__ void __launch_bounds__(THREADS)
+struct OutEpi {  // the last layer's output columns, for the tile's real points
+  const float* b; float* out; int ld, n; long long n_valid;
+  __device__ void operator()(int p, int j, float a0, float a1) const {
+    if (p < n_valid)
+      st2(out + (long long)p * ld, j, n, a0 + b[j], j + 1 < n ? a1 + b[j + 1] : 0.0f);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
 sdf_vjp_fwd_kernel(const float* __restrict__ pts, long long n_pts, const T* __restrict__ w,
-                   const float* __restrict__ b, Net net, Work wk, float* __restrict__ out,
-                   float* __restrict__ grad) {
-  extern __shared__ __align__(16) float smem[];
-  Tile t;
-  tile_smem<T, P>(smem, t);
-  const long long p0 = (long long)blockIdx.x * P;
+                   const float* __restrict__ b, Net net, Sched sched, Work wk,
+                   float* __restrict__ out, float* __restrict__ grad) {
+  using C = Cfg<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tile<T> t{smem};
+  Stream<T> s = start_stream(sched, w, w, t);
+  const int L = net.L, n_last = net.n[L - 1];
+  const long long p0 = (long long)blockIdx.x * C::P;
   const long long n_valid = n_pts - p0;
-  tile_forward<T, P>(pts + p0 * 3, n_valid, net, w, b, wk, p0, t,
-                     out + p0 * net.n[net.L - 1]);
-  __syncthreads();
-  for (int p = threadIdx.x; p < P && p < n_valid; p += blockDim.x) {
+  float* o = out + p0 * n_last;
+  tile_pe(pts + p0 * 3, n_valid, net, wk, p0, t, false);
+  tile_F(net, b, wk, p0, s, t, false);
+  auto tail = [&](int p, int j, float v) {
+    if (p < n_valid) o[(long long)p * n_last + j] = v;
+  };
+  last_tail(net, w, b, t, tail);
+  auto e = [&] {
+    return OutEpi{b + net.b_off[L - 1], o, n_last, n_last < NMAX ? n_last : NMAX, n_valid};
+  };
+  tgemm(s, t, t.act(), C::AST, e);
+  tile_G(net, w, wk, p0, s, t, false);
+  for (int p = threadIdx.x; p < C::P && p < n_valid; p += C::THREADS) {
     float g[3];
-    pe_jac_T(t.xs + p * 3, net.multires, t.gpe + p * PE_MAX, g);
+    pe_jac_T(t.xs() + p * 3, net.multires, t.gpe() + p * PE_MAX, g);
     for (int a = 0; a < 3; ++a) grad[(p0 + p) * 3 + a] = g[a];
   }
 }
 
 // K4
-template <typename T, int P, int THREADS>
-__global__ void __launch_bounds__(THREADS)
+template <typename T>
+__global__ void __launch_bounds__(Cfg<T>::THREADS, 1)
 sdf_vjp_bwd_kernel(const float* __restrict__ pts, long long n_pts, const float* __restrict__ c_out,
                    const float* __restrict__ c_grad, const T* __restrict__ w,
-                   const float* __restrict__ b, Net net, Work wk, float* __restrict__ dx) {
-  extern __shared__ __align__(16) float smem[];
-  Tile t;
-  tile_smem<T, P>(smem, t);
+                   const float* __restrict__ b, Net net, Sched sched, Work wk,
+                   float* __restrict__ dx) {
+  using C = Cfg<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tile<T> t{smem};
+  Stream<T> s = start_stream(sched, w, w, t);
   const int L = net.L, n_last = net.n[L - 1];
-  const long long p0 = (long long)blockIdx.x * P;
+  const long long p0 = (long long)blockIdx.x * C::P;
   const long long n_valid = n_pts - p0;
-  tile_forward<T, P>(pts + p0 * 3, n_valid, net, w, b, wk, p0, t, nullptr);
-  __syncthreads();
   // the cotangents into the tile: g_tot_{L-1} = c_out, c_grad
   float* GL = wk.at(KG, L - 1, p0);
-  for (int p = threadIdx.x; p < P; p += blockDim.x) {
-    for (int a = 0; a < 3; ++a) t.cg[p * 3 + a] = p < n_valid ? c_grad[(p0 + p) * 3 + a] : 0.0f;
+  for (int p = threadIdx.x; p < C::P; p += C::THREADS) {
+    for (int a = 0; a < 3; ++a) t.cg()[p * 3 + a] = p < n_valid ? c_grad[(p0 + p) * 3 + a] : 0.0f;
     for (int j = 0; j < n_last; ++j)
       GL[(long long)p * WMAX + j] = p < n_valid ? c_out[(p0 + p) * n_last + j] : 0.0f;
   }
-  __syncthreads();
-  tile_backward<T, P>(net, w, wk, p0, t);
-  for (int p = threadIdx.x; p < P && p < n_valid; p += blockDim.x)
-    for (int a = 0; a < 3; ++a) dx[(p0 + p) * 3 + a] = t.dxs[p * 3 + a];
+  tile_pe(pts + p0 * 3, n_valid, net, wk, p0, t, true);
+  tile_F(net, b, wk, p0, s, t, true);
+  tile_G(net, w, wk, p0, s, t, true);
+  tile_backward(net, wk, p0, s, t);
+  for (int p = threadIdx.x; p < C::P && p < n_valid; p += C::THREADS)
+    for (int a = 0; a < 3; ++a) dx[(p0 + p) * 3 + a] = t.dxs()[p * 3 + a];
 }
 
 // ------------------------------ K5 ------------------------------
@@ -347,9 +369,9 @@ reduce_kernel(FactorPair f0, FactorPair f1, int n, int k, long long n_pts, long 
 // k, n its input and output widths; the packed weights hold W_l as
 // (npad, kpad) at w_off and W_l^T as (kpad, npad) at wt_off, zero-padded,
 // in float (bf16 == 0) or bf16; b holds the f32 biases at b_off. work is a
-// float32 workspace of (kinds * n_layers * work_rows * 528) elements, with
-// 4 kinds for the forward and 6 for the backward; work_rows >= n_pts
-// rounded up to 64.
+// float32 workspace of work_rows * 528 elements per slot: n_layers - 1
+// slots for the forward (z per hidden layer), 6 kinds x n_layers for the
+// backward; work_rows >= n_pts rounded up to 64.
 
 extern "C" int nw_sdf_vjp_fwd(const float* pts, long long n_pts, const void* w, const float* b,
                               int bf16_act, int n_layers, int multires, float scale,
@@ -361,23 +383,25 @@ extern "C" int nw_sdf_vjp_fwd(const float* pts, long long n_pts, const void* w, 
   if (make_net(n_layers, multires, scale, skip_mask, k, n, kpad, npad, w_off, wt_off, b_off,
                &net) || work_rows < ((n_pts + 63) / 64) * 64)
     return -1;
-  Work wk{work, work_rows, n_layers, 0};
+  SchedBuilder sb;
+  sb.F(net);
+  sb.last(net);
+  sb.G(net);
+  if (!sb.ok) return -1;
+  Work wk{work, work_rows, n_layers, 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_pts <= 0) return 0;
-  if (bf16_act) {
-    auto kern = sdf_vjp_fwd_kernel<bf16, M_P, M_THREADS>;
-    const size_t smem = smem_bytes<bf16, M_P>();
+  const auto run = [&](auto kern, const auto* wt, int P, int threads, size_t smem) {
     if (int err = prepare(kern, smem)) return err;
-    kern<<<(unsigned)((n_pts + M_P - 1) / M_P), M_THREADS, smem, s>>>(
-        pts, n_pts, static_cast<const bf16*>(w), b, net, wk, out, grad);
-  } else {
-    auto kern = sdf_vjp_fwd_kernel<float, F_P, F_THREADS>;
-    const size_t smem = smem_bytes<float, F_P>();
-    if (int err = prepare(kern, smem)) return err;
-    kern<<<(unsigned)((n_pts + F_P - 1) / F_P), F_THREADS, smem, s>>>(
-        pts, n_pts, static_cast<const float*>(w), b, net, wk, out, grad);
-  }
-  return (int)cudaGetLastError();
+    kern<<<(unsigned)((n_pts + P - 1) / P), threads, smem, s>>>(pts, n_pts, wt, b, net, sb.s, wk,
+                                                                out, grad);
+    return (int)cudaGetLastError();
+  };
+  if (bf16_act)
+    return run(sdf_vjp_fwd_kernel<bf16>, static_cast<const bf16*>(w), Cfg<bf16>::P,
+               Cfg<bf16>::THREADS, tile_bytes<bf16>());
+  return run(sdf_vjp_fwd_kernel<float>, static_cast<const float*>(w), Cfg<float>::P,
+             Cfg<float>::THREADS, tile_bytes<float>());
 }
 
 extern "C" int nw_sdf_vjp_bwd(const float* pts, long long n_pts, const float* c_out,
@@ -390,23 +414,25 @@ extern "C" int nw_sdf_vjp_bwd(const float* pts, long long n_pts, const float* c_
   if (make_net(n_layers, multires, scale, skip_mask, k, n, kpad, npad, w_off, wt_off, b_off,
                &net) || work_rows < ((n_pts + 63) / 64) * 64)
     return -1;
+  SchedBuilder sb;
+  sb.F(net);
+  sb.G(net);
+  sb.backward(net);
+  if (!sb.ok) return -1;
   Work wk{work, work_rows, n_layers, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_pts <= 0) return 0;
-  if (bf16_act) {
-    auto kern = sdf_vjp_bwd_kernel<bf16, M_P, M_THREADS>;
-    const size_t smem = smem_bytes<bf16, M_P>();
+  const auto run = [&](auto kern, const auto* wt, int P, int threads, size_t smem) {
     if (int err = prepare(kern, smem)) return err;
-    kern<<<(unsigned)((n_pts + M_P - 1) / M_P), M_THREADS, smem, s>>>(
-        pts, n_pts, c_out, c_grad, static_cast<const bf16*>(w), b, net, wk, dx);
-  } else {
-    auto kern = sdf_vjp_bwd_kernel<float, F_P, F_THREADS>;
-    const size_t smem = smem_bytes<float, F_P>();
-    if (int err = prepare(kern, smem)) return err;
-    kern<<<(unsigned)((n_pts + F_P - 1) / F_P), F_THREADS, smem, s>>>(
-        pts, n_pts, c_out, c_grad, static_cast<const float*>(w), b, net, wk, dx);
-  }
-  return (int)cudaGetLastError();
+    kern<<<(unsigned)((n_pts + P - 1) / P), threads, smem, s>>>(pts, n_pts, c_out, c_grad, wt, b,
+                                                                net, sb.s, wk, dx);
+    return (int)cudaGetLastError();
+  };
+  if (bf16_act)
+    return run(sdf_vjp_bwd_kernel<bf16>, static_cast<const bf16*>(w), Cfg<bf16>::P,
+               Cfg<bf16>::THREADS, tile_bytes<bf16>());
+  return run(sdf_vjp_bwd_kernel<float>, static_cast<const float*>(w), Cfg<float>::P,
+             Cfg<float>::THREADS, tile_bytes<float>());
 }
 
 namespace {

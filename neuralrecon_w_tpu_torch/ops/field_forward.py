@@ -37,7 +37,6 @@ from .sdf_field_vjp import VJPPack, _net_args, pack_layers, pack_vjp_weights
 WMAX = 528  # the workspace's row stride (csrc/sdf_tile.cuh)
 CHUNK = 65536  # points per K6 launch: the colour sweep's chunk
 _TILE = 64  # the workspace is allocated in whole tiles
-_COLOR_SLOTS = 7  # workspace rows per point the colour head uses (csrc/field_fwd.cu)
 
 
 class ColorPack(NamedTuple):
@@ -167,7 +166,7 @@ def field_forward_kernel(pack: FieldPack, pts, dirs, a):
     rgb = torch.empty(n_pts, 3, dtype=torch.float32, device=dev)
     sdf = torch.empty(n_pts, dtype=torch.float32, device=dev)
     grad = torch.empty(n_pts, 3, dtype=torch.float32, device=dev)
-    slots = max(len(sp.k) + 3, _COLOR_SLOTS)
+    slots = len(sp.k) - 1  # z per hidden layer (csrc/field_fwd.cu)
     rows = (min(n_pts, CHUNK) + _TILE - 1) // _TILE * _TILE
     work = torch.empty(slots * rows * WMAX, dtype=torch.float32, device=dev)
     keep, sdf_ptrs = _net_args(sp)

@@ -105,7 +105,9 @@ def _check_cuda(x: torch.Tensor, *tensors) -> None:
 
 
 def workspace(n_pts: int, kinds: int, n_layers: int, device):
-    """The float32 workspace of K3 (4 kinds) or K4 (6 kinds) for one chunk."""
+    """A float32 workspace of kinds x n_layers rows of WMAX floats per point
+    for one chunk: K4's holds 6 kinds per layer, K3's z per hidden layer (1
+    kind x n_layers - 1)."""
     rows = (min(n_pts, CHUNK) + _TILE - 1) // _TILE * _TILE
     return torch.empty(kinds * n_layers * rows * WMAX, dtype=torch.float32, device=device), rows
 
@@ -129,7 +131,7 @@ def sdf_vjp_fwd(weights, biases, cfg: dict, x: torch.Tensor, act="float32"):
     n_pts = x.shape[0]
     out = torch.empty(n_pts, pk.n[-1], dtype=torch.float32, device=x.device)
     grad = torch.empty(n_pts, 3, dtype=torch.float32, device=x.device)
-    work, rows = workspace(n_pts, 4, len(pk.k), x.device)
+    work, rows = workspace(n_pts, 1, len(pk.k) - 1, x.device)
     keep, ptrs = _net_args(pk)
     for c0 in range(0, n_pts, CHUNK):
         m = min(CHUNK, n_pts - c0)

@@ -253,6 +253,80 @@ def test_sdf_vjp_function_matches_double_backward(dev, flagship):
         assert rel_l2(k, w) <= 1e-2
 
 
+def check_sdf_vjp(ws, bs, cfg, x, c_out, c_grad, act):
+    """K3, and K4 + K5, against the plain version: f32 K3 within K3_F32_TOL
+    and K4 + K5 as close to float64 as the plain f32 (or 1e-5); bf16 within
+    VJP_BF16_REL of the plain bf16."""
+    from neuralrecon_w_tpu_torch.ops import field_vjp_math as fvm
+    from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp
+
+    args = (tuple(cfg["skip_in"]), cfg["multires"], float(cfg["scale"]))
+    act_t = getattr(torch, act)
+    out, grad = vjp.sdf_vjp_fwd(ws, bs, cfg, x, act)
+    want_out, want_grad = fvm.value_and_grad(ws, bs, *args, x, act_t)
+    flat = lambda r: [*r[0], *r[1], r[2]]  # noqa: E731
+    got = flat(vjp.sdf_vjp_bwd(ws, bs, cfg, x, c_out, c_grad, act))
+    plain = flat(fvm.vjp(ws, bs, *args, x, c_out, c_grad, act_t))
+    torch.cuda.synchronize()
+    for k in (out, grad, *got):
+        assert bool(torch.isfinite(k).all())
+    if act == "float32":
+        torch.testing.assert_close(out, want_out, atol=K3_F32_TOL, rtol=K3_F32_TOL)
+        torch.testing.assert_close(grad, want_grad, atol=K3_F32_TOL, rtol=K3_F32_TOL)
+        truth = flat(fvm.vjp([w.double() for w in ws], [b.double() for b in bs], *args,
+                             x.double(), c_out.double(), c_grad.double(), torch.float64))
+        for k, p, t in zip(got, plain, truth):
+            assert rel_l2(k, t) <= max(2 * rel_l2(p, t), 1e-5), (rel_l2(k, t), rel_l2(p, t))
+    else:
+        assert rel_l2(out, want_out) <= VJP_BF16_REL and rel_l2(grad, want_grad) <= VJP_BF16_REL
+        for k, p in zip(got, plain):
+            assert rel_l2(k, p) <= VJP_BF16_REL
+
+
+# point counts the tile pass finds hard: fewer than one tile, one past a
+# bf16 tile, and across a wrapper chunk boundary with a ragged last tile
+EDGE_PTS = [37, 65, 1100]
+
+
+@pytest.mark.parametrize("n_pts", EDGE_PTS)
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_sdf_vjp_kernels_at_tile_edges(dev, flagship, monkeypatch, act, n_pts):
+    from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp
+
+    fc, net = flagship
+    monkeypatch.setattr(vjp, "CHUNK", 1024)
+    ws, bs, x, c_out, c_grad = vjp_inputs(net, n_pts, 20 + n_pts)
+    check_sdf_vjp(ws, bs, dict(fc.sdf), x, c_out, c_grad, act)
+
+
+def skip_net(dev, skip: int, n_layers: int = 5, width: int = 256, multires: int = 6, seed=0):
+    """Random weights of an SDF net with n_layers linear layers of the given
+    width (a 1 + width wide output) and its skip at layer `skip`: the layer
+    before it outputs width - d_pe, as the served net's does."""
+    g = torch.Generator().manual_seed(seed + skip)
+    d_pe = 3 * (1 + 2 * multires)
+    ws, bs, k = [], [], d_pe
+    for l in range(n_layers):
+        n = 1 + width if l == n_layers - 1 else width - d_pe if l + 1 == skip else width
+        ws.append((torch.randn(n, k, generator=g) / k ** 0.5).to(dev))
+        bs.append((torch.randn(n, generator=g) * 0.05).to(dev))
+        k = n + d_pe if l + 1 == skip else n
+    return ws, bs, {"multires": multires, "scale": 1.0, "skip_in": (skip,)}
+
+
+# every position make_net allows a skip at: not layer 0, not the last
+@pytest.mark.parametrize("skip", [1, 2, 3])
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_sdf_vjp_kernels_skip_positions(dev, act, skip):
+    ws, bs, cfg = skip_net(dev, skip)
+    g = torch.Generator().manual_seed(30 + skip)
+    n = 300
+    x = ((torch.rand(n, 3, generator=g) * 2 - 1) * 0.9).to(dev)
+    c_out = torch.randn(n, ws[-1].shape[0], generator=g).to(dev)
+    c_grad = torch.randn(n, 3, generator=g).to(dev)
+    check_sdf_vjp(ws, bs, cfg, x, c_out, c_grad, act)
+
+
 # ---------------- K6: the fused field forward ----------------
 
 # f32: sdf and rgb summation order only, grad the K3 bound; bf16: rel-L2
@@ -439,6 +513,45 @@ def test_field_train_function_matches_double_backward(dev, field):
     assert set(got) == set(want)
     for k in want:
         assert rel_l2(got[k], want[k]) <= 1e-2, k
+
+
+@pytest.mark.parametrize("n_pts", EDGE_PTS)
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_field_kernels_at_tile_edges(dev, field, monkeypatch, act, n_pts):
+    """K6 and K7 + K5 at the point counts the tile pass finds hard, over
+    1024-point wrapper chunks, against the plain versions (K7 in f32 against
+    float64, as the plain f32 is)."""
+    from neuralrecon_w_tpu_torch.ops import field_forward as ff
+    from neuralrecon_w_tpu_torch.ops import field_train as ft
+
+    fc, model = field
+    monkeypatch.setattr(ff, "CHUNK", 1024)
+    monkeypatch.setattr(ft, "CHUNK", 1024)
+    spec, wb, args = field_train_case(fc, model, act, n_pts, dev, 40 + n_pts)
+    pack = ft.pack_field_tensors(spec, wb)
+    got = ff.field_forward_kernel(pack, *args[:3])
+    want = ff.field_forward_plain(pack, *args[:3])
+    masks = []
+    grads = flat_field_grads(ft.field_train_bwd(pack, *args, masks=masks))
+    plain = flat_field_grads(ft.field_train_bwd_plain(spec, wb, *args, masks=masks))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        if act == "float32":
+            torch.testing.assert_close(g, w, atol=K6_F32_TOL, rtol=K6_F32_TOL)
+        else:
+            assert rel_l2(g, w) <= VJP_BF16_REL
+    if act == "float32":
+        wb64, args64 = [w.double() for w in wb], [t.double() for t in args]
+        truth = flat_field_grads(ft.field_train_bwd_plain(spec, wb64, *args64, masks=masks))
+        assert_flips_near_zero(masks, ft.color_preacts(spec, wb64, *args64[:3]), FLIP_Z[act])
+        for k, p, t in zip(grads, plain, truth):
+            assert bool(torch.isfinite(k).all())
+            assert rel_l2(k, t) <= max(2 * rel_l2(p, t), 1e-5), (rel_l2(k, t), rel_l2(p, t))
+    else:
+        assert_flips_near_zero(masks, ft.color_preacts(spec, wb, *args[:3]), FLIP_Z[act])
+        for k, p in zip(grads, plain):
+            assert rel_l2(k, p) <= FIELD_TRAIN_BF16_REL
 
 
 # ---------------- K8, K9 (+ K5): the fused background ----------------
