@@ -32,14 +32,20 @@ template <typename T> __host__ __device__ inline int view_st(const Color& c) {
 }
 __host__ __device__ inline int stash_st(const Color& c) { return (c.n[c.n_static] + 1) & ~1; }
 
-// K7's device rows of the colour head (K6: all null), offset to the tile:
-// O the SDF's output row [sdf * scale | feature] (xyz_final's input is
-// columns 1..), V [PE_view(dirs) | a], in[i] layer i's input for i >= 1
-// (in[1 + S]: [x, grad, h])
+// K7's device rows of the colour head, slots of its workspace from slot
+// `base` on, offset to the tile (K6: wk null, no rows). Computed where
+// used: an array of row pointers lived on the stack and cost registers.
+// O() the SDF's output row [sdf * scale | feature] (xyz_final's input is
+// columns 1..), V() [PE_view(dirs) | a], in(i) layer i's input for i >= 1
+// (in(1 + S): [x, grad, h])
 struct ColorRows {
-  float* O;
-  float* V;
-  float* in[CMAXL];
+  const Work* wk;  // null: none
+  int base;
+  long long p0;
+  __device__ float* slot(int s) const { return wk ? wk->slot(base + s, p0) : nullptr; }
+  __device__ float* O() const { return slot(0); }
+  __device__ float* V() const { return slot(1); }
+  __device__ float* in(int i) const { return slot(1 + i); }
 };
 
 template <typename T>
@@ -110,7 +116,7 @@ __device__ void color_static(const Color& col, const float* cb, Stream<T>& s, Ti
   const int vst = view_st<T>(col), sst = stash_st(col), vw = col.kpad[1] - col.n[0];
   {
     auto e = [&] {
-      return ActEpi<T>{cb + col.b_off[0], t.act(), C::AST, r.in[1], 0, col.n[0], false};
+      return ActEpi<T>{cb + col.b_off[0], t.act(), C::AST, r.in(1), 0, col.n[0], false};
     };
     tgemm(s, t, t.act(), C::AST, e);
   }
@@ -123,14 +129,14 @@ __device__ void color_static(const Color& col, const float* cb, Stream<T>& s, Ti
                     : c < col.d_view + col.n_a && ok ? app[(long long)p * col.n_a + c - col.d_view]
                     : 0.0f;
       view[p * vst + c] = to_t<T>(v);
-      if (r.V && c < col.d_view + col.n_a) r.V[(long long)p * WMAX + c] = v;
+      if (r.V() && c < col.d_view + col.n_a) r.V()[(long long)p * WMAX + c] = v;
     }
   }
   for (int i = 1; i <= S; ++i) {
     const bool last = i == S;
     auto e = [&] {
       return ActEpi<T>{cb + col.b_off[i], last ? stash : t.act(), last ? sst : C::AST,
-                       last ? r.in[1 + S] : r.in[i + 1], last ? 6 : 0, col.n[i], true};
+                       last ? r.in(1 + S) : r.in(i + 1), last ? 6 : 0, col.n[i], true};
     };
     if (i == 1) tgemm<true>(s, t, t.act(), C::AST, e, view, vst, col.n[0]);
     else tgemm(s, t, t.act(), C::AST, e);
@@ -148,7 +154,7 @@ __device__ void color_lin(const Net& net, const Color& col, const float* cb, Str
   using C = Cfg<T>;
   const int S = col.n_static, CL = col.n_layers, hs = col.n[S], sst = stash_st(col);
   const T* stash = static_cast<const T*>(t.spare());
-  float* I0 = r.in[1 + S];
+  float* I0 = r.in(1 + S);
   for (int p = threadIdx.x; p < C::P; p += C::THREADS) {
     const bool ok = p < n_valid;
     float g[3];
@@ -170,7 +176,7 @@ __device__ void color_lin(const Net& net, const Color& col, const float* cb, Str
   }
   for (int i = 1 + S; i < CL - 1; ++i) {
     auto e = [&] {
-      return ActEpi<T>{cb + col.b_off[i], t.act(), C::AST, r.in[i + 1], 0, col.n[i], true};
+      return ActEpi<T>{cb + col.b_off[i], t.act(), C::AST, r.in(i + 1), 0, col.n[i], true};
     };
     tgemm(s, t, t.act(), C::AST, e);
     zero_cols(t.act(), col.n[i], col.kpad[i + 1]);

@@ -148,8 +148,7 @@ field_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
   const int n_valid = (int)min(n_pts - p0, (long long)C::P);  // the tile's real points
   const int L = net.L, CL = col.n_layers, S = col.n_static, base = 6 * L;
   auto G = [&](int i) { return wk.slot(base + CL + 1 + i, p0); };
-  ColorRows rows{wk.slot(base, p0), wk.slot(base + 1, p0), {}};
-  for (int i = 1; i < CL; ++i) rows.in[i] = wk.slot(base + 1 + i, p0);
+  const ColorRows rows{&wk, base, p0};
 
   // the cotangents: c_grad into t.cg, c_sdf / scale into column 0 of the
   // SDF output's
@@ -162,7 +161,7 @@ field_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
   // the forward: F, the feature, the static head, G, lin0 .. rgb
   tile_pe(pts + p0 * 3, n_valid, net, wk, p0, t, true);
   tile_F(net, b, wk, p0, s, t, true);
-  sdf_out_layer(net, w, b, col, s, t, rows.O, nullptr, n_valid);
+  sdf_out_layer(net, w, b, col, s, t, rows.O(), nullptr, n_valid);
   color_static(col, cb, s, t, dirs + p0 * 3, app + p0 * col.n_a, n_valid, rows);
   tile_G(net, w, wk, p0, s, t, true);
   {
@@ -176,10 +175,10 @@ field_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
   // the colour head backward, r = g W per layer
   for (int i = CL - 1; i >= 2; --i) {
     if (i == 1 + S) {
-      auto e = [&] { return Lin0BackEpi<T>{t, G(S), rows.in[1 + S], col.k[1 + S]}; };
+      auto e = [&] { return Lin0BackEpi<T>{t, G(S), rows.in(1 + S), col.k[1 + S]}; };
       tgemm(s, t, t.act(), C::AST, e);
     } else {
-      auto e = [&] { return MaskEpi<T>{t, G(i - 1), rows.in[i], col.n[i - 1]}; };
+      auto e = [&] { return MaskEpi<T>{t, G(i - 1), rows.in(i), col.n[i - 1]}; };
       tgemm(s, t, t.act(), C::AST, e);
     }
     zero_cols(t.act(), col.n[i - 1], col.npad[i - 1]);

@@ -62,7 +62,7 @@ field_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
   Stream<T> s = start_stream(sched, w, cw, t);
   const long long p0 = (long long)blockIdx.x * C::P;
   const long long n_valid = n_pts - p0;
-  const ColorRows none{};
+  const ColorRows none{nullptr, 0, 0};
   tile_pe(pts + p0 * 3, n_valid, net, wk, p0, t, false);
   tile_F(net, b, wk, p0, s, t, false);
   sdf_out_layer(net, w, b, col, s, t, nullptr, sdf + p0, n_valid);
