@@ -34,7 +34,7 @@ __host__ __device__ inline int stash_st(const Color& c) { return (c.n[c.n_static
 
 // K7's device rows of the colour head, slots of its workspace from slot
 // `base` on, offset to the tile (K6: wk null, no rows). Computed where
-// used: an array of row pointers lived on the stack and cost registers.
+// used, not held: an array of them sits on the stack and costs K7 registers.
 // O() the SDF's output row [sdf * scale | feature] (xyz_final's input is
 // columns 1..), V() [PE_view(dirs) | a], in(i) layer i's input for i >= 1
 // (in(1 + S): [x, grad, h])
