@@ -230,7 +230,7 @@ bool color_fits(const Color& c) {
 
 // the colour head's forward GEMMs of layers [from, to): color_static runs
 // 0 .. S, color_lin 1 + S ..
-void color_fwd_sched(SchedBuilder& sb, const Color& c, int from, int to) {
+void color_fwd_sched(SchedMaker& sb, const Color& c, int from, int to) {
   for (int i = from; i < to; ++i) sb.add(1, c.w_off[i], c.kpad[i], c.npad[i], c.kpad[i]);
 }
 

@@ -257,7 +257,7 @@ extern "C" int nw_field_bwd(const float* pts, const float* dirs, const float* ap
       work_rows < ((n_pts + 63) / 64) * 64 ||
       work_slots < 6 * n_layers + color_slots(c_layers))
     return -1;
-  SchedBuilder sb;
+  SchedMaker sb;
   sb.F(net);
   sb.last(net);
   color_fwd_sched(sb, col, 0, n_static + 1);

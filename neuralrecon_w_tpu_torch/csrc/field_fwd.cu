@@ -115,7 +115,7 @@ extern "C" int nw_field_fwd(const float* pts, const float* dirs, const float* ap
       !(bf16_act ? color_fits<bf16>(col) : color_fits<float>(col)) ||
       work_rows < ((n_pts + 63) / 64) * 64 || work_slots < n_layers - 1)
     return -1;
-  SchedBuilder sb;
+  SchedMaker sb;
   sb.F(net);
   sb.last(net);
   color_fwd_sched(sb, col, 0, n_static + 1);

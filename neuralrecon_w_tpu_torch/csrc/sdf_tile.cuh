@@ -184,7 +184,7 @@ template <typename T>
 struct Stream {
   int gi, k0, lt, cur, ct;
 
-  __device__ void issue(const Tile<T>& t) {
+  __device__ void fetch(const Tile<T>& t) {
     using C = Cfg<T>;
     constexpr int V = 16 / sizeof(T);
     const StreamHdr& h = *t.hdr();
@@ -213,7 +213,7 @@ __device__ Stream<T> start_stream(const Sched& s, const T* w, const T* cw, Tile<
   if (threadIdx.x == 0) *t.hdr() = StreamHdr{w, cw, s.n};
   __syncthreads();
   Stream<T> st{0, 0, 0, 0, 0};
-  for (int i = 0; i < STAGES - 1; ++i) st.issue(t);
+  for (int i = 0; i < STAGES - 1; ++i) st.fetch(t);
   return st;
 }
 
@@ -338,7 +338,7 @@ __device__ void tgemm(Stream<T>& s, Tile<T>& t, const T* A, int ast, Epi& epi,
   for (int k0 = 0; k0 < gm.kend; k0 += C::KS, ++s.ct) {
     cp_async_wait<STAGES - 2>();  // this slab has landed
     __syncthreads();              // for every thread; the previous slab's stage is free
-    s.issue(t);
+    s.fetch(t);
     slab_mma<TWO>(A, ast, A2, a2st, split, k0, t.ring() + (s.ct % STAGES) * NMAX * C::KS,
              min(C::KS, gm.kend - k0), gm.rows, row0, col0, acc);
   }
@@ -730,7 +730,7 @@ int make_net(int n_layers, int multires, float scale, int skip_mask, const int* 
 }
 
 // The GEMM list, in the order a kernel runs its products
-struct SchedBuilder {
+struct SchedMaker {
   Sched s{};
   bool ok = true;
   void add(int src, long long off, int ldm, int rows, int kend) {

@@ -383,7 +383,7 @@ extern "C" int nw_sdf_vjp_fwd(const float* pts, long long n_pts, const void* w, 
   if (make_net(n_layers, multires, scale, skip_mask, k, n, kpad, npad, w_off, wt_off, b_off,
                &net) || work_rows < ((n_pts + 63) / 64) * 64)
     return -1;
-  SchedBuilder sb;
+  SchedMaker sb;
   sb.F(net);
   sb.last(net);
   sb.G(net);
@@ -414,7 +414,7 @@ extern "C" int nw_sdf_vjp_bwd(const float* pts, long long n_pts, const float* c_
   if (make_net(n_layers, multires, scale, skip_mask, k, n, kpad, npad, w_off, wt_off, b_off,
                &net) || work_rows < ((n_pts + 63) / 64) * 64)
     return -1;
-  SchedBuilder sb;
+  SchedMaker sb;
   sb.F(net);
   sb.G(net);
   sb.backward(net);
