@@ -1411,14 +1411,21 @@ def field_train_bound(pack, n: int) -> dict:
 def bg_bound(pk, n: int, n_a: int) -> dict:
     """Least times of kernel 6's port at n points in the pack's dtype:
     'nerf_bg_fwd' (K8: every layer), 'nerf_bg_bwd' (K9: the forward
-    recomputed and dX) and 'dw_reduce' (K5: every layer's dW)."""
+    recomputed and dX) and 'dw_reduce' (K5: every layer's dW). K9's entry
+    also carries `rows_floor_ms`: the f32 (cotangent, input) rows it leaves
+    for K5 (feature and alpha share one input row) over the memory rate."""
+    from neuralrecon_w_tpu_torch.ops.nerf_bg_fused import FEATURE
+
     act = str(pk.act).removeprefix("torch.")
     flops = gemm_flops(zip(pk.k, pk.n))
     w = nbytes(pk.w) // 2 + nbytes(pk.b)
     io = 16 + 12 + 4 * n_a  # pts4, dirs, a
+    row_floats = sum(k + m for k, m in zip(pk.k, pk.n))
+    rows_ms = n * 4 * (row_floats - pk.k[FEATURE]) / PEAK_BYTES * 1e3
     return {"nerf_bg_fwd": bound(n * flops, w + n * (io + 16), act),
-            "nerf_bg_bwd": bound(n * 2 * flops, w + n * (2 * io + 16), act),
-            "dw_reduce": bound(n * flops, n * 4 * sum(k + m for k, m in zip(pk.k, pk.n)), act)}
+            "nerf_bg_bwd": bound(n * 2 * flops, w + n * (2 * io + 16), act)
+            | {"rows_floor_ms": rows_ms},
+            "dw_reduce": bound(n * flops, n * 4 * row_floats, act)}
 
 
 def field_train_kernel_phase(model, fc, n_time: int):
@@ -1617,7 +1624,8 @@ def bg_kernel_phase(model, fc, n_rays: int, k: int):
           f"plain {t['fwd_plain']:.3f}, bound {b['nerf_bg_fwd']['bound_ms']:.4f}; K9 + K5 "
           f"{t['bwd']:.3f}, plain {t['bwd_plain']:.3f}, of which K5 alone {t['reduce']:.3f} (one "
           f"addmm per factor pair {t['library']:.3f}), K9 "
-          f"bound {b['nerf_bg_bwd']['bound_ms']:.4f}; forward + backward "
+          f"bound {b['nerf_bg_bwd']['bound_ms']:.4f} (its rows for K5 "
+          f"{b['nerf_bg_bwd']['rows_floor_ms']:.4f}); forward + backward "
           f"{t['fwd'] + t['bwd']:.3f}, the 'xla' path's autograd forward + backward "
           f"{t['other']:.3f}")
     timed_entries(res, t, b, "nerf_bg_fwd", "nerf_bg_bwd", "xla_fwd_bwd_ms")
@@ -1665,7 +1673,8 @@ def extraction_phase(model, fc, root: str, n_points: int = EXTRACT_POINTS,
 
 # the kernels redesigned in the latest slice: (label, entry function)
 REDESIGNED = (("K3", "sdf_vjp_fwd_kernel"), ("K4", "sdf_vjp_bwd_kernel"),
-              ("K6", "field_fwd_kernel"), ("K7", "field_bwd_kernel"))
+              ("K6", "field_fwd_kernel"), ("K7", "field_bwd_kernel"),
+              ("K8", "bg_fwd_kernel"), ("K9", "bg_bwd_kernel"))
 
 
 def ptxas_report(log: str) -> list:
@@ -1936,7 +1945,10 @@ def main() -> int:
     print(f"redesigned kernels, ms / bound_ms ({card}): K6 field_fwd "
           f"{ratio(fw['extraction']):.1f} at {K6_CHECK_PTS} pts, {ratio(fw):.1f} at {VJP_TIME_PTS}; "
           f"K7 field_bwd {ratio(kres['field_bwd']):.1f}; K3 sdf_vjp_fwd "
-          f"{ratio(kres['sdf_vjp_fwd']):.1f}; K4 sdf_vjp_bwd {ratio(kres['sdf_vjp_bwd']):.1f}")
+          f"{ratio(kres['sdf_vjp_fwd']):.1f}; K4 sdf_vjp_bwd {ratio(kres['sdf_vjp_bwd']):.1f}; "
+          f"K8 nerf_bg_fwd {ratio(kres['nerf_bg_fwd']):.1f}; K9 nerf_bg_bwd "
+          f"{ratio(kres['nerf_bg_bwd']):.1f} (against its rows for K5 "
+          f"{kres['nerf_bg_bwd']['ms'] / kres['nerf_bg_bwd']['rows_floor_ms']:.1f})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,9 @@
-// The SDF tile pass shared by K3 / K4 (sdf_vjp.cu), K6 (field_fwd.cu) and
-// K7 (field_bwd.cu): the forward F and the reverse sweep G for d sdf / d x
+// The tile pass: the SDF's forward F and reverse sweep G for d sdf / d x
 // over one tile of points, the second-order backward of both
-// (tile_backward), the tile GEMM they run on, and the layer table the
-// entries validate. K8 / K9 (nerf_bg.cu) keep the older staged tile GEMM
-// (gemm, at the end), whose A operand comes from device rows.
+// (tile_backward), the layer table the entries validate, and the tile GEMM
+// (tgemm) with its weight ring, which K3 / K4 (sdf_vjp.cu), K6
+// (field_fwd.cu), K7 (field_bwd.cu) and K8 / K9 (nerf_bg.cu, on a config of
+// their own: 256-row ring slabs, two blocks an SM in bf16) run on.
 //
 // A block owns P points and runs every product of its tile in turn as a
 // tile GEMM out[p][j] = sum_i A[p][i] M[j][i] (tgemm). A, the pass's
@@ -11,12 +11,13 @@
 // F, d in G, r_hat in the adjoint of G, g_tot in the backward of F, each
 // colour layer's input. Each epilogue writes the layer's output over its
 // input behind one barrier. M is a packed weight (W, or a packed W^T for
-// the reverse products); its k-slabs stream through a three-stage cp.async
-// ring that runs ahead across GEMM boundaries: the kernel's GEMMs are
-// listed once, in the order it runs them (Sched, built on the host), and
-// the ring loads two slabs of that list ahead of the one being
-// multiplied, one barrier per slab. A value is rounded to T only where it
-// becomes a GEMM operand; every sum is f32 and biases are added in f32.
+// the reverse products); its k-slabs stream through a cp.async ring of ST
+// stages (three in the SDF pass) that runs ahead across GEMM boundaries:
+// the kernel's GEMMs are listed once, in the order it runs them (Sched,
+// built on the host), and the ring loads ST - 1 slabs of that list ahead
+// of the one being multiplied, one barrier per slab. A value is rounded to
+// T only where it becomes a GEMM operand; every sum is f32 and biases are
+// added in f32. The SDF pass's config (Cfg<T>):
 //  * bf16: 64 points, 8 warps of 64 x 64 output tiles (up to 255
 //    registers a thread for the 128 accumulators and the epilogues' state;
 //    at 16 warps the 128-register cap spilled), mma.sync m16n8k16 fed by
@@ -101,16 +102,21 @@ template <typename T> __device__ __forceinline__ void sp12(float z, float& d1, f
 
 // ------------------------------ the tile GEMM ------------------------------
 
+// A config: P points a block, THREADS threads, warp tiles of (16 MI) x 64,
+// KS-wide slabs, the operand's row stride AST (PAD past its widest row), a
+// ring of ST stages of NR weight rows each. The SDF pass's is Cfg<T>.
+constexpr int STAGES = 3;
 template <typename T> struct Cfg;
 template <> struct Cfg<bf16> {
   static constexpr int P = 64, THREADS = 256, MI = 4, KS = 32, AST = WMAX + 8, PAD = 8;
+  static constexpr int NR = NMAX, ST = STAGES;
 };
 template <> struct Cfg<float> {
   static constexpr int P = 32, THREADS = 256, MI = 2, KS = 16, AST = WMAX + 4, PAD = 4;
+  static constexpr int NR = NMAX, ST = STAGES;
 };
-constexpr int STAGES = 3;
 
-// A ring slab holds KS columns (64 bytes) of up to NMAX weight rows, row r's
+// A ring slab holds KS columns (64 bytes) of up to NR weight rows, row r's
 // 16-byte chunk c at position c ^ ((r / 2) % 4): the 8 rows an ldmatrix (or
 // the float products) read at one chunk then fall in 8 distinct bank groups.
 __device__ __forceinline__ int swz(int r, int c) { return c ^ ((r >> 1) & 3); }
@@ -134,15 +140,15 @@ struct StreamHdr;
 // and the per-point vectors. `spare` (ghat and pehat, which only
 // tile_backward uses) holds the colour head's view input and stash before
 // that.
-template <typename T>
+template <typename T, class C = Cfg<T>>
 struct Tile {
   unsigned char* sm;  // the block's dynamic shared memory; every part at a fixed offset
-  static constexpr int P = Cfg<T>::P;
-  static constexpr size_t A_B = (size_t)P * Cfg<T>::AST * sizeof(T);
-  static constexpr size_t R_B = A_B + (size_t)STAGES * NMAX * Cfg<T>::KS * sizeof(T);
-  static constexpr size_t X_B = R_B + 32 + MAXG * sizeof(Gemm);
+  static constexpr int P = C::P;
+  static constexpr size_t A_B = (size_t)P * C::AST * sizeof(T);
+  static constexpr size_t R_B = A_B + (size_t)C::ST * C::NR * C::KS * sizeof(T);
+  static constexpr size_t X_B = R_B + 32 + MAXG * sizeof(Gemm);  // the caller's part from here
   __device__ T* act() const { return reinterpret_cast<T*>(sm); }  // P x AST
-  __device__ T* ring() const { return reinterpret_cast<T*>(sm + A_B); }  // STAGES x NMAX x KS
+  __device__ T* ring() const { return reinterpret_cast<T*>(sm + A_B); }  // ST x NR x KS
   __device__ StreamHdr* hdr() const { return reinterpret_cast<StreamHdr*>(sm + R_B); }
   __device__ Gemm* sched() const { return reinterpret_cast<Gemm*>(sm + R_B + 32); }  // GEMM list
   __device__ float* f(size_t i) const { return reinterpret_cast<float*>(sm + X_B) + i; }
@@ -168,8 +174,8 @@ constexpr size_t tile_bytes() {
 template <typename T>
 constexpr size_t spare_bytes() { return (size_t)Cfg<T>::P * 2 * PE_MAX * sizeof(float); }
 
-// The weight stream over the kernel's GEMM list: a ring of STAGES slabs,
-// the loads STAGES - 1 slabs ahead of the products, across GEMM
+// The weight stream over the kernel's GEMM list: a ring of ST slabs,
+// the loads ST - 1 slabs ahead of the products, across GEMM
 // boundaries. (gi, k0) is the next slab to load and lt its count; `cur`
 // counts the GEMMs begun, `ct` the slabs multiplied. The weights'
 // addresses and the list's length wait in shared memory (StreamHdr) beside
@@ -180,19 +186,18 @@ struct StreamHdr {
   int n;
 };
 static_assert(sizeof(StreamHdr) <= 32, "the header's room beside the list");
-template <typename T>
+template <typename T, class C = Cfg<T>>
 struct Stream {
   int gi, k0, lt, cur, ct;
 
-  __device__ void fetch(const Tile<T>& t) {
-    using C = Cfg<T>;
+  __device__ void fetch(const Tile<T, C>& t) {
     constexpr int V = 16 / sizeof(T);
     const StreamHdr& h = *t.hdr();
     if (gi < h.n) {
       const Gemm gm = t.sched()[gi];
       const int chunks = min(C::KS, gm.kend - k0) / V;
       const T* src = static_cast<const T*>(gm.src ? h.cw : h.w) + gm.off + k0;
-      T* st = t.ring() + (lt % STAGES) * NMAX * C::KS;
+      T* st = t.ring() + (lt % C::ST) * C::NR * C::KS;
       for (int e = threadIdx.x; e < gm.rows * chunks; e += C::THREADS) {
         const int r = e / chunks, j = e - r * chunks;
         cp_async16(st + r * C::KS + V * swz(r, j), src + (long long)r * gm.ldm + V * j);
@@ -206,14 +211,14 @@ struct Stream {
 };
 
 // Copies the list into shared memory and starts the ring; every thread
-template <typename T>
-__device__ Stream<T> start_stream(const Sched& s, const T* w, const T* cw, Tile<T>& t) {
+template <typename T, class C>
+__device__ Stream<T, C> start_stream(const Sched& s, const T* w, const T* cw, Tile<T, C>& t) {
   for (int i = threadIdx.x; i < s.n * (int)(sizeof(Gemm) / 4); i += blockDim.x)
     reinterpret_cast<int*>(t.sched())[i] = reinterpret_cast<const int*>(s.g)[i];
   if (threadIdx.x == 0) *t.hdr() = StreamHdr{w, cw, s.n};
   __syncthreads();
-  Stream<T> st{0, 0, 0, 0, 0};
-  for (int i = 0; i < STAGES - 1; ++i) st.fetch(t);
+  Stream<T, C> st{0, 0, 0, 0, 0};
+  for (int i = 0; i < C::ST - 1; ++i) st.fetch(t);
   return st;
 }
 
@@ -291,10 +296,14 @@ __device__ __forceinline__ void slab_mma(const float* A, int ast, const float* A
   }
 }
 
-// epi(p, j, v_j, v_{j+1}) over warp (row0, col0)'s accumulators, even j < rows
+// epi(p, j, v_j, v_{j+1}) over warp (row0, col0)'s accumulators, even j <
+// rows; an epi that takes a fifth argument also gets the pair's index q
+// among the thread's 16 MI pairs ((mi, ni, half) in order), the same in
+// every tgemm over one config
 template <class Epi, int MI>
 __device__ __forceinline__ void epilogue(const Epi& epi, float (&acc)[MI][8][4], int rows,
                                          int row0, int col0) {
+  constexpr bool FRAG = std::is_invocable_v<const Epi&, int, int, float, float, int>;
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) {
@@ -305,10 +314,17 @@ __device__ __forceinline__ void epilogue(const Epi& epi, float (&acc)[MI][8][4],
       const int p = row0 + 16 * mi + (lane >> 2);
       // one step's row loads at a time: hoisted further, they take
       // registers the accumulators hold, and K7 spilled more
-      epi(p, j, acc[mi][ni][0], acc[mi][ni][1]);
-      asm volatile("" ::: "memory");
-      epi(p + 8, j, acc[mi][ni][2], acc[mi][ni][3]);
-      asm volatile("" ::: "memory");
+      if constexpr (FRAG) {
+        epi(p, j, acc[mi][ni][0], acc[mi][ni][1], 2 * (mi * 8 + ni));
+        asm volatile("" ::: "memory");
+        epi(p + 8, j, acc[mi][ni][2], acc[mi][ni][3], 2 * (mi * 8 + ni) + 1);
+        asm volatile("" ::: "memory");
+      } else {
+        epi(p, j, acc[mi][ni][0], acc[mi][ni][1]);
+        asm volatile("" ::: "memory");
+        epi(p + 8, j, acc[mi][ni][2], acc[mi][ni][3]);
+        asm volatile("" ::: "memory");
+      }
     }
   }
 }
@@ -319,10 +335,10 @@ __device__ __forceinline__ void epilogue(const Epi& epi, float (&acc)[MI][8][4],
 // so an epilogue may write over A; the next tgemm's first barrier orders
 // the epilogue's shared-memory writes before the next reads. epi may also
 // be a callable that makes the epilogue, after the products.
-template <bool TWO = false, typename T, class Epi>
-__device__ void tgemm(Stream<T>& s, Tile<T>& t, const T* A, int ast, Epi& epi,
+template <bool TWO = false, typename T, class C, class Epi>
+__device__ void tgemm(Stream<T, C>& s, Tile<T, C>& t, const T* A, int ast, Epi& epi,
                       const T* A2 = nullptr, int a2st = 0, int split = 0) {
-  using C = Cfg<T>;
+  static_assert(C::KS == Cfg<T>::KS, "slab_mma's slab width");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int WR = C::P / (16 * C::MI);  // warps along the points
   const int row0 = (warp % WR) * 16 * C::MI, col0 = (warp / WR) * 64;
@@ -336,10 +352,10 @@ __device__ void tgemm(Stream<T>& s, Tile<T>& t, const T* A, int ast, Epi& epi,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
   for (int k0 = 0; k0 < gm.kend; k0 += C::KS, ++s.ct) {
-    cp_async_wait<STAGES - 2>();  // this slab has landed
-    __syncthreads();              // for every thread; the previous slab's stage is free
+    cp_async_wait<C::ST - 2>();  // this slab has landed
+    __syncthreads();             // for every thread; the previous slab's stage is free
     s.fetch(t);
-    slab_mma<TWO>(A, ast, A2, a2st, split, k0, t.ring() + (s.ct % STAGES) * NMAX * C::KS,
+    slab_mma<TWO>(A, ast, A2, a2st, split, k0, t.ring() + (s.ct % C::ST) * C::NR * C::KS,
              min(C::KS, gm.kend - k0), gm.rows, row0, col0, acc);
   }
   __syncthreads();
@@ -733,8 +749,9 @@ int make_net(int n_layers, int multires, float scale, int skip_mask, const int* 
 struct SchedMaker {
   Sched s{};
   bool ok = true;
+  int maxrows = NMAX;  // the ring's rows (C::NR)
   void add(int src, long long off, int ldm, int rows, int kend) {
-    if (s.n >= MAXG || rows <= 0 || rows > NMAX || rows % 16 || kend % 16) {
+    if (s.n >= MAXG || rows <= 0 || rows > maxrows || rows % 16 || kend % 16) {
       ok = false;
       return;
     }
@@ -759,125 +776,6 @@ struct SchedMaker {
 template <typename K>
 int prepare(K kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// ------------------- the staged tile GEMM of K8 / K9 -------------------
-// out[p][j] = sum_{i < K} A[p * WMAX + i] * M[j * ldm + i] for the tile's
-// rows p and j < N (N <= NMAX); epi(p, j, acc) gets every element. A comes
-// from device rows and is rounded to the activation dtype as it is staged;
-// M and A are staged through shared memory in k-slabs, synchronously. The
-// packed M has zero rows up to round_up(N, 16) and zero columns up to ldm.
-// A is read only while it is staged, before the last barrier of the k
-// loop, so an epilogue may overwrite A's rows.
-
-constexpr int F_P = 32, F_THREADS = 256, F_KC = 16;
-
-template <class Epi>
-__device__ void gemm(const float* A, int K, const float* M, int ldm, int N, float* sm, Epi& epi) {
-  float* As = sm;                 // F_P x F_KC
-  float* Ms = sm + F_P * F_KC;    // F_KC x NMAX, transposed
-  const int tid = threadIdx.x, c = tid & 63, g = tid >> 6;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  for (int k0 = 0; k0 < K; k0 += F_KC) {
-    __syncthreads();
-    for (int e = tid; e < F_P * F_KC; e += F_THREADS) {
-      const int p = e / F_KC, kk = e - p * F_KC;
-      As[e] = k0 + kk < K ? A[(long long)p * WMAX + k0 + kk] : 0.0f;
-    }
-    for (int col = tid; col < NMAX; col += F_THREADS) {
-      const float* src = M + (long long)col * ldm + k0;
-      for (int r = 0; r < F_KC; ++r) Ms[r * NMAX + col] = (col < N && k0 + r < K) ? src[r] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < F_KC; ++kk) {
-      const float4 w0 = *reinterpret_cast<const float4*>(&Ms[kk * NMAX + 4 * c]);
-      const float4 w1 = *reinterpret_cast<const float4*>(&Ms[kk * NMAX + 256 + 4 * c]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float a = As[(g * 8 + i) * F_KC + kk];
-        acc[i][0] += a * w0.x; acc[i][1] += a * w0.y; acc[i][2] += a * w0.z; acc[i][3] += a * w0.w;
-        acc[i][4] += a * w1.x; acc[i][5] += a * w1.y; acc[i][6] += a * w1.z; acc[i][7] += a * w1.w;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = (j < 4 ? 4 * c : 256 + 4 * c) + (j & 3);
-      if (col < N) epi(g * 8 + i, col, acc[i][j]);
-    }
-  __syncthreads();
-}
-
-constexpr int M_P = 64, M_THREADS = 512, M_KS = 32, M_ST = M_KS + 8;
-
-template <class Epi>
-__device__ void gemm(const float* A, int K, const bf16* M, int ldm, int N, float* smf, Epi& epi) {
-  bf16* As = reinterpret_cast<bf16*>(smf);  // M_P x M_ST
-  bf16* Ms = As + M_P * M_ST;               // NMAX x M_ST
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = (warp & 1) * 32, col0 = (warp >> 1) * 64;
-  const int nrows = (N + 15) & ~15, kend = (K + 15) & ~15;
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-  for (int k0 = 0; k0 < kend; k0 += M_KS) {
-    const int kw = min(M_KS, kend - k0);
-    __syncthreads();
-    for (int e = tid; e < M_P * M_KS; e += M_THREADS) {
-      const int p = e / M_KS, kk = e - p * M_KS;
-      As[p * M_ST + kk] = __float2bfloat16(k0 + kk < K ? A[(long long)p * WMAX + k0 + kk] : 0.0f);
-    }
-    const int chunks = kw / 8;
-    for (int e = tid; e < nrows * chunks; e += M_THREADS) {
-      const int r = e / chunks, j = e - r * chunks;
-      *reinterpret_cast<uint4*>(Ms + r * M_ST + 8 * j) =
-          *reinterpret_cast<const uint4*>(M + (long long)r * ldm + k0 + 8 * j);
-    }
-    __syncthreads();
-    if (col0 < nrows) {
-      for (int kk = 0; kk < kw; kk += 16) {
-        unsigned a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldmatrix_x4(a[mi], As + (row0 + 16 * mi + (lane & 15)) * M_ST + kk + (lane >> 4) * 8);
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-          const int nb = col0 + 16 * nj;
-          if (nb < nrows) {
-            unsigned b[4];
-            ldmatrix_x4(b, Ms + (nb + (lane & 7) + ((lane >> 4) << 3)) * M_ST + kk +
-                               ((lane >> 3) & 1) * 8);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-              mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
-              mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
-            }
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = col0 + 8 * ni + 2 * (lane & 3) + (e & 1);
-        if (col < N) epi(row0 + 16 * mi + (lane >> 2) + (e >> 1) * 8, col, acc[mi][ni][e]);
-      }
-  __syncthreads();
 }
 
 }  // namespace

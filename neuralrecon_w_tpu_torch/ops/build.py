@@ -42,8 +42,8 @@ _SIGNATURES = {
     "nw_field_bwd": [_P, _P, _P, _P, _LL, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P,
                      _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P,
                      _P, _P],
-    "nw_bg_fwd": [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
-                  _I, _P, _P, _P],
+    "nw_bg_fwd": [_P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                  _P],
     "nw_bg_bwd": [_P, _P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                   _LL, _I, _P, _P, _P, _P],
 }

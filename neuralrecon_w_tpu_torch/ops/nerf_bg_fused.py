@@ -38,12 +38,14 @@ D, SKIP, MULTIRES, MULTIRES_VIEW, D_IN = 8, 4, 10, 4, 4
 ALPHA, FEATURE, HEAD = D, D + 1, D + 2  # layer indices in bg_layer_names order
 CHUNK = 32768  # points per K8 / K9 launch
 _TILE = 64
-FWD_SLOTS = 5  # K8's workspace rows per point (csrc/nerf_bg.cu)
+D_PE = D_IN * (1 + 2 * MULTIRES)  # 84
+PE_PAD = 96  # the PE's columns in the kernels' operand and in their pack of pts5
 
 
 def bwd_slots(n_head: int) -> int:
-    """K9's workspace rows per point: every layer's input and cotangent."""
-    return 23 + 2 * n_head
+    """K9's workspace rows per point: every layer's input (feature shares
+    alpha's) and cotangent."""
+    return 21 + 2 * n_head
 
 
 def bg_layer_names(encode_a: bool) -> list:
@@ -64,8 +66,11 @@ def bg_layers(net: NeRF, encode_a: bool) -> list:
 class BgPack(NamedTuple):
     """The background's weights packed as ``sdf_field_vjp.pack_layers``
     packs them, in ``bg_layer_names`` order. The concatenated inputs keep
-    torch's column order, each segment contiguous: pts5 takes [pe | h],
-    app0 [feature | PE_view | a], views0 [feature | PE_view]."""
+    torch's column order, each segment contiguous: app0 takes [feature |
+    PE_view | a], views0 [feature | PE_view], pts5 [pe | h] with the PE
+    padded by zero columns to PE_PAD, so that h starts on a whole k-step of
+    the kernels' products (k stays 84 + W, the width of the rows K5
+    reduces; kpad is PE_PAD + W)."""
 
     w: torch.Tensor
     b: torch.Tensor
@@ -80,8 +85,15 @@ class BgPack(NamedTuple):
     b_off: tuple
 
 
+@torch.no_grad()
 def pack_bg_weights(weights, biases, act) -> BgPack:
-    return BgPack(n_head=len(weights) - HEAD - 1, **pack_layers(weights, biases, act))
+    weights = list(weights)
+    k = tuple(w.shape[1] for w in weights)
+    w5 = weights[SKIP + 1]
+    weights[SKIP + 1] = torch.cat([w5[:, :D_PE], w5.new_zeros(w5.shape[0], PE_PAD - D_PE),
+                                   w5[:, D_PE:]], dim=1)
+    pk = pack_layers(weights, biases, act)
+    return BgPack(n_head=len(weights) - HEAD - 1, **(pk | {"k": k}))
 
 
 def _pe_T(v, multires, g):
@@ -96,23 +108,31 @@ def _pe_T(v, multires, g):
     return out
 
 
-def _forward(ws, bs, pts4, dirs, a, act) -> dict:
+def _forward(ws, bs, pts4, dirs, a, act, masks=None) -> dict:
     """The forward, keeping each layer's input: ins[i] of the MLP (ins[5] =
-    [pe, h5]) and ins[8] = h8, heads[s] of the appearance head."""
+    [pe, h5]) and ins[8] = h8, heads[s] of the appearance head, and zs the
+    pre-activations of the ReLU layers (pts0..7, then the head's).
+    ``masks`` (one bool tensor per ReLU, as ``zs``) stands in for the
+    pre-activations' own signs."""
     pe = fvm._pe(pts4, MULTIRES)
 
     def lin(i, x):
         return fvm._mm(x, ws[i].t(), act) + bs[i]
 
-    ins = [pe]
+    def relu(z):
+        zs.append(z)
+        return torch.relu(z) if masks is None else z * masks[len(zs) - 1]
+
+    ins, zs = [pe], []
     for i in range(D):
-        h = torch.relu(lin(i, ins[-1]))
+        h = relu(lin(i, ins[-1]))
         ins.append(torch.cat([pe, h], dim=-1) if i == SKIP else h)
     feat = lin(FEATURE, ins[D])
     heads = [torch.cat([feat, fvm._pe(dirs, MULTIRES_VIEW)] + ([] if a is None else [a]), dim=-1)]
     for s in range(len(ws) - HEAD - 1):
-        heads.append(torch.relu(lin(HEAD + s, heads[-1])))
-    return dict(ins=ins, heads=heads, density=lin(ALPHA, ins[D]), rgb=lin(len(ws) - 1, heads[-1]))
+        heads.append(relu(lin(HEAD + s, heads[-1])))
+    return dict(ins=ins, heads=heads, zs=zs, density=lin(ALPHA, ins[D]),
+                rgb=lin(len(ws) - 1, heads[-1]))
 
 
 def bg_fwd_plain(ws, bs, pts4, dirs, a, act="float32"):
@@ -123,12 +143,21 @@ def bg_fwd_plain(ws, bs, pts4, dirs, a, act="float32"):
     return res["density"], res["rgb"]
 
 
-def bg_bwd_plain(ws, bs, pts4, dirs, a, c_density, c_rgb, act="float32"):
+def bg_preacts(ws, bs, pts4, dirs, a, act="float32") -> list:
+    """The pre-activations of the background's ReLU layers (pts0..7, then
+    the head's), (N, n) each; their signs are the masks the backward takes."""
+    return _forward(ws, bs, pts4, dirs, a, act_dtype_of(act))["zs"]
+
+
+def bg_bwd_plain(ws, bs, pts4, dirs, a, c_density, c_rgb, act="float32", masks=None):
     """The plain version of K9 + K5: (dWs, dbs, d_pts4 (N, 4), d_dirs (N, 3),
-    d_a (N, n_a) or None) for cotangents on density (N, 1) and rgb (N, 3)."""
+    d_a (N, n_a) or None) for cotangents on density (N, 1) and rgb (N, 3).
+    ``masks``, one bool tensor per ReLU (``nerf_bg_bwd`` reads K9's),
+    replaces the ReLUs' own signs in the forward and the backward."""
     act = act_dtype_of(act)
-    res = _forward(ws, bs, pts4, dirs, a, act)
+    res = _forward(ws, bs, pts4, dirs, a, act, masks)
     ins, heads = res["ins"], res["heads"]
+    masks = [z > 0 for z in res["zs"]] if masks is None else masks
     H = len(heads) - 1
     dWs, dbs = [None] * len(ws), [None] * len(ws)
 
@@ -141,7 +170,7 @@ def bg_bwd_plain(ws, bs, pts4, dirs, a, c_density, c_rgb, act="float32"):
     emit(len(ws) - 1, heads[H], c_rgb)
     g = back(len(ws) - 1, c_rgb)
     for s in range(H - 1, -1, -1):
-        g = g * (heads[s + 1] > 0)
+        g = g * masks[D + s]
         emit(HEAD + s, heads[s], g)
         g = back(HEAD + s, g)
     f = ins[D].shape[1]
@@ -153,8 +182,7 @@ def bg_bwd_plain(ws, bs, pts4, dirs, a, c_density, c_rgb, act="float32"):
     d_pe = torch.zeros_like(ins[0])
     n_pe = ins[0].shape[1]
     for i in range(D - 1, -1, -1):
-        h = ins[i + 1][:, n_pe:] if i == SKIP else ins[i + 1]
-        g = g * (h > 0)
+        g = g * masks[i]
         emit(i, ins[i], g)
         g = back(i, g)
         if i == SKIP + 1:
@@ -174,7 +202,7 @@ def _check(kernel: str, pk: BgPack, pts4, dirs, a, *more):
 
 
 def workspace(n_pts: int, slots: int, dev):
-    """A float32 workspace of ``slots`` rows per point for one chunk, and
+    """K9's float32 workspace of ``slots`` rows per point for one chunk, and
     its rows per slot."""
     rows = (min(n_pts, CHUNK) + _TILE - 1) // _TILE * _TILE
     return torch.empty(slots * rows * WMAX, dtype=torch.float32, device=dev), rows
@@ -190,15 +218,14 @@ def nerf_bg_fwd(pk: BgPack, pts4, dirs, a):
     n_a = 0 if a is None else a.shape[1]
     density = torch.empty(n_pts, 1, dtype=torch.float32, device=dev)
     rgb = torch.empty(n_pts, 3, dtype=torch.float32, device=dev)
-    work, rows = workspace(n_pts, FWD_SLOTS, dev)
     keep, ptrs = _net_args(pk)
     for c0 in range(0, n_pts, CHUNK):
         m = min(CHUNK, n_pts - c0)
         err = kernels().nw_bg_fwd(
             pts4[c0:].data_ptr(), dirs[c0:].data_ptr(), 0 if a is None else a[c0:].data_ptr(), m,
             pk.w.data_ptr(), pk.b.data_ptr(), int(pk.act == torch.bfloat16), len(pk.k),
-            pk.n_head, n_a, *ptrs, work.data_ptr(), rows, FWD_SLOTS, density[c0:].data_ptr(),
-            rgb[c0:].data_ptr(), stream_handle(dev))
+            pk.n_head, n_a, *ptrs, density[c0:].data_ptr(), rgb[c0:].data_ptr(),
+            stream_handle(dev))
         check("nw_bg_fwd", err)
         nerf_bg_fwd.launches += 1
     del keep
@@ -208,9 +235,11 @@ def nerf_bg_fwd(pk: BgPack, pts4, dirs, a):
 nerf_bg_fwd.launches = 0
 
 
-def nerf_bg_bwd(pk: BgPack, pts4, dirs, a, c_density, c_rgb):
+def nerf_bg_bwd(pk: BgPack, pts4, dirs, a, c_density, c_rgb, masks=None):
     """K9 on CUDA tensors, one launch per CHUNK points, each followed by K5
-    on every layer's (cotangent, input) rows: the plain version's outputs."""
+    on every layer's (cotangent, input) rows: the plain version's outputs.
+    A list passed as ``masks`` receives the ReLU masks K9 applied
+    (``bg_masks``, every point), which the plain version can take."""
     n_pts = pts4.shape[0]
     _check("K9", pk, pts4, dirs, a, ("c_density", c_density, 1), ("c_rgb", c_rgb, 3))
     dev = pts4.device
@@ -227,6 +256,7 @@ def nerf_bg_bwd(pk: BgPack, pts4, dirs, a, c_density, c_rgb):
     d_dirs = torch.empty(n_pts, 3, dtype=torch.float32, device=dev)
     d_a = None if a is None else torch.empty(n_pts, n_a, dtype=torch.float32, device=dev)
     keep, ptrs = _net_args(pk)
+    chunk_masks = []
     for c0 in range(0, n_pts, CHUNK):
         m = min(CHUNK, n_pts - c0)
         err = kernels().nw_bg_bwd(
@@ -238,8 +268,22 @@ def nerf_bg_bwd(pk: BgPack, pts4, dirs, a, c_density, c_rgb):
         check("nw_bg_bwd", err)
         nerf_bg_bwd.launches += 1
         reduce_chunk(pk, work, rows, m, dWs, dbs)
+        if masks is not None:
+            chunk_masks.append(bg_masks(pk, work, rows, m))
     del keep
+    if masks is not None:
+        masks.extend(torch.cat(c) for c in zip(*chunk_masks))
     return dWs, dbs, d_p4, d_dirs, d_a
+
+
+def bg_masks(pk: BgPack, work, rows: int, n_pts: int) -> list:
+    """The ReLU masks K9 applied to n_pts points, read off the layers'
+    inputs it left in the workspace: one (n_pts, n) bool tensor per ReLU
+    layer, pts l's output in slot l + 1 (pts4's past the PE in slot 5),
+    head layer s's in slot HEAD + s."""
+    view = work.view(-1, rows, WMAX)
+    out = [view[l + 1, :n_pts, D_PE if l == SKIP else 0:][:, :pk.n[l]] > 0 for l in range(D)]
+    return out + [view[HEAD + s, :n_pts, :pk.n[HEAD + s]] > 0 for s in range(pk.n_head)]
 
 
 def reduce_chunk(pk: BgPack, work, rows: int, n_pts: int, dWs, dbs) -> None:

@@ -179,6 +179,9 @@ def test_chip_smoke_kernel_bounds():
         # the backward recomputes the forward and runs its transpose
         assert field["field_bwd"]["bound_ms"] == pytest.approx(2 * field["field_fwd"]["bound_ms"])
         assert bg["nerf_bg_bwd"]["bound_ms"] == pytest.approx(2 * bg["nerf_bg_fwd"]["bound_ms"])
+        # K9's floor in bytes: the 5,879 f32 row values a point it leaves for K5
+        assert bg["nerf_bg_bwd"]["rows_floor_ms"] == pytest.approx(
+            90112 * 4 * 5879 / cs.PEAK_BYTES * 1e3)
         assert double["field_bwd"]["bound_ms"] == pytest.approx(2 * field["field_bwd"]["bound_ms"],
                                                                 rel=1e-3)
     assert cs.PEAK_BF16 / cs.PEAK_F32 == pytest.approx(989 / 165, rel=1e-3)

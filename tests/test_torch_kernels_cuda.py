@@ -613,6 +613,45 @@ def test_nerf_bg_kernels_match_plain(dev, encode_a, act, monkeypatch):
         assert rel_l2(k, w) <= (BG_GRAD_REL if act == "float32" else BG_BF16_REL)
 
 
+# K8 / K9 at the point counts the tile pass finds hard: fewer than one
+# 64-point tile, one more than a tile, one more than a wrapper chunk
+BG_EDGE_PTS = [37, 65, 2049]
+
+
+@pytest.mark.parametrize("n_pts", BG_EDGE_PTS)
+@pytest.mark.parametrize("encode_a", [True, False])
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_nerf_bg_kernels_at_tile_edges(dev, encode_a, act, n_pts, monkeypatch):
+    """K8 and K9 + K5 over 2048-point wrapper chunks against the plain
+    versions, the plain backward taking the ReLU masks K9 applied; a mask
+    may differ from the plain forward's sign only within rounding of 0."""
+    from neuralrecon_w_tpu_torch.ops import nerf_bg_fused as bgf
+
+    monkeypatch.setattr(bgf, "CHUNK", 2048)
+    ws, bs, x, cots = bg_case(encode_a, n_pts, dev, 20 + n_pts)
+    pk = bgf.pack_bg_weights(ws, bs, act)
+    before = (bgf.nerf_bg_fwd.launches, bgf.nerf_bg_bwd.launches)
+    got = bgf.nerf_bg_fwd(pk, *x)
+    want = bgf.bg_fwd_plain(ws, bs, *x, act)
+    masks = []
+    got_b = bgf.nerf_bg_bwd(pk, *x, *cots, masks=masks)
+    want_b = bgf.bg_bwd_plain(ws, bs, *x, *cots, act, masks=masks)
+    torch.cuda.synchronize()
+    chunks = (n_pts + 2047) // 2048
+    assert (bgf.nerf_bg_fwd.launches, bgf.nerf_bg_bwd.launches) == (before[0] + chunks,
+                                                                    before[1] + chunks)
+    assert_flips_near_zero(masks, bgf.bg_preacts(ws, bs, *x, act), FLIP_Z[act])
+    for k, w in zip(got, want):
+        assert k.shape == w.shape and bool(torch.isfinite(k).all())
+        if act == "float32":
+            torch.testing.assert_close(k, w, atol=BG_F32_TOL, rtol=BG_F32_TOL)
+        else:
+            assert rel_l2(k, w) <= BG_BF16_REL
+    for k, w in zip(flat_bg_grads(got_b), flat_bg_grads(want_b)):
+        assert k.shape == w.shape and bool(torch.isfinite(k).all())
+        assert rel_l2(k, w) <= (BG_GRAD_REL if act == "float32" else BG_BF16_REL)
+
+
 def test_nerf_bg_function_matches_autograd(dev):
     """Through field_background's 'pallas' mode (K8, K9 + K5) against the
     'xla' mode's autograd, f32, per-ray dirs and a."""

@@ -144,8 +144,9 @@ def test_field_background_pallas_matches_xla(encode_a):
 
 def test_pack_bg_weights_layout():
     """The 11 + H layers in bg_layer_names order, each W (npad, kpad) then W^T,
-    zero beyond the layer; pts5 takes [pe | h] (84 + 256), app0 [feature |
-    PE_view | a] (256 + 27 + 8)."""
+    zero beyond the layer; pts5 takes [pe | h] (84 + 256) with the PE
+    padded by zero columns to PE_PAD in the pack (kpad PE_PAD + 256), app0
+    [feature | PE_view | a] (256 + 27 + 8)."""
     _, model, _, _, _ = make_case(True, n=4)
     layers = bgf.bg_layers(model.nerf, True)
     assert len(layers) == len(bgf.bg_layer_names(True)) == 15
@@ -153,14 +154,128 @@ def test_pack_bg_weights_layout():
     pk = bgf.pack_bg_weights([m.weight for m in layers], [m.bias for m in layers], "bfloat16")
     assert pk.n_head == 4 and pk.w.dtype == torch.bfloat16 and pk.b.dtype == torch.float32
     assert pk.k[5] == 84 + 256 and pk.k[bgf.HEAD] == 256 + 27 + N_A and pk.n[bgf.ALPHA] == 1
+    assert pk.kpad[5] == bgf.PE_PAD + 256 and bgf.D_PE == 84
     for i, m in enumerate(layers):
         npad, kpad = pk.npad[i], pk.kpad[i]
         w = pk.w[pk.w_off[i]:pk.w_off[i] + npad * kpad].view(npad, kpad)
-        assert torch.equal(w[:pk.n[i], :pk.k[i]], m.weight.detach().to(torch.bfloat16))
+        want = m.weight.detach().to(torch.bfloat16)
+        if i == bgf.SKIP + 1:
+            want = torch.cat([want[:, :bgf.D_PE], want.new_zeros(want.shape[0], bgf.PE_PAD - bgf.D_PE),
+                              want[:, bgf.D_PE:]], dim=1)
+        assert torch.equal(w[:pk.n[i], :want.shape[1]], want)
         assert float(w[pk.n[i]:].float().abs().sum()) == 0.0
-        assert float(w[:, pk.k[i]:].float().abs().sum()) == 0.0
+        assert float(w[:, want.shape[1]:].float().abs().sum()) == 0.0
         wt = pk.w[pk.wt_off[i]:pk.wt_off[i] + npad * kpad].view(kpad, npad)
         assert torch.equal(w.t(), wt)
+
+
+def kernel_layout_pass(pk, pts4, dirs, a, c_den, c_rgb):
+    """K8's outputs and K9's input cotangents computed as the kernels walk
+    the pack, in f32: every product a slice of the flat pk.w (W at w_off,
+    W^T at wt_off), the operand as wide as the product's kpad (pts5's
+    [pe | 0 | h] over PE_PAD + W columns, the head's [feature | PE_view |
+    a | 0]), each transpose past 256 rows in its two row ranges (the PE or
+    view part, then the rest), alpha's cotangent a rank-1 term."""
+    def W(i):
+        return pk.w[pk.w_off[i]:pk.w_off[i] + pk.npad[i] * pk.kpad[i]].view(
+            pk.npad[i], pk.kpad[i]).float()
+
+    def WT(i, r0, rows):
+        wt = pk.w[pk.wt_off[i]:pk.wt_off[i] + pk.npad[i] * pk.kpad[i]].view(pk.kpad[i], pk.npad[i])
+        return wt[r0:r0 + rows].float()
+
+    def lin(i, x):
+        return (x @ W(i).t())[:, :pk.n[i]] + pk.b[pk.b_off[i]:pk.b_off[i] + pk.n[i]]
+
+    def pad(x, width):
+        return torch.nn.functional.pad(x, (0, width - x.shape[1]))
+
+    L, width, feat_w = len(pk.k), pk.n[0], pk.n[bgf.FEATURE]
+    pe = pad(bgf.fvm._pe(pts4, bgf.MULTIRES), bgf.PE_PAD)
+    h, masks = pe, []
+    for layer in range(bgf.D):
+        z = lin(layer, h)
+        masks.append(z > 0)
+        h = torch.relu(z)
+        if layer == bgf.SKIP:
+            h = torch.cat([pe, h], dim=1)
+            assert h.shape[1] == pk.kpad[layer + 1]
+    density = lin(bgf.ALPHA, h)
+    x = torch.cat([lin(bgf.FEATURE, h), bgf.fvm._pe(dirs, bgf.MULTIRES_VIEW)]
+                  + ([] if a is None else [a]), dim=1)
+    x = pad(x, pk.kpad[bgf.HEAD])
+    for i in range(bgf.HEAD, L - 1):
+        z = lin(i, x)
+        masks.append(z > 0)
+        x = torch.relu(z)
+    rgb = lin(L - 1, x)
+
+    g = (pad(c_rgb, pk.npad[L - 1]) @ WT(L - 1, 0, pk.kpad[L - 1]).t()) * masks[-1]
+    for i in range(L - 2, bgf.HEAD, -1):
+        g = (g @ WT(i, 0, pk.kpad[i]).t()) * masks[bgf.D + i - 1 - bgf.HEAD]
+    gv = g @ WT(bgf.HEAD, feat_w, pk.kpad[bgf.HEAD] - feat_w).t()
+    n_view = 3 * (1 + 2 * bgf.MULTIRES_VIEW)
+    d_a = None if a is None else gv[:, n_view:n_view + a.shape[1]]
+    g = g @ WT(bgf.HEAD, 0, feat_w).t()
+    g = (g @ WT(bgf.FEATURE, 0, width).t() + c_den * W(bgf.ALPHA)[0]) * masks[bgf.D - 1]
+    d_pe = 0.0
+    for layer in range(bgf.D - 1, -1, -1):
+        skip = layer == bgf.SKIP + 1
+        if skip or layer == 0:
+            d_pe = d_pe + (g @ WT(layer, 0, bgf.PE_PAD).t())[:, :bgf.D_PE]
+        if layer > 0:
+            g = (g @ WT(layer, bgf.PE_PAD if skip else 0, width).t()) * masks[layer - 1]
+    return (density, rgb, bgf._pe_T(pts4, bgf.MULTIRES, d_pe),
+            bgf._pe_T(dirs, bgf.MULTIRES_VIEW, gv[:, :n_view]), d_a)
+
+
+@pytest.mark.parametrize("encode_a", [True, False])
+def test_pack_bg_weights_drives_the_kernels_layout(encode_a):
+    """The pack read as K8 / K9 read it (kernel_layout_pass) gives, in f32,
+    the plain versions' density, rgb, d_pts4, d_dirs and d_a: the padded
+    pts5, the head's view part and the split transposes line up with
+    pack_layers' layout."""
+    _, model, _, x, cots = make_case(encode_a, n=24, seed=5)
+    ws, bs, tx = plain_args(model, encode_a, x)
+    tc = [torch.from_numpy(c) for c in cots]
+    pk = bgf.pack_bg_weights(ws, bs, "float32")
+    got = kernel_layout_pass(pk, *tx, *tc)
+    den, rgb = bgf.bg_fwd_plain(ws, bs, *tx, "float32")
+    _, _, d_p4, d_dirs, d_a = bgf.bg_bwd_plain(ws, bs, *tx, *tc, "float32")
+    for g, w in zip(got[:2], (den, rgb)):
+        torch.testing.assert_close(g, w, atol=F32_ATOL, rtol=0)
+    assert (got[4] is None) == (d_a is None)
+    for g, w in zip(got[2:], (d_p4, d_dirs, d_a)):
+        if w is not None:
+            assert g.shape == w.shape and rel_l2(g.numpy(), w.numpy()) <= GRAD_REL
+
+
+@pytest.mark.parametrize("encode_a", [True, False])
+def test_bg_masks_read_the_kernels_rows(encode_a):
+    """bg_masks on a workspace laid out as K9 leaves it (layer i's input in
+    slot i, i - 1 past feature; pts5's [pe | h5] unpadded) gives the plain
+    forward's ReLU signs, and the plain backward given those masks is the
+    plain backward."""
+    _, model, _, x, cots = make_case(encode_a, n=24, seed=6)
+    ws, bs, tx = plain_args(model, encode_a, x)
+    tc = [torch.from_numpy(c) for c in cots]
+    pk = bgf.pack_bg_weights(ws, bs, "float32")
+    res = bgf._forward(ws, bs, *tx, torch.float32)
+    rows = 64
+    work = torch.full((bgf.bwd_slots(pk.n_head) * rows * bgf.WMAX,), -1.0)
+    view = work.view(-1, rows, bgf.WMAX)
+    inputs = res["ins"][1:] + res["heads"]  # layers 1 .. 8, then 10 ..: slots 1 .. 8, 9 ..
+    for slot, inp in enumerate(inputs, start=1):
+        view[slot, :24, :inp.shape[1]] = inp
+    masks = bgf.bg_masks(pk, work, rows, 24)
+    zs = bgf.bg_preacts(ws, bs, *tx)
+    assert len(masks) == len(zs) == bgf.D + pk.n_head
+    for m, z in zip(masks, zs):
+        assert m.shape == z.shape and torch.equal(m, z > 0)
+    plain = bgf.bg_bwd_plain(ws, bs, *tx, *tc)
+    given = bgf.bg_bwd_plain(ws, bs, *tx, *tc, masks=masks)
+    for p, g in zip([*plain[0], *plain[1], *plain[2:]], [*given[0], *given[1], *given[2:]]):
+        assert (p is None and g is None) or torch.equal(p, g)
 
 
 def test_wrapper_takes_no_other_path():
