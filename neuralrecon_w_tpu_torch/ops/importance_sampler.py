@@ -14,7 +14,9 @@ launches, for ``up_steps`` rounds:
     last round: merge the final draws in -> (R, n0 + n_importance) sorted
 
 The SDF activations never leave K1's shared memory; between launches only
-the (R, <= 32) sample rows go through device memory.
+the sample rows go through device memory. K2 takes rows of up to
+``MAX_WIDTH`` samples (merged samples plus draws): the yacs defaults'
+512 + 512 in 4 rounds end at exactly that width.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import torch
 from ..rendering.sampling import cat_z_vals, merge_sorted, up_sample
 from .build import check, kernels, stream_handle
 from .sdf_mlp import fused_sdf_head, pack_sdf_weights, sdf_mlp_plain
+
+MAX_WIDTH = 1024  # K2's widest row, na + nb + n_draw (csrc/up_sample.cu)
 
 
 def up_sample_round_plain(rays_o, rays_d, za, sa, zb, sb, n_draw: int, inv_s: float,
@@ -61,6 +65,9 @@ def up_sample_round(rays_o, rays_d, za, sa, zb, sb, n_draw: int, inv_s: float, l
     if zb is not None:
         zb, sb = zb.contiguous(), sb.contiguous()
     n = na + nb
+    if n + n_draw > MAX_WIDTH:
+        raise ValueError(f"up_sample_round: a row of {n} samples and {n_draw} draws is wider "
+                         f"than K2's limit of {MAX_WIDTH}")
     empty = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=za.device)  # noqa: E731
     if last:
         out_z, out_s, out_new = empty(r, n + n_draw), None, None

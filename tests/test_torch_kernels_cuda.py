@@ -120,6 +120,163 @@ def test_importance_sampler_kernels_match_plain(dev, flagship):
     assert bool((torch.diff(got, dim=1) >= 0).all())
 
 
+def sphere_sdf(o, d, z, radius=0.5):
+    """The sdf of a sphere about the origin at the samples: the rays of
+    rays() cross it twice."""
+    return (o[:, None] + d[:, None] * z[..., None]).norm(dim=-1) - radius
+
+
+def sorted_rows(dev, n_rays, width, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.sort(torch.rand(n_rays, width, generator=g) * 1.5 + 0.05, dim=-1).values.to(dev)
+
+
+def ray_frac(got, want):
+    return ((got - want).abs() <= Z_ATOL).all(dim=1).float().mean().item()
+
+
+def k2_both(o, d, za, sa, zb, sb, n_draw, inv_s, last):
+    from neuralrecon_w_tpu_torch.ops import importance_sampler as smp
+
+    args = (o, d, za, sa, zb, sb, n_draw, inv_s, last)
+    before = smp.up_sample_round.launches
+    got, want = smp.up_sample_round(*args), smp.up_sample_round_plain(*args)
+    torch.cuda.synchronize()
+    assert smp.up_sample_round.launches == before + 1
+    return (got,) if last else got, (want,) if last else want
+
+
+# (na, nb, n_draw): one row width for each of K2's instantiations (lanes
+# holding V = 1, 2, 4, 8, 16, 32 samples), each at its widest or just past
+# the one below, and the first round of each (nb = 0)
+@pytest.mark.parametrize("na,nb,n_draw", [(8, 8, 8), (8, 0, 8), (24, 8, 1), (30, 0, 2),
+                                          (64, 32, 32), (128, 64, 64), (200, 0, 57),
+                                          (256, 128, 128), (512, 384, 128), (1000, 0, 24)])
+@pytest.mark.parametrize("last", [False, True])
+def test_up_sample_kernel_every_row_width(dev, na, nb, n_draw, last):
+    o, d, _ = rays(dev)
+    n_rays = 2048
+    o, d = o[:n_rays], d[:n_rays]
+    za = sorted_rows(dev, n_rays, na, 11)
+    zb = sorted_rows(dev, n_rays, nb, 12) if nb else None
+    sa = sphere_sdf(o, d, za)
+    sb = sphere_sdf(o, d, zb) if nb else None
+    got, want = k2_both(o, d, za, sa, zb, sb, n_draw, 256.0, last)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert ray_frac(g, w) >= K2_RAY_FRAC
+    if not last:  # the merge moves values and does no arithmetic
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((torch.diff(got[0], dim=1) >= 0).all())
+
+
+def wide_rounds(dev, net, fc, n_rays, n0, n_importance, up_steps):
+    """K2 alone in every round of an n0 + n_importance budget from inv_s 64,
+    on identical inputs: each round's plain outputs feed the next round,
+    the sdf from the plain MLP on the live net."""
+    from neuralrecon_w_tpu_torch.ops import sdf_mlp
+
+    o, d, _ = rays(dev, seed=5)
+    o, d = o[:n_rays], d[:n_rays]
+    z = sorted_rows(dev, n_rays, n0, 13)
+    packed = sdf_mlp.pack_sdf_weights(net, fc.sdf, "float32")
+
+    def sdf(zz):
+        return sdf_mlp.sdf_mlp_plain(packed, (o[:, None] + d[:, None] * zz[..., None])
+                                     .reshape(-1, 3)).view(zz.shape)
+
+    n_per = n_importance // up_steps
+    za, sa, zb, sb = z, sdf(z), None, None
+    for i in range(up_steps):
+        last = i + 1 == up_steps
+        got, want = k2_both(o, d, za, sa, zb, sb, n_per, 64.0 * 2 ** i, last)
+        for g, w in zip(got, want):
+            assert ray_frac(g, w) >= K2_RAY_FRAC, (i, ray_frac(g, w))
+        if last:
+            assert got[0].shape == (n_rays, n0 + n_importance)
+            assert bool((torch.diff(got[0], dim=1) >= 0).all())
+        else:
+            za, sa, zb = want
+            sb = sdf(zb)
+
+
+def test_up_sample_kernel_wide_budget(dev, flagship):
+    """NeuS's own budget, 64 + 64 in 4 rounds (rows up to 128 wide)."""
+    fc, net = flagship
+    wide_rounds(dev, net, fc, N_RAYS, 64, 64, 4)
+
+
+def test_up_sample_kernel_yacs_default_budget(dev, flagship):
+    """The yacs defaults, N_SAMPLES 512 + N_IMPORTANCE 512 in 4 rounds:
+    the last round writes rows of 1024, K2's widest."""
+    fc, net = flagship
+    wide_rounds(dev, net, fc, 1024, 512, 512, 4)
+
+
+@pytest.mark.parametrize("n0,n_importance", [(64, 64), (512, 512)])
+def test_importance_sampler_kernels_wide_budgets(dev, flagship, n0, n_importance):
+    """The whole stage at budgets whose rows pass 64: the kernel path
+    returns sorted samples that agree with the plain stage."""
+    from neuralrecon_w_tpu_torch.ops import importance_sampler as smp
+
+    fc, net = flagship
+    o, d, _ = rays(dev, seed=6)
+    o, d = o[:512], d[:512]
+    z = sorted_rows(dev, 512, n0, 14)
+    got = smp.fused_importance_sampler(net, fc.sdf, o, d, z, n_importance, 4, 0, "float32")
+    want = smp.importance_sampler_plain(net, fc.sdf, o, d, z, n_importance, 4, 0, "float32")
+    torch.cuda.synchronize()
+    assert got.shape == (512, n0 + n_importance)
+    assert ray_frac(got, want) >= STAGE_RAY_FRAC, ray_frac(got, want)
+    assert bool((torch.diff(got, dim=1) >= 0).all())
+
+
+@pytest.mark.parametrize("last", [False, True])
+def test_up_sample_kernel_ties(dev, last):
+    """Samples of b equal to samples of a: a's come first, each with its
+    own sdf, as merge_sorted places them."""
+    o, d, _ = rays(dev)
+    za = sorted_rows(dev, N_RAYS, 16, 15)
+    zb = torch.sort(torch.cat([za[:, ::2], za[:, 1:2]], dim=1), dim=1).values  # 9 ties a row
+    sa = sphere_sdf(o, d, za)
+    sb = sphere_sdf(o, d, zb) + 1e-3  # b's payload differs from a's at a tie
+    got, want = k2_both(o, d, za, sa, zb, sb, 7, 512.0, last)
+    if not last:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g, w in zip(got, want):
+        assert ray_frac(g, w) >= K2_RAY_FRAC
+
+
+def test_up_sample_kernel_rays_that_miss_the_sphere(dev):
+    """Rays outside the unit sphere, pointing away: every cosine is
+    masked to 0 and the weights are flat, so the draws spread over the row."""
+    n_rays = 1000
+    g = torch.Generator().manual_seed(16)
+    o = (torch.randn(n_rays, 3, generator=g) * 0.1 + torch.tensor([0.0, 0.0, 1.5])).to(dev)
+    d = torch.nn.functional.normalize(o + 0.05 * torch.randn(n_rays, 3, generator=g).to(dev),
+                                      dim=-1)
+    za = sorted_rows(dev, n_rays, 16, 17)
+    sa = sphere_sdf(o, d, za)
+    for last in (False, True):
+        got, want = k2_both(o, d, za, sa, None, None, 16, 1024.0, last)
+        for gg, w in zip(got, want):
+            assert ray_frac(gg, w) >= K2_RAY_FRAC
+
+
+@pytest.mark.parametrize("n_rays", [1, 3, 8189])
+def test_up_sample_kernel_ragged_ray_counts(dev, n_rays):
+    """Ray counts that do not fill the last block of 4 rays."""
+    o, d, _ = rays(dev)
+    o, d = o[:n_rays], d[:n_rays]
+    za, zb = sorted_rows(dev, n_rays, 8, 18), sorted_rows(dev, n_rays, 8, 19)
+    for last in (False, True):
+        got, want = k2_both(o, d, za, sphere_sdf(o, d, za), zb, sphere_sdf(o, d, zb), 8,
+                            1024.0, last)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert ray_frac(g, w) >= K2_RAY_FRAC
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev, flagship):
     from neuralrecon_w_tpu_torch.ops import importance_sampler as smp
     from neuralrecon_w_tpu_torch.ops import sdf_mlp
@@ -131,8 +288,8 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev, flagship):
     with pytest.raises(ValueError):  # weights on the CPU, points on the card
         sdf_mlp.fused_sdf_head(packed._replace(w=packed.w.cpu()), torch.zeros(8, 3, device=dev))
     o, d, z = rays(dev)
-    wide = torch.sort(torch.rand(N_RAYS, 60, device=dev), dim=1).values
-    with pytest.raises(ValueError):  # rows wider than the kernel holds
+    wide = torch.sort(torch.rand(N_RAYS, smp.MAX_WIDTH - 7, device=dev), dim=1).values
+    with pytest.raises(ValueError, match=str(smp.MAX_WIDTH)):  # wider than K2's 1024
         smp.up_sample_round(o, d, wide, wide, None, None, 8, 512.0, True)
     with pytest.raises(ValueError):  # sdf rows that do not match z
         smp.up_sample_round(o, d, z, z[:, :4], None, None, 8, 512.0, True)

@@ -54,26 +54,40 @@ def setup(d_hidden=64, n_layers=4, skip=(2,), seed=0, r=16, n0=8):
     return params, items, net.requires_grad_(False), o, d, z
 
 
-@pytest.mark.parametrize("act,atol", [("float32", ATOL), ("bfloat16", BF16_ATOL)])
-def test_sampler_matches_pallas_interpret(act, atol):
-    """2 rounds at s_val_base 3 (inv_s 512 then 1024), as served."""
-    params, items, net, o, d, z = setup()
+# (n0, n_importance, rounds, s_val_base): as served, 8 + 16 in 2 rounds at
+# s_val_base 3 (inv_s 512 then 1024); and NeuS's own budget, 64 + 64 in 4
+# rounds from inv_s 64, whose rows (up to 128 wide) K2 takes since its
+# warp-per-ray redesign
+SERVED, WIDE = (8, 16, 2, 3), (64, 64, 4, 0)
+
+
+@pytest.mark.parametrize("act,atol,budget", [
+    pytest.param("float32", ATOL, SERVED, id="float32-0.0001"),
+    pytest.param("bfloat16", BF16_ATOL, SERVED, id="bfloat16-0.02"),
+    pytest.param("float32", ATOL, WIDE, id="float32-wide"),
+])
+def test_sampler_matches_pallas_interpret(act, atol, budget):
+    n0, n_imp, steps, s_base = budget
+    params, items, net, o, d, z = setup(n0=n0)
     want = np.asarray(jax_fused_importance_sampler(
-        params, items, jnp.asarray(o), jnp.asarray(d), jnp.asarray(z), 16, 2, 3,
+        params, items, jnp.asarray(o), jnp.asarray(d), jnp.asarray(z), n_imp, steps, s_base,
         tile=16, interpret=True, act_dtype=act, layout="rows"))
     got = fused_importance_sampler(net, items, torch.from_numpy(o), torch.from_numpy(d),
-                                   torch.from_numpy(z), 16, 2, 3, act_dtype=act).numpy()
-    assert got.shape == (16, 24)
+                                   torch.from_numpy(z), n_imp, steps, s_base,
+                                   act_dtype=act).numpy()
+    assert got.shape == (16, n0 + n_imp)
     np.testing.assert_allclose(got, want, atol=atol, rtol=0)
     assert np.all(np.diff(got, axis=-1) >= 0)
 
 
-@pytest.mark.parametrize("steps,s_base", [(2, 3), (1, 0), (4, 0)])
-def test_sampler_matches_jnp_importance_stage(steps, s_base):
+@pytest.mark.parametrize("steps,s_base,n0,n_imp", [
+    pytest.param(2, 3, 8, 16, id="2-3"), pytest.param(1, 0, 8, 16, id="1-0"),
+    pytest.param(4, 0, 8, 16, id="4-0"), pytest.param(4, 0, 64, 64, id="4-0-wide")])
+def test_sampler_matches_jnp_importance_stage(steps, s_base, n0, n_imp):
     """The port's kernel-path stage and its plain stage against
     sparse_sampler's unfused stage: field_sdf + up_sample + cat_z_vals
     (rendering/renderer.py:294-306)."""
-    params, items, net, o, d, z = setup(seed=1)
+    params, items, net, o, d, z = setup(seed=1, n0=n0)
 
     class FC:
         sdf = items
@@ -86,7 +100,7 @@ def test_sampler_matches_jnp_importance_stage(steps, s_base):
         sdf_fn = lambda pts: jax_field_sdf(jparams, FC, pts)  # noqa: E731
         sdf = sdf_fn(o[:, None, :] + d[:, None, :] * z_vals[..., None])
         for i in range(steps):
-            new_z = jax_sampling.up_sample(o, d, z_vals, sdf, 16 // steps,
+            new_z = jax_sampling.up_sample(o, d, z_vals, sdf, n_imp // steps,
                                            64.0 * 2 ** (s_base + i))
             z_vals, sdf = jax_sampling.cat_z_vals(sdf_fn, o, d, z_vals, new_z, sdf,
                                                   last=(i + 1 == steps))
@@ -95,7 +109,7 @@ def test_sampler_matches_jnp_importance_stage(steps, s_base):
     want = np.asarray(jax.jit(stage)(jnp.asarray(o), jnp.asarray(d), jnp.asarray(z)))
     for sampler in (fused_importance_sampler, importance_sampler_plain):
         got = sampler(net, items, torch.from_numpy(o), torch.from_numpy(d),
-                      torch.from_numpy(z), 16, steps, s_base).numpy()
+                      torch.from_numpy(z), n_imp, steps, s_base).numpy()
         np.testing.assert_allclose(got, want, atol=ATOL, rtol=0, err_msg=sampler.__name__)
 
 
