@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch / CUDA port: its serving path and its
-training step.
+"""Chip smoke test of the PyTorch / CUDA port: its serving path, its
+training step, mesh extraction and the training CLI up to the e2e gate.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -71,9 +71,29 @@ mode; ``step_parity`` holds one step of each kernel mode to 'vjp', and
 one frame per serving phase is served in the fused mode and held to the
 default mode's chunk in f32.
 
+Then it trains through the entry point a user calls,
+``tools/train_cli.main`` (``trainer_phase``): the port's synthetic
+workspace (``testing.make_synthetic_scene``: 12 + 1 ring views of
+160x120 around a sphere of radius 1, ~37,000 SFM points, SFM grid level 8)
+and its ray cache from ``prepare_data.prepare_data_cache`` (the voxel
+near / far on the card), then 60 steps at batch 8192 at the full width in
+the default 'vjp' mode with the surface refresh at steps 20 and 40 (K1 in
+f32 over ~18 M level-10 candidates), a save at 30 and a validation at 50
+(with the inline mesh F-score against the workspace's gt.ply); it checks
+the step, the refreshed grid (non-empty, kept share below 0.9), finite
+logged losses, moved parameters, the metrics and the checkpoint's
+optimiser state and grid, and that exactly K1 bf16, K2 and K1 f32
+launched; then it resumes 2 steps from that checkpoint in 'pallas_field'
+with FUSED_BG and checks that exactly that mode's kernels launched.
+Last, ``e2e_gate_phase`` runs tests/test_e2e.py:79-191 through the port's
+CLIs (6 views of 40x30, 300 steps at batch 512, extract_mesh_cli at 48^3
+with vertex colours, eval_mesh against the analytic sphere, render_cli,
+a resume to step 302) and fails on any of that test's gates and bands.
+
 The last lines are the card line, a JSON object with one entry per
 kernel (K1 and K2 with their serving launches, K3 to K5 and K7 to K9 with
-their training launches, K6 with its launches on every path; each with
+their training launches, K6 with its launches on every path, each plus
+its launches in the CLI runs, listed by run under "cli"; each with
 its time, its plain version's, one PyTorch call's for the same function
 where there is one (K5: one ``addmm`` per factor pair on the same rows,
 ``library_ms``), and the least time the card could take for the same
@@ -189,6 +209,40 @@ SDF_PROBE_CELLS = 0.05  # median |sdf| at the mesh's vertices, in level-10 cells
 NORMAL_SHORT_FRAC = 1e-4  # normals short of unit (sliver faces only), share of vertices
 COLOR_LEVELS, COLOR_FRAC = 2, 0.999  # vertex colours, kernel path vs plain
 K6_CHECK_PTS = COLOR_CHUNK
+
+# the training CLI (PERF.md holds why): the port's synthetic workspace of
+# TRAINER_CAMS + 1 ring views at IMG_WH whose SFM points cover the unit
+# sphere, cameras TRAINER_CAM_DIST out; the scene radius is 1.2 x that, which
+# puts the sphere at |x| 0.278 unit, where the seed-66 geometric init of
+# CONFIG's width is <= 0 on ~26 % of directions (a refresh keeps a shell),
+# config.yaml's voxel_size SFM_VOXEL (SFM grid level 8); TRAIN_VOXEL_SIZE
+# TRAINER_VOXEL makes the training level 10. Refreshes at TRAINER_UPDATE
+# and twice that, a save at TRAINER_SAVE, a validation at TRAINER_VAL, the
+# scalars logged every TRAINER_LOG steps; a refresh that keeps
+# DEGENERATE_KEEP of its candidates or more fails
+TRAINER_CAMS = 12
+TRAINER_POINTS = 40_000
+TRAINER_CAM_DIST = 3.0
+TRAINER_VOXEL = 0.004  # ceil(log2(3 / 0.004)) = 10
+TRAINER_STEPS, TRAINER_RESUME = 60, 2
+TRAINER_UPDATE, TRAINER_SAVE, TRAINER_VAL, TRAINER_LOG = 20, 30, 50, 10
+DEGENERATE_KEEP = 0.9
+# the e2e gate: tests/test_e2e.py's cfg and bands (docs/e2e_gate_calibration.json)
+E2E_CFG = {
+    "NEUCONW": {
+        "N_SAMPLES": 8, "N_IMPORTANCE": 8, "UP_SAMPLE_STEP": 2, "N_OUTSIDE": 2,
+        "BOUNDARY_SAMPLES": 2, "S_VAL_BASE": 1, "SAMPLE_RANGE": 4, "N_VOCAB": 16,
+        "ANNEAL_END": 100, "UPDATE_FREQ": 100, "TRAIN_VOXEL_SIZE": 0.12, "SDF_THRESHOLD": 0.1,
+        "NEAR_FAR_OVERRIDE": True,
+        "SDF_CONFIG": {"d_hidden": 64, "d_out": 65, "n_layers": 4, "skip_in": [2]},
+        "COLOR_CONFIG": {"d_feature": 64, "d_hidden": 32, "n_layers": 2, "head_channels": 16},
+        "MESH_MASK_LIST": ["sky"], "DEPTH_LOSS": True, "LOSS": {"depth_weight": 1.0},
+    },
+    "TRAINER": {"SAVE_FREQ": 1000, "VAL_FREQ": 100.0, "CANONICAL_LR": 1e-3, "CANONICAL_BS": 512},
+}
+E2E_VOXELS = (8000, 40000)
+E2E_GATES = {"fscore": 0.14, "chamfer_pred_to_gt": 0.62, "chamfer_gt_to_pred": 0.84}
+E2E_RENDER_STD = 5.0
 
 # the H100 SXM's published peaks (NVIDIA's datasheet): dense bf16 tensor
 # cores; float32 products at the fastest f32-accurate route, three TF32
@@ -1725,6 +1779,305 @@ def extraction_phase(model, fc, root: str, n_points: int = EXTRACT_POINTS,
     return launches, fails
 
 
+# ---------------------------- the training CLI ----------------------------
+
+
+def reset_counts(counters: dict) -> None:
+    from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head
+
+    for c in counters.values():
+        c.launches = 0
+    fused_sdf_head.launches_f32 = 0
+
+
+def read_counts(counters: dict) -> dict:
+    """Launches per kernel since reset_counts, K1 split into its bf16 and
+    float32 launches (``sdf_mlp_bf16`` / ``sdf_mlp_f32``)."""
+    from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head
+
+    got = {n: c.launches for n, c in counters.items()}
+    got["sdf_mlp_f32"] = fused_sdf_head.launches_f32
+    got["sdf_mlp_bf16"] = got["sdf_mlp"] - got["sdf_mlp_f32"]
+    return got
+
+
+def cli_workspace(root: str, device: str, n_images: int, wh, n_points: int, cam_dist: float,
+                  n_splits: int, sfm_voxel: float | None = None) -> dict:
+    """The port's synthetic workspace (``testing.make_synthetic_scene``, seed
+    SEED, the last image held out), its config.yaml's voxel_size set to
+    ``sfm_voxel`` where given, an analytic gt.ply of the sphere, and the ray
+    cache from ``prepare_data.prepare_data_cache`` (npz where h5py is not
+    installed; the voxel near / far on ``device``). Returns the scene info
+    and what was timed."""
+    import importlib.util
+
+    import numpy as np
+    import yaml
+
+    from neuralrecon_w_tpu_torch.testing import make_synthetic_scene
+    from neuralrecon_w_tpu_torch.tools.prepare_data import prepare_data_cache
+    from neuralrecon_w_tpu_torch.utils.ply import write_ply
+
+    t0 = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    info = make_synthetic_scene(root, n_images=n_images, n_test=1, img_wh=wh,
+                                n_points=n_points, cam_dist=cam_dist, seed=SEED)
+    if sfm_voxel is not None:
+        path = os.path.join(root, "config.yaml")
+        with open(path) as f:
+            sc = yaml.safe_load(f)
+        sc["voxel_size"] = float(sfm_voxel)
+        with open(path, "w") as f:
+            yaml.safe_dump(sc, f)
+        info["scene_config"] = sc
+    rs = np.random.RandomState(SEED)
+    v = rs.randn(4000, 3)
+    write_ply(os.path.join(root, "gt.ply"), v / np.linalg.norm(v, axis=-1, keepdims=True)
+              * info["sphere_radius"])
+    t1 = time.perf_counter()
+    cache_type = "h5" if importlib.util.find_spec("h5py") else "npz"
+    prepare_data_cache.main(["--root_dir", root, "--split_to_chunks", str(n_splits),
+                             "--cache_type", cache_type, "--device", device])
+    sync()
+    info.update(scene_seconds=t1 - t0, cache_seconds=time.perf_counter() - t1,
+                cache_type=cache_type)
+    return info
+
+
+def log_records(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_cli(cfg_path: str, save_dir: str, name: str, batch: int, steps: int, device: str,
+              extra=()):
+    from neuralrecon_w_tpu_torch.tools import train_cli as cli
+
+    return cli.main(["--cfg_path", cfg_path, "--batch_size", str(batch), "--num_epochs", "1000",
+                     "--max_steps", str(steps), "--exp_name", name, "--save_dir", save_dir,
+                     "--device", device, *extra])
+
+
+def merged(base: dict, extra: dict | None) -> dict:
+    """``base`` with ``extra`` merged in, section by section."""
+    out = copy.deepcopy(base)
+    for k, v in (extra or {}).items():
+        out[k] = merged(out[k], v) if isinstance(v, dict) and isinstance(out.get(k), dict) else v
+    return out
+
+
+def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None,
+                  sfm_voxel: float = SFM_VOXEL, train_voxel: float = TRAINER_VOXEL,
+                  fine_level: int = FINE_LEVEL, card: str = "the CPU"):
+    """``tools/train_cli.main`` at the full width of CONFIG on a synthetic
+    workspace of TRAINER_CAMS + 1 views at IMG_WH (SFM grid level 8), batch
+    TRAIN_BATCH, TRAINER_STEPS steps in the default 'vjp' mode (refreshes at
+    steps TRAINER_UPDATE and 2 x TRAINER_UPDATE, one save, one validation),
+    then TRAINER_RESUME steps resumed from its checkpoint in 'pallas_field'
+    with FUSED_BG. The launch counts are set to 0 just before each CLI call
+    and read just after. Returns ({run: launches}, fails)."""
+    import numpy as np
+    import torch
+
+    from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
+    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.training.checkpoint import latest_checkpoint, restore_checkpoint
+
+    fails = []
+    info = cli_workspace(root, device, TRAINER_CAMS + 1, IMG_WH, TRAINER_POINTS,
+                         TRAINER_CAM_DIST, 64, sfm_voxel)
+    overrides = merged({
+        "NEUCONW": {"UPDATE_FREQ": TRAINER_UPDATE, "TRAIN_VOXEL_SIZE": train_voxel},
+        "TRAINER": {"VAL_FREQ": float(TRAINER_VAL), "SAVE_FREQ": TRAINER_SAVE}}, extra_cfg)
+    cfg_path = write_cfg(os.path.join(root, "train.yaml"), root, overrides)
+    counters = launch_counters()
+    save_dir = os.path.join(root, "results")
+    extra = ["--log_every", str(TRAINER_LOG), "--test_batch_size", str(TRAIN_BATCH)]
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    tr = train_cli(cfg_path, save_dir, "trainer", TRAIN_BATCH, TRAINER_STEPS, device, extra)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"trainer": read_counts(counters)}
+    n_rays = len(tr.load_rays())
+    print(f"trainer workspace: {TRAINER_CAMS} + 1 views of {IMG_WH[0]}x{IMG_WH[1]}, "
+          f"{info['n_points']} SFM points, SFM grid level {tr.sfm_grid.level} "
+          f"({len(tr.sfm_grid.coords)} cells), training level {tr.train_level}; {n_rays} cached "
+          f"rays ({info['cache_type']}); scene {info['scene_seconds']:.2f} s, cache "
+          f"{info['cache_seconds']:.2f} s (the voxel near / far included)")
+
+    if tr.state.step != TRAINER_STEPS:
+        fails.append(f"train_cli ended at step {tr.state.step}, not {TRAINER_STEPS}")
+    steps = [r["step"] for r in tr.refreshes]
+    if steps != [TRAINER_UPDATE, 2 * TRAINER_UPDATE]:
+        fails.append(f"refreshes at steps {steps}")
+    for r in tr.refreshes:
+        print(f"trainer refresh at step {r['step']}: {r['seconds']:.3f} s (the K1 f32 sweep "
+              f"{r.get('sweep_seconds', float('nan')):.3f} s), "
+              f"{r.get('n_candidates')} candidates, {r.get('n_kept')} kept "
+              f"({r.get('kept_frac', 0):.3f})")
+        if not 0 < r.get("n_kept", 0) or r.get("kept_frac", 1.0) >= DEGENERATE_KEEP:
+            fails.append(f"refresh at step {r['step']} kept {r.get('n_kept')} of "
+                         f"{r.get('n_candidates')}")
+    if tr.fine_grid_host is None or tr.fine_grid_host.level != fine_level:
+        fails.append(f"no level-{fine_level} fine grid after the refreshes")
+    recs = log_records(tr.logger.path)
+    bad = [(r["step"], k) for r in recs for k, v in r.items() if not math.isfinite(v)]
+    if bad:
+        fails.append(f"non-finite logged scalars {bad[:5]}")
+    rate = {r["step"]: r["rays_per_sec"] for r in recs if "rays_per_sec" in r}
+    val = [r for r in recs if "val/psnr" in r]
+    if not rate or len(val) != 1 or "val/fscore" not in val[0]:
+        fails.append(f"metrics.jsonl: rays_per_sec at {sorted(rate)}, {len(val)} validations")
+    fc = field_config_from_cfg(load_cfg(cfg_path))
+    init = init_field(fc, torch.Generator().manual_seed(int(tr.cfg.TRAINER.SEED)), device)
+    before = init.state_dict()
+    moved = [k for k, v in tr.state.model.state_dict().items() if not torch.equal(v, before[k])]
+    if len(moved) < len(before) // 2:
+        fails.append(f"train_cli moved only {len(moved)} of {len(before)} parameter tensors")
+    ck = latest_checkpoint(tr.ckpt_dir)
+    saved = restore_checkpoint(ck) if ck else {}
+    if (not ck or not ck.endswith(f"step_{TRAINER_STEPS}.ckpt") or "optimizer" not in saved
+            or "fine_grid" not in saved
+            or not os.path.exists(os.path.join(tr.ckpt_dir, f"step_{TRAINER_SAVE}.ckpt"))):
+        fails.append(f"checkpoints: {sorted(os.listdir(tr.ckpt_dir))}")
+    got = launches["trainer"]
+    want = ("sdf_mlp_bf16", "sdf_mlp_f32", "up_sample")
+    print(f"launches in train_cli ({TRAINER_STEPS} steps, 'vjp'): " + ", ".join(
+        f"{n} {v}" for n, v in got.items() if v))
+    if device == "cuda":
+        fails += [f"{n} not launched by train_cli" for n in want if got[n] <= 0]
+        fails += [f"{n} launched by train_cli in 'vjp'" for n, v in got.items()
+                  if v and n not in want + ("sdf_mlp",)]
+    warm = rate.get(2 * TRAINER_LOG)
+    steady = rate.get(TRAINER_STEPS)
+    print(f"train_cli ({card}): warm-up {warm:.1f} rays/s (steps {TRAINER_LOG + 1}-"
+          f"{2 * TRAINER_LOG}), steady {steady:.1f} rays/s (steps {TRAINER_STEPS - TRAINER_LOG + 1}"
+          f"-{TRAINER_STEPS}); windows " + ", ".join(f"{s} {v:.1f}" for s, v in sorted(rate.items()))
+          + f"; validation {sum(tr.val_seconds):.3f} s (psnr {val[0]['val/psnr']:.3f}, F@0.1 "
+          f"{val[0].get('val/fscore', float('nan')):.4f}); wall {wall:.2f} s")
+
+    # resume in the fused mode: the CLI path through K6, K7, K5, K8, K9
+    cfg2 = write_cfg(os.path.join(root, "train_fused.yaml"), root, merged(
+        overrides, {"TPU": {"SDF_GRAD_MODE": "pallas_field", "FUSED_BG": True}}))
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    tr2 = train_cli(cfg2, save_dir, "trainer_resume", TRAIN_BATCH, TRAINER_RESUME, device,
+                    extra + ["--ckpt_path", ck or ""])
+    sync()
+    got = launches["resume"] = read_counts(counters)
+    print(f"launches in train_cli resumed {TRAINER_RESUME} steps in 'pallas_field' + FUSED_BG "
+          f"(a refresh first): " + ", ".join(f"{n} {v}" for n, v in got.items() if v)
+          + f"; wall {time.perf_counter() - t0:.2f} s; its refresh " + ", ".join(
+              f"{r['seconds']:.3f} s, kept {r.get('n_kept')} ({r.get('kept_frac', 0):.3f})"
+              for r in tr2.refreshes))
+    if tr2.state.step != TRAINER_STEPS + TRAINER_RESUME:
+        fails.append(f"resumed train_cli ended at step {tr2.state.step}")
+    if device == "cuda":
+        want = MODE_KERNELS["pallas_field"]
+        fails += [f"{n} not launched by the resumed train_cli" for n in want if got[n] <= 0]
+        fails += [f"{n} launched by the resumed train_cli, not its mode's" for n in counters
+                  if got[n] and n not in want]
+    return launches, fails
+
+
+def e2e_gate_phase(root: str, device: str = "cuda", card: str = "the CPU"):
+    """tests/test_e2e.py:79-191 through the port's CLIs: its workspace (6
+    views of 40x30) and cache, train_cli 300 steps at batch 512 (the
+    refreshed grid's voxels within E2E_VOXELS), extract_mesh_cli at
+    --mesh_size 48 --vertex_color, eval_mesh against the analytic sphere
+    (E2E_GATES, docs/e2e_gate_calibration.json), render_cli from the trained
+    checkpoint (image std above E2E_RENDER_STD), and a resume to step 302.
+    Returns (launches, fails)."""
+    import numpy as np
+    import yaml
+    from PIL import Image
+
+    from neuralrecon_w_tpu_torch.evaluation import eval_mesh
+    from neuralrecon_w_tpu_torch.tools import extract_mesh_cli, render_cli
+    from neuralrecon_w_tpu_torch.training.checkpoint import latest_checkpoint
+    from neuralrecon_w_tpu_torch.utils.ply import read_ply
+
+    fails = []
+    scene = os.path.join(root, "sphere_scene")
+    info = cli_workspace(scene, device, 6, (40, 30), 300, 3.0, 8)
+    cfg_path = os.path.join(root, "train_sphere.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({**E2E_CFG, "DATASET": {"ROOT_DIR": scene, "DATASET_NAME": "phototourism",
+                                               "PHOTOTOURISM": {"IMG_DOWNSCALE": 1}}}, f)
+    counters = launch_counters()
+    save_dir = os.path.join(root, "run")
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    tr = train_cli(cfg_path, save_dir, "sphere", 512, 300, device, ["--test_batch_size", "128"])
+    sync()
+    t_train = time.perf_counter() - t0
+    launches = {"train": read_counts(counters)}
+    n_vox = len(tr.fine_grid_host.coords) if tr.fine_grid_host is not None else 0
+    ck = latest_checkpoint(tr.ckpt_dir)
+    if tr.state.step != 300 or not E2E_VOXELS[0] <= n_vox <= E2E_VOXELS[1] or not ck \
+            or not ck.endswith("step_300.ckpt") or os.path.getsize(tr.logger.path) == 0:
+        fails.append(f"e2e train: step {tr.state.step}, {n_vox} voxels, checkpoint {ck}")
+
+    reset_counts(counters)
+    out = os.path.join(root, "mesh.ply")
+    t0 = time.perf_counter()
+    res = extract_mesh_cli.main(["--cfg_path", cfg_path, "--ckpt_path", ck or "", "--mesh_size",
+                                 "48", "--chunk", "8192", "--vertex_color", "--a_index", "1",
+                                 "--out", out, "--device", device])
+    sync()
+    t_mesh = time.perf_counter() - t0
+    launches["extract"] = read_counts(counters)
+    metrics = {}
+    if res is None or res.path != out or len(read_ply(out)["verts"]) <= 50 \
+            or "colors" not in read_ply(out):
+        fails.append("e2e extract_mesh_cli: no coloured mesh")
+    else:
+        # the workspace's gt.ply: tests/test_e2e.py's analytic sphere cloud
+        metrics = eval_mesh(out, os.path.join(scene, "gt.ply"), info["scene_config"],
+                            is_mesh=True, threshold=[0.5],
+                            save_name="e2e", write_visualizations=False)
+        f05 = metrics["fscores"][0]
+        p2g, g2p = metrics["chamfer_pred_to_gt"], metrics["chamfer_gt_to_pred"]
+        if not (f05 > E2E_GATES["fscore"] and p2g < E2E_GATES["chamfer_pred_to_gt"]
+                and g2p < E2E_GATES["chamfer_gt_to_pred"]):
+            fails.append(f"e2e gate: F@0.5 {f05:.4f}, chamfer pred->gt {p2g:.4f}, "
+                         f"gt->pred {g2p:.4f} (gates {E2E_GATES})")
+
+    render_dir = os.path.join(root, "render")
+    render_cli.main(["--cfg_path", cfg_path, "--ckpt_path", ck or "", "--out_dir", render_dir,
+                     "--img_downscale", "2", "--chunk", "120", "--device", device])
+    pngs = [p for p in os.listdir(render_dir)
+            if p.startswith("view_") and not p.endswith(("_depth.png", "_normal.png"))]
+    std = (float(np.asarray(Image.open(os.path.join(render_dir, pngs[0])), np.float32).std())
+           if len(pngs) == 1 else 0.0)
+    if len(pngs) != 1 or std <= E2E_RENDER_STD:
+        fails.append(f"e2e render_cli: {pngs}, std {std:.3f}")
+
+    reset_counts(counters)
+    tr2 = train_cli(cfg_path, save_dir, "sphere_resume", 512, 2, device,
+                    ["--test_batch_size", "128", "--ckpt_path", ck or "", "--divide_lr"])
+    sync()
+    launches["resume"] = read_counts(counters)
+    if tr2.state.step != 302:
+        fails.append(f"e2e resume ended at step {tr2.state.step}, not 302")
+    print(f"e2e gate ({card}): train_cli 300 steps at batch 512 in {t_train:.2f} s, "
+          f"{n_vox} fine voxels; mesh at 48^3 in {t_mesh:.2f} s; F@0.5 "
+          f"{metrics.get('fscores', [float('nan')])[0]:.4f}, chamfer pred->gt "
+          f"{metrics.get('chamfer_pred_to_gt', float('nan')):.4f}, gt->pred "
+          f"{metrics.get('chamfer_gt_to_pred', float('nan')):.4f}; render std {std:.3f}; "
+          f"resumed to step {tr2.state.step}")
+    for run, got in launches.items():
+        print(f"launches in the e2e gate's {run}: " + ", ".join(
+            f"{n} {v}" for n, v in got.items() if v))
+    if device == "cuda":
+        fails += [f"{n} not launched in the e2e gate's {run}"
+                  for run, names in (("train", ("sdf_mlp_f32", "up_sample")),
+                                     ("extract", ("sdf_mlp_f32", "field_fwd")))
+                  for n in names if launches[run][n] <= 0]
+    return launches, fails
+
+
 # the kernels redesigned in the latest slice: (label, entry function)
 REDESIGNED = (("K2", "up_sample_kernel"), ("K3", "sdf_vjp_fwd_kernel"),
               ("K4", "sdf_vjp_bwd_kernel"), ("K6", "field_fwd_kernel"), ("K7", "field_bwd_kernel"),
@@ -1949,6 +2302,22 @@ def main() -> int:
     fails += xfails
     print(f"peak device memory in extraction {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    # the training CLI at full width, then tests/test_e2e.py's gate, through
+    # the port's entry points (train_cli, extract_mesh_cli, eval_mesh,
+    # render_cli); each CLI call's launches counted on their own
+    del model
+    cli_runs = {}
+    for label, phase in (("train_cli", trainer_phase), ("e2e", e2e_gate_phase)):
+        torch.cuda.reset_peak_memory_stats()
+        root = tempfile.mkdtemp(prefix=label + "_", dir=os.path.join(ROOT, "build"))
+        try:
+            got, pfails = phase(root, "cuda", card=card)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        fails += pfails
+        cli_runs.update({f"{label} {run}": v for run, v in got.items()})
+        print(f"peak device memory in {label} {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
     if fails:
         print("FAILED: " + "; ".join(fails), file=sys.stderr)
         return 1
@@ -1994,6 +2363,13 @@ def main() -> int:
     kres["field_fwd"]["extraction"] = kres.pop("field_fwd_extraction")
     kres["nerf_bg_fwd"]["by_path"] = {"training": fused["nerf_bg_fwd"],
                                       "serving": serve_fused["nerf_bg_fwd"]}
+    # the CLI runs' launches: added to each kernel's count, and by run
+    for name in sources:
+        launches[name] += sum(got[name] for got in cli_runs.values())
+        kres[name]["cli"] = {
+            run: ({"bf16": got["sdf_mlp_bf16"], "f32": got["sdf_mlp_f32"]}
+                  if name == "sdf_mlp" else got[name])
+            for run, got in cli_runs.items() if got[name]}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **kres[name]}
                for name, (src, rep) in sources.items()]

@@ -148,10 +148,13 @@ def fused_sdf_head(packed: PackedSDF, pts: torch.Tensor) -> torch.Tensor:
         packed.skip_mask, *(ptr for _, ptr in keep), out.data_ptr(), stream_handle(pts.device))
     check("nw_sdf_mlp", err)
     fused_sdf_head.launches += 1
+    fused_sdf_head.launches_f32 += int(packed.act != torch.bfloat16)
     return out
 
 
+# launches of K1, and of those the float32 ones
 fused_sdf_head.launches = 0
+fused_sdf_head.launches_f32 = 0
 
 
 def fused_field_sdf(model, fc, pts: torch.Tensor) -> torch.Tensor:

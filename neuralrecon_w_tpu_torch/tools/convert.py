@@ -203,3 +203,50 @@ def init_field(fc: FieldConfig, generator: torch.Generator, device=None) -> Neuc
     init_color_(model.neuconw.color_net, generator)
     init_nerf_bg_(model.nerf, generator)
     return model
+
+
+def _adam_state(opt_state):
+    """The optax ScaleByAdamState (count, mu, nu) inside an opt_state tree
+    of tuples, found by its fields (optax is not imported here)."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+def state_from_jax(np_state, fc: FieldConfig, optimizer_spec, grid=None, device=None):
+    """A JAX ``TrainState`` (params, the optax Adam state and step, numpy
+    leaves) and optionally the JAX package's fine ``VoxelGrid`` as the
+    port's: (``training.step.TrainState``, ``ops.voxel_grid.VoxelGrid`` or
+    None). The model holds the parameters, the torch Adam state Adam's
+    first and second moments and step count per parameter, the
+    ``Optimizer`` the update count its schedule reads; the grid's cells are
+    put in the port's order."""
+    from ..ops.voxel_grid import VoxelGrid, _sort_coords
+    from ..training.step import TrainState
+
+    model = field_from_jax(np_state.params, fc, device)
+    optimizer = optimizer_spec.init(model.parameters())
+    if optimizer_spec.name != "adam":
+        raise NotImplementedError("only Adam's state is carried across")
+    adam = _adam_state(np_state.opt_state)
+    if adam is None:
+        raise ValueError("the JAX opt_state holds no Adam state (count, mu, nu)")
+    count = int(np.asarray(adam.count))
+    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    for name, p in model.named_parameters():
+        optimizer.opt.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": mu[name].to(p.device).reshape(p.shape).clone(),
+            "exp_avg_sq": nu[name].to(p.device).reshape(p.shape).clone(),
+        }
+    optimizer.count = count
+    fine = None
+    if grid is not None:
+        fine = VoxelGrid(int(grid.level), np.asarray(grid.origin, np.float64), float(grid.scale),
+                         _sort_coords(np.asarray(grid.coords), int(grid.level)))
+    return TrainState(model, optimizer, int(np.asarray(np_state.step))), fine

@@ -45,12 +45,13 @@ def make_lr_schedule(cfg, base_lr: float, total_steps: int):
 
 
 def clip_by_global_norm_(params, max_norm: float) -> None:
-    """Scales the gradients in place as optax's clip_by_global_norm does."""
+    """Scales the gradients in place as optax's clip_by_global_norm does,
+    without reading the norm back to the host."""
     grads = [p.grad for p in params if p.grad is not None]
     norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-    if float(norm) >= max_norm:
-        for g in grads:
-            g.copy_(g / norm * max_norm)
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
 class Optimizer:

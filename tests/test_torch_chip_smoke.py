@@ -323,3 +323,34 @@ def test_chip_smoke_reduce_library_matches_plain(pairs):
         got, want = [dW[:, 7:7 + k], db], [fvm._mm(x.t(), y, torch.float32), x.sum(dim=0)]
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+def test_chip_smoke_trainer_phase_without_jax_package(tmp_path):
+    """trainer_phase at a tiny width on the CPU, the kernels' plain versions
+    standing in: the port's workspace and ray cache, train_cli with two
+    refreshes, a save and a validation, then the resume in 'pallas_field'
+    with FUSED_BG; every check passing, and no JAX."""
+    code = f"""
+import sys
+import torch
+import chip_smoke as cs
+
+torch.set_num_threads(2)
+cs.TRAINER_CAMS, cs.IMG_WH, cs.TRAINER_POINTS, cs.TRAIN_BATCH = 5, (24, 18), 1500, 128
+cs.TRAINER_STEPS, cs.TRAINER_UPDATE, cs.TRAINER_SAVE, cs.TRAINER_VAL = 6, 2, 3, 5
+cs.TRAINER_LOG, cs.TRAINER_CAM_DIST = 1, 1.7  # the 4 x 64 init crosses near |x| 0.5
+extra = {{"NEUCONW": {{"SDF_CONFIG": {{"d_hidden": 64, "d_out": 65, "n_layers": 4, "skip_in": [2]}},
+                     "COLOR_CONFIG": {{"d_feature": 64, "d_hidden": 32, "n_layers": 2}},
+                     "N_VOCAB": 8}}}}
+launches, fails = cs.trainer_phase({str(tmp_path)!r}, "cpu", extra, sfm_voxel=0.1875,
+                                   train_voxel=0.05, fine_level=6)
+assert fails == [], fails
+assert set(launches) == {{"trainer", "resume"}}
+assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
+print("ok")
+"""
+    proc = run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    out = proc.stdout
+    assert "trainer refresh at step 2" in out and "train_cli (the CPU): warm-up" in out
+    assert out.strip().endswith("ok")

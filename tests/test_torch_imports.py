@@ -129,3 +129,65 @@ def test_entry_points_run_on_the_card_unless_asked(tmp_path):
         if not torch.cuda.is_available():
             with pytest.raises((RuntimeError, AssertionError)):
                 call(None)
+
+
+def test_training_entry_points_run_on_the_card_unless_asked(tmp_path):
+    """The scene bundle, the voxel near / far filter, the Trainer and the
+    three CLIs that take --device: asked for the CPU they run there; with
+    no device they go to the card, which here means an error."""
+    import yaml
+
+    from neuralrecon_w_tpu_torch.config import load_cfg
+    from neuralrecon_w_tpu_torch.datasets.phototourism import (apply_voxel_near_far,
+                                                               build_image_rays, load_scene_meta)
+    from neuralrecon_w_tpu_torch.testing import make_synthetic_scene
+    from neuralrecon_w_tpu_torch.tools import render_cli, train_cli
+    from neuralrecon_w_tpu_torch.tools.prepare_data import prepare_data_cache
+    from neuralrecon_w_tpu_torch.training.checkpoint import save_checkpoint
+    from neuralrecon_w_tpu_torch.training.loop import Trainer, TrainerConfig
+    from neuralrecon_w_tpu_torch.utils.scene import load_scene_bundle
+
+    torch.set_num_threads(1)
+    root = str(tmp_path / "scene")
+    make_synthetic_scene(root, n_images=6, n_test=1, img_wh=(16, 12), n_points=200)
+    cache = ["--root_dir", root, "--split_to_chunks", "2", "--cache_type", "npz"]
+    prepare_data_cache.main(cache + ["--device", "cpu"])
+    small, _ = small_fc()
+    cfg_path = str(tmp_path / "c.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({"NEUCONW": {"SDF_CONFIG": dict(small.NEUCONW.SDF_CONFIG, skip_in=[2]),
+                                    "COLOR_CONFIG": dict(small.NEUCONW.COLOR_CONFIG),
+                                    "N_VOCAB": 8},
+                        "DATASET": {"ROOT_DIR": root}}, f)
+    cfg = load_cfg(cfg_path)
+    meta = load_scene_meta(root)
+    rays, rgbs = build_image_rays(meta, meta.img_ids_train[0])
+    tcfg = TrainerConfig(save_dir=str(tmp_path / "runs"))
+    trainer = Trainer(cfg, tcfg, device="cpu")
+    ckpt = save_checkpoint(str(tmp_path / "m.ckpt"), trainer.state.model, 0)
+    builders = [
+        ("load_scene_bundle", lambda d: load_scene_bundle(cfg, device=d).scene.origin),
+        ("Trainer", lambda d: next(Trainer(cfg, tcfg, device=d).state.model.parameters())),
+    ]
+    for name, call in builders:
+        assert call("cpu").device.type == "cpu", name
+        if not torch.cuda.is_available():
+            with pytest.raises((RuntimeError, AssertionError)):
+                call(None)
+    assert len(apply_voxel_near_far(rays, rgbs, meta, device="cpu")[0]) > 0
+    clis = [
+        ("apply_voxel_near_far", lambda extra: apply_voxel_near_far(rays, rgbs, meta, **(
+            {"device": extra[1]} if extra else {}))),
+        ("prepare_data_cache", lambda extra: prepare_data_cache.main(cache + extra)),
+        ("train_cli", lambda extra: train_cli.main(
+            ["--cfg_path", cfg_path, "--max_steps", "0", "--save_dir", str(tmp_path / "cli"),
+             "--batch_size", "16"] + extra)),
+        ("render_cli", lambda extra: render_cli.main(
+            ["--cfg_path", cfg_path, "--ckpt_path", ckpt, "--out_dir", str(tmp_path / "r"),
+             "--img_downscale", "2"] + extra)),
+    ]
+    for name, call in clis:
+        call(["--device", "cpu"])
+        if not torch.cuda.is_available():
+            with pytest.raises((RuntimeError, AssertionError)):
+                call([])
