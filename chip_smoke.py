@@ -78,13 +78,17 @@ workspace (``testing.make_synthetic_scene``: 12 + 1 ring views of
 and its ray cache from ``prepare_data.prepare_data_cache`` (the voxel
 near / far on the card), then 60 steps at batch 8192 at the full width in
 the default 'vjp' mode with the surface refresh at steps 20 and 40 (K1 in
-f32 over ~18 M level-10 candidates), a save at 30 and a validation at 50
-(with the inline mesh F-score against the workspace's gt.ply); it checks
-the step, the refreshed grid (non-empty, kept share below 0.9), finite
-logged losses, moved parameters, the metrics and the checkpoint's
-optimiser state and grid, and that exactly K1 bf16, K2 and K1 f32
-launched; then it resumes 2 steps from that checkpoint in 'pallas_field'
-with FUSED_BG and checks that exactly that mode's kernels launched.
+f32 over ~18 M level-10 candidates), saves at 20, 40 and 60 and a
+validation at 50 (with the inline mesh F-score against the workspace's
+gt.ply); it checks the step, the refreshed grid (non-empty, kept share
+below 0.9), finite logged losses that fall, moved parameters, the metrics
+and the checkpoint's optimiser state and grid, and that exactly K1 bf16,
+K2 and K1 f32 launched; then it resumes 2 steps from that checkpoint in
+'pallas_field' with FUSED_BG (a refresh first) and checks that exactly
+that mode's kernels launched. Every refresh, the resume's too, is held to
+the plain float32 SDF of the state it swept on 2^20 seeded candidates,
+and the median SDF at the SFM points (the zero set's level shift) is
+printed beside it.
 Last, ``e2e_gate_phase`` runs tests/test_e2e.py:79-191 through the port's
 CLIs (6 views of 40x30, 300 steps at batch 512, extract_mesh_cli at 48^3
 with vertex colours, eval_mesh against the analytic sphere, render_cli,
@@ -217,16 +221,26 @@ K6_CHECK_PTS = COLOR_CHUNK
 # CONFIG's width is <= 0 on ~26 % of directions (a refresh keeps a shell),
 # config.yaml's voxel_size SFM_VOXEL (SFM grid level 8); TRAIN_VOXEL_SIZE
 # TRAINER_VOXEL makes the training level 10. Refreshes at TRAINER_UPDATE
-# and twice that, a save at TRAINER_SAVE, a validation at TRAINER_VAL, the
-# scalars logged every TRAINER_LOG steps; a refresh that keeps
-# DEGENERATE_KEEP of its candidates or more fails
+# and twice that, a save at every refresh step (each refresh's swept state
+# on disk), a validation at TRAINER_VAL, the scalars logged every
+# TRAINER_LOG steps. Every refresh, the resume's too, is held to the plain
+# version on REFRESH_CHECK_PTS seeded candidates: a cell within
+# REFRESH_AMBIGUOUS (K1_F32_ATOL) of the threshold may go either way.
+# The run's two refreshes fail at DEGENERATE_KEEP of their candidates or
+# more; the resume's is not held to it: from this init the zero set
+# crosses the SFM shell (+-0.005 unit) near step 50 and overshoots it by
+# 0.03-0.1 unit through step 300, in float32 and bfloat16 alike
+# (scripts/torch_trainer_refresh.py), as the JAX Trainer's does at a
+# narrow width (scripts/torch_trainer_vs_jax.py, the same cells kept)
 TRAINER_CAMS = 12
 TRAINER_POINTS = 40_000
 TRAINER_CAM_DIST = 3.0
 TRAINER_VOXEL = 0.004  # ceil(log2(3 / 0.004)) = 10
 TRAINER_STEPS, TRAINER_RESUME = 60, 2
-TRAINER_UPDATE, TRAINER_SAVE, TRAINER_VAL, TRAINER_LOG = 20, 30, 50, 10
+TRAINER_UPDATE, TRAINER_VAL, TRAINER_LOG = 20, 50, 10
 DEGENERATE_KEEP = 0.9
+REFRESH_CHECK_PTS = 1 << 20
+REFRESH_AMBIGUOUS = K1_F32_ATOL
 # the e2e gate: tests/test_e2e.py's cfg and bands (docs/e2e_gate_calibration.json)
 E2E_CFG = {
     "NEUCONW": {
@@ -1866,20 +1880,59 @@ def merged(base: dict, extra: dict | None) -> dict:
     return out
 
 
+def refresh_check(ckpt: str, grid, sfm_grid, level: int, sc: dict, sfm_unit, fc,
+                  threshold: float, device: str) -> dict:
+    """One surface refresh held to the plain version: the field saved in
+    ``ckpt`` (the state the refresh swept), REFRESH_CHECK_PTS of its
+    level-``level`` candidates drawn with a seed (children of the SFM grid's
+    cells), their SDF by ``sdf_mlp_plain`` in float32, kept where <=
+    ``threshold``, against membership of ``grid`` (what the refresh built).
+    Returns the share kept, the cells kept or dropped against the plain
+    SDF (all, and those farther than REFRESH_AMBIGUOUS from the threshold),
+    and the median SDF at the SFM points ``sfm_unit``: the zero set's level
+    shift, negative where the field reads the true surface as inside."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.ops.sdf_mlp import pack_sdf_weights, sdf_mlp_plain
+    from neuralrecon_w_tpu_torch.ops.voxel_grid import _linear
+    from neuralrecon_w_tpu_torch.parallel.sweep import sweep
+    from neuralrecon_w_tpu_torch.training.checkpoint import load_field
+
+    packed = pack_sdf_weights(load_field(ckpt, fc, device).neuconw.sdf_net, fc.sdf, "float32")
+
+    def plain(pts):
+        return sweep(lambda b: sdf_mlp_plain(packed, b), 65536, pts, device=device)
+
+    rng = np.random.default_rng(SEED)
+    n, t, res = REFRESH_CHECK_PTS, 1 << (level - sfm_grid.level), 1 << level
+    cells = (sfm_grid.coords[rng.integers(0, len(sfm_grid.coords), n)].astype(np.int64) * t
+             + rng.integers(0, t, (n, 3)))
+    centers = ((cells + 0.5) / res * 2.0 - 1.0) * sfm_grid.scale + sfm_grid.origin
+    sdf = plain(((centers - np.asarray(sc["origin"])) / float(sc["radius"])).astype(np.float32))
+    kept = np.isin(_linear(cells, level), _linear(grid.coords, level))
+    wrong = kept != (sdf <= threshold)
+    return {"kept_frac": float(kept.mean()), "wrong": int(wrong.sum()),
+            "wrong_clear": int((wrong & (np.abs(sdf - threshold) >= REFRESH_AMBIGUOUS)).sum()),
+            "sfm_sdf_median": float(np.median(plain(sfm_unit)))}
+
+
 def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None,
                   sfm_voxel: float = SFM_VOXEL, train_voxel: float = TRAINER_VOXEL,
                   fine_level: int = FINE_LEVEL, card: str = "the CPU"):
     """``tools/train_cli.main`` at the full width of CONFIG on a synthetic
     workspace of TRAINER_CAMS + 1 views at IMG_WH (SFM grid level 8), batch
     TRAIN_BATCH, TRAINER_STEPS steps in the default 'vjp' mode (refreshes at
-    steps TRAINER_UPDATE and 2 x TRAINER_UPDATE, one save, one validation),
+    steps TRAINER_UPDATE and 2 x TRAINER_UPDATE, a save at each, one validation),
     then TRAINER_RESUME steps resumed from its checkpoint in 'pallas_field'
     with FUSED_BG. The launch counts are set to 0 just before each CLI call
-    and read just after. Returns ({run: launches}, fails)."""
+    and read just after. Every refresh is held to the plain version
+    (``refresh_check``), the logged loss must fall. Returns ({run:
+    launches}, fails)."""
     import numpy as np
     import torch
 
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
+    from neuralrecon_w_tpu_torch.datasets.colmap import read_points3d_binary
     from neuralrecon_w_tpu_torch.tools.convert import init_field
     from neuralrecon_w_tpu_torch.training.checkpoint import latest_checkpoint, restore_checkpoint
 
@@ -1888,7 +1941,7 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
                          TRAINER_CAM_DIST, 64, sfm_voxel)
     overrides = merged({
         "NEUCONW": {"UPDATE_FREQ": TRAINER_UPDATE, "TRAIN_VOXEL_SIZE": train_voxel},
-        "TRAINER": {"VAL_FREQ": float(TRAINER_VAL), "SAVE_FREQ": TRAINER_SAVE}}, extra_cfg)
+        "TRAINER": {"VAL_FREQ": float(TRAINER_VAL), "SAVE_FREQ": TRAINER_UPDATE}}, extra_cfg)
     cfg_path = write_cfg(os.path.join(root, "train.yaml"), root, overrides)
     counters = launch_counters()
     save_dir = os.path.join(root, "results")
@@ -1925,6 +1978,10 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
     bad = [(r["step"], k) for r in recs for k, v in r.items() if not math.isfinite(v)]
     if bad:
         fails.append(f"non-finite logged scalars {bad[:5]}")
+    losses = [(r["step"], r["loss"]) for r in recs if "loss" in r]
+    print("train_cli logged loss: " + ", ".join(f"{s} {v:.4f}" for s, v in losses))
+    if len(losses) < 2 or not losses[-1][1] < losses[0][1]:
+        fails.append(f"train_cli's logged loss did not fall: {losses}")
     rate = {r["step"]: r["rays_per_sec"] for r in recs if "rays_per_sec" in r}
     val = [r for r in recs if "val/psnr" in r]
     if not rate or len(val) != 1 or "val/fscore" not in val[0]:
@@ -1939,7 +1996,8 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
     saved = restore_checkpoint(ck) if ck else {}
     if (not ck or not ck.endswith(f"step_{TRAINER_STEPS}.ckpt") or "optimizer" not in saved
             or "fine_grid" not in saved
-            or not os.path.exists(os.path.join(tr.ckpt_dir, f"step_{TRAINER_SAVE}.ckpt"))):
+            or not all(os.path.exists(os.path.join(tr.ckpt_dir, f"step_{r['step']}.ckpt"))
+                       for r in tr.refreshes)):
         fails.append(f"checkpoints: {sorted(os.listdir(tr.ckpt_dir))}")
     got = launches["trainer"]
     want = ("sdf_mlp_bf16", "sdf_mlp_f32", "up_sample")
@@ -1973,6 +2031,31 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
               for r in tr2.refreshes))
     if tr2.state.step != TRAINER_STEPS + TRAINER_RESUME:
         fails.append(f"resumed train_cli ended at step {tr2.state.step}")
+    if [r["step"] for r in tr2.refreshes] != [TRAINER_STEPS] or tr2.refreshes[0]["n_kept"] <= 0:
+        fails.append(f"the resume's refreshes: {tr2.refreshes}")
+
+    # every refresh against the plain SDF of the state it swept: the
+    # grid it built is in the next save, the resume's in the resumed trainer
+    sc = tr.meta.scene_config
+    sfm = tr.sfm_grid
+    pts = read_points3d_binary(os.path.join(root, "dense", "sparse", "points3D.bin"))
+    sfm_unit = ((np.stack([p.xyz for p in pts.values()]) - np.asarray(sc["origin"]))
+                / float(sc["radius"])).astype(np.float32)
+    built = [restore_checkpoint(os.path.join(tr.ckpt_dir, f"step_{r['step'] + TRAINER_UPDATE}"
+                                             ".ckpt"))["fine_grid"] for r in tr.refreshes]
+    for r, grid in zip(tr.refreshes + tr2.refreshes, built + [tr2.fine_grid_host]):
+        if grid is None:  # nothing kept: failed above
+            continue
+        c = refresh_check(os.path.join(tr.ckpt_dir, f"step_{r['step']}.ckpt"), grid, sfm,
+                          tr.train_level, sc, sfm_unit, fc, tr.sdf_threshold, device)
+        print(f"refresh at step {r['step']} against the plain float32 SDF on "
+              f"{REFRESH_CHECK_PTS} seeded candidates: kept share {c['kept_frac']:.4f} (the "
+              f"refresh's {r['kept_frac']:.4f}), {c['wrong']} kept or dropped against it, "
+              f"{c['wrong_clear']} of them farther than {REFRESH_AMBIGUOUS} from the threshold; "
+              f"median SDF at the {len(sfm_unit)} SFM points {c['sfm_sdf_median']:.5f}")
+        if c["wrong_clear"]:
+            fails.append(f"refresh at step {r['step']}: {c['wrong_clear']} cells against the "
+                         f"plain SDF")
     if device == "cuda":
         want = MODE_KERNELS["pallas_field"]
         fails += [f"{n} not launched by the resumed train_cli" for n in want if got[n] <= 0]

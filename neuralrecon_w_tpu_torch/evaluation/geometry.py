@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..ops.morton import points_to_morton
+from ..ops.voxel_grid import _linear
 from ..utils.colormap import jet_uint8
 
 
@@ -97,7 +97,7 @@ def voxel_point_crop(src_pts: np.ndarray, voxel_pts: np.ndarray, voxel_size: flo
                      bbx) -> np.ndarray:
     """The src points in cells that voxel_pts occupy (reference point_crop,
     eval_utils.py:180-216): both sets quantised at floor(2 * scale /
-    voxel_size) over the bbx cube and matched by Morton code."""
+    voxel_size) over the bbx cube and matched by cell index."""
     bbx_min = np.asarray(bbx[0], np.float64)
     bbx_max = np.asarray(bbx[1], np.float64)
     origin = bbx_min + (bbx_max - bbx_min) / 2
@@ -107,9 +107,9 @@ def voxel_point_crop(src_pts: np.ndarray, voxel_pts: np.ndarray, voxel_size: flo
     def quantize(p):
         return np.floor(res * ((p - origin) / scale + 1.0) / 2.0).astype(np.int64)
 
-    src_m = points_to_morton(np.clip(quantize(src_pts), 0, (1 << 21) - 1))
-    vox_m = np.unique(points_to_morton(np.clip(quantize(voxel_pts), 0, (1 << 21) - 1)))
-    return src_pts[np.isin(src_m, vox_m)]
+    src_c = _linear(np.clip(quantize(src_pts), 0, (1 << 21) - 1), 21)
+    vox_c = np.unique(_linear(np.clip(quantize(voxel_pts), 0, (1 << 21) - 1), 21))
+    return src_pts[np.isin(src_c, vox_c)]
 
 
 def error_colormap(dists: np.ndarray, threshold: float) -> np.ndarray:

@@ -5,8 +5,8 @@ occupancy bitfield that ``ops/ray_voxel.py`` ships to the device.
 
 What serving, training and mesh extraction build is here: the grid from
 SFM points (from a workspace's ``points3D.bin`` and a bounding box of its
-scene config, too), its cell centres and corners, membership, and its
-subdivision to a finer level or merge to a coarser one. Its cells are
+scene config, too), its cell centres and corners, and its subdivision
+to a finer level. Its cells are
 sorted by coordinate, where the JAX package sorts them by Morton code;
 the occupancy, all that the device reads, and the cell set do not depend
 on the order.
@@ -59,21 +59,6 @@ class VoxelGrid:
         coords = (self.coords.astype(np.int64)[:, None, :] * t + k[None, :, :]).reshape(-1, 3)
         return VoxelGrid(target_level, self.origin, self.scale, _sort_coords(coords, target_level))
 
-    def downsample(self, target_level: int) -> "VoxelGrid":
-        """The cells of ``target_level`` that hold an occupied cell."""
-        down = self.level - target_level
-        if down < 0:
-            raise ValueError(f"cannot downsample level {self.level} to {target_level}")
-        return VoxelGrid(target_level, self.origin, self.scale,
-                         _sort_coords(self.coords.astype(np.int64) >> down, target_level))
-
-    def contains(self, cells: np.ndarray) -> np.ndarray:
-        """Whether each of (K, 3) integer cells is occupied."""
-        codes = _linear(self.coords, self.level)
-        q = _linear(np.asarray(cells).reshape(-1, 3), self.level)
-        pos = np.clip(np.searchsorted(codes, q), 0, max(len(codes) - 1, 0))
-        return codes[pos] == q if len(codes) else np.zeros(len(q), bool)
-
     def occupancy_words(self) -> np.ndarray:
         """Packed occupancy bitfield, (2^{3L} / 32,) uint32: linear index
         ((x * N) + y) * N + z; word = idx >> 5, bit = idx & 31."""
@@ -98,15 +83,6 @@ def _from_linear(idx: np.ndarray, level: int) -> np.ndarray:
 def _sort_coords(coords: np.ndarray, level: int) -> np.ndarray:
     """Distinct cells in coordinate order, through their linear index."""
     return _from_linear(np.unique(_linear(np.asarray(coords).reshape(-1, 3), level)), level)
-
-
-def expand_points(points: np.ndarray, voxel_size: float) -> np.ndarray:
-    """The distinct 27-neighbourhood copies of every point, ``voxel_size``
-    apart (``voxel_grid.py:107-114``)."""
-    offsets = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1], indexing="ij"),
-                       axis=-1).reshape(-1, 3)
-    expanded = (points[None, :, :] + offsets[:, None, :] * voxel_size).reshape(-1, 3)
-    return np.unique(expanded, axis=0)
 
 
 def level_for_voxel_size(scale: float, voxel_size: float, mode: str = "floor") -> int:

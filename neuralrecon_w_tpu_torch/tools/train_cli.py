@@ -46,15 +46,12 @@ def get_opts(argv=None):
     parser.add_argument("--n_devices", type=int, default=-1, help=MULTI_GPU_ITEM)
     parser.add_argument("--multihost", action="store_true", help=MULTI_GPU_ITEM)
     parser.add_argument("--coordinator", type=str, default=None, help=MULTI_GPU_ITEM)
-    parser.add_argument("--num_processes", type=int, default=None, help=MULTI_GPU_ITEM)
-    parser.add_argument("--process_id", type=int, default=None, help=MULTI_GPU_ITEM)
     return parser.parse_args(argv)
 
 
 def main(argv=None):
     args = get_opts(argv)
-    if (args.n_devices not in (-1, 1) or args.multihost or args.coordinator is not None
-            or args.num_processes not in (None, 1)):
+    if args.n_devices not in (-1, 1) or args.multihost or args.coordinator is not None:
         raise NotImplementedError(MULTI_GPU_ITEM)
 
     from ..config import load_cfg

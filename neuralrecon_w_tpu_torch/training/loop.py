@@ -80,7 +80,6 @@ class TrainerConfig:
     exp_name: str = "exp"
     save_dir: str = "results"
     ckpt_path: str | None = None
-    val_freq_steps: int | None = None  # default: VAL_FREQ of an epoch
     log_every: int = 50  # steps between scalar logs (and the end)
 
 
@@ -250,8 +249,7 @@ class Trainer:
         total = self.tcfg.num_epochs * steps_per_epoch
         if max_steps is not None:
             total = min(total, int(self.state.step) + max_steps)
-        val_every = self.tcfg.val_freq_steps or val_interval(float(self.cfg.TRAINER.VAL_FREQ),
-                                                             steps_per_epoch)
+        val_every = val_interval(float(self.cfg.TRAINER.VAL_FREQ), steps_per_epoch)
         log_every = max(int(self.tcfg.log_every), 1)
 
         step_i = int(self.state.step)

@@ -34,12 +34,11 @@ def surface_level(scene_config: dict, train_voxel_size: float) -> int:
 def surface_selection(model, fc, sfm_grid: VoxelGrid, train_level: int,
                       scene_origin: np.ndarray, scene_radius: float,
                       sdf_threshold: float = 0.0, chunk: int = 65536,
-                      stats_out: dict | None = None, warn_degenerate: bool = True):
+                      stats_out: dict | None = None):
     """The cell centres (SFM and unit-sphere coordinates) whose SDF is <=
     the threshold (reference neuconw_system.py:186-266). ``stats_out``, when
     given, gets n_candidates / n_kept / kept_frac and the sweep's wall
-    seconds (sweep_seconds); a keep above 90 % warns unless
-    ``warn_degenerate`` is False."""
+    seconds (sweep_seconds); a keep above 90 % warns."""
     dense = sfm_grid.upsample(train_level)
     centers_sfm = dense.centers_sfm()
     centers_unit = (centers_sfm - scene_origin) / scene_radius
@@ -52,7 +51,7 @@ def surface_selection(model, fc, sfm_grid: VoxelGrid, train_level: int,
     if stats_out is not None:
         stats_out.update(n_candidates=int(len(keep)), n_kept=int(np.count_nonzero(keep)),
                          kept_frac=kept_frac, sweep_seconds=sweep_seconds)
-    if kept_frac > 0.9 and warn_degenerate:
+    if kept_frac > 0.9:
         # a near-total keep means the SDF has no zero set inside the
         # candidate region: the grid would recentre every ray band on the
         # region's boundary, a geometry collapse the rendering losses
@@ -67,7 +66,7 @@ def surface_selection(model, fc, sfm_grid: VoxelGrid, train_level: int,
 def octree_update(model, fc, sfm_grid: VoxelGrid, scene_config: dict,
                   scene_origin: np.ndarray, scene_radius: float, train_voxel_size: float,
                   sdf_threshold: float = 0.0, chunk: int = 65536,
-                  stats_out: dict | None = None, warn_degenerate: bool = True
+                  stats_out: dict | None = None
                   ) -> tuple[VoxelGrid, DeviceGrid] | tuple[None, None]:
     """The fine surface grid rebuilt from the current SDF (reference
     neuconw_system.py:268-312), in the SFM grid's cube, on the model's
@@ -75,16 +74,12 @@ def octree_update(model, fc, sfm_grid: VoxelGrid, scene_config: dict,
     survives, and the caller keeps its grid."""
     level = surface_level(scene_config, train_voxel_size)
     centers_sfm, _ = surface_selection(model, fc, sfm_grid, level, scene_origin, scene_radius,
-                                       sdf_threshold, chunk, stats_out=stats_out,
-                                       warn_degenerate=warn_degenerate)
+                                       sdf_threshold, chunk, stats_out=stats_out)
     if len(centers_sfm) == 0:
         return None, None
     res = 1 << level
     cells = np.clip(np.floor(((centers_sfm - sfm_grid.origin) / sfm_grid.scale + 1.0)
                              / 2.0 * res), 0, res - 1).astype(np.int64)
-    host = VoxelGrid(level, sfm_grid.origin, sfm_grid.scale, _dedup_sort(cells, level))
+    host = VoxelGrid(level, sfm_grid.origin, sfm_grid.scale, _sort_coords(cells, level))
     return host, device_grid_from_host(host, next(model.parameters()).device)
 
-
-def _dedup_sort(cells: np.ndarray, level: int) -> np.ndarray:
-    return _sort_coords(cells, level)

@@ -328,8 +328,9 @@ def test_chip_smoke_reduce_library_matches_plain(pairs):
 def test_chip_smoke_trainer_phase_without_jax_package(tmp_path):
     """trainer_phase at a tiny width on the CPU, the kernels' plain versions
     standing in: the port's workspace and ray cache, train_cli with two
-    refreshes, a save and a validation, then the resume in 'pallas_field'
-    with FUSED_BG; every check passing, and no JAX."""
+    refreshes, saves and a validation, then the resume in 'pallas_field'
+    with FUSED_BG, every refresh held to the plain SDF; every check
+    passing, and no JAX."""
     code = f"""
 import sys
 import torch
@@ -337,7 +338,7 @@ import chip_smoke as cs
 
 torch.set_num_threads(2)
 cs.TRAINER_CAMS, cs.IMG_WH, cs.TRAINER_POINTS, cs.TRAIN_BATCH = 5, (24, 18), 1500, 128
-cs.TRAINER_STEPS, cs.TRAINER_UPDATE, cs.TRAINER_SAVE, cs.TRAINER_VAL = 6, 2, 3, 5
+cs.TRAINER_STEPS, cs.TRAINER_UPDATE, cs.TRAINER_VAL, cs.REFRESH_CHECK_PTS = 6, 2, 5, 4096
 cs.TRAINER_LOG, cs.TRAINER_CAM_DIST = 1, 1.7  # the 4 x 64 init crosses near |x| 0.5
 extra = {{"NEUCONW": {{"SDF_CONFIG": {{"d_hidden": 64, "d_out": 65, "n_layers": 4, "skip_in": [2]}},
                      "COLOR_CONFIG": {{"d_feature": 64, "d_hidden": 32, "n_layers": 2}},

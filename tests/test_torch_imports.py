@@ -14,7 +14,9 @@ torch = pytest.importorskip("torch")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILES = sorted(glob.glob(os.path.join(ROOT, "neuralrecon_w_tpu_torch", "**", "*.py"),
                          recursive=True)) + [os.path.join(ROOT, "chip_smoke.py"),
-                                             os.path.join(ROOT, "scripts", "torch_k2_turns.py")]
+                                             os.path.join(ROOT, "scripts", "torch_k2_turns.py"),
+                                             os.path.join(ROOT, "scripts",
+                                                          "torch_trainer_refresh.py")]
 FORBIDDEN = ("jax", "neuralrecon_w_tpu")  # exact top-level names
 
 
