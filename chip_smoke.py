@@ -94,10 +94,31 @@ CLIs (6 views of 40x30, 300 steps at batch 512, extract_mesh_cli at 48^3
 with vertex colours, eval_mesh against the analytic sphere, render_cli,
 a resume to step 302) and fails on any of that test's gates and bands.
 
+The grid queries: ``ray_kernel_phase`` holds K10
+(``csrc/ray_voxel.cu``, the exact DDA) and K11 (the sampled first hit) to
+their plain versions with ``torch.equal`` on every output: K10 at the SFM
+level over the serving frames' and the training cache's rays, K10 at
+level 10 with first_only over 2^20 rays (axis-parallel ones, origins in
+occupied cells, misses among them), K11 at the steady chunk's 1024
+samples; each timed against its plain version in turns, its bound from the
+loop trips the kernel counted. Serving, the ray cache, validation and the
+band cache run through them. After the training phases ``graph_parity``
+holds make_scan_train_fn's CUDA graph to the same window of eager steps on
+a ``DeviceRayPool`` of the training rays (f32 at PERTURB 0, and the
+operating point's mean loss), and ``trainer_phase`` (now on the host pool,
+TPU.DEVICE_POOL false) is followed by ``device_pool_trainer_phase``: the
+same train_cli run with DEVICE_POOL 'auto' (the device pool, its band
+cache held to the plain DDA on every row after every attach, SCAN_INNER 10
+steps a graph replay, every replayed launch accounted), its rays/s windows
+beside the host pool's, and a resume. The e2e gate runs under the same
+default (the device pool and the graph at batch 512).
+
 The last lines are the card line, a JSON object with one entry per
 kernel (K1 and K2 with their serving launches, K3 to K5 and K7 to K9 with
 their training launches, K6 with its launches on every path, each plus
-its launches in the CLI runs, listed by run under "cli"; each with
+its launches in the CLI runs, listed by run under "cli", the device-pool
+run's graph replays as "train_cli device_pool_graph"; K10 and K11 with
+their serving and training launches; each with
 its time, its plain version's, one PyTorch call's for the same function
 where there is one (K5: one ``addmm`` per factor pair on the same rows,
 ``library_ms``), and the least time the card could take for the same
@@ -260,9 +281,9 @@ E2E_RENDER_STD = 5.0
 
 # the H100 SXM's published peaks (NVIDIA's datasheet): dense bf16 tensor
 # cores; float32 products at the fastest f32-accurate route, three TF32
-# tensor-core products per f32 product (495 TFLOP/s / 3; the FMA pipes give
-# 67); HBM3
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 495e12 / 3, 3.35e12
+# tensor-core products per f32 product (495 TFLOP/s / 3); float32 outside
+# the tensor cores (the FMA pipes: the grid queries' arithmetic); HBM3
+PEAK_BF16, PEAK_F32, PEAK_F32_SIMT, PEAK_BYTES = 989e12, 495e12 / 3, 67e12, 3.35e12
 
 
 def bound(flops: float, n_bytes: float, act: str) -> dict:
@@ -270,8 +291,10 @@ def bound(flops: float, n_bytes: float, act: str) -> dict:
     the peak of their type and the bytes over the memory rate. An f32
     product is reckoned at 165 TFLOP/s, the split-TF32 route (3 TF32
     products at 495 TFLOP/s) that keeps f32 accuracy, so no f32 kernel can
-    beat its bound by taking it."""
-    t_ops = flops / (PEAK_BF16 if act == "bfloat16" else PEAK_F32)
+    beat its bound by taking it; ``act`` 'simt' is float32 outside the
+    tensor cores, at 67 TFLOP/s."""
+    t_ops = flops / (PEAK_BF16 if act == "bfloat16" else PEAK_F32_SIMT if act == "simt"
+                     else PEAK_F32)
     t_mem = n_bytes / PEAK_BYTES
     return {"bound_ms": max(t_ops, t_mem) * 1e3,
             "bound_by": "operations" if t_ops >= t_mem else "bytes"}
@@ -1086,16 +1109,9 @@ def make_steps(cfg, fc, fine_level: int):
 def launch_counters() -> dict:
     """Each kernel's wrapper by its name in the kernels line; the wrapper's
     ``launches`` counts the launches of its kernel."""
-    from neuralrecon_w_tpu_torch.ops.field_forward import fused_field_forward
-    from neuralrecon_w_tpu_torch.ops.field_train import field_train_bwd
-    from neuralrecon_w_tpu_torch.ops.importance_sampler import up_sample_round
-    from neuralrecon_w_tpu_torch.ops.nerf_bg_fused import nerf_bg_bwd, nerf_bg_fwd
-    from neuralrecon_w_tpu_torch.ops.sdf_field_vjp import dw_reduce, sdf_vjp_bwd, sdf_vjp_fwd
-    from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head
+    from neuralrecon_w_tpu_torch.ops import kernel_counters
 
-    return {"sdf_mlp": fused_sdf_head, "up_sample": up_sample_round, "sdf_vjp_fwd": sdf_vjp_fwd,
-            "sdf_vjp_bwd": sdf_vjp_bwd, "dw_reduce": dw_reduce, "field_fwd": fused_field_forward,
-            "field_bwd": field_train_bwd, "nerf_bg_fwd": nerf_bg_fwd, "nerf_bg_bwd": nerf_bg_bwd}
+    return kernel_counters()
 
 
 def training_phase(cfg, state, scene, pool, fine_grid, fine_level, label, n_timed=TRAIN_TIMED):
@@ -1146,11 +1162,13 @@ def training_phase(cfg, state, scene, pool, fine_grid, fine_level, label, n_time
     for m in TRAIN_MODES:
         print(f"launches in training {label} {m} ({counts[m] + 1} steps): " + ", ".join(
             f"{n} {v}" for n, v in launches[m].items() if v))
+        # with a fine grid every step queries it: K11 (SURFACE_QUERY 'sampled')
+        want = MODE_KERNELS[m] + (("sampled_hit",) if fine_grid is not None else ())
         if next(state.model.parameters()).device.type == "cuda":
             fails += [f"{n} not launched in training {label} {m}"
-                      for n in MODE_KERNELS[m] if launches[m][n] <= 0]
+                      for n in want if launches[m][n] <= 0]
             fails += [f"{n} launched in training {label} {m}, not its kernel"
-                      for n, v in launches[m].items() if v and n not in MODE_KERNELS[m]]
+                      for n, v in launches[m].items() if v and n not in want]
     return rps, aux, launches, fails
 
 
@@ -1240,6 +1258,475 @@ def step_parity(cfg, model, scene, batch, fine_grid, fine_level, label, step: in
             if loss_bad or bad:
                 fails.append(f"parity {label} {act} {mode}: losses {loss_bad}, grads {bad}")
     return fails
+
+
+# ------------------------- K10 / K11 and the device pool -------------------------
+
+# K10 (the DDA) and K11 (the sampled first hit, csrc/ray_voxel.cu) against
+# their plain versions: torch.equal on every output, since the kernels run
+# the plain versions' float32 arithmetic operation for operation (no FMA
+# contraction). K10 at level 10 with first_only over K10_RAYS rays or more.
+K10_RAYS = 1 << 20
+# float32 operations of the grid queries, counted off csrc/ray_voxel.cu
+# (integer index arithmetic left out): K10 ~70 a ray to set up (slab
+# entry / exit, first cell, tmax, tdelta) and 5 a loop trip (the argmin's 2
+# compares, the tmax add, the exit and first-hit compares); K11 1 a ray and
+# 26 a walked sample (t: 2; per axis p: 2, the inside test, the cell: 5)
+K10_RAY_OPS, K10_TRIP_OPS, K11_RAY_OPS, K11_SAMPLE_OPS = 70, 5, 1, 26
+
+
+def level10_rays(fine_host, n: int, seed: int = SEED):
+    """(o, d) float32 (n, 3) in the fine grid's normalised coordinates,
+    four kinds a quarter each: from outside the cube toward the shell; axis
+    parallel (one or two direction components exactly 0); from the centres
+    of occupied cells in seeded directions; from outside pointing away
+    (misses)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q = n // 4
+
+    def unit(m):
+        v = rng.standard_normal((m, 3))
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    o1 = unit(q) * 1.8
+    d1 = rng.standard_normal((q, 3)) * 0.25 - o1
+    o2 = rng.uniform(-1.4, 1.4, (q, 3))
+    d2 = np.zeros((q, 3))
+    axis = rng.integers(0, 3, q)
+    d2[np.arange(q), axis] = rng.choice([-1.0, 1.0], q)
+    two = np.arange(q) % 2 == 1  # every other one: a zero in one component only
+    d2[two] = unit(int(two.sum()))
+    d2[two, axis[two]] = 0.0
+    res = 1 << fine_host.level
+    cells = fine_host.coords[rng.integers(0, len(fine_host.coords), q)]
+    o3 = (cells + 0.5) / res * 2.0 - 1.0
+    d3 = unit(q)
+    m = n - 3 * q
+    o4 = unit(m) * rng.uniform(1.8, 3.0, (m, 1))
+    d4 = o4 / np.linalg.norm(o4, axis=-1, keepdims=True) + rng.standard_normal((m, 3)) * 0.1
+    o = np.concatenate([o1, o2, o3, o4])
+    d = np.concatenate([d1, d2, d3, d4])
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def in_turns(kernel, plain, reps_k: int = 5, reps_p: int = 1):
+    """CUDA-event ms of a kernel and its plain version in turns (plain,
+    kernel, kernel, plain): the kernel's best, the plain version's mean."""
+    p1, k1, k2, p2 = (cuda_ms(plain, reps_p), cuda_ms(kernel, reps_k), cuda_ms(kernel, reps_k),
+                      cuda_ms(plain, reps_p))
+    return min(k1, k2), (p1 + p2) / 2
+
+
+def ray_kernel_phase(scene, sfm_grid, sfm_level, fine_grid, fine_host, frames, rcfg_steady):
+    """K10 at the SFM level over the serving frames' and the training
+    cache's rays (the SFM near / far of serving and of the ray cache), K10
+    at level 10 with first_only over level10_rays (the band cache's query),
+    K11 at the steady serving chunk's n_samples: each held to its plain
+    version with torch.equal, timed against it in turns. ``bound_ms``: the
+    larger of the bytes (each ray's inputs read and outputs written once,
+    and each distinct occupancy word the walk reads once, counted by the
+    plain version's ``touched`` on this run's rays) over the memory rate,
+    and the float32 operations (K10_* / K11_*, over the trips the kernel
+    counted in this run) over the FMA pipes' peak."""
+    import numpy as np
+    import torch
+
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+    from neuralrecon_w_tpu_torch.rendering.renderer import near_far_from_sfm_grid
+
+    dev = scene.origin.device
+    fails, cases = [], {}
+    rows, _ = training_rays()
+    srv = torch.as_tensor(np.concatenate(frames), device=dev)
+    cache = torch.as_tensor(rows, device=dev)
+    o10, d10 = level10_rays(fine_host, K10_RAYS)
+    k10 = [(f"level {sfm_level} serving", sfm_grid, sfm_level,
+            (srv[:, :3] - sfm_grid.origin) / sfm_grid.scale, srv[:, 3:6].contiguous(), False),
+           (f"level {sfm_level} cache", sfm_grid, sfm_level,
+            (cache[:, :3] - sfm_grid.origin) / sfm_grid.scale, cache[:, 3:6].contiguous(), False),
+           (f"level {fine_host.level} first_only", fine_grid, fine_host.level,
+            torch.as_tensor(o10, device=dev), torch.as_tensor(d10, device=dev), True)]
+    for label, grid, level, o, d, first in k10:
+        o = o.contiguous()
+        r = o.shape[0]
+        trips = torch.empty(r, dtype=torch.int32, device=dev)
+        touched = torch.zeros_like(grid.occ)
+        got = rv.dda_traverse(grid.occ, level, o, d, first, steps_out=trips)
+        want = rv.dda_traverse_plain(grid.occ, level, o, d, first, touched=touched)
+        sync()
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        n_trips, words = float(trips.double().sum()), int((touched > 0).sum())
+        if float(touched.double().sum()) != n_trips:
+            fails.append(f"K10 {label}: the plain version read {float(touched.sum())} words, "
+                         f"the kernel made {n_trips} trips")
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        ms, plain_ms = in_turns(lambda: rv.dda_traverse(grid.occ, level, o, d, first),
+                                lambda: rv.dda_traverse_plain(grid.occ, level, o, d, first))
+        mean_trips = float(trips.float().mean())
+        b = bound(r * K10_RAY_OPS + n_trips * K10_TRIP_OPS, r * (24 + 4 + 4 + 1) + 4 * words,
+                  "simt")
+        print(f"K10 dda {label} on {r} rays: {int(got[2].sum())} hit, mean {mean_trips:.1f} "
+              f"steps (max {int(trips.max())}), {words} distinct words of {grid.occ.numel()}; "
+              f"torch.equal {equal}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) -> {'ok' if equal else 'FAIL'}")
+        if not equal:
+            fails.append(f"K10 {label}")
+        cases[label] = {"rays": r, "mean_steps": mean_trips, "words": words, "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms, **b}
+    head = cases[f"level {fine_host.level} first_only"]
+    res = {"dda": {**head, "library_ms": None, "cases": cases}}
+
+    # K11 on the steady chunk, its inputs as near_far_from_fine_grid makes them
+    rays = torch.as_tensor(frames[1][:CHUNK], device=dev)
+    rays_o = (rays[:, :3] - scene.origin) / scene.radius
+    near, far, _ = near_far_from_sfm_grid(rcfg_steady, scene, sfm_grid, rays_o, rays[:, 3:6],
+                                          rays[:, 6:7] / scene.radius, rays[:, 7:8] / scene.radius)
+    o = ((rays_o * scene.radius + scene.origin) - fine_grid.origin) / fine_grid.scale
+    d = rays[:, 3:6].contiguous()
+    t_lo = (near[:, 0] * scene.radius / fine_grid.scale).contiguous()
+    t_hi = (far[:, 0] * scene.radius / fine_grid.scale).contiguous()
+    k = rcfg_steady.surface_query_samples
+    level = fine_host.level
+    trips = torch.empty(o.shape[0], dtype=torch.int32, device=dev)
+    touched = torch.zeros_like(fine_grid.occ)
+    got = rv.sampled_first_hit(fine_grid, level, o, d, t_lo, t_hi, k, steps_out=trips)
+    want = rv.sampled_first_hit_plain(fine_grid, level, o, d, t_lo, t_hi, k, touched=touched)
+    sync()
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = float((got[0] - want[0]).abs().max())
+    ms, plain_ms = in_turns(lambda: rv.sampled_first_hit(fine_grid, level, o, d, t_lo, t_hi, k),
+                            lambda: rv.sampled_first_hit_plain(fine_grid, level, o, d, t_lo,
+                                                               t_hi, k), reps_p=3)
+    r = o.shape[0]
+    mean_trips = float(trips.float().mean())
+    words = int((touched > 0).sum())
+    b = bound(r * K11_RAY_OPS + float(trips.double().sum()) * K11_SAMPLE_OPS,
+              r * (24 + 8 + 4 + 1) + 4 * words, "simt")
+    print(f"K11 sampled_hit at {k} samples on the steady chunk's {r} rays: "
+          f"{int(got[1].sum())} hit, mean {mean_trips:.1f} samples walked, {words} distinct "
+          f"words; torch.equal {equal}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}) -> {'ok' if equal else 'FAIL'}")
+    if not equal:
+        fails.append("K11")
+    res["sampled_hit"] = {"rays": r, "samples": k, "mean_steps": mean_trips, "words": words,
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                          **b}
+    return res, fails
+
+
+# A captured window against the same window of eager steps, one state,
+# f32 at PERTURB 0: the same kernels in the same order, every sum in a fixed
+# order (the appearance rows are gathered by indexing, whose backward is a
+# sorted index_put; an index_add's atomics made graph and eager differ by up
+# to 3e-4 on the depth term, PERF.md section 6), so the two agree to the
+# bit in practice; GRAPH_LOSS_RTOL on every loss term and GRAPH_PARAM_REL
+# (rel-L2) on all parameters leave room for a library kernel that sums in
+# another order on the capture stream. At the operating point (bf16,
+# perturb on) the graph's jitter comes from its own generator, not the
+# eager steps' per-step ones, so only the mean of the per-step losses over
+# the window is held, within GRAPH_MEAN_REL.
+GRAPH_INNER = 10
+GRAPH_LOSS_RTOL, GRAPH_PARAM_REL, GRAPH_MEAN_REL = 1e-5, 1e-5, 2e-2
+
+
+def flat_params(model):
+    import torch
+
+    return torch.cat([p.detach().float().reshape(-1) for p in model.parameters()])
+
+
+def graph_parity(cfg, state0, scene, pool, fine_grid, fine_level, label, batch=TRAIN_BATCH,
+                 n_inner=GRAPH_INNER, profile=False):
+    """make_scan_train_fn with graph=True against graph=False from copies of
+    state0 over one window of ``pool`` (a DeviceRayPool, its band cache
+    attached where fine_grid is given): in f32 at PERTURB 0 one call of
+    n_inner steps each; at the operating point n_inner one-step calls each,
+    the per-step losses. With ``profile``, a torch.profiler window over one
+    more call of n_inner replays: the device's busy share."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.config import render_config_from_cfg
+    from neuralrecon_w_tpu_torch.datasets.mask_utils import get_label_id_mapping
+    from neuralrecon_w_tpu_torch.training.losses import loss_config_from_cfg
+    from neuralrecon_w_tpu_torch.training.step import make_scan_train_fn
+
+    lid = get_label_id_mapping()
+    mask_ids = tuple(lid[x] for x in cfg.NEUCONW.RAY_MASK_LIST)
+    fails, out = [], {}
+    served = train_config(cfg, "vjp").act_dtype
+    for act, perturb in (("float32", 0.0), (served, float(cfg.NEUCONW.PERTURB))):
+        fc = train_config(cfg, "vjp", act)
+        rcfg = render_config_from_cfg(cfg, sfm_level=-1, fine_level=fine_level,
+                                      nerf_far_override=False, perturb=perturb)
+        perm, start = pool.take_scan_window(batch, n_inner)
+        perm = perm.clone()
+        trace = {}
+        for mode in ("graph", "eager"):
+            st = copy.deepcopy(state0)
+            st.optimizer.make_capturable()
+            one = act != "float32"
+            run = make_scan_train_fn(fc, rcfg, loss_config_from_cfg(cfg),
+                                     int(cfg.NEUCONW.ANNEAL_END), mask_ids, batch,
+                                     1 if one else n_inner, seed=int(cfg.TRAINER.SEED) + 1,
+                                     graph=mode == "graph")
+            losses, aux = [], None
+            sync()
+            t0 = time.perf_counter()
+            for i in range(n_inner if one else 1):
+                st, aux = run(st, scene, pool.data, fine_grid, None, perm,
+                              start + (i * batch if one else 0))
+                if one:
+                    losses.append(float(aux["loss"]))
+            sync()
+            wall = time.perf_counter() - t0
+            trace[mode] = (aux, flat_params(st.model), losses, wall, run, st)
+        (a_g, p_g, l_g, w_g, run_g, st_g), (a_e, p_e, l_e, w_e, _, _) = trace["graph"], \
+            trace["eager"]
+        if act == "float32":
+            rel = {k: abs(float(a_g[k]) - float(a_e[k])) / max(abs(float(a_e[k])), 1e-30)
+                   for k in a_e}
+            worst = max(rel, key=rel.get)
+            p_rel = float((p_g - p_e).norm() / p_e.norm())
+            ok = rel[worst] <= GRAPH_LOSS_RTOL and p_rel <= GRAPH_PARAM_REL
+            print(f"graph vs eager {label} f32 PERTURB 0, {n_inner} steps from one state "
+                  f"({run_g.captures} capture, {run_g.replays} replays): loss "
+                  f"{float(a_g['loss']):.7f} / {float(a_e['loss']):.7f}; worst term {worst} "
+                  f"rel {rel[worst]:.2e}; parameters rel-L2 {p_rel:.2e}; wall {w_g:.3f} / "
+                  f"{w_e:.3f} s -> {'ok' if ok else 'FAIL'}")
+            out["f32"] = {"worst_term": worst, "term_rel": rel[worst], "param_rel_l2": p_rel}
+        else:
+            m_g, m_e = sum(l_g) / len(l_g), sum(l_e) / len(l_e)
+            rel = abs(m_g - m_e) / abs(m_e)
+            ok = rel <= GRAPH_MEAN_REL and all(map(math.isfinite, l_g))
+            print(f"graph vs eager {label} {act} perturb {perturb}, {n_inner} one-step calls: "
+                  f"mean loss {m_g:.5f} / {m_e:.5f} (rel {rel:.2e}); per step graph "
+                  + ", ".join(f"{v:.4f}" for v in l_g) + "; eager "
+                  + ", ".join(f"{v:.4f}" for v in l_e) + f" -> {'ok' if ok else 'FAIL'}")
+            out[act] = {"mean_loss_rel": rel}
+        if not ok:
+            fails.append(f"graph vs eager {label} {act}")
+    if profile:
+        fc = train_config(cfg, "vjp")
+        rcfg = render_config_from_cfg(cfg, sfm_level=-1, fine_level=fine_level,
+                                      nerf_far_override=False)
+        st = copy.deepcopy(state0)
+        run = make_scan_train_fn(fc, rcfg, loss_config_from_cfg(cfg), int(cfg.NEUCONW.ANNEAL_END),
+                                 mask_ids, batch, n_inner, seed=int(cfg.TRAINER.SEED) + 1)
+        profile_replays(run, st, scene, pool, fine_grid, batch, n_inner, label)
+    return out, fails
+
+
+def profile_replays(run, state, scene, pool, fine_grid, batch, n_inner, label) -> None:
+    """At the operating point: one call of n_inner steps to capture, then
+    one of n_inner replays under torch.profiler: wall, the device's busy
+    share, the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    perm, start = pool.take_scan_window(batch, n_inner)
+    run(state, scene, pool.data, fine_grid, None, perm, start)
+    perm, start = pool.take_scan_window(batch, n_inner)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(state, scene, pool.data, fine_grid, None, perm, start)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith(("render.", "train."))]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    print(f"profile {label} graph window at the operating point, {n_inner} replays of {batch} "
+          f"rays: wall {wall_ms:.1f} "
+          f"ms ({wall_ms / n_inner:.2f} a step), {sum(e.count for e in device)} kernels busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    print(events.table(sort_by="self_device_time_total", row_limit=10))
+
+
+# the training CLI on the device pool: TRAINER_STEPS steps in windows of
+# POOL_SCAN_INNER, the host-pool run's refreshes, saves and validation,
+# then POOL_RESUME steps resumed from its last save. The workspace's 78,208
+# cached rays hold 9 batches of 8192, so a SCAN_INNER of 10 is capped to 9,
+# which the log interval (TRAINER_LOG) does not divide; windows of 5 keep
+# the logged rays/s windows aligned with the host pool's. The resume keeps
+# the grid it restored (UPDATE_FREQ past its end): its band cache is
+# attached at its start from the checkpoint's grid, and a level-10 refresh
+# of ~17.5 M cells (~28 s on the host) would add nothing to what it checks
+POOL_SCAN_INNER, POOL_RESUME = 5, 2
+
+
+def plain_band(grid, level: int, rays):
+    """The band cache's rows by the plain DDA: ``grid_near_far(grid, level,
+    o, d, first_only=True)``'s (near, valid) with ``dda_traverse_plain`` in
+    K10's place."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.ops.ray_voxel import dda_traverse_plain
+
+    o = (rays[:, 0:3] - grid.origin) / grid.scale
+    t_first, _, hit = dda_traverse_plain(grid.occ, level, o, rays[:, 3:6], True)
+    valid = hit & (t_first > 1e-4)
+    return torch.where(valid, t_first * grid.scale, torch.zeros_like(t_first)), valid
+
+
+def graph_launches(tr, counted: dict) -> dict:
+    """The launches a Trainer's CUDA graph replays ran, keyed as ``counted``:
+    replays x the launches one captured step records (the wrappers' counts
+    tick at capture only), summed over its multi-step runs."""
+    out = dict.fromkeys(counted, 0)
+    for run in tr.scan_runs():
+        for n, v in run.per_step_launches.items():
+            out[n] = out.get(n, 0) + v * run.replays
+    return out
+
+
+def graph_ran(run) -> bool:
+    """A multi-step run that captured one graph and replayed it."""
+    return run.graph and run.captures == 1 and run.replays > 0
+
+
+def device_pool_trainer_phase(root: str, overrides: dict, device: str, extra: list,
+                              host_rates: dict, card: str = "the CPU"):
+    """``train_cli.main`` with TPU.DEVICE_POOL 'auto' (on the card: the
+    device pool, its band cache, POOL_SCAN_INNER steps a CUDA graph replay)
+    on trainer_phase's workspace and cache, its refreshes, saves and
+    validation, then a resume of POOL_RESUME steps from the last save.
+    Checks the step, that the device pool and (on the card) the graph ran,
+    every graph launch accounted (replays x the launches one captured step
+    records, and no kernel beyond K1 and K2 in a step), the band cache after
+    every attach against the plain DDA on every pool row (torch.equal), the
+    epoch windows disjoint, the logged losses finite and falling. Returns
+    ({run: launches}, fails)."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.datasets.cache import DeviceRayPool
+    from neuralrecon_w_tpu_torch.training import loop
+    from neuralrecon_w_tpu_torch.training.checkpoint import latest_checkpoint
+
+    fails, attaches, drawn = [], [], {}
+    # 'auto' is the device pool on the card; the CPU rehearsal forces it
+    pool_cfg = merged(overrides, {"TPU": {"DEVICE_POOL": "auto" if device == "cuda" else True,
+                                          "SCAN_INNER": POOL_SCAN_INNER}})
+    cfg_path = write_cfg(os.path.join(root, "train_pool.yaml"), root, pool_cfg)
+    resume_path = write_cfg(os.path.join(root, "train_pool_resume.yaml"), root, merged(
+        pool_cfg, {"NEUCONW": {"UPDATE_FREQ": 10 * TRAINER_STEPS}}))
+    save_dir = os.path.join(root, "results")
+    real_attach, real_take, real_gather = (loop.Trainer._attach_pool_surface,
+                                           DeviceRayPool.take_scan_window, DeviceRayPool.gather)
+
+    def attach(self):
+        real_attach(self)
+        if self.device_pool is None or self.fine_dgrid is None:
+            return
+        data = self.device_pool.data
+        surf, hit = plain_band(self.fine_dgrid, self.train_level, data["rays"])
+        attaches.append({"step": int(self.state.step), "rows": len(surf),
+                         "hit": int(hit.sum()), "seconds": self.attach_seconds[-1],
+                         "equal": torch.equal(data["surf_t"], surf)
+                         and torch.equal(data["surf_hit"], hit)})
+
+    def take(self, batch_size, n_inner):
+        perm, start = real_take(self, batch_size, n_inner)
+        drawn.setdefault((id(self), self._epoch_i), []).append(
+            perm[start:start + batch_size * n_inner].clone())
+        return perm, start
+
+    def gather(self, idx):
+        drawn.setdefault((id(self), self._epoch_i), []).append(idx.clone())
+        return real_gather(self, idx)
+
+    counters = launch_counters()
+    runs = {}
+    with mock.patch.object(loop.Trainer, "_attach_pool_surface", attach), \
+            mock.patch.object(DeviceRayPool, "take_scan_window", take), \
+            mock.patch.object(DeviceRayPool, "gather", gather):
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        tr = train_cli(cfg_path, save_dir, "device_pool", TRAIN_BATCH, TRAINER_STEPS, device,
+                       extra)
+        sync()
+        wall = time.perf_counter() - t0
+        runs["device_pool"] = read_counts()
+        n_attach = len(attaches)
+        reset_counts(counters)
+        ck = latest_checkpoint(tr.ckpt_dir)
+        tr2 = train_cli(resume_path, save_dir, "device_pool_resume", TRAIN_BATCH, POOL_RESUME,
+                        device, extra + ["--ckpt_path", ck or ""])
+        sync()
+        runs["device_pool_resume"] = read_counts()
+
+    if tr.state.step != TRAINER_STEPS or tr2.state.step != TRAINER_STEPS + POOL_RESUME:
+        fails.append(f"device-pool train_cli ended at steps {tr.state.step} / {tr2.state.step}")
+    if not isinstance(tr.device_pool, DeviceRayPool) or not isinstance(tr2.device_pool,
+                                                                       DeviceRayPool):
+        fails.append("train_cli with DEVICE_POOL 'auto' did not build the device pool")
+    refresh_steps = [r["step"] for r in tr.refreshes]
+    if refresh_steps != [TRAINER_UPDATE, 2 * TRAINER_UPDATE]:
+        fails.append(f"device-pool refreshes at steps {refresh_steps}")
+    # after every refresh that kept cells, and at the resume's start
+    want = ([r["step"] for r in tr.refreshes if r.get("n_kept", 0) > 0], [TRAINER_STEPS])
+    got_at = ([a["step"] for a in attaches[:n_attach]], [a["step"] for a in attaches[n_attach:]])
+    if got_at != want:
+        fails.append(f"band cache attached at steps {got_at}, not {want}")
+    for a in attaches:
+        print(f"band cache at step {a['step']}: {a['rows']} pool rows, {a['hit']} hit, "
+              f"{a['seconds']:.3f} s (K10), equal to the plain DDA on every row {a['equal']}")
+        if not a["equal"]:
+            fails.append(f"band cache at step {a['step']} differs from the plain DDA")
+    overlap = {e: sum(len(t) for t in ts) - len(torch.unique(torch.cat(ts)))
+               for e, ts in drawn.items()}
+    print("device-pool epochs drawn (run and resume): " + ", ".join(
+        f"epoch {e[1]}: {sum(len(t) for t in ts)} rows in {len(ts)} windows / batches, "
+        f"{overlap[e]} repeated" for e, ts in drawn.items()))
+    if any(overlap.values()):
+        fails.append(f"device-pool epoch windows overlap: {overlap}")
+    recs = log_records(tr.logger.path)
+    losses = [(r["step"], r["loss"]) for r in recs if "loss" in r]
+    bad = [(r["step"], k) for r in recs for k, v in r.items() if not math.isfinite(v)]
+    if bad or len(losses) < 2 or not losses[-1][1] < losses[0][1]:
+        fails.append(f"device-pool train_cli losses {losses}, non-finite {bad[:5]}")
+    val = [r for r in recs if "val/psnr" in r]
+    if len(val) != 1:
+        fails.append(f"device-pool train_cli: {len(val)} validations")
+    rate = {r["step"]: r["rays_per_sec"] for r in recs if "rays_per_sec" in r}
+
+    scan = tr.scan_runs()
+    graph = graph_launches(tr, runs["device_pool"])
+    print("device-pool runs: " + "; ".join(
+        f"{'graph' if r.graph else 'eager'} {r.n_inner}-step run: {r.captures} capture(s), "
+        f"{r.replays} replays, per captured step " + ", ".join(
+            f"{n} {v}" for n, v in r.per_step_launches.items()) for r in scan))
+    got = runs["device_pool"]
+    print(f"launches in train_cli on the device pool ({TRAINER_STEPS} steps): counted (eager "
+          "steps, warm-ups, captures, refreshes, validation) " + ", ".join(
+              f"{n} {v}" for n, v in got.items() if v) + "; by graph replays (replays x per "
+          "step) " + ", ".join(f"{n} {v}" for n, v in graph.items() if v))
+    print(f"launches in the device-pool resume ({POOL_RESUME} steps): " + ", ".join(
+        f"{n} {v}" for n, v in runs["device_pool_resume"].items() if v))
+    if device == "cuda":
+        step_kernels = {"sdf_mlp", "sdf_mlp_bf16", "up_sample"}
+        if len(scan) != 2 or not all(graph_ran(r) for r in scan):
+            fails.append("the device-pool run did not replay a graph in both phases")
+        for r in scan:
+            if not {"sdf_mlp", "up_sample"} <= set(r.per_step_launches) \
+                    or set(r.per_step_launches) - step_kernels:
+                fails.append(f"a captured step's launches {r.per_step_launches}")
+        runs["device_pool_graph"] = graph
+    warm, steady = rate.get(2 * TRAINER_LOG), rate.get(TRAINER_STEPS)
+    print(f"train_cli ({card}) rays/s, host pool against device pool + graph: warm-up "
+          f"{host_rates.get(2 * TRAINER_LOG, float('nan')):.1f} / {warm:.1f} (steps "
+          f"{TRAINER_LOG + 1}-{2 * TRAINER_LOG}), steady "
+          f"{host_rates.get(TRAINER_STEPS, float('nan')):.1f} / {steady:.1f} (steps "
+          f"{TRAINER_STEPS - TRAINER_LOG + 1}-{TRAINER_STEPS}); device-pool windows "
+          + ", ".join(f"{s} {v:.1f}" for s, v in sorted(rate.items()))
+          + f"; refreshes " + ", ".join(f"{r['seconds']:.3f} s" for r in tr.refreshes)
+          + f"; band cache " + ", ".join(f"{s:.3f} s" for s in tr.attach_seconds)
+          + f"; logged loss " + ", ".join(f"{s} {v:.4f}" for s, v in losses)
+          + f"; wall {wall:.2f} s")
+    return runs, fails
 
 
 # ------------------------------- extraction -------------------------------
@@ -1804,15 +2291,12 @@ def reset_counts(counters: dict) -> None:
     fused_sdf_head.launches_f32 = 0
 
 
-def read_counts(counters: dict) -> dict:
+def read_counts() -> dict:
     """Launches per kernel since reset_counts, K1 split into its bf16 and
     float32 launches (``sdf_mlp_bf16`` / ``sdf_mlp_f32``)."""
-    from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head
+    from neuralrecon_w_tpu_torch.ops import read_launches
 
-    got = {n: c.launches for n, c in counters.items()}
-    got["sdf_mlp_f32"] = fused_sdf_head.launches_f32
-    got["sdf_mlp_bf16"] = got["sdf_mlp"] - got["sdf_mlp_f32"]
-    return got
+    return read_launches()
 
 
 def cli_workspace(root: str, device: str, n_images: int, wh, n_points: int, cam_dist: float,
@@ -1942,7 +2426,9 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
     overrides = merged({
         "NEUCONW": {"UPDATE_FREQ": TRAINER_UPDATE, "TRAIN_VOXEL_SIZE": train_voxel},
         "TRAINER": {"VAL_FREQ": float(TRAINER_VAL), "SAVE_FREQ": TRAINER_UPDATE}}, extra_cfg)
-    cfg_path = write_cfg(os.path.join(root, "train.yaml"), root, overrides)
+    # the host pool here; device_pool_trainer_phase runs DEVICE_POOL 'auto'
+    host = merged(overrides, {"TPU": {"DEVICE_POOL": False}})
+    cfg_path = write_cfg(os.path.join(root, "train.yaml"), root, host)
     counters = launch_counters()
     save_dir = os.path.join(root, "results")
     extra = ["--log_every", str(TRAINER_LOG), "--test_batch_size", str(TRAIN_BATCH)]
@@ -1951,7 +2437,7 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
     tr = train_cli(cfg_path, save_dir, "trainer", TRAIN_BATCH, TRAINER_STEPS, device, extra)
     sync()
     wall = time.perf_counter() - t0
-    launches = {"trainer": read_counts(counters)}
+    launches = {"trainer": read_counts()}
     n_rays = len(tr.load_rays())
     print(f"trainer workspace: {TRAINER_CAMS} + 1 views of {IMG_WH[0]}x{IMG_WH[1]}, "
           f"{info['n_points']} SFM points, SFM grid level {tr.sfm_grid.level} "
@@ -2000,7 +2486,9 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
                        for r in tr.refreshes)):
         fails.append(f"checkpoints: {sorted(os.listdir(tr.ckpt_dir))}")
     got = launches["trainer"]
-    want = ("sdf_mlp_bf16", "sdf_mlp_f32", "up_sample")
+    # K10: the validation's SFM near / far; K11: every step's fine-grid
+    # query once a fine grid exists, and the validation's
+    want = ("sdf_mlp_bf16", "sdf_mlp_f32", "up_sample", "dda", "sampled_hit")
     print(f"launches in train_cli ({TRAINER_STEPS} steps, 'vjp'): " + ", ".join(
         f"{n} {v}" for n, v in got.items() if v))
     if device == "cuda":
@@ -2017,13 +2505,13 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
 
     # resume in the fused mode: the CLI path through K6, K7, K5, K8, K9
     cfg2 = write_cfg(os.path.join(root, "train_fused.yaml"), root, merged(
-        overrides, {"TPU": {"SDF_GRAD_MODE": "pallas_field", "FUSED_BG": True}}))
+        host, {"TPU": {"SDF_GRAD_MODE": "pallas_field", "FUSED_BG": True}}))
     reset_counts(counters)
     t0 = time.perf_counter()
     tr2 = train_cli(cfg2, save_dir, "trainer_resume", TRAIN_BATCH, TRAINER_RESUME, device,
                     extra + ["--ckpt_path", ck or ""])
     sync()
-    got = launches["resume"] = read_counts(counters)
+    got = launches["resume"] = read_counts()
     print(f"launches in train_cli resumed {TRAINER_RESUME} steps in 'pallas_field' + FUSED_BG "
           f"(a refresh first): " + ", ".join(f"{n} {v}" for n, v in got.items() if v)
           + f"; wall {time.perf_counter() - t0:.2f} s; its refresh " + ", ".join(
@@ -2057,17 +2545,22 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
             fails.append(f"refresh at step {r['step']}: {c['wrong_clear']} cells against the "
                          f"plain SDF")
     if device == "cuda":
-        want = MODE_KERNELS["pallas_field"]
+        want = MODE_KERNELS["pallas_field"] + ("sampled_hit",)
         fails += [f"{n} not launched by the resumed train_cli" for n in want if got[n] <= 0]
         fails += [f"{n} launched by the resumed train_cli, not its mode's" for n in counters
                   if got[n] and n not in want]
-    return launches, fails
+    pool_runs, pool_fails = device_pool_trainer_phase(root, overrides, device, extra, rate, card)
+    launches.update(pool_runs)
+    return launches, fails + pool_fails
 
 
 def e2e_gate_phase(root: str, device: str = "cuda", card: str = "the CPU"):
     """tests/test_e2e.py:79-191 through the port's CLIs: its workspace (6
     views of 40x30) and cache, train_cli 300 steps at batch 512 (the
-    refreshed grid's voxels within E2E_VOXELS), extract_mesh_cli at
+    refreshed grid's voxels within E2E_VOXELS; on the card under the
+    default TPU.DEVICE_POOL 'auto', so the device pool and the CUDA graph,
+    which the phase checks ran and whose replays it counts into the
+    train run's launches), extract_mesh_cli at
     --mesh_size 48 --vertex_color, eval_mesh against the analytic sphere
     (E2E_GATES, docs/e2e_gate_calibration.json), render_cli from the trained
     checkpoint (image std above E2E_RENDER_STD), and a resume to step 302.
@@ -2095,7 +2588,21 @@ def e2e_gate_phase(root: str, device: str = "cuda", card: str = "the CPU"):
     tr = train_cli(cfg_path, save_dir, "sphere", 512, 300, device, ["--test_batch_size", "128"])
     sync()
     t_train = time.perf_counter() - t0
-    launches = {"train": read_counts(counters)}
+    counted = read_counts()
+    graph = graph_launches(tr, counted)
+    launches = {"train": {n: v + graph[n] for n, v in counted.items()}}
+    scan = tr.scan_runs()
+    print(f"e2e gate's train_cli: {type(tr.device_pool).__name__ if tr.device_pool else 'host'}"
+          " pool; " + "; ".join(
+              f"{'graph' if r.graph else 'eager'} {r.n_inner}-step run: {r.captures} "
+              f"capture(s), {r.replays} replays" for r in scan)
+          + "; launches by graph replays (replays x per step) "
+          + ", ".join(f"{n} {v}" for n, v in graph.items() if v))
+    if device == "cuda":
+        from neuralrecon_w_tpu_torch.datasets.cache import DeviceRayPool
+
+        if not isinstance(tr.device_pool, DeviceRayPool) or not any(graph_ran(r) for r in scan):
+            fails.append("the e2e gate's train_cli did not run the device pool and a CUDA graph")
     n_vox = len(tr.fine_grid_host.coords) if tr.fine_grid_host is not None else 0
     ck = latest_checkpoint(tr.ckpt_dir)
     if tr.state.step != 300 or not E2E_VOXELS[0] <= n_vox <= E2E_VOXELS[1] or not ck \
@@ -2110,7 +2617,7 @@ def e2e_gate_phase(root: str, device: str = "cuda", card: str = "the CPU"):
                                  "--out", out, "--device", device])
     sync()
     t_mesh = time.perf_counter() - t0
-    launches["extract"] = read_counts(counters)
+    launches["extract"] = read_counts()
     metrics = {}
     if res is None or res.path != out or len(read_ply(out)["verts"]) <= 50 \
             or "colors" not in read_ply(out):
@@ -2141,7 +2648,7 @@ def e2e_gate_phase(root: str, device: str = "cuda", card: str = "the CPU"):
     tr2 = train_cli(cfg_path, save_dir, "sphere_resume", 512, 2, device,
                     ["--test_batch_size", "128", "--ckpt_path", ck or "", "--divide_lr"])
     sync()
-    launches["resume"] = read_counts(counters)
+    launches["resume"] = read_counts()
     if tr2.state.step != 302:
         fails.append(f"e2e resume ended at step {tr2.state.step}, not 302")
     print(f"e2e gate ({card}): train_cli 300 steps at batch 512 in {t_train:.2f} s, "
@@ -2219,9 +2726,10 @@ def main() -> int:
         field_config_from_cfg, load_cfg, render_config_from_cfg)
     from neuralrecon_w_tpu_torch.ops import build, native
     from neuralrecon_w_tpu_torch.ops.importance_sampler import up_sample_round
-    from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
+    from neuralrecon_w_tpu_torch.ops.ray_voxel import (
+        dda_traverse, device_grid_from_host, sampled_first_hit)
     from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head
-    from neuralrecon_w_tpu_torch.datasets.cache import RayPool
+    from neuralrecon_w_tpu_torch.datasets.cache import DeviceRayPool, RayPool
     from neuralrecon_w_tpu_torch.ops.field_forward import fused_field_forward
     from neuralrecon_w_tpu_torch.ops.nerf_bg_fused import nerf_bg_fwd
     from neuralrecon_w_tpu_torch.rendering.renderer import bg_eval_idx
@@ -2273,20 +2781,31 @@ def main() -> int:
     z_base = near + (far - near) * torch.linspace(0, 1, 8, device=dev)[None, :]
     kres, fails = kernel_phase(model, fc, rays_o, rays[:, 3:6].contiguous(), z_base.contiguous(),
                                CHUNK * 30)
+    rres, rfails = ray_kernel_phase(scene, sfm_grid, sfm_host.level, fine_grid, fine_host, frames,
+                                    rcfg_steady)
+    kres.update(rres)
+    fails += rfails
 
     # serving: launches are counted from here on
-    fused_sdf_head.launches = up_sample_round.launches = 0
+    serve_k = {"sdf_mlp": fused_sdf_head, "up_sample": up_sample_round, "dda": dda_traverse,
+               "sampled_hit": sampled_first_hit}
+    for k in serve_k.values():
+        k.launches = 0
     rps_warm, outs_warm = serving_phase(model, fc, rcfg_warm, scene, frames, None, sfm_grid,
                                         "warm-up")
-    launches_warm = (fused_sdf_head.launches, up_sample_round.launches)
+    launches_warm = {n: k.launches for n, k in serve_k.items()}
     rps_steady, outs_steady = serving_phase(model, fc, rcfg_steady, scene, frames, fine_grid,
                                             sfm_grid, "steady")
-    launches = {"sdf_mlp": fused_sdf_head.launches, "up_sample": up_sample_round.launches}
-    print(f"launches in serving: K1 sdf_mlp {launches['sdf_mlp']} (warm-up {launches_warm[0]}), "
-          f"K2 up_sample {launches['up_sample']} (warm-up {launches_warm[1]})")
-    for name, warm, total in zip(launches, launches_warm, launches.values()):
-        if warm <= 0 or total <= warm:
+    launches = {n: k.launches for n, k in serve_k.items()}
+    print("launches in serving: " + ", ".join(
+        f"{n} {launches[n]} (warm-up {launches_warm[n]})" for n in serve_k))
+    # K10 serves the SFM near / far in both phases; K11 the steady fine-grid query
+    for name in ("sdf_mlp", "up_sample", "dda"):
+        if launches_warm[name] <= 0 or launches[name] <= launches_warm[name]:
             fails.append(f"{name} not launched in every serving phase")
+    if launches_warm["sampled_hit"] or launches["sampled_hit"] <= 0:
+        fails.append(f"sampled_hit launched {launches_warm['sampled_hit']} / "
+                     f"{launches['sampled_hit']} times in the warm-up / steady serving")
     fails += check_frames(outs_warm, frames, "warm-up")
     fails += check_frames(outs_steady, frames, "steady")
     fails += path_check(model, fc, rcfg_warm, scene, frames[1], None, sfm_grid, "warm-up")
@@ -2364,6 +2883,19 @@ def main() -> int:
     batch = pool.next_batch(TRAIN_BATCH)
     fails += step_parity(cfg, state.model, scene, batch, None, -1, "warm-up")
     fails += step_parity(cfg, state.model, scene, batch, fine_grid, fine_host.level, "steady")
+    # a captured window against eager steps from one state, on the device
+    # pool of the same rays (the steady phase with its band cache)
+    dpool = DeviceRayPool(pool, dev, seed=SEED)
+    _, gfails = graph_parity(cfg, state, scene, dpool, None, -1, "warm-up")
+    fails += gfails
+    t0 = time.perf_counter()
+    dpool.attach_surface(fine_grid, fine_host.level)
+    sync()
+    print(f"band cache of the {len(dpool)} training rays at level {fine_host.level}: "
+          f"{time.perf_counter() - t0:.3f} s")
+    _, gfails = graph_parity(cfg, state, scene, dpool, fine_grid, fine_host.level, "steady",
+                             profile=args.profile)
+    fails += gfails
     print(f"training rays/s ({card}): " + "; ".join(
         f"{label} " + ", ".join(f"{m} {r[m]:.1f}" for m in TRAIN_MODES)
         for label, r in rps_train.items()))
@@ -2372,7 +2904,7 @@ def main() -> int:
     # served field through extract_mesh_cli at level 10. Not the trained
     # one: 28 steps on the synthetic sphere leave it no closed surface
     # (PERF.md, section 6)
-    del pool, rows, rgbs, batch, state
+    del pool, dpool, rows, rgbs, batch, state
     xres, xfails = field_kernel_phase(model, fc)
     fails += xfails
     kres.update(xres)
@@ -2419,7 +2951,13 @@ def main() -> int:
                "nerf_bg_fwd": ("neuralrecon_w_tpu_torch/csrc/nerf_bg.cu",
                                "neuralrecon_w_tpu/ops/pallas_nerf_bg.py:370"),
                "nerf_bg_bwd": ("neuralrecon_w_tpu_torch/csrc/nerf_bg.cu",
-                               "neuralrecon_w_tpu/ops/pallas_nerf_bg.py:403")}
+                               "neuralrecon_w_tpu/ops/pallas_nerf_bg.py:403"),
+               # no Pallas kernel: JAX's DDA is a lax.while_loop, its sampled
+               # query an XLA gather (PERF.md's second table)
+               "dda": ("neuralrecon_w_tpu_torch/csrc/ray_voxel.cu",
+                       "neuralrecon_w_tpu/ops/ray_voxel.py:59"),
+               "sampled_hit": ("neuralrecon_w_tpu_torch/csrc/ray_voxel.cu",
+                               "neuralrecon_w_tpu/ops/ray_voxel.py:326")}
     # K1 and K2 count the serving path's launches; K3, K4 the training
     # path's in 'pallas', K7 to K9 in 'pallas_field', K5 in both (by_mode);
     # K6 its launches on every path (kernel 5's forward in training, the
@@ -2433,7 +2971,9 @@ def main() -> int:
                     field_bwd=fused["field_bwd"], nerf_bg_bwd=fused["nerf_bg_bwd"],
                     field_fwd=fused["field_fwd"] + serve_fused["field_fwd"]
                     + x_launches["field_fwd"],
-                    nerf_bg_fwd=fused["nerf_bg_fwd"] + serve_fused["nerf_bg_fwd"])
+                    nerf_bg_fwd=fused["nerf_bg_fwd"] + serve_fused["nerf_bg_fwd"],
+                    sampled_hit=launches["sampled_hit"] + sum(
+                        train_launches[m]["sampled_hit"] for m in TRAIN_MODES))
     kres["sdf_mlp"]["extraction"] = {"launches": x_launches["sdf_mlp"], **kres.pop("sdf_mlp_f32")}
     kres["field_fwd_extraction"] = kres.pop("field_fwd")
     kres.update(fres)

@@ -71,6 +71,10 @@ _DEFAULTS = {
             "SFM_PATH": "sparse", "DEPTH_PERCENT": -1.0,
         },
     },
+    # DEVICE_POOL 'auto': the rays on the card (DeviceRayPool, its band
+    # cache, SCAN_INNER steps a dispatch as one CUDA graph) when the Trainer
+    # runs on a CUDA device, the host RayPool on the CPU
+    # (training/loop.resolve_device_pool)
     "TPU": {
         "MESH_DATA": -1, "MESH_MODEL": 1, "DONATE_STATE": True,
         "FUSED_SAMPLER_SDF": "auto", "DEVICE_POOL": "auto", "POOL_SAMPLING": "epoch",

@@ -18,6 +18,9 @@ inputs (reference datasets/phototourism.py:709-724): rays (10 columns: o,
 d, near, far, depth, weight), ts, labels and rgbs; and draws shuffled
 without-replacement batches from a ``numpy.random.RandomState(seed)``, the
 same batches as the JAX package's ``RayPool`` for the same seed.
+``DeviceRayPool`` (``cache.py:188-449``) holds those rows on the card,
+gathers every batch there, and carries the surface-band cache
+(``attach_surface``) that the training step reads after a refresh.
 """
 
 from __future__ import annotations
@@ -150,3 +153,131 @@ class RayPool:
     def gather(self, idx: np.ndarray) -> dict:
         return {"rays": self.rays[idx], "ts": self.ts[idx], "labels": self.labels[idx],
                 "rgbs": self.rgbs[idx]}
+
+
+class DeviceRayPool:
+    """The ray pool resident on the card (``cache.py:188-424``): the rows
+    of a host ``RayPool`` as device tensors ``data`` ("rays", "ts",
+    "labels", "rgbs"), every batch a gather on the device.
+
+    ``sampling`` 'epoch' (the default) draws shuffled without-replacement
+    batches, the host pool's and the reference's DataLoader(shuffle=True)
+    semantics, from a device permutation per epoch, made by a
+    ``torch.Generator`` seeded from (seed, epoch) and advanced by a host
+    cursor; the stream is not JAX's ``jax.random.permutation``, the
+    semantics are: each row once an epoch, windows disjoint. 'replacement'
+    draws each batch with replacement. One card: the JAX package's mesh
+    branches are its one-shard case.
+
+    The permutation and the band cache are written in place (one tensor
+    each for the pool's life), so a captured step that reads them keeps
+    valid pointers."""
+
+    def __init__(self, pool: RayPool, device=None, sampling: str = "epoch", seed: int = 0):
+        import torch
+
+        from ..device import default_device
+
+        if sampling not in ("epoch", "replacement"):
+            raise ValueError(f"unknown sampling mode {sampling!r}")
+        self.device = default_device(device)
+        self.sampling = sampling
+        self._seed = int(seed)
+        self._epoch_i = 0
+        self._cursor = 0
+        self._perm = None
+        self._surf = None
+        self.n = len(pool)
+        self.data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                     for k, v in (("rays", pool.rays.astype(np.float32)), ("ts", pool.ts),
+                                  ("labels", pool.labels),
+                                  ("rgbs", pool.rgbs.astype(np.float32)))}
+        self._gen = torch.Generator(device=self.device).manual_seed(self._seed)
+
+    def __len__(self):
+        return self.n
+
+    def epoch_batches(self, batch_size: int) -> int:
+        return self.n // batch_size
+
+    def _reshuffle(self):
+        """The next epoch's permutation, written into the pool's one
+        permutation tensor; cursor to 0."""
+        import torch
+
+        g = torch.Generator(device=self.device).manual_seed(
+            self._seed * 1_000_003 + self._epoch_i)
+        perm = torch.randperm(self.n, generator=g, device=self.device)
+        if self._perm is None:
+            self._perm = perm
+        else:
+            self._perm.copy_(perm)
+        self._epoch_i += 1
+        self._cursor = 0
+
+    def gather(self, idx) -> dict:
+        return {k: v.index_select(0, idx) for k, v in self.data.items()}
+
+    def next_batch(self, batch_size: int) -> dict:
+        """A batch on the device: the next window of the epoch's
+        permutation ('epoch'), or a draw with replacement."""
+        import torch
+
+        if self.sampling == "replacement":
+            return self.gather(torch.randint(0, self.n, (batch_size,), generator=self._gen,
+                                             device=self.device))
+        if self._perm is None or self._cursor + batch_size > self.n:
+            self._reshuffle()
+        idx = self._perm[self._cursor:self._cursor + batch_size]
+        self._cursor += batch_size
+        return self.gather(idx)
+
+    def take_scan_window(self, batch_size: int, n_inner: int):
+        """Reserve the next n_inner consecutive epoch batches for a
+        multi-step dispatch: (perm, start) for ``make_scan_train_fn``, or
+        (None, None) with 'replacement' sampling."""
+        if self.sampling == "replacement":
+            return None, None
+        need = batch_size * n_inner
+        if need > self.n:
+            raise ValueError(f"scan window {need} rows exceeds the {self.n}"
+                             "-row pool; lower TPU.SCAN_INNER or the batch size")
+        if self._perm is None or self._cursor + need > self.n:
+            self._reshuffle()
+        start = self._cursor
+        self._cursor += need
+        return self._perm, start
+
+    def attach_surface(self, grid, level: int, chunk: int = 1 << 18):
+        """Every row's surface-band first hit by the exact DDA (``_band_query``,
+        K10 on the card), written into the pool's ``surf_t`` / ``surf_hit``
+        (the same two tensors at every refresh) and gathered with each
+        batch from now on. The band depends on (ray, fine grid) alone and
+        the grid changes only at a surface refresh, so one pass a refresh
+        replaces a query in every step. Call after every refresh;
+        ``detach_surface`` drops the cache from the batches."""
+        import torch
+
+        if self._surf is None:
+            self._surf = (torch.empty(self.n, dtype=torch.float32, device=self.device),
+                          torch.empty(self.n, dtype=torch.bool, device=self.device))
+        surf_t, surf_hit = self._surf
+        rays = self.data["rays"]
+        for i in range(0, self.n, chunk):
+            surf, hit = _band_query(grid, level, rays[i:i + chunk])
+            surf_t[i:i + chunk].copy_(surf)
+            surf_hit[i:i + chunk].copy_(hit)
+        self.data = {**self.data, "surf_t": surf_t, "surf_hit": surf_hit}
+
+    def detach_surface(self):
+        self.data = {k: v for k, v in self.data.items() if k not in ("surf_t", "surf_hit")}
+
+
+def _band_query(grid, level: int, rays):
+    """The surface band's first hit of ray rows (R, >= 6) in SFM units:
+    (surf_t, hit) of ``grid_near_far(..., first_only=True)``
+    (``cache.py:427-449``)."""
+    from ..ops.ray_voxel import grid_near_far
+
+    surf, _, hit = grid_near_far(grid, level, rays[:, 0:3], rays[:, 3:6], first_only=True)
+    return surf, hit

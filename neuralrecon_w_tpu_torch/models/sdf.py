@@ -117,7 +117,8 @@ def apply_sdf_split(net: SDFNetwork, cfg: dict, x: torch.Tensor,
     inputs = inputs.to(act)
 
     h = inputs
-    inv_sqrt2 = torch.tensor(1.0 / math.sqrt(2), dtype=act, device=x.device)
+    # made on the device (no host copy, which a captured step cannot hold)
+    inv_sqrt2 = torch.full((), 1.0 / math.sqrt(2), dtype=act, device=x.device)
     for l in range(net.n_layers - 1):
         layer = net.layer(l)
         w = layer_weight(layer).to(act)

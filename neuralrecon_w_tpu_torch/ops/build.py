@@ -46,6 +46,8 @@ _SIGNATURES = {
                   _P],
     "nw_bg_bwd": [_P, _P, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                   _LL, _I, _P, _P, _P, _P],
+    "nw_dda": [_P, _I, _P, _P, _LL, _I, _I, _P, _P, _P, _P, _P],
+    "nw_sampled_hit": [_P, _I, _P, _P, _P, _P, _P, _I, _LL, _P, _P, _P, _P],
 }
 
 

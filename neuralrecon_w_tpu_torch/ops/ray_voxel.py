@@ -1,13 +1,20 @@
 """Ray / occupancy-grid intersection for flat grids
-(``neuralrecon_w_tpu/ops/ray_voxel.py``), in plain torch.
+(``neuralrecon_w_tpu/ops/ray_voxel.py``): kernels K10 (the exact DDA) and
+K11 (the sampled first-hit query) in ``csrc/ray_voxel.cu``, and their
+plain PyTorch versions.
 
 The JAX package marches a packed occupancy bitfield with a branch-free
-Amanatides-Woo DDA inside ``lax.while_loop``. Here the loop is a Python
-loop over whole-batch tensor steps; it asks the device whether any ray is
-still active only every ``_SYNC_EVERY`` steps, so the host does not wait
-on the card at every step. The loop is bound by the host's kernel-launch
-rate; a per-ray CUDA loop is the next step. Serving uses flat grids only
-(``tools/render_cli.py:127``); the two-level ``HierGrid`` is not ported.
+Amanatides-Woo DDA inside ``lax.while_loop``, and samples the band's
+interval densely for the sampled query. On a CUDA tensor ``dda_traverse``
+launches K10 and ``sampled_first_hit`` K11, one thread per ray, or raise;
+on a CPU tensor they run their plain versions: ``dda_traverse_plain``, a
+Python loop of whole-batch tensor steps that asks the device whether any
+ray is still active every ``_SYNC_EVERY`` steps, and
+``sampled_first_hit_plain`` over the (R, n_samples) sample buffer. Each
+kernel equals its plain version bit for bit. Serving, the ray cache, the
+training step's fine-grid query and the device pool's band cache all go
+through these two entries. Grids are flat; the two-level ``HierGrid`` is
+not ported (a flat level-10 grid is 128 MiB).
 
 Contract (get_near_far parity): depths are ray parameters of the ENTRY
 points of the first / last intersected voxel, in SFM units; rays whose
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from ..device import default_device
+from .build import check, kernels, stream_handle
 from .voxel_grid import VoxelGrid
 
 _INF = 1e10
@@ -57,20 +65,73 @@ def _bit(occ: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return ((word >> (idx & 31).to(torch.int32)) & 1) == 1
 
 
+def _default_steps(level: int) -> int:
+    return 3 * (1 << level) + 2
+
+
 def dda_traverse(occ: torch.Tensor, level: int, rays_o: torch.Tensor,
                  rays_d: torch.Tensor, first_only: bool = False,
-                 max_steps: int | None = None):
-    """March rays (grid-normalized coordinates) through the [-1, 1]^3
-    grid. Returns (t_first, t_last, hit); misses hold 0.
+                 max_steps: int | None = None, steps_out: torch.Tensor | None = None):
+    """March rays (R, 3) in grid-normalized coordinates through the
+    [-1, 1]^3 grid. Returns (t_first, t_last, hit); misses hold 0. CPU
+    tensors take the plain version; CUDA tensors launch K10, or raise.
+    ``steps_out`` ((R,) int32, CUDA only) receives each ray's loop trips."""
+    if max_steps is None:
+        max_steps = _default_steps(level)
+    if rays_o.device.type == "cpu":
+        return dda_traverse_plain(occ, level, rays_o, rays_d, first_only, max_steps)
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"tensors on {rays_o.device}")
+    r = rays_o.shape[0]
+    _check_rays("dda_traverse", occ, level, rays_o, rays_d)
+    if steps_out is not None and (steps_out.shape != (r,) or steps_out.dtype != torch.int32
+                                  or steps_out.device != rays_o.device):
+        raise ValueError("dda_traverse: steps_out must be (R,) int32 on the rays' device")
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+    t_first = torch.empty(r, dtype=torch.float32, device=rays_o.device)
+    t_last = torch.empty_like(t_first)
+    hit = torch.empty(r, dtype=torch.bool, device=rays_o.device)
+    err = kernels().nw_dda(occ.data_ptr(), level, rays_o.data_ptr(), rays_d.data_ptr(), r,
+                           int(first_only), int(max_steps), t_first.data_ptr(), t_last.data_ptr(),
+                           hit.data_ptr(), None if steps_out is None else steps_out.data_ptr(),
+                           stream_handle(rays_o.device))
+    check("nw_dda", err)
+    dda_traverse.launches += 1
+    return t_first, t_last, hit
+
+
+dda_traverse.launches = 0
+
+
+def _check_rays(name: str, occ, level: int, rays_o, rays_d, *rows):
+    r = rays_o.shape[0]
+    tensors = (rays_o, rays_d) + rows
+    if any(t.dtype != torch.float32 or t.device != rays_o.device for t in tensors):
+        raise ValueError(f"{name} takes float32 tensors on one device")
+    if rays_o.shape != (r, 3) or rays_d.shape != (r, 3) or any(t.shape != (r,) for t in rows):
+        raise ValueError(f"{name}: rays (R, 3), rows (R,) of one R")
+    n_words = max((1 << (3 * level)) // 32, 1)
+    if occ.dtype != torch.int32 or occ.device != rays_o.device or occ.shape != (n_words,) \
+            or not occ.is_contiguous():
+        raise ValueError(f"{name}: a level-{level} grid is ({n_words},) int32 words on the "
+                         "rays' device")
+
+
+def dda_traverse_plain(occ: torch.Tensor, level: int, rays_o: torch.Tensor,
+                       rays_d: torch.Tensor, first_only: bool = False,
+                       max_steps: int | None = None, touched: torch.Tensor | None = None):
+    """The plain PyTorch version of K10 (same contract as dda_traverse).
 
     Each step is a handful of whole-batch tensor ops, so its cost is the
     host's launch rate: the cell is carried as a linear index, the grid
     exit as per-axis counts of steps left, and the step axis by argmin +
     gather / scatter. The f32 arithmetic is the JAX loop's, so the
-    results are the same bit for bit."""
+    results are the same bit for bit. ``touched`` (occ's shape, int32)
+    gains one at a word for every read of it that K10 makes: one a loop
+    trip of each ray."""
     n = 1 << level
     if max_steps is None:
-        max_steps = 3 * n + 2
+        max_steps = _default_steps(level)
     r = rays_o.shape[0]
     cell_w = 2.0 / n
 
@@ -104,7 +165,10 @@ def dda_traverse(occ: torch.Tensor, level: int, rays_o: torch.Tensor,
         if i % _SYNC_EVERY == 0 and not bool(active.any()):
             break
         # the index is in range while the ray is active; clamp for the rest
-        occ_hit = _bit(occ, torch.clamp(idx, 0, n * n * n - 1)) & active
+        at = torch.clamp(idx, 0, n * n * n - 1)
+        occ_hit = _bit(occ, at) & active
+        if touched is not None:
+            touched.index_add_(0, at >> 5, active.to(torch.int32))
         first = torch.where(occ_hit & (first >= _INF), t_cur, first)
         last = torch.where(occ_hit, t_cur, last)
 
@@ -122,26 +186,79 @@ def dda_traverse(occ: torch.Tensor, level: int, rays_o: torch.Tensor,
     return torch.where(hit, first, zero), torch.where(hit, last, zero), hit
 
 
+def _cell_index(level: int, pts: torch.Tensor) -> torch.Tensor:
+    """Linear cell indices (int64) of points in grid-normalized [-1, 1]^3."""
+    n = 1 << level
+    c = torch.clamp(torch.floor((pts + 1.0) * (n / 2.0)), 0, n - 1).long()
+    return (c[..., 0] * n + c[..., 1]) * n + c[..., 2]
+
+
 def occupancy_lookup(grid: DeviceGrid, level: int, pts: torch.Tensor) -> torch.Tensor:
     """Occupancy of points in grid-normalized [-1, 1]^3, any leading
     shape (flat branch of ``ray_voxel.py:298-323``)."""
-    n = 1 << level
-    c = torch.clamp(torch.floor((pts + 1.0) * (n / 2.0)), 0, n - 1).long()
-    idx = (c[..., 0] * n + c[..., 1]) * n + c[..., 2]
-    return _bit(grid.occ, idx)
+    return _bit(grid.occ, _cell_index(level, pts))
 
 
 def sampled_first_hit(grid: DeviceGrid, level: int, rays_o, rays_d, t_lo, t_hi,
-                      n_samples: int = 1024):
+                      n_samples: int = 1024, steps_out: torch.Tensor | None = None):
     """First-hit parameter by dense occupancy sampling of [t_lo, t_hi]
-    (``ray_voxel.py:326-358``). Returns (t_first, hit), t_first = 0 on miss."""
-    rel = (torch.arange(n_samples, dtype=torch.float32, device=rays_o.device) + 0.5) / n_samples
+    (``ray_voxel.py:326-358``): the first of the n_samples midpoints
+    inside the cube and occupied. Returns (t_first, hit), t_first = 0 on
+    miss. CPU tensors take the plain version; CUDA tensors launch K11,
+    which walks the samples in order and stops at the first hit, or
+    raise. ``steps_out`` ((R,) int32, CUDA only): samples walked a ray."""
+    if rays_o.device.type == "cpu":
+        return sampled_first_hit_plain(grid, level, rays_o, rays_d, t_lo, t_hi, n_samples)
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"tensors on {rays_o.device}")
+    t_lo, t_hi = t_lo.contiguous(), t_hi.contiguous()
+    _check_rays("sampled_first_hit", grid.occ, level, rays_o, rays_d, t_lo, t_hi)
+    r = rays_o.shape[0]
+    if steps_out is not None and (steps_out.shape != (r,) or steps_out.dtype != torch.int32
+                                  or steps_out.device != rays_o.device):
+        raise ValueError("sampled_first_hit: steps_out must be (R,) int32 on the rays' device")
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+    # the sample offsets as the plain version computes them, so that both
+    # place every sample at the same float32 value
+    rel = _sample_offsets(n_samples, rays_o.device)
+    t_first = torch.empty(r, dtype=torch.float32, device=rays_o.device)
+    hit = torch.empty(r, dtype=torch.bool, device=rays_o.device)
+    err = kernels().nw_sampled_hit(
+        grid.occ.data_ptr(), level, rays_o.data_ptr(), rays_d.data_ptr(), t_lo.data_ptr(),
+        t_hi.data_ptr(), rel.data_ptr(), int(n_samples), r, t_first.data_ptr(), hit.data_ptr(),
+        None if steps_out is None else steps_out.data_ptr(), stream_handle(rays_o.device))
+    check("nw_sampled_hit", err)
+    sampled_first_hit.launches += 1
+    return t_first, hit
+
+
+sampled_first_hit.launches = 0
+
+
+def _sample_offsets(n_samples: int, device) -> torch.Tensor:
+    return (torch.arange(n_samples, dtype=torch.float32, device=device) + 0.5) / n_samples
+
+
+def sampled_first_hit_plain(grid: DeviceGrid, level: int, rays_o, rays_d, t_lo, t_hi,
+                            n_samples: int = 1024, touched: torch.Tensor | None = None):
+    """The plain PyTorch version of K11 (same contract as
+    sampled_first_hit), over the whole (R, n_samples, 3) sample buffer.
+    ``touched`` (grid.occ's shape, int32) gains one at a word for every
+    read of it that K11 makes: one a sample inside the cube, up to and
+    including a ray's first hit."""
+    rel = _sample_offsets(n_samples, rays_o.device)
     t = t_lo[:, None] + (t_hi - t_lo)[:, None] * rel[None, :]  # (R, K)
     p = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]
     inside = torch.amax(torch.abs(p), dim=-1) < 1.0
-    occ = occupancy_lookup(grid, level, p) & inside
+    cells = _cell_index(level, p)
+    occ = _bit(grid.occ, cells) & inside
     hit = torch.any(occ, dim=1)
     idx = torch.argmax(occ.to(torch.uint8), dim=1)
+    if touched is not None:
+        end = torch.where(hit, idx, n_samples - 1)
+        walked = torch.arange(n_samples, device=rays_o.device)[None, :] <= end[:, None]
+        touched.index_add_(0, (cells >> 5).reshape(-1),
+                           (walked & inside).reshape(-1).to(torch.int32))
     t_first = torch.gather(t, 1, idx[:, None])[:, 0]
     return torch.where(hit, t_first, torch.zeros_like(t_first)), hit
 

@@ -44,11 +44,18 @@ def near_far_from_sfm_grid(rcfg, scene, grid: DeviceGrid, rays_o, rays_d, near, 
     return torch.where(hit, v_near, near), torch.where(hit, v_far, far), hit
 
 
-def near_far_from_fine_grid(rcfg, scene, grid: DeviceGrid, rays_o, rays_d, near, far):
+def near_far_from_fine_grid(rcfg, scene, grid: DeviceGrid, rays_o, rays_d, near, far,
+                            surf_cache=None):
     """Surface band: first hit of the fine grid +- sample_range voxels,
-    cached near/far for rays that miss (``renderer.py:182-224``)."""
+    cached near/far for rays that miss (``renderer.py:182-224``).
+    ``surf_cache``, when given, is the per-ray (surf_t in SFM units, hit)
+    pair that ``datasets/cache.DeviceRayPool.attach_surface`` precomputed
+    by the exact DDA: the band is a function of (ray, grid) alone, and the
+    grid changes only at a surface refresh."""
     rays_o_sfm = rays_o * scene.radius + scene.origin
-    if rcfg.surface_query == "sampled":
+    if surf_cache is not None:
+        surf, hit = surf_cache
+    elif rcfg.surface_query == "sampled":
         o_norm = (rays_o_sfm - grid.origin) / grid.scale
         t_lo = near[:, 0] * scene.radius / grid.scale
         t_hi = far[:, 0] * scene.radius / grid.scale
@@ -80,7 +87,7 @@ def importance_stage(model, fc: FieldConfig, rcfg: RenderConfig, rays_o, rays_d,
 def sparse_sampler(model, fc: FieldConfig, rcfg: RenderConfig, scene: SceneInfo,
                    rays_o, rays_d, near, far, rng: Optional[torch.Generator],
                    fine_grid: Optional[DeviceGrid], sfm_grid: Optional[DeviceGrid],
-                   perturb: float):
+                   perturb: float, surf_cache=None):
     """Foreground z (R, S), background z (R, n_outside) and the per-ray
     base section length (``renderer.py:230-328``)."""
     batch = rays_o.shape[0]
@@ -95,7 +102,7 @@ def sparse_sampler(model, fc: FieldConfig, rcfg: RenderConfig, scene: SceneInfo,
     if fine_grid is not None:
         with record_function("render.surface_band"):
             sample_near, sample_far, _ = near_far_from_fine_grid(
-                rcfg, scene, fine_grid, rays_o, rays_d, near, far)
+                rcfg, scene, fine_grid, rays_o, rays_d, near, far, surf_cache)
 
     sample_dist = (sample_far - sample_near) / rcfg.n_samples
     lin = torch.linspace(0.0, 1.0, rcfg.n_samples, device=dev)
@@ -153,10 +160,45 @@ def _dists(z_vals, sample_dist):
     return torch.cat([dists, sample_dist.expand(z_vals.shape[0], 1)], dim=-1)
 
 
+class _PositiveCumprod(torch.autograd.Function):
+    """cumprod along the last axis of factors that are never 0. Its backward
+    is torch's own for an input without zeros (the reversed cumulative sum
+    of grad * output, divided by the input), without torch's test for zeros,
+    which reads the device: a step captured in a CUDA graph cannot."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return torch.flip(torch.cumsum(torch.flip(out * grad, [-1]), dim=-1), [-1]).div(x)
+
+
 def _exclusive_trans(alpha):
-    """prod_{k<j} (1 - alpha_k + 1e-7), the compositing transmittance."""
+    """prod_{k<j} (1 - alpha_k + 1e-7), the compositing transmittance; alpha
+    <= 1, so every factor is at least 1e-7."""
     ones = torch.ones_like(alpha[:, :1])
-    return torch.cumprod(torch.cat([ones, 1.0 - alpha + 1e-7], dim=-1), dim=-1)[:, :-1]
+    return _PositiveCumprod.apply(torch.cat([ones, 1.0 - alpha + 1e-7], dim=-1))[:, :-1]
+
+
+_EVAL_INDEX: dict = {}
+
+
+def _eval_index(eval_idx: tuple, n: int, device) -> tuple:
+    """The background's coarse positions and their nearest-index map back
+    to all n positions, as device tensors made once per (eval_idx, n,
+    device): a step captured in a CUDA graph must not copy from the host."""
+    key = (eval_idx, n, str(device))
+    if key not in _EVAL_INDEX:
+        ev = np.asarray(eval_idx)
+        fmap = np.argmin(np.abs(np.arange(n)[:, None] - ev[None, :]), axis=1)
+        _EVAL_INDEX[key] = (torch.as_tensor(ev, device=device),
+                            torch.as_tensor(fmap, device=device))
+    return _EVAL_INDEX[key]
 
 
 def render_core_outside(model, fc, rcfg, rays_o, rays_d, z_vals, sample_dist, a_embedded,
@@ -170,11 +212,9 @@ def render_core_outside(model, fc, rcfg, rays_o, rays_d, z_vals, sample_dist, a_
 
     fmap = None
     if eval_idx is not None and len(eval_idx) < n:
-        ev = np.asarray(eval_idx)
         k = len(eval_idx)
-        fmap = torch.as_tensor(np.argmin(np.abs(np.arange(n)[:, None] - ev[None, :]), axis=1),
-                               device=z_vals.device)
-        mid_eval = mid_z[:, torch.as_tensor(ev, device=z_vals.device)]
+        ev, fmap = _eval_index(tuple(eval_idx), n, z_vals.device)
+        mid_eval = mid_z[:, ev]
     else:
         k, mid_eval = n, mid_z
 
@@ -313,11 +353,13 @@ def render_rays(model, fc: FieldConfig, rcfg: RenderConfig, scene: SceneInfo,
                 sfm_grid: Optional[DeviceGrid] = None,
                 ray_mask: Optional[torch.Tensor] = None,
                 background_rgb: Optional[torch.Tensor] = None,
-                perturb_overwrite: float = -1.0):
+                perturb_overwrite: float = -1.0, surf_cache=None):
     """Render a ray batch (``renderer.py:538-670``).
 
     rays: (R, >=8) [o(3), d(3), near, far, (depth, weight)] in SFM units;
-    ts: (R,) appearance ids; labels: (R,) semantic labels."""
+    ts: (R,) appearance ids; labels: (R,) semantic labels; surf_cache: the
+    pool's per-ray (surf_t, hit) band cache (``near_far_from_fine_grid``).
+    ``cos_anneal_ratio`` may be a float or a 0-d tensor on the device."""
     batch = rays.shape[0]
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
@@ -334,11 +376,15 @@ def render_rays(model, fc: FieldConfig, rcfg: RenderConfig, scene: SceneInfo,
     far = far / scene.radius
     depth_gt = depth_gt / scene.radius
 
-    a_embedded = model.embedding_a(ts.long())
+    # the embedding's rows by indexing: its backward is a sorted
+    # index_put (deterministic), where nn.Embedding's reads a segment count
+    # back from the device, which a captured step cannot
+    a_embedded = model.embedding_a.weight[ts.long()]
 
     perturb = rcfg.perturb if perturb_overwrite < 0 else perturb_overwrite
     z_vals, z_vals_outside, sample_dist = sparse_sampler(
-        model, fc, rcfg, scene, rays_o, rays_d, near, far, rng, fine_grid, sfm_grid, perturb)
+        model, fc, rcfg, scene, rays_o, rays_d, near, far, rng, fine_grid, sfm_grid, perturb,
+        surf_cache)
 
     background_alpha = None
     background_sampled_color = None
@@ -404,8 +450,8 @@ def _floor_loss(rcfg, scene, labels, normals, rays_o, rays_d, depth, ray_mask):
         floor_mask = floor_mask | (labels == fid)
     fm = floor_mask.to(normals.dtype) * ray_mask
     count = torch.sum(fm)
-    ez = torch.tensor([0.0, 0.0, 1.0], dtype=normals.dtype, device=normals.device)
-    gt_n = scene.sfm2gt[:3, :3].t() @ ez
+    # sfm2gt[:3, :3]^T e_z, read off as its third row: no host copy of e_z
+    gt_n = scene.sfm2gt[2, :3].to(normals.dtype)
     gt_n = gt_n / torch.linalg.vector_norm(gt_n)
     err = torch.abs(normals - gt_n[None, :]) * fm[:, None]
     xyz = rays_o + rays_d * depth[:, None]

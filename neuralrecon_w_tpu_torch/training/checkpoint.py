@@ -47,7 +47,7 @@ def save_checkpoint(path: str, model: NeuconWField, step: int, optimizer=None,
     sd = with_dead_entries(sd, encode_a_bg=not hasattr(model.nerf, "views_linears"))
     ckpt = {"state_dict": sd, "global_step": int(step), "epoch": 0}
     if optimizer is not None:
-        ckpt["optimizer"] = {"state": optimizer.opt.state_dict(), "count": int(optimizer.count)}
+        ckpt["optimizer"] = {"state": optimizer.state_dict(), "count": int(optimizer.count)}
     if fine_grid is not None:
         ckpt["fine_grid"] = {"level": int(fine_grid.level),
                              "origin": [float(v) for v in np.asarray(fine_grid.origin)],

@@ -2,17 +2,24 @@
 (``neuralrecon_w_tpu/training/loop.py``; reference train.py:16-71,
 lightning_modules/neuconw_system.py:60-546).
 
-One Python loop drives: host ``RayPool`` batches -> the train step ->
-the surface refresh every UPDATE_FREQ steps -> checkpoints every SAVE_FREQ
-steps -> validation every VAL_FREQ (a fraction of an epoch, or a step
-count). The loop reads nothing back from the card between log points:
-scalars come to the host every ``log_every`` steps and at the end, and a
-batch goes to the card as one non-blocking copy from pinned memory.
+One Python loop drives: batches -> the train step -> the surface refresh
+every UPDATE_FREQ steps -> checkpoints every SAVE_FREQ steps -> validation
+every VAL_FREQ (a fraction of an epoch, or a step count). The loop reads
+nothing back from the card between log points: scalars come to the host
+every ``log_every`` steps and at the end.
 
-What the JAX package's ``Trainer`` does on a TPU and this one does not:
-the device ray pool and its surface-band cache (``TPU.DEVICE_POOL: true``
-raises; 'auto' is the host pool, as the JAX package's 'auto' is off a
-TPU), the scan over many steps per dispatch, the device mesh and
+``TPU.DEVICE_POOL`` (``resolve_device_pool``): 'auto' keeps the rays on the
+card when the Trainer runs on one (``datasets/cache.DeviceRayPool``), as
+the JAX package's 'auto' follows its accelerator, and in host memory on
+the CPU (a batch then goes to the device as one non-blocking copy from
+pinned memory); true / false force either. With the device pool the
+surface-band cache is re-attached after every refresh that keeps cells,
+and ``TPU.SCAN_INNER`` steps (capped to an epoch's batches, off below 2)
+run as one dispatch (``step.make_scan_train_fn``) wherever no refresh,
+save, validation or the end falls inside them: on the card one captured
+CUDA graph replayed, for SDF_GRAD_MODE 'vjp' with the 'xla' background;
+the other modes run the same windows as eager steps (their kernels'
+GEMM lists are built on the host). Not ported: the device mesh and
 multi-process runs, and the profiler window (``profile_start``).
 """
 
@@ -27,7 +34,7 @@ import numpy as np
 import torch
 
 from ..config import field_config_from_cfg, render_config_from_cfg
-from ..datasets.cache import RayPool, read_ray_cache
+from ..datasets.cache import DeviceRayPool, RayPool, read_ray_cache
 from ..datasets.mask_utils import get_label_id_mapping
 from ..device import default_device
 from ..ops.ray_voxel import device_grid_from_host
@@ -36,12 +43,22 @@ from ..tools.convert import without_dead_entries
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .losses import loss_config_from_cfg
 from .schedule import make_optimizer
-from .step import init_state, make_render_fn, make_train_step
+from .step import init_state, make_render_fn, make_scan_train_fn, make_train_step
 from .surface import octree_update, surface_level
 
-DEVICE_POOL_ITEM = ("the device ray pool is ROADMAP.md Queue 1's device-pool item "
-                    "(DeviceRayPool and its surface-band cache); set TPU.DEVICE_POOL "
-                    "to 'auto' or false for the host pool")
+
+def resolve_device_pool(option, device) -> bool:
+    """TPU.DEVICE_POOL: 'auto' is the device pool on a CUDA device and the
+    host pool elsewhere (``loop.py:246-260``: JAX's 'auto' is the device
+    pool on its accelerator); true / false force it."""
+    if isinstance(option, str):
+        low = option.lower()
+        if low == "auto":
+            return torch.device(device).type == "cuda"
+        if low not in ("true", "false"):
+            raise ValueError(f"TPU.DEVICE_POOL {option!r}: 'auto', true or false")
+        return low == "true"
+    return bool(option)
 
 
 def val_interval(val_freq: float, steps_per_epoch: int) -> int:
@@ -136,9 +153,11 @@ class Trainer:
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = default_device(device)
-        pool_opt = getattr(cfg.TPU, "DEVICE_POOL", "auto")
-        if pool_opt != "auto" and pool_opt:  # the JAX Trainer's test (loop.py:246-250)
-            raise NotImplementedError(DEVICE_POOL_ITEM)
+        self.use_device_pool = resolve_device_pool(getattr(cfg.TPU, "DEVICE_POOL", "auto"),
+                                                   self.device)
+        self.device_pool: DeviceRayPool | None = None
+        # seconds of each band-cache pass (DeviceRayPool.attach_surface)
+        self.attach_seconds: list = []
 
         from ..utils.scene import load_scene_bundle
 
@@ -168,6 +187,7 @@ class Trainer:
         self.fine_dgrid = None
         # per refresh: step, seconds, n_candidates, n_kept, kept_frac, sweep_seconds
         self.refreshes: list = []
+        self._scan_runs: list = []
         self.val_seconds: list = []
 
         self.exp_dir = os.path.join(tcfg.save_dir, tcfg.exp_name)
@@ -194,8 +214,21 @@ class Trainer:
             self.state.optimizer.opt.load_state_dict(restored["optimizer"]["state"])
             self.state.optimizer.count = int(restored["optimizer"]["count"])
         if "fine_grid" in restored:
-            self.fine_grid_host = restored["fine_grid"]
-            self.fine_dgrid = device_grid_from_host(self.fine_grid_host, self.device)
+            self._set_fine_grid(restored["fine_grid"],
+                                device_grid_from_host(restored["fine_grid"], self.device))
+
+    def _set_fine_grid(self, host: VoxelGrid, dev):
+        """Keep the fine grid; a refresh at the same level and cube is
+        copied into the words and origin already on the card, which a
+        captured step holds."""
+        old = self.fine_dgrid
+        self.fine_grid_host = host
+        if (old is not None and old.occ.shape == dev.occ.shape
+                and (old.scale, old.voxel_size) == (dev.scale, dev.voxel_size)):
+            old.occ.copy_(dev.occ)
+            old.origin.copy_(dev.origin)
+        else:
+            self.fine_dgrid = dev
 
     # ------------------------------ data ------------------------------
 
@@ -232,9 +265,44 @@ class Trainer:
             np.asarray(sc["origin"], np.float64), float(sc["radius"]),
             float(self.cfg.NEUCONW.TRAIN_VOXEL_SIZE), self.sdf_threshold, stats_out=stats)
         if host is not None:
-            self.fine_grid_host, self.fine_dgrid = host, dev
+            self._set_fine_grid(host, dev)
+            self._attach_pool_surface()
         self.refreshes.append({"step": int(self.state.step),
                                "seconds": time.perf_counter() - t0, **stats})
+
+    def _attach_pool_surface(self):
+        """The pool's band cache for the current fine grid (one exact DDA
+        pass over every row, K10 on the card), ``loop.py:211-224``."""
+        if self.device_pool is not None and self.fine_dgrid is not None:
+            t0 = time.perf_counter()
+            self.device_pool.attach_surface(self.fine_dgrid, self.train_level)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.attach_seconds.append(time.perf_counter() - t0)
+
+    def _get_scan_run(self, with_fine: bool, batch_size: int, n_inner: int):
+        """The multi-step run of a phase; the warm-up's graph is freed once
+        a fine grid exists (``loop.py:357-370``)."""
+        key = ("scan_fine" if with_fine else "scan_warm", batch_size, n_inner)
+        if with_fine:
+            for k in [k for k in self._steps if isinstance(k, tuple) and k[0] == "scan_warm"]:
+                self._steps.pop(k).release()
+        if key not in self._steps:
+            rcfg = render_config_from_cfg(self.cfg, sfm_level=-1,
+                                          fine_level=self.train_level if with_fine else -1,
+                                          nerf_far_override=False)
+            graph = (self.device.type == "cuda" and self.fc.grad_mode == "vjp"
+                     and self.fc.bg_mode == "xla")
+            self._steps[key] = make_scan_train_fn(
+                self.fc, rcfg, self.lcfg, self.anneal_end, self.ray_mask_ids, batch_size,
+                n_inner, seed=int(self.cfg.TRAINER.SEED) + 1, graph=graph)
+            self._scan_runs.append(self._steps[key])
+        return self._steps[key]
+
+    def scan_runs(self) -> list:
+        """Every multi-step run made so far, released ones included: their
+        captures, replays and the launches one captured step records."""
+        return list(self._scan_runs)
 
     # ------------------------------ loop ------------------------------
 
@@ -252,6 +320,22 @@ class Trainer:
         val_every = val_interval(float(self.cfg.TRAINER.VAL_FREQ), steps_per_epoch)
         log_every = max(int(self.tcfg.log_every), 1)
 
+        device_pool = None
+        if self.use_device_pool:
+            device_pool = DeviceRayPool(pool, self.device,
+                                        sampling=str(getattr(self.cfg.TPU, "POOL_SAMPLING",
+                                                             "epoch")),
+                                        seed=int(self.cfg.TRAINER.SEED) + 3)
+        self.device_pool = device_pool
+        # a resumed fine grid: its band cache
+        self._attach_pool_surface()
+        scan_inner = int(getattr(self.cfg.TPU, "SCAN_INNER", 50))
+        use_scan = device_pool is not None and scan_inner > 1
+        if use_scan and device_pool.sampling == "epoch":
+            # a window is scan_inner consecutive batches of one epoch
+            scan_inner = min(scan_inner, device_pool.n // bs)
+            use_scan = scan_inner > 1
+
         step_i = int(self.state.step)
         # windowed throughput: the rate since the previous log, with the
         # validation renders kept out
@@ -259,11 +343,23 @@ class Trainer:
         while step_i < total:
             if self.update_freq > 0 and step_i > 0 and step_i % self.update_freq == 0:
                 self.refine_surface()
-            step = self._get_step(self.fine_dgrid is not None)
-            batch = self._move(pool.next_batch(bs))
-            self.state, aux = step(self.state, self.scene, batch, self.fine_dgrid,
-                                   self.sfm_dgrid)
-            step_i += 1
+            with_fine = self.fine_dgrid is not None
+            # steps to the next refresh, save, validation or the end
+            room = min([total] + [(step_i // f + 1) * f for f in
+                                  (self.update_freq, self.save_freq, val_every) if f > 0]) - step_i
+            if use_scan and room >= scan_inner:
+                run = self._get_scan_run(with_fine, bs, scan_inner)
+                perm, start = device_pool.take_scan_window(bs, scan_inner)
+                self.state, aux = run(self.state, self.scene, device_pool.data, self.fine_dgrid,
+                                      self.sfm_dgrid, perm, start)
+                step_i += scan_inner
+            else:
+                step = self._get_step(with_fine)
+                batch = (device_pool.next_batch(bs) if device_pool is not None
+                         else self._move(pool.next_batch(bs)))
+                self.state, aux = step(self.state, self.scene, batch, self.fine_dgrid,
+                                       self.sfm_dgrid)
+                step_i += 1
 
             if step_i % log_every == 0 or step_i >= total:
                 scalars = {k: float(v) for k, v in aux.items()}  # the only reads back

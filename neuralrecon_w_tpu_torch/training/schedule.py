@@ -26,21 +26,37 @@ def scaled_lr(cfg, world_batch_size: int) -> float:
     return float(t.CANONICAL_LR) * world_batch_size / float(t.CANONICAL_BS)
 
 
+class _Schedule:
+    """A function of the update count, written once in float64 torch ops:
+    of a Python int (the host) it is a float, of a 0-d device tensor (a
+    captured step) a float64 tensor on that device."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, count):
+        if isinstance(count, torch.Tensor):
+            return self.fn(count.double())
+        return float(self.fn(torch.tensor(float(count), dtype=torch.float64)))
+
+
 def make_lr_schedule(cfg, base_lr: float, total_steps: int):
-    """A float, or a function of the update count (``schedule.py:22-39``)."""
+    """A float, or a ``_Schedule`` of the update count (``schedule.py:22-39``)."""
     name = (cfg.TRAINER.LR_SCHEDULER or "none").lower()
     if name == "none" or total_steps <= 0:
         return base_lr
     steps = max(total_steps, 1)
     if name == "cosine":
-        return lambda count: base_lr * 0.5 * (1.0 + math.cos(math.pi * min(count, steps) / steps))
+        return _Schedule(lambda c: base_lr * 0.5 * (
+            1.0 + torch.cos(math.pi * torch.clamp(c, max=steps) / steps)))
     if name == "steplr":
         bounds = sorted(int(s) for s in (cfg.TRAINER.DECAY_STEP or []))
         gamma = float(cfg.TRAINER.DECAY_GAMMA)
-        return lambda count: base_lr * gamma ** sum(count >= b for b in bounds)
+        return _Schedule(lambda c: base_lr * gamma ** sum(
+            ((c >= b).double() for b in bounds), torch.zeros_like(c)))
     if name == "poly":
         exp = float(cfg.TRAINER.POLY_EXP)
-        return lambda count: base_lr * (1.0 - min(max(count, 0), steps) / steps) ** exp
+        return _Schedule(lambda c: base_lr * (1.0 - torch.clamp(c, 0, steps) / steps) ** exp)
     raise ValueError(f"unknown scheduler {name!r}")
 
 
@@ -55,7 +71,13 @@ def clip_by_global_norm_(params, max_norm: float) -> None:
 
 
 class Optimizer:
-    """A torch optimiser with the clip and the schedule in front of it."""
+    """A torch optimiser with the clip and the schedule in front of it.
+
+    ``make_capturable`` turns it, for good, into the form a CUDA graph can
+    hold (Adam / AdamW with ``capturable=True``, the LR a device tensor
+    that each step writes); ``graph_step`` is the step inside the graph,
+    which reads the update count from a device tensor and advances it.
+    The host count ``count`` is the caller's to advance after replays."""
 
     def __init__(self, params, torch_opt, schedule, clip: float):
         self.params = list(params)
@@ -63,18 +85,56 @@ class Optimizer:
         self.schedule = schedule
         self.clip = clip
         self.count = 0
+        self.lr_t = None  # the device LR once capturable
+
+    def _lr(self, count):
+        return self.schedule(count) if callable(self.schedule) else self.schedule
 
     def step(self) -> None:
         if self.clip > 0:
             clip_by_global_norm_(self.params, self.clip)
-        lr = self.schedule(self.count) if callable(self.schedule) else self.schedule
-        for group in self.opt.param_groups:
-            group["lr"] = lr
+        lr = self._lr(self.count)
+        if self.lr_t is not None:
+            self.lr_t.fill_(lr)
+        else:
+            for group in self.opt.param_groups:
+                group["lr"] = lr
         self.opt.step()
         self.count += 1
 
+    def make_capturable(self) -> None:
+        if self.lr_t is not None:
+            return
+        if not isinstance(self.opt, (torch.optim.Adam, torch.optim.AdamW)):
+            raise ValueError("a captured step needs Adam or AdamW (TRAINER.OPTIMIZER adam)")
+        dev = self.params[0].device
+        self.lr_t = torch.full((), float(self._lr(self.count)), dtype=torch.float32, device=dev)
+        for group in self.opt.param_groups:
+            group["capturable"] = True
+            group["lr"] = self.lr_t
+        for st in self.opt.state.values():
+            if "step" in st:
+                st["step"] = st["step"].to(device=dev, dtype=torch.float32)
+
+    def graph_step(self, count_t: torch.Tensor) -> None:
+        """One update from the device count ``count_t`` (advanced by one)."""
+        if self.clip > 0:
+            clip_by_global_norm_(self.params, self.clip)
+        if callable(self.schedule):
+            self.lr_t.copy_(self.schedule(count_t))
+        self.opt.step()
+        count_t += 1
+
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        """The torch optimiser's state dict as a plain (non-capturable)
+        optimiser would hold it: the LR a float, ``capturable`` off."""
+        sd = self.opt.state_dict()
+        sd["param_groups"] = [{**g, "lr": float(self._lr(max(self.count - 1, 0))),
+                               "capturable": False} for g in sd["param_groups"]]
+        return sd
 
 
 class OptimizerSpec:

@@ -1,18 +1,29 @@
-"""The training step and serving's render function
-(``neuralrecon_w_tpu/training/step.py``).
+"""The training step, the multi-step dispatch and serving's render
+function (``neuralrecon_w_tpu/training/step.py``).
 
 ``make_train_step`` is ``step.py:54-111`` in PyTorch: render, the loss
-terms, one backward, the clip and the optimiser update, on a host
-``RayPool`` batch. The cos-anneal ratio is min(1, step / ANNEAL_END); the
-semantic ray mask is a weight, not a ray drop. The sampler's jitter draws
-from a ``torch.Generator`` seeded from (seed, step); its numbers are not
-JAX's ``fold_in``. The on-device scan over many steps
-(``make_scan_train_fn``) waits for the device ray pool.
+terms, one backward, the clip and the optimiser update, on one batch
+(a host ``RayPool`` batch, or a ``DeviceRayPool`` one with its surface-band
+cache). The cos-anneal ratio is min(1, step / ANNEAL_END); the semantic
+ray mask is a weight, not a ray drop. The sampler's jitter draws from a
+``torch.Generator`` seeded from (seed, step); its numbers are not JAX's
+``fold_in``.
+
+``make_scan_train_fn`` is ``step.py:169-229``: n_inner steps over
+consecutive windows of a device pool's epoch permutation. On the CPU it is
+a plain loop of the step. On the card it captures one step in a
+``torch.cuda.CUDAGraph`` and replays it: the batch is gathered inside the
+graph by a device cursor, and the step counter (the cos-anneal ratio),
+the update count (the LR) and Adam's state are device tensors the graph
+advances. Inside the graph the sampler's jitter draws from one generator
+registered with the graph, seeded once from (seed, step at capture), so
+its stream differs from the eager steps' per-(seed, step) generators.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch.profiler import record_function
@@ -57,14 +68,20 @@ def make_train_step(fc: FieldConfig, rcfg: RenderConfig, lcfg: LossConfig,
                     anneal_end: int, ray_mask_ids: tuple = (), seed: int = 0):
     """step_fn(state, scene, batch, fine_grid=None, sfm_grid=None) ->
     (state, aux), updating state in place. batch = {"rays": (R, >= 8),
-    "ts": (R,), "labels": (R,), "rgbs": (R, 3)}, numpy or tensors; aux
-    holds psnr, s_val and every loss term as detached scalar tensors."""
+    "ts": (R,), "labels": (R,), "rgbs": (R, 3)}, numpy or tensors, and
+    with a fine grid optionally the pool's band cache "surf_t" / "surf_hit"
+    (``step.py:73-80``); aux holds psnr, s_val and every loss term as
+    detached scalar tensors. ``step_fn.loss_fn`` is the render and loss
+    alone, which the captured step reuses."""
 
     def loss_fn(model, scene, batch, rng, cos_anneal, fine_grid, sfm_grid):
         ray_mask = ray_mask_from_labels(batch["labels"], ray_mask_ids)
+        surf_cache = None
+        if fine_grid is not None and "surf_t" in batch:
+            surf_cache = (batch["surf_t"], batch["surf_hit"])
         results = render_rays(model, fc, rcfg, scene, batch["rays"], batch["ts"],
                               batch["labels"], rng, cos_anneal, fine_grid=fine_grid,
-                              sfm_grid=sfm_grid, ray_mask=ray_mask)
+                              sfm_grid=sfm_grid, ray_mask=ray_mask, surf_cache=surf_cache)
         terms = loss_terms(lcfg, results, batch["rgbs"])
         aux = {"psnr": psnr(results["color"], batch["rgbs"], results["ray_mask"][:, None]),
                "s_val": torch.mean(results["s_val"]), **terms}
@@ -86,7 +103,194 @@ def make_train_step(fc: FieldConfig, rcfg: RenderConfig, lcfg: LossConfig,
         state.step += 1
         return state, {k: v.detach() for k, v in aux.items()}
 
+    step_fn.loss_fn = loss_fn
+    step_fn.anneal_end = anneal_end
+    step_fn.seed = seed
     return step_fn
+
+
+# eager steps before a capture (the whole-network capture recipe's
+# warm-up: lazy state such as Adam's moments and the autograd engine's is
+# made outside the graph); they are real steps of the window
+GRAPH_WARMUP = 2
+
+
+def make_scan_train_fn(fc: FieldConfig, rcfg: RenderConfig, lcfg: LossConfig,
+                       anneal_end: int, ray_mask_ids: tuple, batch_size: int, n_inner: int,
+                       seed: int = 0, graph: Optional[bool] = None):
+    """n_inner steps per dispatch over a device pool (``step.py:169-229``).
+
+    Returns run(state, scene, pool_data, fine_grid=None, sfm_grid=None,
+    perm=None, start=None) -> (state, aux of the last step). With (perm,
+    start) from ``DeviceRayPool.take_scan_window``, step i trains on the
+    rows perm[start + i * batch_size : ... + batch_size]; with perm None, a
+    with-replacement draw. ``graph`` (default: on CUDA tensors) replays a
+    captured step (``ScanRun``); False runs the plain loop of the step."""
+    step_fn = make_train_step(fc, rcfg, lcfg, anneal_end, ray_mask_ids, seed)
+    return ScanRun(step_fn, batch_size, n_inner, graph)
+
+
+class ScanRun:
+    """``make_scan_train_fn``'s run. The graph path captures on its first
+    call and keeps, as the graph's inputs, the tensors of that call: the
+    pool's arrays and permutation (``DeviceRayPool`` writes both in place),
+    the fine grid's words and origin (the caller copies a refreshed grid
+    into them; any other tensor there is copied in before the replays), the
+    scene. A capture that fails raises. ``captures``, ``replays`` and
+    ``per_step_launches`` (the kernel launches one captured step records)
+    say what ran: the wrappers' counters tick at capture only."""
+
+    def __init__(self, step_fn, batch_size: int, n_inner: int, graph: Optional[bool]):
+        self.step_fn = step_fn
+        self.batch_size, self.n_inner, self.graph = batch_size, n_inner, graph
+        self.captures = self.replays = 0
+        self.per_step_launches: dict = {}
+        self._g = None
+        self._data_gen = None
+
+    def __call__(self, state: TrainState, scene, pool_data: dict, fine_grid=None, sfm_grid=None,
+                 perm=None, start=None):
+        dev = pool_data["rays"].device
+        use_graph = dev.type == "cuda" if self.graph is None else self.graph
+        if use_graph:
+            return self._replay(state, scene, pool_data, fine_grid, sfm_grid, perm, start)
+        return self._loop(state, scene, pool_data, fine_grid, sfm_grid, perm, start)
+
+    def _data_generator(self, dev) -> torch.Generator:
+        """The with-replacement draw's generator (``perm`` None)."""
+        if self._data_gen is None:
+            self._data_gen = torch.Generator(device=dev).manual_seed(self.step_fn.seed + 1)
+        return self._data_gen
+
+    def _draw(self, n_rows: int, dev):
+        return torch.randint(0, n_rows, (self.batch_size,), generator=self._data_generator(dev),
+                             device=dev)
+
+    def _loop(self, state, scene, pool_data, fine_grid, sfm_grid, perm, start):
+        bs, n_rows = self.batch_size, pool_data["rays"].shape[0]
+        aux = None
+        for i in range(self.n_inner):
+            if perm is None:
+                idx = self._draw(n_rows, pool_data["rays"].device)
+            else:
+                idx = perm[int(start) + i * bs:int(start) + (i + 1) * bs]
+            batch = {k: v.index_select(0, idx) for k, v in pool_data.items()}
+            state, aux = self.step_fn(state, scene, batch, fine_grid, sfm_grid)
+        return state, aux
+
+    # ------------------------------ graph ------------------------------
+
+    def _body(self):
+        """One step on the graph's inputs, device state only."""
+        st, bs = self._static, self.batch_size
+        data, dev = st["data"], st["data"]["rays"].device
+        if st["perm"] is None:
+            idx = self._draw(data["rays"].shape[0], dev)
+        else:
+            idx = st["perm"].index_select(0, self._cursor + self._arange)
+        self._cursor += bs
+        batch = {k: v.index_select(0, idx) for k, v in data.items()}
+        anneal_end = self.step_fn.anneal_end
+        cos = (torch.clamp(self._step_t / anneal_end, max=1.0).float() if anneal_end > 0
+               else 1.0)
+        model, opt = st["state"].model, st["state"].optimizer
+        model.train()
+        with record_function("train.render_loss"):
+            loss, aux = self.step_fn.loss_fn(model, st["scene"], batch, self._gen, cos,
+                                             st["fine_grid"], st["sfm_grid"])
+        loss.backward()
+        with record_function("train.optimizer"):
+            opt.graph_step(self._count_t)
+        self._step_t += 1
+        return {k: v.detach() for k, v in aux.items()}
+
+    def _capture(self, state, scene, pool_data, fine_grid, sfm_grid, perm):
+        dev = pool_data["rays"].device
+        state.optimizer.make_capturable()
+        self._static = {"state": state, "scene": scene, "data": dict(pool_data),
+                        "fine_grid": fine_grid, "sfm_grid": sfm_grid, "perm": perm}
+        self._arange = torch.arange(self.batch_size, device=dev)
+        self._cursor = torch.zeros((), dtype=torch.int64, device=dev)
+        self._step_t = torch.zeros((), dtype=torch.float64, device=dev)
+        self._count_t = torch.zeros((), dtype=torch.float64, device=dev)
+        self._gen = torch.Generator(device=dev).manual_seed(
+            int(self.step_fn.seed) * 1_000_003 + int(state.step))
+        if perm is None:
+            self._data_generator(dev)
+
+    def _inputs_in(self, state, scene, pool_data, fine_grid, sfm_grid, perm):
+        """Hand this call's tensors to the graph: the same tensors as at
+        capture, or copies into them."""
+        st = self._static
+        if state.model is not st["state"].model or scene is not st["scene"] \
+                or (perm is None) != (st["perm"] is None) \
+                or set(pool_data) != set(st["data"]) \
+                or (fine_grid is None) != (st["fine_grid"] is None) or sfm_grid is not st["sfm_grid"]:
+            raise ValueError("a captured step takes the state, scene, pool keys and grids it "
+                             "was captured with; make a new run for others")
+        pairs = [(pool_data[k], st["data"][k]) for k in pool_data]
+        if perm is not None:
+            pairs.append((perm, st["perm"]))
+        if fine_grid is not None:
+            fg = st["fine_grid"]
+            if (fine_grid.scale, fine_grid.voxel_size) != (fg.scale, fg.voxel_size):
+                raise ValueError("a captured step's fine grid keeps its cube and level")
+            pairs += [(fine_grid.occ, fg.occ), (fine_grid.origin, fg.origin)]
+        for new, old in pairs:
+            if new.data_ptr() != old.data_ptr():
+                if new.shape != old.shape or new.dtype != old.dtype:
+                    raise ValueError("a captured step's inputs keep their shapes")
+                old.copy_(new)
+
+    def _replay(self, state, scene, pool_data, fine_grid, sfm_grid, perm, start):
+        from ..ops import read_launches
+
+        first = self._g is None
+        if first:
+            self._capture(state, scene, pool_data, fine_grid, sfm_grid, perm)
+        else:
+            self._inputs_in(state, scene, pool_data, fine_grid, sfm_grid, perm)
+        self._cursor.fill_(0 if start is None else int(start))
+        self._step_t.fill_(float(state.step))
+        self._count_t.fill_(float(state.optimizer.count))
+        n_replay, aux = self.n_inner, None
+        if first:
+            warm = min(GRAPH_WARMUP, self.n_inner)
+            side = torch.cuda.Stream(device=self._cursor.device)
+            side.wait_stream(torch.cuda.current_stream(self._cursor.device))
+            with torch.cuda.stream(side):
+                for _ in range(warm):
+                    state.optimizer.zero_grad()
+                    aux = self._body()
+            torch.cuda.current_stream(self._cursor.device).wait_stream(side)
+            state.optimizer.zero_grad()
+            g = torch.cuda.CUDAGraph()
+            if not hasattr(g, "register_generator_state"):
+                raise RuntimeError("this torch's CUDAGraph cannot register a generator")
+            g.register_generator_state(self._gen)
+            if self._data_gen is not None:
+                g.register_generator_state(self._data_gen)
+            before = read_launches()
+            with torch.cuda.graph(g):
+                self._aux = self._body()
+            after = read_launches()
+            self.per_step_launches = {k: after[k] - before[k] for k in after if after[k] - before[k]}
+            self._g = g
+            self.captures += 1
+            n_replay -= warm
+        for _ in range(n_replay):
+            self._g.replay()
+        self.replays += n_replay
+        if n_replay:
+            aux = {k: v.clone() for k, v in self._aux.items()}
+        state.step += self.n_inner
+        state.optimizer.count += self.n_inner
+        return state, aux
+
+    def release(self) -> None:
+        """Drop the graph and its memory pool."""
+        self._g = self._aux = None
+        self._static = {}
 
 
 def make_render_fn(fc: FieldConfig, rcfg: RenderConfig):

@@ -329,8 +329,10 @@ def test_chip_smoke_trainer_phase_without_jax_package(tmp_path):
     """trainer_phase at a tiny width on the CPU, the kernels' plain versions
     standing in: the port's workspace and ray cache, train_cli with two
     refreshes, saves and a validation, then the resume in 'pallas_field'
-    with FUSED_BG, every refresh held to the plain SDF; every check
-    passing, and no JAX."""
+    with FUSED_BG, every refresh held to the plain SDF; then the same run on
+    the device pool in windows of 2 steps (the plain loop on the CPU), its
+    band cache held to the plain DDA, and its resume; every check passing,
+    and no JAX."""
     code = f"""
 import sys
 import torch
@@ -340,13 +342,14 @@ torch.set_num_threads(2)
 cs.TRAINER_CAMS, cs.IMG_WH, cs.TRAINER_POINTS, cs.TRAIN_BATCH = 5, (24, 18), 1500, 128
 cs.TRAINER_STEPS, cs.TRAINER_UPDATE, cs.TRAINER_VAL, cs.REFRESH_CHECK_PTS = 6, 2, 5, 4096
 cs.TRAINER_LOG, cs.TRAINER_CAM_DIST = 1, 1.7  # the 4 x 64 init crosses near |x| 0.5
+cs.POOL_SCAN_INNER = 2
 extra = {{"NEUCONW": {{"SDF_CONFIG": {{"d_hidden": 64, "d_out": 65, "n_layers": 4, "skip_in": [2]}},
                      "COLOR_CONFIG": {{"d_feature": 64, "d_hidden": 32, "n_layers": 2}},
                      "N_VOCAB": 8}}}}
 launches, fails = cs.trainer_phase({str(tmp_path)!r}, "cpu", extra, sfm_voxel=0.1875,
                                    train_voxel=0.05, fine_level=6)
 assert fails == [], fails
-assert set(launches) == {{"trainer", "resume"}}
+assert set(launches) == {{"trainer", "resume", "device_pool", "device_pool_resume"}}
 assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
 print("ok")
 """
@@ -354,4 +357,7 @@ print("ok")
     assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
     out = proc.stdout
     assert "trainer refresh at step 2" in out and "train_cli (the CPU): warm-up" in out
+    assert "band cache at step 2:" in out and "equal to the plain DDA on every row True" in out
+    assert "eager 2-step run: 0 capture(s), 0 replays" in out
+    assert "host pool against device pool + graph" in out
     assert out.strip().endswith("ok")

@@ -898,3 +898,126 @@ def test_dw_reduce_rows_matches_torch(dev, act, x_shift):
                                    atol=1e-2, rtol=1e-4)
         assert float(dW[:, :c0].abs().sum()) == 0.0 and float(dW[:, c0 + k:].abs().sum()) == 0.0
         torch.testing.assert_close(db.double(), x.double().sum(0), atol=1e-3, rtol=1e-4)
+
+
+# ----------------------- K10 / K11: the grid queries -----------------------
+
+
+def random_words(level, dev, seed, density_shift=5):
+    """A level-``level`` bitfield, each bit set with probability
+    2^-density_shift (one in 32 cells occupied by default)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    n_words = max((1 << (3 * level)) // 32, 1)
+    words = torch.full((n_words,), -1, dtype=torch.int32, device=dev)
+    for _ in range(density_shift):
+        words &= torch.randint(-2**31, 2**31 - 1, (n_words,), dtype=torch.int32, device=dev,
+                               generator=g)
+    return words
+
+
+def grid_rays(level, words, n, dev, seed):
+    """Rays in normalised coordinates: from outside toward the cube,
+    axis-parallel ones (two components exactly 0, or one), ones from the
+    centres of occupied cells, and misses pointing away from the cube."""
+    from chip_smoke import level10_rays
+    from neuralrecon_w_tpu_torch.ops.voxel_grid import VoxelGrid, _from_linear
+
+    head = words[:1 << 16].cpu()  # the occupied cells among the first 2^21
+    bits = ((head.view(-1, 1) >> torch.arange(32, dtype=torch.int32)) & 1).view(-1)
+    occ = torch.nonzero(bits).view(-1).numpy()
+    host = VoxelGrid(level, [0.0, 0.0, 0.0], 1.0, _from_linear(occ, level))
+    o, d = level10_rays(host, n, seed)
+    return torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+
+
+@pytest.mark.parametrize("first_only", [False, True])
+@pytest.mark.parametrize("level", list(range(1, 11)))
+def test_dda_kernel_matches_plain_bit_for_bit(dev, level, first_only):
+    """K10 against the plain DDA at every level 1-10, every output equal:
+    the kernel runs the plain version's float32 arithmetic unfused."""
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    words = random_words(level, dev, seed=level, density_shift=3 if level < 4 else 6)
+    o, d = grid_rays(level, words, 4096 if level < 10 else 2048, dev, seed=level)
+    before = rv.dda_traverse.launches
+    trips = torch.empty(o.shape[0], dtype=torch.int32, device=dev)
+    got = rv.dda_traverse(words, level, o, d, first_only, steps_out=trips)
+    touched = torch.zeros_like(words)
+    want = rv.dda_traverse_plain(words, level, o, d, first_only, touched=touched)
+    torch.cuda.synchronize()
+    assert rv.dda_traverse.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[2].any()) and bool((~got[2]).any())
+    assert int(trips.max()) <= 3 * (1 << level) + 2
+    # the plain version's read count (chip_smoke's bytes bound) is K10's trips
+    assert int(touched.sum()) == int(trips.sum())
+
+
+@pytest.mark.parametrize("n_rays", [1, 3, 1000, 8189])
+@pytest.mark.parametrize("n_samples", [1, 64, 1024])
+def test_sampled_hit_kernel_matches_plain_bit_for_bit(dev, n_samples, n_rays):
+    """K11 against the plain sampled query at 1, 64 and 1024 samples and
+    ragged ray counts: every output equal."""
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    level = 7
+    words = random_words(level, dev, seed=n_rays, density_shift=4)
+    grid = rv.DeviceGrid(words, torch.zeros(3, device=dev), 1.0, 2.0 / (1 << level))
+    o, d = grid_rays(level, words, max(n_rays, 4), dev, seed=n_samples)
+    o, d = o[:n_rays].contiguous(), d[:n_rays].contiguous()
+    g = torch.Generator(dev).manual_seed(n_samples)
+    t_lo = torch.rand(n_rays, device=dev, generator=g)
+    t_hi = t_lo + 3.0 * torch.rand(n_rays, device=dev, generator=g)
+    before = rv.sampled_first_hit.launches
+    got = rv.sampled_first_hit(grid, level, o, d, t_lo, t_hi, n_samples)
+    want = rv.sampled_first_hit_plain(grid, level, o, d, t_lo, t_hi, n_samples)
+    torch.cuda.synchronize()
+    assert rv.sampled_first_hit.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_grid_query_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    words = random_words(4, dev, seed=0)
+    o = torch.zeros(8, 3, device=dev)
+    with pytest.raises(ValueError):
+        rv.dda_traverse(words, 5, o, o)  # a level-5 grid has more words
+    with pytest.raises(ValueError):
+        rv.dda_traverse(words, 4, o.double(), o.double())
+    with pytest.raises(ValueError):
+        rv.dda_traverse(words.cpu(), 4, o, o)
+
+
+def test_captured_step_matches_eager(dev):
+    """make_scan_train_fn's CUDA graph against the same window of eager
+    steps from one state (chip_smoke.graph_parity at a narrow width): f32 at
+    PERTURB 0 within GRAPH_LOSS_RTOL / GRAPH_PARAM_REL, the operating
+    point's mean loss within GRAPH_MEAN_REL."""
+    import chip_smoke as cs
+    from neuralrecon_w_tpu_torch.config import load_cfg
+    from neuralrecon_w_tpu_torch.datasets.cache import DeviceRayPool, RayPool
+    from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
+    from neuralrecon_w_tpu_torch.training.schedule import make_optimizer
+    from neuralrecon_w_tpu_torch.training.step import init_state
+
+    cfg = load_cfg(CONFIG)
+    n = cfg.NEUCONW
+    n.SDF_CONFIG.d_hidden, n.SDF_CONFIG.d_out, n.SDF_CONFIG.n_layers = 64, 65, 4
+    n.SDF_CONFIG.skip_in = (2,)
+    n.COLOR_CONFIG.d_feature, n.COLOR_CONFIG.d_hidden, n.COLOR_CONFIG.n_layers = 64, 32, 2
+    n.N_VOCAB = 16
+    rows, rgbs = cs.training_rays(n_cams=4, wh=(40, 30))
+    pool = DeviceRayPool(RayPool(rows, rgbs, seed=0), dev)
+    spec, _ = make_optimizer(cfg, 512)
+    state = init_state(cs.train_config(cfg, "vjp"), spec, torch.Generator().manual_seed(0), dev)
+    scene, _, fine_host, _ = cs.make_scene(dev, fine_level=7, wh=(8, 6), n_points=5000)
+    fine = device_grid_from_host(fine_host, dev)
+    _, fails = cs.graph_parity(cfg, state, scene, pool, None, -1, "warm-up", batch=512,
+                               n_inner=4)
+    pool.attach_surface(fine, fine_host.level)
+    _, f2 = cs.graph_parity(cfg, state, scene, pool, fine, fine_host.level, "steady", batch=512,
+                            n_inner=4)
+    assert fails + f2 == []

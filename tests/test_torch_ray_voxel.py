@@ -84,6 +84,36 @@ def test_occupancy_lookup_matches_jax():
                                 torch.from_numpy(centers)).all()
 
 
+def test_plain_versions_count_the_words_the_kernels_read():
+    """``touched`` counts one read a loop trip (K10) and one a walked sample
+    inside the cube (K11): what chip_smoke's bytes bound counts once per
+    distinct word. An empty level-2 grid, one ray along +x through every x
+    cell at y = 1, z = 2: cells 16 x + 6, words 0, 0, 1, 1."""
+    grid = trv.device_grid_from_host(VoxelGrid(2, np.zeros(3), 1.0,
+                                               np.zeros((0, 3), np.int32)), "cpu")
+    o = torch.tensor([[-2.0, -0.25, 0.25]])
+    d = torch.tensor([[1.0, 0.0, 0.0]])
+    touched = torch.zeros_like(grid.occ)
+    _, _, hit = trv.dda_traverse_plain(grid.occ, 2, o, d, touched=touched)
+    assert not hit.any() and touched.tolist() == [2, 2]
+    # K11: samples at t = 0.5 + 2 (k + 0.5) / 8 walk x = -1.375 .. 0.375 by 0.25;
+    # the 6 inside lie two to each of x cells 0, 1, 2
+    touched = torch.zeros_like(grid.occ)
+    trv.sampled_first_hit_plain(grid, 2, o, d, torch.tensor([0.5]), torch.tensor([2.5]), 8,
+                                touched=touched)
+    assert touched.tolist() == [4, 2]
+    # a hit ends the walk: occupy x cell 1 (cell 22), the first sample there the 3rd inside
+    grid = trv.device_grid_from_host(VoxelGrid(2, np.zeros(3), 1.0,
+                                               np.array([[1, 1, 2]], np.int32)), "cpu")
+    touched = torch.zeros_like(grid.occ)
+    _, hit = trv.sampled_first_hit_plain(grid, 2, o, d, torch.tensor([0.5]),
+                                         torch.tensor([2.5]), 8, touched=touched)
+    assert hit.all() and touched.tolist() == [3, 0]
+    touched = torch.zeros_like(grid.occ)
+    trv.dda_traverse_plain(grid.occ, 2, o, d, first_only=True, touched=touched)
+    assert touched.tolist() == [2, 0]
+
+
 def test_high_bit_words_read_correctly():
     """Bit 31 of a word is the int32 sign bit in the port's storage."""
     n = 1 << 3

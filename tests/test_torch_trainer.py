@@ -280,16 +280,116 @@ def test_val_interval_matches_jax(val_freq, steps_per_epoch):
             == jax_loop.val_interval(val_freq, steps_per_epoch))
 
 
-def test_guards(workspace):
-    """TPU.DEVICE_POOL true and the multi-card flags raise, naming the
-    ROADMAP items that carry them."""
+def test_guards(workspace, tmp_path):
+    """TPU.DEVICE_POOL true builds the device pool (here on the CPU) and
+    trains through it; the multi-card flags raise, naming the ROADMAP item
+    that carries them."""
+    from neuralrecon_w_tpu_torch.datasets.cache import DeviceRayPool
     from neuralrecon_w_tpu_torch.tools.train_cli import main
 
     cfg_path, base = workspace
     cfg = port_cfg(cfg_path)
     cfg.TPU.DEVICE_POOL = True
-    with pytest.raises(NotImplementedError, match="device-pool"):
-        loop.Trainer(cfg, tcfg(loop, base, "guard"), device="cpu")
+    tr = loop.Trainer(cfg, tcfg(loop, str(tmp_path), "guard"), device="cpu")
+    assert tr.use_device_pool and tr.device_pool is None
+    tr.fit(max_steps=1)
+    assert isinstance(tr.device_pool, DeviceRayPool) and tr.state.step == 1
+    assert tr.device_pool.data["rays"].device.type == "cpu"
     for flags in (["--n_devices", "2"], ["--multihost"], ["--coordinator", "localhost:1"]):
         with pytest.raises(NotImplementedError, match="multi-GPU"):
             main(["--cfg_path", cfg_path, "--device", "cpu"] + flags)
+
+
+# the device-pool run: windows of SCAN_INNER steps, a refresh and a
+# validation at POOL_EVERY, a save at POOL_SAVE, POOL_STEPS in all
+SCAN_INNER, POOL_EVERY, POOL_SAVE, POOL_STEPS = 3, 6, 9, 10
+
+
+@pytest.fixture(scope="module")
+def pool_runs(workspace, tmp_path_factory):
+    """The JAX and the port's Trainer with TPU.DEVICE_POOL true and
+    SCAN_INNER 3 from one initialisation (the JAX one carried across), for
+    POOL_STEPS steps; then the port resumed for 2 steps from its last
+    checkpoint."""
+    cfg_path, _ = workspace
+    with open(cfg_path) as f:
+        raw = yaml.safe_load(f)
+    raw["NEUCONW"]["UPDATE_FREQ"] = POOL_EVERY
+    raw["TRAINER"].update(VAL_FREQ=float(POOL_EVERY), SAVE_FREQ=POOL_SAVE)
+    raw["TPU"] = {"DEVICE_POOL": True, "SCAN_INNER": SCAN_INNER}
+    base = tmp_path_factory.mktemp("pool")
+    path = str(base / "pool.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    jtr = jax_loop.Trainer(jax_cfg(path), tcfg(jax_loop, str(base), "jax"), make_mesh(1))
+    init = jax.device_get(jtr.state)
+    jtr.fit(max_steps=POOL_STEPS)
+
+    tr = loop.Trainer(port_cfg(path), tcfg(loop, str(base), "port", log_every=SCAN_INNER),
+                      device="cpu")
+    tr.state, _ = state_from_jax(init, tr.fc, tr.opt_spec, device="cpu")
+    calls = []
+    real = loop.make_scan_train_fn
+
+    def spy(*args, **kw):
+        run = real(*args, **kw)
+
+        def counted(state, *a, **k):
+            calls.append(int(state.step))
+            return run(state, *a, **k)
+
+        counted.release = run.release
+        return counted
+
+    loop.make_scan_train_fn = spy
+    try:
+        tr.fit(max_steps=POOL_STEPS)
+    finally:
+        loop.make_scan_train_fn = real
+    back = loop.Trainer(port_cfg(path), tcfg(loop, str(base), "back", log_every=1,
+                                             ckpt_path=latest_checkpoint(tr.ckpt_dir)),
+                        device="cpu")
+    back.fit(max_steps=2)
+    return {"jax": jtr, "port": tr, "back": back, "calls": calls, "base": str(base)}
+
+
+def test_trainer_device_pool_matches_jax_dispatch(pool_runs):
+    """Steps advance by windows where no boundary falls inside one
+    (loop.py:293-333): windows at steps 0, 3 and 6, one step at 9; the
+    refresh and the validation at step 6 and the saves at 9 and 10, the
+    JAX Trainer's steps; the logged losses finite (the two pools draw
+    their epochs from different generators, so the batches differ)."""
+    jtr, tr = pool_runs["jax"], pool_runs["port"]
+    assert tr.state.step == int(jtr.state.step) == POOL_STEPS
+    assert pool_runs["calls"] == [0, 3, 6]
+    assert [r["step"] for r in tr.refreshes] == [POOL_EVERY]
+    assert tr.refreshes[0]["n_kept"] > 0 and tr.fine_grid_host is not None
+    jsaves = sorted(int(d.split("_")[1]) for d in os.listdir(jtr.ckpt_dir)
+                    if d.startswith("step_"))
+    psaves = sorted(int(d[5:-5]) for d in os.listdir(tr.ckpt_dir) if d.endswith(".ckpt"))
+    assert psaves == jsaves == [POOL_SAVE, POOL_STEPS]
+    jl, pl = logs(pool_runs, "jax"), logs(pool_runs, "port")
+    assert [s for s, r in pl.items() if "val/psnr" in r] == [POOL_EVERY]
+    assert [s for s, r in jl.items() if "val/psnr" in r] == [POOL_EVERY]
+    assert sorted(s for s, r in pl.items() if "loss" in r) == [3, 6, 9, 10]
+    assert all(np.isfinite(r[k]) for r in pl.values() if "loss" in r for k in LOSS_KEYS)
+    dp = tr.device_pool
+    assert dp.sampling == "epoch" and dp._epoch_i >= 1 and dp._cursor > 0
+
+
+def test_trainer_device_pool_band_cache(pool_runs):
+    """The band cache is attached after the refresh (and nowhere before)
+    and again when a run resumes with a fine grid; each time every pool
+    row equals grid_near_far(first_only=True) of the grid."""
+    from neuralrecon_w_tpu_torch.ops.ray_voxel import grid_near_far
+
+    for name, n_attach in (("port", 1), ("back", 1)):
+        tr = pool_runs[name]
+        assert len(tr.attach_seconds) == n_attach, name
+        data = tr.device_pool.data
+        surf, _, hit = grid_near_far(tr.fine_dgrid, tr.train_level, data["rays"][:, 0:3],
+                                     data["rays"][:, 3:6], first_only=True)
+        assert torch.equal(data["surf_t"], surf) and torch.equal(data["surf_hit"], hit), name
+        assert bool(hit.any()), name
+    back = pool_runs["back"]
+    assert back.state.step == POOL_STEPS + 2 and not back.refreshes
