@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch / CUDA port: its serving path, its
-training step, mesh extraction and the training CLI up to the e2e gate.
+"""Chip smoke test of the PyTorch / CUDA port: its serving path (eager and
+as a CUDA graph), its training step, mesh extraction, the reprojection
+filter and the training CLI up to the e2e gate.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -50,7 +51,7 @@ K1 in f32 at the SDF sweep's chunk; a phototourism-style workspace under
 ``build/`` whose 500,000 SFM points sit on the served field's own zero
 set (a sign change found along seeded directions and bisected, with K1 in
 f32), that field saved with ``save_checkpoint``, and ``tools/extract_mesh_cli.main`` with
-the flags of ``scripts/sdf_extract.sh`` at ``--eval_level 10``. It checks
+the flags of ``scripts/sdf_extract.sh`` but ``--eval_level 9``. It checks
 the ply (non-empty, finite, normals unit, vertices on the field's zero
 set), counts the K1 and K6 launches of the extraction, prints each
 stage's seconds, and holds the path's SDF sweep (every grid point) and
@@ -113,12 +114,33 @@ steps a graph replay, every replayed launch accounted), its rays/s windows
 beside the host pool's, and a resume. The e2e gate runs under the same
 default (the device pool and the graph at batch 512).
 
+The served frame as one graph (``serving_graph_phase``, after the
+serving phases): per phase, the frames rendered in turns as eager chunks,
+as replays of one chunk captured by ``make_scan_render_fn`` (the frame
+copied to the card once, fetched once), again as the graph and again
+eager; every graph frame equal to the eager frame bit for bit, the rays/s
+of each, the launches and replays a chunk, the host syncs of an eager
+chunk (``torch.cuda.set_sync_debug_mode``), and under ``--profile`` the
+busy share of a replayed frame. ``trainer_phase`` then renders its
+checkpoint through ``render_cli --dispatch scan`` and ``--dispatch chunk``
+and holds the PNGs equal. After extraction, ``reproj_filter_phase`` runs
+the geometry-evaluation path on the extracted mesh: 100 ring views of
+160x120 written into the extraction workspace, the mesh's vertices as a
+point cloud voxelised at level 12 into a two-level grid (its bytes beside
+a flat grid's 8 GiB), K12 (``csrc/ray_voxel.cu``, the two-level DDA) held
+to its plain version with ``torch.equal`` and to K10 on a level-10 grid,
+``reproj_filter_cli`` in point-cloud mode over every view (its stages'
+seconds, the DDA's rays/s, the kept count; its keep mask on 4 views held
+to the plain DDA's), mesh mode over 8 views, and the native depth
+rasteriser held to the numpy one.
+
 The last lines are the card line, a JSON object with one entry per
 kernel (K1 and K2 with their serving launches, K3 to K5 and K7 to K9 with
 their training launches, K6 with its launches on every path, each plus
 its launches in the CLI runs, listed by run under "cli", the device-pool
 run's graph replays as "train_cli device_pool_graph"; K10 and K11 with
-their serving and training launches; each with
+their serving and training launches, the served graph's replays under
+"serving_graph"; K12 with the filter CLI's; each with
 its time, its plain version's, one PyTorch call's for the same function
 where there is one (K5: one ``addmm`` per factor pair on the same rows,
 ``library_ms``), and the least time the card could take for the same
@@ -216,7 +238,10 @@ TRAIN_MODES = ("pallas", "vjp", "pallas_field")  # 'pallas_field' with FUSED_BG
 
 # extraction (PERF.md holds the bounds and why)
 EXTRACT_POINTS = 500_000  # SFM points on the field's zero set
-EXTRACT_LEVEL = 10
+# scripts/sdf_extract.sh extracts at level 10; the script runs level 9 since
+# the reprojection filter's phase joined it, to stay within its earlier time
+# (PERF.md section 4): a mesh of ~1/4 the vertices, still over 10^6
+EXTRACT_LEVEL = 9
 EXTRACT_CHUNK = 102144  # scripts/sdf_extract.sh
 COLOR_CHUNK = 65536  # extraction/mesh.py's chunk_rgb
 MIN_TRACK = 2  # the workspace's min_track_length; every point has a longer track
@@ -230,7 +255,7 @@ EXTRACT_REACH = 1.4
 ZERO_SCAN = (0.02, 0.98, 16)  # radii scanned per direction, unit coordinates
 ZERO_DIRS = 1.25  # directions drawn per SFM point wanted; some may not cross
 BISECT_TOL = 1e-6
-SDF_PROBE_CELLS = 0.05  # median |sdf| at the mesh's vertices, in level-10 cells
+SDF_PROBE_CELLS = 0.05  # median |sdf| at the mesh's vertices, in cells of its level
 NORMAL_SHORT_FRAC = 1e-4  # normals short of unit (sliver faces only), share of vertices
 COLOR_LEVELS, COLOR_FRAC = 2, 0.999  # vertex colours, kernel path vs plain
 K6_CHECK_PTS = COLOR_CHUNK
@@ -2485,6 +2510,12 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
             or not all(os.path.exists(os.path.join(tr.ckpt_dir, f"step_{r['step']}.ckpt"))
                        for r in tr.refreshes)):
         fails.append(f"checkpoints: {sorted(os.listdir(tr.ckpt_dir))}")
+    # the trained checkpoint through render_cli, the served frame as a graph
+    # against the host chunk loop
+    if ck:
+        rendered, rfails = render_cli_dispatch_check(cfg_path, ck, root, device)
+        launches.update(rendered)
+        fails += rfails
     got = launches["trainer"]
     # K10: the validation's SFM near / far; K11: every step's fine-grid
     # query once a fine grid exists, and the validation's
@@ -2669,6 +2700,622 @@ def e2e_gate_phase(root: str, device: str = "cuda", card: str = "the CPU"):
 
 
 # the kernels redesigned in the latest slice: (label, entry function)
+# ------------------------- the served frame as a graph -------------------------
+
+
+def render_frames(model, fc, rcfg, scene, frames, fine_grid, sfm_grid, scan=None, wh=IMG_WH):
+    """Every frame of wh through render_image at CHUNK, the first untimed;
+    with ``scan`` (make_scan_render_fn's run) as one call a frame. Returns
+    (seconds of the timed frames, outputs)."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.training.step import make_render_fn
+    from neuralrecon_w_tpu_torch.training.validation import render_image
+
+    render_chunk = make_render_fn(fc, rcfg)
+    w, h = wh
+    seconds, outs = 0.0, []
+    for f, rays in enumerate(frames):
+        ts = np.full((len(rays),), f, np.int64)
+        labels = np.zeros((len(rays),), np.int64)
+        sync()
+        t0 = time.perf_counter()
+        outs.append(render_image(render_chunk, model, scene, rays, ts, labels, (w, h), CHUNK,
+                                 fine_grid, sfm_grid, scan_render=scan))
+        sync()
+        if f > 0:
+            seconds += time.perf_counter() - t0
+    return seconds, outs
+
+
+def scan_launches(counted: dict, run) -> dict:
+    """The launches a scan render ran, keyed as ``counted`` (the counts read
+    after it): the wrappers count each captured launch once, so a graph's
+    replays add replays - captures times the launches of a captured chunk."""
+    return {k: v + (run.replays - run.captures) * run.per_chunk_launches.get(k, 0)
+            for k, v in counted.items()}
+
+
+def sync_warnings(model, fc, rcfg, scene, rays, fine_grid, sfm_grid) -> list:
+    """The host syncs of one eager served chunk: torch's sync debug mode's
+    warnings (distinct messages), on the card."""
+    import warnings
+
+    import torch
+
+    from neuralrecon_w_tpu_torch.training.step import make_render_fn
+
+    dev = scene.origin.device
+    r = torch.as_tensor(rays[:CHUNK], device=dev)
+    ts = torch.zeros(r.shape[0], dtype=torch.long, device=dev)
+    fn = make_render_fn(fc, rcfg)
+    fn(model, scene, r, ts, ts, None, fine_grid, sfm_grid)
+    sync()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(model, scene, r, ts, ts, None, fine_grid, sfm_grid)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # torch warns "called a synchronizing CUDA operation" at each sync, and
+    # once that the mode is a prototype, which is not a sync
+    return sorted({str(w.message).splitlines()[0] for w in caught
+                   if "synchroniz" in str(w.message) and "prototype" not in str(w.message)})
+
+
+def serving_graph_phase(model, fc, rcfg, scene, frames, fine_grid, sfm_grid, label,
+                        profile=False, wh=IMG_WH):
+    """The served frames rendered in turns as eager chunks (render_image's
+    host loop of make_render_fn), as the captured graph of
+    make_scan_render_fn (one call a frame: the frame copied in once, every
+    chunk a replay, one fetch), the graph again, and eager again. Every
+    graph frame must equal the eager frame bit for bit (both at perturb 0,
+    the same kernels in the same order). Returns (rays/s by mode, the
+    graph's launches by kernel, fails): a captured chunk's launches times
+    the replays and the one eager chunk run before the capture."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.training.step import make_scan_render_fn
+
+    w, h = wh
+    scan = make_scan_render_fn(fc, rcfg, CHUNK)
+    walls, outs = {"eager": [], "graph": []}, {}
+    for mode in ("eager", "graph", "graph", "eager"):
+        seconds, o = render_frames(model, fc, rcfg, scene, frames, fine_grid, sfm_grid,
+                                   scan if mode == "graph" else None, wh)
+        walls[mode].append(seconds)
+        outs.setdefault(mode, []).append(o)
+    fails = []
+    worst = {}
+    for turn in outs["graph"]:
+        for g, e in zip(turn, outs["eager"][0]):
+            for k in e:
+                d = float(np.abs(g[k].astype(np.float64) - e[k]).max())
+                worst[k] = max(worst.get(k, 0.0), d)
+    equal = all(v == 0.0 for v in worst.values())
+    n_timed = (len(frames) - 1) * w * h
+    rps = {m: n_timed / (sum(v) / len(v)) for m, v in walls.items()}
+    per_chunk = sum(scan.per_chunk_launches.values())
+    n_chunks = -(-w * h // CHUNK)
+    print(f"serving graph {label}: {len(frames) - 1} timed frames of {w}x{h} in turns eager / "
+          f"graph / graph / eager: " + " / ".join(
+              f"{n_timed / t:.1f}" for t in (walls['eager'][0], walls['graph'][0],
+                                              walls['graph'][1], walls['eager'][1]))
+          + f" rays/s; graph {scan.captures} capture, {scan.replays} replays ({n_chunks} a "
+          f"frame), {per_chunk} kernel launches a captured chunk ("
+          + ", ".join(f"{k} {v}" for k, v in sorted(scan.per_chunk_launches.items()))
+          + f"); graph frames vs eager max|diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" -> {'bit for bit' if equal else 'FAIL'}")
+    if not equal:
+        fails.append(f"serving graph {label}: frames differ from the eager frames "
+                     f"({worst})")
+    on_card = scene.origin.device.type == "cuda"
+    want = (1, 2 * len(frames) * n_chunks) if on_card else (0, 0)  # the CPU: the plain loop
+    if (scan.captures, scan.replays) != want:
+        fails.append(f"serving graph {label}: {scan.captures} captures, {scan.replays} replays")
+    launches = {k: v * (scan.replays + scan.captures) for k, v in scan.per_chunk_launches.items()}
+    wanted = ("sdf_mlp", "up_sample", "dda") + (("sampled_hit",) if fine_grid is not None
+                                                  else ())
+    if on_card:
+        fails += [f"serving graph {label}: {n} not in the captured chunk" for n in wanted
+                  if scan.per_chunk_launches.get(n, 0) <= 0]
+        syncs = sync_warnings(model, fc, rcfg, scene, frames[1], fine_grid, sfm_grid)
+        print(f"host syncs in one eager {label} chunk (torch.cuda.set_sync_debug_mode 'warn'): "
+              f"{len(syncs)}" + ("" if not syncs else ": " + "; ".join(syncs)))
+    if profile:
+        profile_scan_frame(scan, model, scene, frames[1], fine_grid, sfm_grid, label, wh)
+    scan.release()
+    return rps, launches, fails
+
+
+def profile_scan_frame(scan, model, scene, rays, fine_grid, sfm_grid, label, wh=IMG_WH) -> None:
+    """torch.profiler over one frame of replays: wall, the device's busy
+    share (every device event but the renderer's ranges), the top kernels."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuralrecon_w_tpu_torch.training.validation import render_image
+
+    n = len(rays)
+    ts, labels = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render_image(None, model, scene, rays, ts, labels, wh, CHUNK, fine_grid, sfm_grid,
+                     scan_render=scan)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("render.")]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    n_chunks = -(-n // CHUNK)
+    print(f"profile {label} graph frame of {n} rays ({n_chunks} replays of {CHUNK}): wall "
+          f"{wall_ms:.1f} ms ({wall_ms / n_chunks:.2f} a chunk), {sum(e.count for e in device)} "
+          f"device events busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    print(events.table(sort_by="self_device_time_total", row_limit=10))
+
+
+def render_cli_dispatch_check(cfg_path: str, ck: str, root: str, device: str,
+                              downscale: int = 1):
+    """``render_cli.main`` on a checkpoint with ``--dispatch scan`` and
+    ``--dispatch chunk`` (the first training view at ``downscale``, chunks
+    of CHUNK): the same PNG arrays. Returns ({"render_scan", "render_chunk":
+    launches}, fails); the scan run's launches count its graph's replays
+    (``scan_launches``)."""
+    import numpy as np
+    from PIL import Image
+
+    from neuralrecon_w_tpu_torch.tools import render_cli
+    from neuralrecon_w_tpu_torch.training import step
+
+    made, real = [], step.make_scan_render_fn
+
+    def recording(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+
+    counters = launch_counters()
+    pngs, launches = {}, {}
+    for d in ("scan", "chunk"):
+        out = os.path.join(root, f"render_{d}")
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        with mock.patch.object(step, "make_scan_render_fn", recording):
+            render_cli.main(["--cfg_path", cfg_path, "--ckpt_path", ck, "--out_dir", out,
+                             "--img_downscale", str(downscale), "--chunk", str(CHUNK),
+                             "--dispatch", d, "--device", device])
+        sync()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        launches[f"render_{d}"] = scan_launches(got, made[-1]) if d == "scan" else got
+        pngs[d] = {n: np.asarray(Image.open(os.path.join(out, n))) for n in sorted(os.listdir(out))}
+        print(f"render_cli --dispatch {d}: {sorted(pngs[d])} in {wall:.2f} s"
+              + (f" ({made[-1].captures} capture, {made[-1].replays} replays)" if d == "scan"
+                 else ""))
+    same = (sorted(pngs["scan"]) == sorted(pngs["chunk"]) and len(pngs["scan"]) == 3
+            and all(np.array_equal(pngs["scan"][n], pngs["chunk"][n]) for n in pngs["chunk"]))
+    worst = max((int(np.abs(pngs["scan"][n].astype(int) - pngs["chunk"][n]).max())
+                 for n in pngs["chunk"] if n in pngs["scan"]), default=-1)
+    print(f"render_cli scan vs chunk PNGs: max|diff| {worst} levels -> "
+          f"{'equal' if same else 'FAIL'}")
+    fails = [] if same else [f"render_cli --dispatch scan differs from chunk ({worst} levels)"]
+    if device == "cuda" and not (made and made[-1].captures == 1 and made[-1].replays > 0):
+        fails.append("render_cli --dispatch scan did not replay a captured chunk")
+    return launches, fails
+
+
+# ----------------------- the reprojection filter (K12) -----------------------
+
+# point-cloud mode at level 12 (the filter's deepest grid) over REPROJ_CAMS
+# ring views at IMG_WH; K12 against its plain version on REPROJ_KERNEL_VIEWS
+# views' rays (76,800 at 160x120), the filter's keep mask against the plain
+# DDA's on REPROJ_PLAIN_VIEWS views; mesh mode over REPROJ_MESH_VIEWS views
+# on REPROJ_WORKERS threads; the native rasteriser against the numpy one on
+# 2 views of REPROJ_RASTER_FACES seeded faces (the numpy one loops per face)
+REPROJ_CAMS, REPROJ_LEVEL, REPROJ_SHELL_POINTS = 100, 12, 1 << 20
+REPROJ_KERNEL_VIEWS, REPROJ_PLAIN_VIEWS, REPROJ_MESH_VIEWS = 4, 4, 8
+REPROJ_WORKERS, REPROJ_RASTER_FACES = 8, 10000
+REPROJ_CAM_DIST = 2.5  # camera distance, in the cloud's bounding radii
+# tests/test_ops.py:141-143's tolerance on near / far, SFM units; the
+# rasterisers' disagreement bound, tests/test_extraction_eval.py:285
+HIER_RTOL, HIER_ATOL, RASTER_DIFF = 1e-3, 1e-4, 1e-4
+MAX_DIFFER = 2000  # rays held to the exact first hit, one brute-force pass each
+# float32 operations of K12: a ray's set-up, a step's probe, lookup and exit
+K12_RAY_OPS, K12_TRIP_OPS = 30, 40
+
+
+def filter_cameras(root: str, center, dist: float, n: int, wh=IMG_WH) -> list:
+    """n ring cameras at ``dist`` from ``center`` (heights varying, each
+    looking at the centre), written into the workspace as COLMAP
+    cameras.bin / images.bin (PINHOLE, focal 1.2 w) and a split table of
+    training views. Returns [(K, c2w, (w, h))] as load_scene_meta reads them."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.datasets.colmap import (Camera, Image, rotmat2qvec,
+                                                         write_cameras_binary,
+                                                         write_images_binary)
+
+    w, h = wh
+    f = 1.2 * w
+    sparse = os.path.join(root, "dense", "sparse")
+    os.makedirs(sparse, exist_ok=True)
+    write_cameras_binary({1: Camera(1, "PINHOLE", w, h, np.array([f, f, w / 2, h / 2]))},
+                         os.path.join(sparse, "cameras.bin"))
+    center = np.asarray(center, np.float64)
+    images, cams = {}, []
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])
+    for i in range(n):
+        ang = 2 * np.pi * i / n
+        eye = center + dist * np.array([np.cos(ang), np.sin(ang), 0.4 * np.sin(3 * ang)])
+        fwd = (center - eye) / np.linalg.norm(center - eye)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        R = np.stack([right, down, fwd])  # COLMAP world -> camera: x right, y down, z forward
+        t = -R @ eye
+        images[i + 1] = Image(i + 1, rotmat2qvec(R), t, 1, f"view_{i:04d}.png",
+                              np.zeros((0, 2)), np.zeros(0, np.int64))
+        c2w = np.concatenate([R.T, eye[:, None]], axis=1)
+        c2w[:, 1:3] *= -1  # right-up-back
+        cams.append((K, c2w, (w, h)))
+    write_images_binary(images, os.path.join(sparse, "images.bin"))
+    with open(os.path.join(root, "views.tsv"), "w") as fh:
+        fh.write("filename\tid\tsplit\tdataset\n")
+        for i in range(n):
+            fh.write(f"view_{i:04d}.png\t{i}\ttrain\tsynthetic\n")
+    return cams
+
+
+def cloud_rays(cams, grid, dev):
+    """The views' pixel rays in ``grid``'s normalised coordinates, float32 on dev."""
+    import numpy as np
+    import torch
+
+    from neuralrecon_w_tpu_torch.datasets.rays import get_ray_directions, get_rays
+
+    o, d = [], []
+    for K, c2w, (w, h) in cams:
+        ro, rd = get_rays(get_ray_directions(h, w, K), c2w)
+        o.append((ro - grid.origin) / grid.scale)
+        d.append(rd)
+    return (torch.as_tensor(np.concatenate(o), dtype=torch.float32, device=dev),
+            torch.as_tensor(np.concatenate(d), dtype=torch.float32, device=dev))
+
+
+def level_voxel(verts, level: int) -> float:
+    """A voxel size that voxelize_points quantises at exactly ``level``."""
+    import numpy as np
+
+    scale = float(np.max(verts.max(0) - verts.min(0)) / 2 * 1.01 + 1e-6)
+    return 2.0 * scale / (1 << level) / 1.25
+
+
+def k12_kernel_check(hg, level: int, o, d, card: str):
+    """K12 against dda_traverse_hier_plain on rays (o, d), both
+    first_only modes, torch.equal on every output; the filter's query
+    (first_only) timed in turns, its bound from this run's trips and
+    distinct words. Returns (entry, fails)."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    dev = o.device
+    r = o.shape[0]
+    fails, entry = [], {}
+    for first in (False, True):
+        trips = torch.empty(r, dtype=torch.int32, device=dev) if dev.type == "cuda" else None
+        touched = (torch.zeros(hg.meta.shape[0], dtype=torch.int32, device=dev),
+                   torch.zeros_like(hg.fine))
+        got = (rv.dda_traverse_hier(hg, level, o, d, first, steps_out=trips) if trips is not None
+               else rv.dda_traverse_hier(hg, level, o, d, first))
+        sync()
+        t0 = time.perf_counter()
+        want = rv.dda_traverse_hier_plain(hg, level, o, d, first, touched=touched)
+        sync()
+        plain_s = time.perf_counter() - t0
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        n_trips = float(touched[0].double().sum())
+        if trips is not None and float(trips.double().sum()) != n_trips:
+            fails.append(f"K12 first_only={first}: the plain version read {n_trips} meta rows, "
+                         f"the kernel made {float(trips.double().sum())} trips")
+        rows, words = int((touched[0] > 0).sum()), int((touched[1] > 0).sum())
+        print(f"K12 dda_hier level {level} first_only={first} on {r} rays: {int(got[2].sum())} "
+              f"hit, mean {n_trips / r:.1f} steps, {rows} distinct meta rows of "
+              f"{hg.meta.shape[0]}, {words} fine words of {hg.fine.numel()}; torch.equal "
+              f"{equal} -> {'ok' if equal else 'FAIL'}")
+        if not equal:
+            fails.append(f"K12 first_only={first}")
+        if first:
+            b = bound(r * K12_RAY_OPS + n_trips * K12_TRIP_OPS,
+                      r * (24 + 4 + 4 + 1) + 8 * rows + 4 * words, "simt")
+            entry = {"rays": r, "level": level, "mean_steps": n_trips / r, "meta_rows": rows,
+                     "fine_words": words, "max_abs_err": err, **b}
+            if dev.type == "cuda":
+                # the plain version's one timed run (a second of launches) is
+                # its time; the kernel's, CUDA events over 5 launches
+                ms, plain_ms = cuda_ms(lambda: rv.dda_traverse_hier(hg, level, o, d, True)), \
+                    plain_s * 1e3
+                entry.update(ms=ms, plain_ms=plain_ms, library_ms=None)
+                print(f"K12 dda_hier level {level} first_only ({card}): kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return entry, fails
+
+
+def exact_first(lo, hi, o, d):
+    """The exact first hit of the ray o + s d (float64, normalised
+    coordinates) over cell boxes [lo, hi] (M, 3): (hit, the entry s of the
+    first cell, that cell's chord, |d| along the axis it leaves the cell
+    by), by every box's slabs (``ray_voxel.brute_force_near_far``'s
+    oracle, one ray)."""
+    import numpy as np
+
+    d = np.where(np.abs(d) < 1e-12, 1e-12, d)
+    t0, t1 = (lo - o) / d, (hi - o) / d
+    far = np.maximum(t0, t1)
+    tn, tf = np.minimum(t0, t1).max(1), far.min(1)
+    ok = (tf >= tn) & (tf > 0)
+    if not ok.any():
+        return False, 0.0, 0.0, 1.0
+    k = np.flatnonzero(ok)[np.argmin(np.maximum(tn[ok], 0.0))]
+    return (True, max(float(tn[k]), 0.0), float(tf[k] - max(tn[k], 0.0)),
+            float(abs(d[np.argmin(far[k])])))
+
+
+def near_answers(lo, hi, o, d, delta: float):
+    """``exact_first`` of the ray and of the rays shifted by delta along
+    each axis and each diagonal: what a march that resolves positions only
+    to delta can rightly answer. The boxes the ray passes within 2 delta of
+    are found in one pass over all of them."""
+    import numpy as np
+
+    dd = np.where(np.abs(d) < 1e-12, 1e-12, d)
+    t0, t1 = (lo - 2 * delta - o) / dd, (hi + 2 * delta - o) / dd
+    near = (np.maximum(t0, t1).min(1) >= np.minimum(t0, t1).max(1))
+    lo, hi = lo[near], hi[near]
+    shifts = [np.zeros(3)] + [delta * v for v in np.concatenate(
+        [np.eye(3), -np.eye(3), np.stack(np.meshgrid(*[[-1.0, 1.0]] * 3), -1).reshape(-1, 3)])]
+    return [exact_first(lo, hi, o + sh, d) if len(lo) else (False, 0.0, 0.0, 1.0)
+            for sh in shifts]
+
+
+def k12_vs_k10(grid, cams, dev):
+    """K12 and K10 on the same host grid (a two-level and a flat copy)
+    over the views' rays: hit and first hit (near, within
+    tests/test_ops.py's tolerance in SFM units); far's outliers reported.
+    The two marches differ at cell corners and edges: the flat one sums
+    float32 cell crossings along the ray (its t drifts by a few ulps a
+    step, so near a corner it can take the wrong axis), the two-level one
+    recomputes each exit from the cell but probes a nudge eps = 2^{1-L}
+    1e-3 / max|d| past each entry, in float32: it steps over a cell the ray
+    crosses for less than eps (plus the probe's rounding, 2^-22 (max|o| +
+    s) over |d| along the cell's exit axis), and resolves the ray's position
+    only to delta = 2^{1-L} 1e-3 + 2^-22 (max|o| + s). So every ray on which
+    they differ is held to the exact float64 first hit (``exact_first``):
+    K12's answer must be the exact one, or the exact first cell such a
+    graze, or the exact answer of the ray shifted by delta along an axis or
+    a diagonal (``near_answers``); else the check fails. Returns fails."""
+    import numpy as np
+    import torch
+
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    flat, hg = rv.device_grid_from_host(grid, dev), rv.hier_grid_from_host(grid, dev)
+    o, d = cloud_rays(cams, grid, dev)
+    w = 2.0 / grid.res
+    lo = grid.coords.astype(np.float64) * w - 1.0
+    hi = lo + w
+    answers = {}  # ray -> near_answers, shared by the two modes
+    fails = []
+    for first in (True, False):
+        # t in normalised units; the tolerance is on near / far in SFM units
+        a = rv.dda_traverse(flat.occ, grid.level, o, d, first)
+        b = rv.dda_traverse_hier(hg, grid.level, o, d, first)
+        v = a[2] & b[2]
+        tol = lambda x: (HIER_ATOL + HIER_RTOL * x.abs() * grid.scale) / grid.scale  # noqa: E731
+        near_off = v & ((a[0] - b[0]).abs() > tol(a[0]))
+        far_out = int(((a[1] - b[1]).abs() > tol(a[1]))[v].sum())
+        differ = torch.nonzero((a[2] != b[2]) | near_off)[:, 0].cpu().numpy()
+        on, dn = o.double().cpu().numpy(), d.double().cpu().numpy()
+        ta, tb = a[0].double().cpu().numpy(), b[0].double().cpu().numpy()
+        ha, hb = a[2].cpu().numpy(), b[2].cpu().numpy()
+
+        def agrees(hit, t, got_hit, got_t):
+            tol_i = (HIER_ATOL + HIER_RTOL * abs(t) * grid.scale) / grid.scale
+            return got_hit == hit and (not hit or abs(got_t - t) <= tol_i)
+
+        k12_exact = k10_exact = grazes = within = bad = 0
+        for i in differ[:MAX_DIFFER]:
+            rounding = 2.0 ** -22 * (np.abs(on[i]).max() + max(ta[i], tb[i]))
+            if i not in answers:
+                answers[i] = near_answers(lo, hi, on[i], dn[i], w * 1e-3 + rounding)
+            (hit, t, chord, d_exit), shifted = answers[i][0], answers[i][1:]
+            k10_exact += int(agrees(hit, t, ha[i], ta[i]))
+            if agrees(hit, t, hb[i], tb[i]):
+                k12_exact += 1
+            elif hit and chord < w * 1e-3 / np.abs(dn[i]).max() + rounding / d_exit:
+                grazes += 1
+            elif any(agrees(h, s_, hb[i], tb[i]) for h, s_, _, _ in shifted):
+                within += 1
+            else:
+                bad += 1
+                print(f"  ray {i}: exact hit {hit} at {t:.7f}; K12 {bool(hb[i])} at "
+                      f"{tb[i]:.7f}; K10 {bool(ha[i])} at {ta[i]:.7f}; shifted "
+                      f"{[(bool(h), round(s_, 7)) for h, s_, _, _ in shifted]}; o {on[i].tolist()}, "
+                      f"d {dn[i].tolist()}")
+        bad += max(len(differ) - MAX_DIFFER, 0)
+        print(f"K12 vs K10 at level {grid.level}, first_only={first}, {o.shape[0]} rays: "
+              f"{int(a[2].sum())} / {int(b[2].sum())} hit; {len(differ)} differ in hit or near "
+              f"(beyond {HIER_RTOL} rel + {HIER_ATOL} SFM units); against the exact float64 "
+              f"first hit K12 matches {k12_exact}, K10 {k10_exact}; {grazes} first cells "
+              f"crossed for under K12's nudge, K12 matches a ray shifted by its nudge and "
+              f"rounding on {within}, {bad} else; far outside {far_out} "
+              f"(reported) -> " + ("ok" if not bad else "FAIL"))
+        if bad:
+            fails.append(f"K12 vs K10 level {grid.level} first_only={first}: {bad} rays")
+    return fails
+
+
+def reproj_filter_phase(root: str, ply_path: str, card: str = "the CPU",
+                        level: int = REPROJ_LEVEL, n_cams: int = REPROJ_CAMS, wh=IMG_WH,
+                        shell_points: int = REPROJ_SHELL_POINTS):
+    """The geometry-evaluation path on the extraction phase's mesh and
+    workspace: n_cams ring views written into the workspace; the mesh's
+    vertices (or, where fewer, a shell of shell_points points around them)
+    as a point cloud, voxelised at ``level`` into a two-level grid (its
+    bytes against a flat grid's); K12 against its plain version and against
+    K10 at level 10; ``reproj_filter_cli`` in point-cloud mode over every
+    view with the launch counts set to 0 just before and read just after;
+    its keep mask on REPROJ_PLAIN_VIEWS views against the plain DDA's; mesh
+    mode over REPROJ_MESH_VIEWS views; the native rasteriser against the
+    numpy one. Returns (K12's entry, launches, fails)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from neuralrecon_w_tpu_torch.evaluation import reproj_filter as rf
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+    from neuralrecon_w_tpu_torch.ops.native import rasterize_depth_native
+    from neuralrecon_w_tpu_torch.ops.voxel_grid import VoxelGrid, _sort_coords
+    from neuralrecon_w_tpu_torch.tools import reproj_filter_cli
+    from neuralrecon_w_tpu_torch.utils.ply import read_ply, write_ply
+
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    fails = []
+    mesh = read_ply(ply_path)
+    verts, faces = mesh["verts"], mesh["faces"]
+    center = (verts.max(0) + verts.min(0)) / 2
+    reach = float(np.linalg.norm(verts - center, axis=1).max())
+    cloud = verts
+    if len(verts) < shell_points:  # a shell around the mesh: tests/test_ops.py:168
+        v = np.random.default_rng(SEED).standard_normal((shell_points, 3))
+        cloud = center + v / np.linalg.norm(v, axis=1, keepdims=True) * (0.9 * reach)
+    cloud_ply = os.path.join(root, "cloud.ply")
+    write_ply(cloud_ply, cloud)
+    cams = filter_cameras(root, center, REPROJ_CAM_DIST * reach, n_cams, wh)
+    voxel = level_voxel(cloud, level)
+    t0 = time.perf_counter()
+    grid = rf.voxelize_points(cloud, voxel)
+    t1 = time.perf_counter()
+    hg = rv.hier_grid_from_host(grid, dev)
+    sync()
+    t2 = time.perf_counter()
+    hier_bytes = (hg.meta.numel() + hg.fine.numel()) * 4
+    flat_bytes = (1 << (3 * grid.level)) // 8
+    print(f"reprojection filter: {len(cloud)} points ({'the mesh vertices' if cloud is verts else 'a shell'}"
+          f", mesh {len(verts)} vertices / {len(faces)} faces), level {grid.level} "
+          f"({len(grid.coords)} cells, voxelised in {t1 - t0:.2f} s); two-level grid meta "
+          f"{hg.meta.numel() * 4} + fine {hg.fine.numel() * 4} = {hier_bytes} bytes against "
+          f"{flat_bytes} flat ({flat_bytes / 2**30:.1f} GiB), built in {t2 - t1:.2f} s; "
+          f"{n_cams} views of {wh[0]}x{wh[1]}")
+    if grid.level != level:
+        fails.append(f"the filter's grid is level {grid.level}, not {level}")
+
+    o, d = cloud_rays(cams[:REPROJ_KERNEL_VIEWS], grid, dev)
+    entry, kfails = k12_kernel_check(hg, grid.level, o, d, card)
+    fails += kfails
+    entry.update(hier_bytes=hier_bytes, flat_bytes=flat_bytes)
+    # the same cells at level 10 (a level-12 index >> 2 is the level-10 one):
+    # a grid both K10 and K12 can hold
+    coarse = min(10, grid.level)
+    grid10 = VoxelGrid(coarse, grid.origin, grid.scale,
+                       _sort_coords(grid.coords >> (grid.level - coarse), coarse))
+    fails += k12_vs_k10(grid10, cams[:REPROJ_KERNEL_VIEWS], dev)
+    del o, d, grid10
+
+    # point-cloud mode through the CLI, every view
+    counters = launch_counters()
+    reset_counts(counters)
+    buf = io.StringIO()
+    sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = reproj_filter_cli.main(["--src_file", cloud_ply, "--root_dir", root,
+                                      "--img_downscale", "1", "--voxel_size", repr(voxel),
+                                      "--out_dir", os.path.join(root, "filtered"),
+                                      "--device", dev.type])
+    sync()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    text = buf.getvalue()
+    print(text.strip())
+    stats = json.loads(next(ln for ln in text.splitlines() if ln.startswith("stages "))[7:])
+    kept = read_ply(out)["verts"]
+    rate = stats["dda_rays"] / stats["dda_s"]
+    print(f"reproj_filter_cli point-cloud mode ({card}): {wall:.2f} s for {n_cams} views, kept "
+          f"{len(kept)} of {len(cloud)}; DDA {stats['dda_calls']} calls, {stats['dda_rays']} rays "
+          f"in {stats['dda_s']:.3f} s ({rate:.4g} rays/s), host rays {stats['rays_s']:.3f} s, "
+          f"quantisation {stats['quantise_s']:.3f} s, np.isin {stats['isin_s']:.3f} s, voxelise "
+          f"{stats['voxelize_s']:.3f} s, grid {stats['grid_s']:.3f} s; launches dda_hier "
+          f"{launches['dda_hier']}")
+    entry["filter"] = {"seconds": wall, "views": n_cams, "kept": len(kept), "points": len(cloud),
+                       "dda_rays_per_s": rate, **stats}
+    if not 0 < len(kept) < len(cloud) or not np.isfinite(kept).all():
+        fails.append(f"the filter kept {len(kept)} of {len(cloud)}")
+    if dev.type == "cuda" and launches["dda_hier"] != stats["dda_calls"]:
+        fails.append(f"K12 launched {launches['dda_hier']} times for {stats['dda_calls']} calls")
+
+    # the keep mask on a few views against the plain DDA's, on the phase's
+    # grid (the filter's own for the same cloud and voxel size)
+    sub = cams[:REPROJ_PLAIN_VIEWS]
+
+    def plain_traverse(g, lv, oo, dd, first_only=False, max_steps=None):
+        if isinstance(g, rv.HierGrid):
+            return rv.dda_traverse_hier_plain(g, lv, oo, dd, first_only, max_steps)
+        return rv.dda_traverse_plain(g.occ, lv, oo, dd, first_only, max_steps)
+
+    vcodes = rf.vertex_voxel_codes(grid, cloud)
+    n_sub = sum(w_ * h_ for _, _, (w_, h_) in sub)  # one call, no padded rays
+    m_kernel = np.isin(vcodes, rf.render_hit_codes_multi(hg, grid, sub, n_sub))
+    with mock.patch.object(rf, "traverse", plain_traverse):
+        m_plain = np.isin(vcodes, rf.render_hit_codes_multi(hg, grid, sub, n_sub))
+    same = np.array_equal(m_kernel, m_plain)
+    print(f"filter keep mask on {len(sub)} views, K12 vs the plain DDA: {int(m_kernel.sum())} / "
+          f"{int(m_plain.sum())} kept -> {'equal' if same else 'FAIL'}")
+    if not same:
+        fails.append("the filter's keep mask differs from the plain DDA's")
+
+    # mesh mode on the extracted mesh; the rasterisers on 2 views
+    stats = {}
+    t0 = time.perf_counter()
+    mv = cams[:REPROJ_MESH_VIEWS]
+    kv, kf, km = rf.reprojection_filter(verts, faces, mv, 2.0 * reach / 1024, workers=REPROJ_WORKERS,
+                                        stats=stats)
+    wall = time.perf_counter() - t0
+    print(f"mesh mode on the extracted mesh, {len(mv)} views on {REPROJ_WORKERS} threads: "
+          f"{wall:.2f} s, kept {int(km.sum())} of {len(verts)} vertices, {len(kf)} faces; raster "
+          f"{stats.get('raster_s', 0.0) / len(mv):.3f} s a view (summed over threads), KD match "
+          f"{stats.get('match_s', 0.0) / len(mv):.3f} s a view, tree {stats.get('tree_s', 0.0):.2f} s")
+    entry["mesh_mode"] = {"seconds": wall, "views": len(mv), "kept": int(km.sum()),
+                          "raster_s_per_view": stats.get("raster_s", 0.0) / len(mv)}
+    if not 0 < km.sum() or (len(kf) and kf.max() >= len(kv)):
+        fails.append("mesh mode kept nothing or remapped faces out of range")
+    centroids = verts[faces].mean(axis=1)
+    for K, c2w, (w, h) in cams[:2]:
+        # the faces nearest the camera: a patch of the surface it faces
+        near = np.linalg.norm(centroids - c2w[:, 3], axis=1)
+        pick = np.argsort(near)[:REPROJ_RASTER_FACES]
+        t0 = time.perf_counter()
+        a = rasterize_depth_native(verts, faces[pick], c2w, K, w, h)
+        t1 = time.perf_counter()
+        b = rf._rasterize_depth_numpy(verts, faces[pick], c2w, K, w, h)
+        t2 = time.perf_counter()
+        bad = int((np.abs(a - b) > RASTER_DIFF).sum())
+        ok = bad <= max(3, int(0.002 * a.size)) and int(((a > 0) & (b > 0)).sum()) > 20
+        print(f"native vs numpy rasteriser, {len(pick)} faces at {w}x{h}: {int((a > 0).sum())} "
+              f"pixels hit, {bad} differ beyond {RASTER_DIFF}; native {t1 - t0:.3f} s, numpy "
+              f"{t2 - t1:.3f} s -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"native rasteriser against numpy: {bad} pixels")
+    return entry, launches, fails
+
+
 REDESIGNED = (("K2", "up_sample_kernel"), ("K3", "sdf_vjp_fwd_kernel"),
               ("K4", "sdf_vjp_bwd_kernel"), ("K6", "field_fwd_kernel"), ("K7", "field_bwd_kernel"),
               ("K8", "bg_fwd_kernel"), ("K9", "bg_bwd_kernel"))
@@ -2828,11 +3475,23 @@ def main() -> int:
         fails += check_frames(outs, frames[:2], f"{label} pallas_field + FUSED_BG")
         fails += path_check(model, fc_fused, rc, scene, frames[1], fg, sfm_grid,
                             f"{label} pallas_field + FUSED_BG", ref_fc=fc)
+    # the served frame as one graph (make_scan_render_fn), in turns with the
+    # eager chunks, both phases; its launches are a captured chunk's times
+    # the replays (the wrappers count at capture only)
+    serve_graph, rps_graph = {}, {}
+    for label, rc, fg in (("warm-up", rcfg_warm, None), ("steady", rcfg_steady, fine_grid)):
+        rps_graph[label], got, gfails = serving_graph_phase(model, fc, rc, scene, frames, fg,
+                                                            sfm_grid, label, args.profile)
+        fails += gfails
+        for n, v in got.items():
+            serve_graph[n] = serve_graph.get(n, 0) + v
     print(f"peak device memory after serving {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if args.profile:
         profile_chunk(model, fc, rcfg_warm, scene, frames[1], None, sfm_grid, "warm-up")
         profile_chunk(model, fc, rcfg_steady, scene, frames[1], fine_grid, sfm_grid, "steady")
-    print(f"serving rays/s ({card}): warm-up {rps_warm:.1f}, steady {rps_steady:.1f}")
+    print(f"serving rays/s ({card}): warm-up {rps_warm:.1f}, steady {rps_steady:.1f}; in turns "
+          f"eager / graph: " + "; ".join(f"{label} {r['eager']:.1f} / {r['graph']:.1f}"
+                                         for label, r in rps_graph.items()))
 
     # the SDF-VJP kernels against their plain version, and their times; then
     # kernel 5's port (K6, K7 + K5) and kernel 6's (K8, K9 + K5) at the
@@ -2901,7 +3560,7 @@ def main() -> int:
         for label, r in rps_train.items()))
 
     # extraction: K6 and K1 f32 against their plain versions, then the
-    # served field through extract_mesh_cli at level 10. Not the trained
+    # served field through extract_mesh_cli at EXTRACT_LEVEL. Not the trained
     # one: 28 steps on the synthetic sphere leave it no closed surface
     # (PERF.md, section 6)
     del pool, dpool, rows, rgbs, batch, state
@@ -2912,10 +3571,25 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="extract_", dir=os.path.join(ROOT, "build"))
     try:
         x_launches, xfails = extraction_phase(model, fc, root)
+        print(f"peak device memory in extraction "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        # the geometry-evaluation path on the extracted mesh: the
+        # reprojection filter at level 12 (K12), its CLI, mesh mode
+        import glob
+
+        plys = glob.glob(os.path.join(root, "results", "*.ply"))
+        torch.cuda.reset_peak_memory_stats()
+        if len(plys) != 1:
+            fails.append(f"no extracted mesh for the reprojection filter: {plys}")
+            k12, r_launches = {}, {"dda_hier": 0}
+        else:
+            k12, r_launches, rfails = reproj_filter_phase(root, plys[0], card)
+            fails += rfails
+        print(f"peak device memory in the reprojection filter "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     fails += xfails
-    print(f"peak device memory in extraction {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # the training CLI at full width, then tests/test_e2e.py's gate, through
     # the port's entry points (train_cli, extract_mesh_cli, eval_mesh,
@@ -2957,7 +3631,9 @@ def main() -> int:
                "dda": ("neuralrecon_w_tpu_torch/csrc/ray_voxel.cu",
                        "neuralrecon_w_tpu/ops/ray_voxel.py:59"),
                "sampled_hit": ("neuralrecon_w_tpu_torch/csrc/ray_voxel.cu",
-                               "neuralrecon_w_tpu/ops/ray_voxel.py:326")}
+                               "neuralrecon_w_tpu/ops/ray_voxel.py:326"),
+               "dda_hier": ("neuralrecon_w_tpu_torch/csrc/ray_voxel.cu",
+                            "neuralrecon_w_tpu/ops/ray_voxel.py:198")}
     # K1 and K2 count the serving path's launches; K3, K4 the training
     # path's in 'pallas', K7 to K9 in 'pallas_field', K5 in both (by_mode);
     # K6 its launches on every path (kernel 5's forward in training, the
@@ -2974,6 +3650,13 @@ def main() -> int:
                     nerf_bg_fwd=fused["nerf_bg_fwd"] + serve_fused["nerf_bg_fwd"],
                     sampled_hit=launches["sampled_hit"] + sum(
                         train_launches[m]["sampled_hit"] for m in TRAIN_MODES))
+    # the served graph's replays: K1, K2, K10 in both phases, K11 in steady
+    for name, v in serve_graph.items():
+        if name in launches:  # K1's total, not its bf16 / f32 split
+            launches[name] += v
+            kres[name]["serving_graph"] = v
+    launches["dda_hier"] = r_launches["dda_hier"]
+    kres["dda_hier"] = k12
     kres["sdf_mlp"]["extraction"] = {"launches": x_launches["sdf_mlp"], **kres.pop("sdf_mlp_f32")}
     kres["field_fwd_extraction"] = kres.pop("field_fwd")
     kres.update(fres)

@@ -1,4 +1,4 @@
-"""The port's Hopper kernels (K1-K11, ``csrc/``), their build, their
+"""The port's Hopper kernels (K1-K12, ``csrc/``), their build, their
 wrappers and the plain PyTorch versions beside them."""
 
 
@@ -10,14 +10,14 @@ def kernel_counters() -> dict:
     from .field_train import field_train_bwd
     from .importance_sampler import up_sample_round
     from .nerf_bg_fused import nerf_bg_bwd, nerf_bg_fwd
-    from .ray_voxel import dda_traverse, sampled_first_hit
+    from .ray_voxel import dda_traverse, dda_traverse_hier, sampled_first_hit
     from .sdf_field_vjp import dw_reduce, sdf_vjp_bwd, sdf_vjp_fwd
     from .sdf_mlp import fused_sdf_head
 
     return {"sdf_mlp": fused_sdf_head, "up_sample": up_sample_round, "sdf_vjp_fwd": sdf_vjp_fwd,
             "sdf_vjp_bwd": sdf_vjp_bwd, "dw_reduce": dw_reduce, "field_fwd": fused_field_forward,
             "field_bwd": field_train_bwd, "nerf_bg_fwd": nerf_bg_fwd, "nerf_bg_bwd": nerf_bg_bwd,
-            "dda": dda_traverse, "sampled_hit": sampled_first_hit}
+            "dda": dda_traverse, "sampled_hit": sampled_first_hit, "dda_hier": dda_traverse_hier}
 
 
 def read_launches() -> dict:

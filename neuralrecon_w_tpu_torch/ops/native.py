@@ -1,12 +1,15 @@
-"""The host mesher (``csrc/host/geometry.cpp``): built with ``g++`` at first
-use into ``build/neuralrecon_w_tpu_torch/`` under the checkout root, named
-by a hash of the source and flags as ``ops/build.py`` names the kernels,
-and loaded with ctypes (``neuralrecon_w_tpu/ops/native.py:40-47``'s
-argtypes).
+"""The host geometry library (``csrc/host/geometry.cpp``): the mesher of
+mesh extraction and the depth rasteriser of the reprojection filter. Built
+with ``g++`` at first use into ``build/neuralrecon_w_tpu_torch/`` under the
+checkout root, named by a hash of the source and flags as ``ops/build.py``
+names the kernels, and loaded with ctypes
+(``neuralrecon_w_tpu/ops/native.py:40-60``'s argtypes).
 
-There is no numpy fallback: at level 10 the numpy mesher
-(``ops/isosurface.py``) would materialise (1023^3, 8, 3) int64 corner
-indices, ~200 GB. A failed build raises with the compiler's log.
+There is no fallback: at level 10 the numpy mesher (``ops/isosurface.py``)
+would materialise (1023^3, 8, 3) int64 corner indices, ~200 GB, and the
+numpy rasteriser (``evaluation/reproj_filter._rasterize_depth_numpy``)
+drops every face that crosses the near plane. A failed build raises with
+the compiler's log.
 """
 
 from __future__ import annotations
@@ -61,11 +64,40 @@ def library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
     ]
+    lib.nw_rasterize_depth.restype = None
+    lib.nw_rasterize_depth.argtypes = [
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_double),
+        ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
+        ctypes.POINTER(ctypes.c_float),
+    ]
     return lib
 
 
 def _ptr(arr, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def rasterize_depth_native(verts: np.ndarray, faces: np.ndarray, c2w: np.ndarray,
+                           K: np.ndarray, width: int, height: int,
+                           znear: float = 1e-4) -> np.ndarray:
+    """(h, w) float32 z-buffer depth of a mesh from a NeRF-convention camera
+    (0 = miss), ``neuralrecon_w_tpu/ops/native.py:91-111``."""
+    lib = library()
+    v = np.ascontiguousarray(verts, np.float64)
+    f = np.ascontiguousarray(faces, np.int64)
+    if f.size and (f.min() < 0 or f.max() >= len(v)):
+        raise ValueError("rasterize_depth_native: face indices outside the vertices")
+    pose = np.ascontiguousarray(np.asarray(c2w, np.float64)[:3, :4])
+    depth = np.zeros(int(height) * int(width), np.float32)
+    lib.nw_rasterize_depth(
+        _ptr(v, ctypes.c_double), len(v), _ptr(f, ctypes.c_int64), len(f),
+        _ptr(pose, ctypes.c_double),
+        float(K[0, 0]), float(K[1, 1]), float(K[0, 2]), float(K[1, 2]),
+        int(width), int(height), float(znear), _ptr(depth, ctypes.c_float))
+    return depth.reshape(int(height), int(width))
 
 
 def marching_tetrahedra_native(sdf: np.ndarray, level: float = 0.0,

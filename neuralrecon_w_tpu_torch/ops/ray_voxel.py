@@ -1,20 +1,30 @@
-"""Ray / occupancy-grid intersection for flat grids
-(``neuralrecon_w_tpu/ops/ray_voxel.py``): kernels K10 (the exact DDA) and
-K11 (the sampled first-hit query) in ``csrc/ray_voxel.cu``, and their
-plain PyTorch versions.
+"""Ray / occupancy-grid intersection (``neuralrecon_w_tpu/ops/ray_voxel.py``):
+kernels K10 (the exact DDA through a flat grid), K11 (the sampled
+first-hit query) and K12 (the exact DDA through a two-level grid) in
+``csrc/ray_voxel.cu``, and their plain PyTorch versions.
 
 The JAX package marches a packed occupancy bitfield with a branch-free
 Amanatides-Woo DDA inside ``lax.while_loop``, and samples the band's
 interval densely for the sampled query. On a CUDA tensor ``dda_traverse``
-launches K10 and ``sampled_first_hit`` K11, one thread per ray, or raise;
-on a CPU tensor they run their plain versions: ``dda_traverse_plain``, a
-Python loop of whole-batch tensor steps that asks the device whether any
-ray is still active every ``_SYNC_EVERY`` steps, and
-``sampled_first_hit_plain`` over the (R, n_samples) sample buffer. Each
-kernel equals its plain version bit for bit. Serving, the ray cache, the
-training step's fine-grid query and the device pool's band cache all go
-through these two entries. Grids are flat; the two-level ``HierGrid`` is
-not ported (a flat level-10 grid is 128 MiB).
+launches K10, ``sampled_first_hit`` K11 and ``dda_traverse_hier`` K12, one
+thread per ray, or raise; on a CPU tensor they run their plain versions:
+``dda_traverse_plain`` and ``dda_traverse_hier_plain``, Python loops of
+whole-batch tensor steps that ask the device whether any ray is still
+active every ``_SYNC_EVERY`` steps, and ``sampled_first_hit_plain`` over
+the (R, n_samples) sample buffer. Each kernel equals its plain version bit
+for bit.
+
+Two grid layouts. ``DeviceGrid`` is the flat bitfield of 2^{3L} bits.
+``HierGrid`` is JAX's two-level one: a bitfield of 8^3-cell blocks and 512
+bits for each occupied block, found by a rank lookup; a flat level-12 grid
+would be 2^36 bits (8 GiB), the two-level one ~32 MiB plus 64 B a block.
+``make_device_grid`` picks the two-level one from ``HIER_LEVEL_DEFAULT``
+(level 9) up, as JAX does, and ``traverse`` / ``grid_near_far`` take either.
+The reprojection filter (``evaluation/reproj_filter.py``, up to level 12)
+goes through them. Serving, the ray cache, the training step's fine-grid
+query and the device pool's band cache keep the flat grid: JAX's Trainer
+ships its level-10 fine grid as a ``HierGrid`` (``training/loop.py:170``),
+but the two march to the same results, and the flat level-10 grid is 128 MiB.
 
 Contract (get_near_far parity): depths are ray parameters of the ENTRY
 points of the first / last intersected voxel, in SFM units; rays whose
@@ -263,13 +273,221 @@ def sampled_first_hit_plain(grid: DeviceGrid, level: int, rays_o, rays_d, t_lo, 
     return torch.where(hit, t_first, torch.zeros_like(t_first)), hit
 
 
-def grid_near_far(grid: DeviceGrid, level: int, rays_o_sfm, rays_d, first_only: bool = False):
+def grid_near_far(grid, level: int, rays_o_sfm, rays_d, first_only: bool = False):
     """near / far from voxel intersection, SFM units (far is the ENTRY of
-    the last voxel: callers add voxel_size)."""
+    the last voxel: callers add voxel_size), over a DeviceGrid or a
+    HierGrid."""
     o_norm = (rays_o_sfm - grid.origin) / grid.scale
-    t_first, t_last, hit = dda_traverse(grid.occ, level, o_norm, rays_d, first_only)
+    t_first, t_last, hit = traverse(grid, level, o_norm, rays_d, first_only)
     valid = hit & (t_first > 1e-4)
     zero = torch.zeros_like(t_first)
     near = torch.where(valid, t_first * grid.scale, zero)
     far = torch.where(valid, t_last * grid.scale, zero)
     return near, far, valid
+
+
+# ------------------------------ two-level grid ------------------------------
+
+
+class HierGrid(NamedTuple):
+    """Two-level occupancy on the device (``ray_voxel.py:145-161``): a dense
+    bitfield of 8^3-cell blocks at level L - 3 with, per word, the rank of
+    its first block among the occupied ones, and 512 fine bits for each
+    occupied block in rank order."""
+
+    meta: torch.Tensor  # (2^{3(L-3)}/32, 2) int32: [coarse word, rank base], the uint32 bits
+    fine: torch.Tensor  # (16 * n_blocks,) int32: the uint32 words
+    origin: torch.Tensor  # (3,) float32, cube center in SFM coords
+    scale: float  # cube half-extent (float32 value)
+    voxel_size: float  # FINE cell edge in SFM units (float32 value)
+
+
+# grids at and above this level ship as two-level grids by default
+HIER_LEVEL_DEFAULT = 9
+
+
+def hier_grid_from_host(grid: VoxelGrid, device=None) -> HierGrid:
+    """The two-level grid of a host grid (``ray_voxel.py:164-195``), on
+    ``device`` (default: the card); meta and fine equal JAX's bit for bit."""
+    if grid.level < 3:
+        raise ValueError("a two-level grid needs level >= 3")
+    device = default_device(device)
+    n_c = 1 << (grid.level - 3)
+    coords = np.asarray(grid.coords, np.int64).reshape(-1, 3)
+    blocks = coords >> 3
+    bidx = (blocks[:, 0] * n_c + blocks[:, 1]) * n_c + blocks[:, 2]
+    cwords = np.zeros((max(n_c * n_c * n_c // 32, 1),), np.uint32)
+    np.bitwise_or.at(cwords, bidx >> 5, np.uint32(1) << (bidx & 31).astype(np.uint32))
+    # exclusive prefix of the words' popcounts: a block's slot is
+    # rank[word] + popcount(word & ((1 << bit) - 1))
+    pc = np.unpackbits(cwords.view(np.uint8)).reshape(-1, 32).sum(axis=1)
+    rank = np.zeros(len(pc), np.uint32)
+    np.cumsum(pc[:-1], out=rank[1:])
+    meta = np.stack([cwords, rank], axis=1)
+    ub, inverse = np.unique(bidx, return_inverse=True)  # ascending = slot order
+    fine = np.zeros((max(len(ub), 1), 16), np.uint32)
+    f = coords & 7
+    fidx = (f[:, 0] * 8 + f[:, 1]) * 8 + f[:, 2]
+    np.bitwise_or.at(fine, (inverse.reshape(-1), fidx >> 5),
+                     np.uint32(1) << (fidx & 31).astype(np.uint32))
+    return HierGrid(
+        meta=torch.from_numpy(meta.view(np.int32)).to(device),
+        fine=torch.from_numpy(fine.reshape(-1).view(np.int32)).to(device),
+        origin=torch.as_tensor(np.asarray(grid.origin, np.float32), device=device),
+        scale=float(np.float32(grid.scale)),
+        voxel_size=float(np.float32(grid.voxel_size)),
+    )
+
+
+def make_device_grid(grid: VoxelGrid, hierarchical: bool | None = None, device=None):
+    """A host grid on the device, flat below ``HIER_LEVEL_DEFAULT`` and two-level
+    from it up unless ``hierarchical`` says (``ray_voxel.py:365-371``)."""
+    if hierarchical is None:
+        hierarchical = grid.level >= HIER_LEVEL_DEFAULT
+    return (hier_grid_from_host(grid, device) if hierarchical
+            else device_grid_from_host(grid, device))
+
+
+def traverse(grid, level: int, rays_o, rays_d, first_only: bool = False,
+             max_steps: int | None = None):
+    """The DDA over either grid layout (``ray_voxel.py:374-378``)."""
+    if isinstance(grid, HierGrid):
+        return dda_traverse_hier(grid, level, rays_o, rays_d, first_only, max_steps)
+    return dda_traverse(grid.occ, level, rays_o, rays_d, first_only, max_steps)
+
+
+def _hier_eps(level: int) -> float:
+    """The probe nudge's numerator, w_f * 1e-3, as the float32 both versions use."""
+    return float(np.float32(2.0 / (1 << level) * 1e-3))
+
+
+def dda_traverse_hier(hg: HierGrid, level: int, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                      first_only: bool = False, max_steps: int | None = None,
+                      steps_out: torch.Tensor | None = None):
+    """March rays (R, 3) in grid-normalized coordinates through a two-level
+    grid (same contract as dda_traverse). CPU tensors take the plain
+    version; CUDA tensors launch K12, or raise. ``steps_out`` ((R,) int32,
+    CUDA only) receives each ray's loop trips."""
+    if max_steps is None:
+        max_steps = _default_steps(level)
+    if rays_o.device.type == "cpu":
+        return dda_traverse_hier_plain(hg, level, rays_o, rays_d, first_only, max_steps)
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"tensors on {rays_o.device}")
+    r = rays_o.shape[0]
+    _check_hier("dda_traverse_hier", hg, level, rays_o, rays_d)
+    if steps_out is not None and (steps_out.shape != (r,) or steps_out.dtype != torch.int32
+                                  or steps_out.device != rays_o.device):
+        raise ValueError("dda_traverse_hier: steps_out must be (R,) int32 on the rays' device")
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+    t_first = torch.empty(r, dtype=torch.float32, device=rays_o.device)
+    t_last = torch.empty_like(t_first)
+    hit = torch.empty(r, dtype=torch.bool, device=rays_o.device)
+    err = kernels().nw_dda_hier(
+        hg.meta.data_ptr(), hg.fine.data_ptr(), hg.fine.shape[0], level, rays_o.data_ptr(),
+        rays_d.data_ptr(), r, int(first_only), int(max_steps), _hier_eps(level),
+        t_first.data_ptr(), t_last.data_ptr(), hit.data_ptr(),
+        None if steps_out is None else steps_out.data_ptr(), stream_handle(rays_o.device))
+    check("nw_dda_hier", err)
+    dda_traverse_hier.launches += 1
+    return t_first, t_last, hit
+
+
+dda_traverse_hier.launches = 0
+
+
+def _check_hier(name: str, hg: HierGrid, level: int, rays_o, rays_d):
+    r = rays_o.shape[0]
+    if any(t.dtype != torch.float32 or t.device != rays_o.device for t in (rays_o, rays_d)) \
+            or rays_o.shape != (r, 3) or rays_d.shape != (r, 3):
+        raise ValueError(f"{name} takes (R, 3) float32 rays on one device")
+    n_words = max((1 << (3 * (level - 3))) // 32, 1) if level >= 3 else -1
+    if hg.meta.dtype != torch.int32 or hg.meta.shape != (n_words, 2) \
+            or hg.fine.dtype != torch.int32 or hg.fine.dim() != 1 \
+            or hg.fine.shape[0] % 16 or hg.fine.shape[0] < 16 \
+            or not (hg.meta.is_contiguous() and hg.fine.is_contiguous()) \
+            or hg.meta.device != rays_o.device or hg.fine.device != rays_o.device:
+        raise ValueError(f"{name}: a level-{level} two-level grid is meta ({n_words}, 2) and "
+                         "fine (16 n,) int32 words on the rays' device")
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of int64 values in [0, 2^32)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def dda_traverse_hier_plain(hg: HierGrid, level: int, rays_o: torch.Tensor,
+                            rays_d: torch.Tensor, first_only: bool = False,
+                            max_steps: int | None = None, touched=None):
+    """The plain PyTorch version of K12 (same contract as dda_traverse;
+    ``ray_voxel.py:198-295``). Each step probes the point eps past the
+    current entry, reads its block's meta row and its fine bit, and
+    advances to the exit of the fine cell inside an occupied block or of
+    the whole block through an empty one, recomputed from the cell. The
+    f32 arithmetic is the JAX loop's. ``touched`` (a pair of int32 tensors of
+    meta's rows and of fine's shape) gains one at a meta row for every step
+    of an active ray, and at a fine word for every such step inside an
+    occupied block: the reads K12 makes."""
+    n_f = 1 << level
+    n_c = n_f >> 3
+    if max_steps is None:
+        max_steps = _default_steps(level)
+    r = rays_o.shape[0]
+    dev = rays_o.device
+    w_f, w_c = 2.0 / n_f, 2.0 / n_c
+    n_fine = hg.fine.shape[0]
+
+    d = torch.where(torch.abs(rays_d) < 1e-12, torch.full_like(rays_d, 1e-12), rays_d)
+    inv_d = 1.0 / d
+    t0 = (-1.0 - rays_o) * inv_d
+    t1 = (1.0 - rays_o) * inv_d
+    t_enter = torch.clamp(torch.amax(torch.minimum(t0, t1), dim=-1), min=0.0)
+    t_leave = torch.amin(torch.maximum(t0, t1), dim=-1)
+    active = t_leave > t_enter
+    d_max = torch.amax(torch.abs(d), dim=-1)
+    eps_t = torch.full_like(d_max, _hier_eps(level)) / d_max
+    step_dir = (d > 0).to(torch.float32)
+    words = hg.meta[:, 0].to(torch.int64) & 0xFFFFFFFF
+    ranks = hg.meta[:, 1].to(torch.int64)
+
+    t_cur = t_enter
+    first = torch.full((r,), _INF, device=dev)
+    last = torch.full((r,), -_INF, device=dev)
+    for i in range(max_steps):
+        if i % _SYNC_EVERY == 0 and not bool(active.any()):
+            break
+        tt = t_cur + eps_t
+        p = rays_o + d * tt[:, None]
+        c = torch.clamp(torch.floor((p + 1.0) / w_f), 0, n_f - 1).to(torch.int64)
+        b = c >> 3
+        bidx = (b[:, 0] * n_c + b[:, 1]) * n_c + b[:, 2]
+        row = bidx >> 5
+        word, bit = words[row], bidx & 31
+        blk = ((word >> bit) & 1) == 1
+        slot = ranks[row] + _popcount32(word & ((1 << bit) - 1))
+        f = c & 7
+        fidx = (f[:, 0] * 8 + f[:, 1]) * 8 + f[:, 2]
+        at = torch.clamp(slot * 16 + (fidx >> 5), 0, n_fine - 1)
+        occ_hit = blk & (((hg.fine[at] >> (fidx & 31)) & 1) == 1) & active
+        if touched is not None:
+            touched[0].index_add_(0, row, active.to(torch.int32))
+            touched[1].index_add_(0, at, (active & blk).to(torch.int32))
+        first = torch.where(occ_hit & (first >= _INF), t_cur, first)
+        last = torch.where(occ_hit, t_cur, last)
+
+        use_fine = blk[:, None]
+        cell_g = torch.where(use_fine, c, b).to(torch.float32)
+        w_g = torch.where(use_fine, w_f, w_c)
+        hi = (cell_g + step_dir) * w_g - 1.0
+        t_ex = torch.amin((hi - rays_o) * inv_d, dim=-1)
+        t_next = torch.maximum(t_ex, tt)  # at least eps of progress
+        active = active & (t_next < t_leave)
+        if first_only:
+            active = active & (first >= _INF)
+        t_cur = t_next
+    hit = first < _INF
+    zero = torch.zeros_like(first)
+    return torch.where(hit, first, zero), torch.where(hit, last, zero), hit

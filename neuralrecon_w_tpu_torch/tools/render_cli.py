@@ -18,10 +18,14 @@ Usage:
         --a_interp 10,42 --frames 12 --pose_interp --gif --out_dir renders/
 
 ``--ckpt_path`` is a Lightning-layout ``.ckpt`` (``training/checkpoint.py``);
-the fine grid the trainer saved in it drives surface-guided sampling. A
-frame renders as a host loop over chunks of ``--chunk`` rays through
-``training/step.make_render_fn``; the JAX CLI's scan dispatch and its
-device-mesh sharding are not ported.
+the fine grid the trainer saved in it drives surface-guided sampling.
+``--dispatch scan`` (the default) renders a frame as one call of
+``training/step.make_scan_render_fn``: on the card, one chunk of ``--chunk``
+rays captured in a CUDA graph and replayed for every chunk, the frame
+fetched once; it serves SDF_GRAD_MODE 'vjp' with the 'xla' background and
+raises for the kernel modes (ROADMAP.md, Queue 1 item 7). ``--dispatch
+chunk`` renders a host loop of ``training/step.make_render_fn`` calls, in
+any mode. The JAX CLI's device-mesh sharding is not ported.
 """
 
 from __future__ import annotations
@@ -53,6 +57,9 @@ def get_opts(argv=None):
     parser.add_argument("--gif", action="store_true",
                         help="with --a_interp: also write an animated GIF (ping-pong loop)")
     parser.add_argument("--gif_ms", type=int, default=120, help="GIF frame duration, ms")
+    parser.add_argument("--dispatch", choices=["scan", "chunk"], default="scan",
+                        help="'scan' renders a frame as replays of one captured chunk on the "
+                        "card (the serving path); 'chunk' as a host loop of chunk calls")
     parser.add_argument("--device", type=str, default="cuda",
                         help="where the render runs: cuda (the kernels) or cpu")
     return parser.parse_args(argv)
@@ -113,7 +120,7 @@ def main(argv=None):
     from ..ops.ray_voxel import device_grid_from_host
     from ..tools.convert import without_dead_entries
     from ..training.checkpoint import restore_checkpoint
-    from ..training.step import make_render_fn
+    from ..training.step import make_render_fn, make_scan_render_fn
     from ..training.validation import render_image
     from ..utils.scene import load_scene_bundle, val_downscale
 
@@ -136,11 +143,13 @@ def main(argv=None):
     rcfg = render_config_from_cfg(cfg, sfm_level=sfm_grid.level, fine_level=fine_level,
                                   nerf_far_override=bool(cfg.NEUCONW.NEAR_FAR_OVERRIDE))
     render_chunk = make_render_fn(fc, rcfg)
+    scan_render = (make_scan_render_fn(fc, rcfg, args.chunk) if args.dispatch == "scan"
+                   else None)
 
     def render_view(rays10, ts, wh, name):
         labels = np.zeros((len(rays10),), np.int32)
         out = render_image(render_chunk, model, scene, rays10, ts, labels, wh, args.chunk,
-                           fine_dgrid, sfm_dgrid)
+                           fine_dgrid, sfm_dgrid, scan_render=scan_render)
         _save_frame(args.out_dir, name, out)
         print(f"wrote {args.out_dir}/{name}.png ({wh[0]}x{wh[1]})")
         return out

@@ -1,5 +1,5 @@
 """The training step, the multi-step dispatch and serving's render
-function (``neuralrecon_w_tpu/training/step.py``).
+functions (``neuralrecon_w_tpu/training/step.py``).
 
 ``make_train_step`` is ``step.py:54-111`` in PyTorch: render, the loss
 terms, one backward, the clip and the optimiser update, on one batch
@@ -18,6 +18,10 @@ the update count (the LR) and Adam's state are device tensors the graph
 advances. Inside the graph the sampler's jitter draws from one generator
 registered with the graph, seeded once from (seed, step at capture), so
 its stream differs from the eager steps' per-(seed, step) generators.
+
+``make_render_fn`` renders one chunk; ``make_scan_render_fn``
+(``step.py:239-281``) a whole frame of chunks, on the card as replays of
+one chunk captured in a ``torch.cuda.CUDAGraph`` (``ScanRender``).
 """
 
 from __future__ import annotations
@@ -304,3 +308,142 @@ def make_render_fn(fc: FieldConfig, rcfg: RenderConfig):
                                sfm_grid=sfm_grid, perturb_overwrite=0.0)
 
     return render_chunk
+
+
+# the kernel modes build their GEMM lists on the host on every call, which a
+# capture cannot hold (ROADMAP.md, Queue 1 item 7)
+_UNCAPTURED = "the kernel modes in a CUDA graph (ROADMAP.md, Queue 1 item 7)"
+
+
+def make_scan_render_fn(fc: FieldConfig, rcfg: RenderConfig, chunk: int):
+    """Whole-frame render over chunk-sized ray tiles (``step.py:239-281``):
+    run(model, scene, rays, ts, labels, rng=None, fine_grid=None,
+    sfm_grid=None) -> {"color" (N, 3), "depth" (N,), "normal" (N, 3)} on the
+    rays' device, N a multiple of ``chunk`` (the caller pads). Only the
+    images ``render_image`` takes leave a chunk: the weighted normal is
+    reduced inside it, so no (rays, samples) tensor outlives one. Perturb 0,
+    cos_anneal 1, no autograd graph kept, so ``rng`` goes unused (JAX's
+    signature). CUDA tensors replay a captured chunk (``ScanRender``); CPU
+    tensors run the plain loop of the same chunk."""
+    return ScanRender(fc, rcfg, chunk)
+
+
+class ScanRender:
+    """``make_scan_render_fn``'s run. On the card the first call renders one
+    chunk eagerly (lazy state: the kernel library, the background's index
+    tensors, cuBLAS's workspace), then captures one chunk's render from
+    static input buffers into static outputs; every chunk of every frame
+    is then copied into the inputs on the device, replayed, and its outputs
+    copied into the frame's on the device (``render_image`` fetches the
+    frame once). The graph
+    holds the model, the scene and the grids it was captured with: a new
+    fine or SFM grid of the same level is copied into the captured tensors,
+    and a call with another model or grid layout raises. A capture that
+    fails raises. ``captures``, ``replays`` and ``per_chunk_launches`` (the
+    kernel launches one captured chunk records) say what ran: the
+    wrappers' counters tick at capture only. Serves the default 'vjp' field
+    with the 'xla' background; on the card the kernel modes raise."""
+
+    def __init__(self, fc: FieldConfig, rcfg: RenderConfig, chunk: int):
+        self.fc, self.rcfg, self.chunk = fc, rcfg, int(chunk)
+        self.captures = self.replays = 0
+        self.per_chunk_launches: dict = {}
+        self._g = None
+        self._static: dict = {}
+
+    def body(self, model, scene, rays, ts, labels, fine_grid=None, sfm_grid=None):
+        """One chunk: (color (R, 3), depth (R,), weighted normal (R, 3))."""
+        out = render_rays(model, self.fc, self.rcfg, scene, rays, ts, labels, None,
+                          cos_anneal_ratio=1.0, fine_grid=fine_grid, sfm_grid=sfm_grid,
+                          perturb_overwrite=0.0)
+        g = out["gradients"]
+        return out["color"], out["depth"], (g * out["weights"][:, :g.shape[1], None]).sum(dim=1)
+
+    def __call__(self, model, scene, rays, ts, labels, rng=None, fine_grid=None, sfm_grid=None):
+        n = rays.shape[0]
+        if n % self.chunk or ts.shape[0] != n or labels.shape[0] != n:
+            raise ValueError(f"scan render: {n} rays, ts and labels in chunks of {self.chunk} "
+                             "(pad the frame first)")
+        with torch.no_grad():
+            if rays.device.type == "cuda":
+                return self._replay(model, scene, rays, ts, labels, fine_grid, sfm_grid)
+            outs = [self.body(model, scene, rays[i:i + self.chunk], ts[i:i + self.chunk],
+                              labels[i:i + self.chunk], fine_grid, sfm_grid)
+                    for i in range(0, n, self.chunk)]
+        return {k: torch.cat([o[j] for o in outs]) for j, k in
+                enumerate(("color", "depth", "normal"))}
+
+    # ------------------------------ graph ------------------------------
+
+    def _capture(self, model, scene, rays, ts, labels, fine_grid, sfm_grid):
+        from ..ops import read_launches
+
+        if self.fc.grad_mode != "vjp" or self.fc.bg_mode != "xla":
+            raise ValueError(f"a captured frame serves SDF_GRAD_MODE 'vjp' with the 'xla' "
+                             f"background, not {self.fc.grad_mode!r} / {self.fc.bg_mode!r}: "
+                             f"{_UNCAPTURED} is not ported yet; render with --dispatch chunk")
+        c, dev = self.chunk, rays.device
+        st = {"model": model, "scene": scene, "fine_grid": fine_grid, "sfm_grid": sfm_grid,
+              "rays": rays[:c].clone(), "ts": ts[:c].clone(), "labels": labels[:c].clone()}
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.body(model, scene, st["rays"], st["ts"], st["labels"], fine_grid, sfm_grid)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        before = read_launches()
+        with torch.cuda.graph(g):
+            st["out"] = self.body(model, scene, st["rays"], st["ts"], st["labels"], fine_grid,
+                                  sfm_grid)
+        after = read_launches()
+        self.per_chunk_launches = {k: after[k] - before[k] for k in after
+                                   if after[k] - before[k]}
+        self._g, self._static = g, st
+        self.captures += 1
+
+    def _inputs_in(self, model, scene, rays, ts, labels, fine_grid, sfm_grid):
+        """Hand this call's model, scene and grids to the graph: the captured
+        tensors, or copies into them."""
+        st = self._static
+        if model is not st["model"] or (fine_grid is None) != (st["fine_grid"] is None) \
+                or (sfm_grid is None) != (st["sfm_grid"] is None) \
+                or rays.shape[1:] != st["rays"].shape[1:] or rays.dtype != st["rays"].dtype \
+                or ts.dtype != st["ts"].dtype or labels.dtype != st["labels"].dtype:
+            raise ValueError("a captured frame takes the model, grids and ray layout it was "
+                             "captured with; make a new scan render for others")
+        pairs = list(zip(scene, st["scene"]))
+        for new, old in ((fine_grid, st["fine_grid"]), (sfm_grid, st["sfm_grid"])):
+            if new is None:
+                continue
+            if type(new) is not type(old) or (new.scale, new.voxel_size) != (old.scale,
+                                                                            old.voxel_size):
+                raise ValueError("a captured frame's grids keep their layout, cube and level")
+            pairs += [(a, b) for a, b in zip(new, old) if isinstance(a, torch.Tensor)]
+        for new, old in pairs:
+            if new.data_ptr() != old.data_ptr():
+                if new.shape != old.shape or new.dtype != old.dtype:
+                    raise ValueError("a captured frame's scene and grids keep their shapes")
+                old.copy_(new)
+
+    def _replay(self, model, scene, rays, ts, labels, fine_grid, sfm_grid):
+        if self._g is None:
+            self._capture(model, scene, rays, ts, labels, fine_grid, sfm_grid)
+        else:
+            self._inputs_in(model, scene, rays, ts, labels, fine_grid, sfm_grid)
+        st, c, n = self._static, self.chunk, rays.shape[0]
+        frame = [torch.empty((n,) + o.shape[1:], dtype=o.dtype, device=o.device)
+                 for o in st["out"]]
+        for i in range(0, n, c):
+            st["rays"].copy_(rays[i:i + c])
+            st["ts"].copy_(ts[i:i + c])
+            st["labels"].copy_(labels[i:i + c])
+            self._g.replay()
+            for dst, src in zip(frame, st["out"]):
+                dst[i:i + c].copy_(src)
+        self.replays += n // c
+        return dict(zip(("color", "depth", "normal"), frame))
+
+    def release(self) -> None:
+        """Drop the graph and its memory pool."""
+        self._g = None
+        self._static = {}

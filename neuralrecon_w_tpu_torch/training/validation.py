@@ -1,7 +1,8 @@
 """Validation and whole-image rendering (``neuralrecon_w_tpu/training/
 validation.py``; reference lightning_modules/neuconw_system.py:404-546): a
-held-out image rendered as a host chunk loop (without the device mesh and
-the scan dispatch), its PSNR, and a GT / prediction / depth / normal PNG.
+frame rendered as a host chunk loop or, with ``scan_render``, as one
+dispatch of ``training/step.make_scan_render_fn`` (without the device
+mesh); a held-out image's PSNR, and a GT / prediction / depth / normal PNG.
 """
 
 from __future__ import annotations
@@ -25,11 +26,15 @@ def visualize_depth(depth: np.ndarray, near_p: float = 1.0, far_p: float = 99.0)
 
 def render_image(render_chunk, model, scene, rays: np.ndarray, ts: np.ndarray,
                  labels: np.ndarray, img_wh: tuple, chunk: int = 512,
-                 fine_grid=None, sfm_grid=None, rng=None, device=None) -> dict:
+                 fine_grid=None, sfm_grid=None, rng=None, device=None,
+                 scan_render=None) -> dict:
     """Render (H*W) rays in chunks of ``chunk`` on ``device`` (default:
-    the model's). The last chunk is padded by repeating the last ray.
-    Returns (H, W, ...) numpy images: color, depth and the
-    weight-averaged normal."""
+    the model's). The last chunk is padded by repeating the last ray. With
+    ``scan_render`` (``make_scan_render_fn``'s run, of the same chunk) the
+    padded frame goes to the device in one copy, renders in one call and
+    comes back in one fetch (``validation.py:87-96``); without it, a host
+    loop of ``render_chunk`` calls. Returns (H, W, ...) numpy images: color,
+    depth and the weight-averaged normal."""
     if device is None:
         device = next(model.parameters()).device
     w, h = img_wh
@@ -42,6 +47,12 @@ def render_image(render_chunk, model, scene, rays: np.ndarray, ts: np.ndarray,
 
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device, non_blocking=True)
+
+    if scan_render is not None:
+        out = scan_render(model, scene, put(rays), put(ts), put(labels), rng, fine_grid, sfm_grid)
+        packed = torch.cat([out["color"], out["depth"][:, None], out["normal"]], 1).cpu().numpy()
+        return {"color": packed[:n, :3].reshape(h, w, 3), "depth": packed[:n, 3].reshape(h, w),
+                "normal": packed[:n, 4:].reshape(h, w, 3)}
 
     colors, depths, normals = [], [], []
     for i in range(0, len(rays), chunk):

@@ -349,7 +349,8 @@ extra = {{"NEUCONW": {{"SDF_CONFIG": {{"d_hidden": 64, "d_out": 65, "n_layers": 
 launches, fails = cs.trainer_phase({str(tmp_path)!r}, "cpu", extra, sfm_voxel=0.1875,
                                    train_voxel=0.05, fine_level=6)
 assert fails == [], fails
-assert set(launches) == {{"trainer", "resume", "device_pool", "device_pool_resume"}}
+assert set(launches) == {{"trainer", "render_scan", "render_chunk", "resume", "device_pool",
+                         "device_pool_resume"}}
 assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
 print("ok")
 """
@@ -360,4 +361,117 @@ print("ok")
     assert "band cache at step 2:" in out and "equal to the plain DDA on every row True" in out
     assert "eager 2-step run: 0 capture(s), 0 replays" in out
     assert "host pool against device pool + graph" in out
+    assert "render_cli scan vs chunk PNGs: max|diff| 0 levels -> equal" in out
     assert out.strip().endswith("ok")
+
+
+def test_chip_smoke_serving_graph_phase_without_jax_package():
+    """serving_graph_phase at a tiny width on the CPU: the frames in turns
+    eager / scan render / scan render / eager (the scan render's plain loop
+    on the CPU), every scan frame equal to the eager frame, both phases, and
+    no JAX."""
+    code = """
+import sys
+import torch
+import chip_smoke as cs
+from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg, render_config_from_cfg
+from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
+from neuralrecon_w_tpu_torch.tools.convert import init_field
+
+torch.set_num_threads(2)
+wh = (12, 8)
+cs.CHUNK = 40  # 96 rays: 3 chunks, the last padded
+scene, sfm_host, fine_host, frames = cs.make_scene("cpu", fine_level=5, sfm_voxel=0.2, wh=wh,
+                                                   n_points=2000)
+cfg = load_cfg(cs.CONFIG)
+n = cfg.NEUCONW
+n.SDF_CONFIG.d_hidden, n.SDF_CONFIG.d_out, n.SDF_CONFIG.n_layers = 64, 65, 4
+n.SDF_CONFIG.skip_in = (2,)
+n.COLOR_CONFIG.d_feature, n.N_VOCAB = 64, 4
+fc = field_config_from_cfg(cfg)
+model = init_field(fc, torch.Generator().manual_seed(0), "cpu").requires_grad_(False)
+sfm, fine = device_grid_from_host(sfm_host, "cpu"), device_grid_from_host(fine_host, "cpu")
+for level, fg in ((-1, None), (fine_host.level, fine)):
+    rc = render_config_from_cfg(cfg, sfm_level=sfm_host.level, fine_level=level,
+                                nerf_far_override=True)
+    rps, launches, fails = cs.serving_graph_phase(model, fc, rc, scene, frames, fg, sfm, "p",
+                                                  wh=wh)
+    assert fails == [], fails
+    assert set(rps) == {"eager", "graph"} and min(rps.values()) > 0 and launches == {}
+assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
+print("ok")
+"""
+    proc = run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    out = proc.stdout
+    assert out.count("-> bit for bit") == 2 and "0 capture, 0 replays (3 a frame)" in out
+    assert out.strip().endswith("ok")
+
+
+def test_chip_smoke_reproj_filter_phase_without_jax_package(tmp_path):
+    """reproj_filter_phase on the CPU at a tiny width, after the extraction
+    phase's mesh (level 6): ring views written into the workspace, the
+    cloud voxelised into a level-9 two-level grid, K12's plain version
+    against itself and against the flat DDA at level 9, reproj_filter_cli in
+    point-cloud mode, its keep mask on 4 views against the plain DDA's, mesh
+    mode, the rasterisers; every check passing, and no JAX."""
+    code = f"""
+import glob
+import sys
+import torch
+import chip_smoke as cs
+from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
+from neuralrecon_w_tpu_torch.tools.convert import init_field
+
+torch.set_num_threads(2)
+root = {str(tmp_path)!r}
+extra = {{"NEUCONW": {{"SDF_CONFIG": {{"d_hidden": 64, "d_out": 65, "n_layers": 4, "skip_in": [2]}},
+                     "COLOR_CONFIG": {{"d_feature": 64, "d_hidden": 32, "n_layers": 2}},
+                     "N_VOCAB": 4}}}}
+fc = field_config_from_cfg(load_cfg(cs.write_cfg(root + "/c.yaml", root, extra)))
+model = init_field(fc, torch.Generator().manual_seed(0), "cpu").requires_grad_(False)
+_, fails = cs.extraction_phase(model, fc, root, n_points=3000, level=6, extra_cfg=extra,
+                               sfm_voxel=0.1875)
+assert fails == [], fails
+cs.REPROJ_RASTER_FACES, cs.REPROJ_MESH_VIEWS, cs.REPROJ_WORKERS = 5000, 4, 2
+(ply,) = glob.glob(root + "/results/*.ply")
+entry, launches, fails = cs.reproj_filter_phase(root, ply, level=9, n_cams=6, wh=(24, 18),
+                                                shell_points=20000)
+assert fails == [], fails
+assert entry["level"] == 9 and entry["max_abs_err"] == 0.0 and entry["bound_ms"] > 0
+assert entry["hier_bytes"] < entry["flat_bytes"] and 0 < entry["filter"]["kept"]
+assert set(launches) >= {{"dda_hier", "dda"}}
+assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
+print("ok")
+"""
+    proc = run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    out = proc.stdout
+    assert "reproj_filter_cli point-cloud mode (the CPU): " in out
+    assert "K12 vs K10 at level 9, first_only=True" in out and ", 0 else; far" in out
+    assert out.count("native vs numpy rasteriser") == 2 and out.strip().endswith("ok")
+
+
+def test_chip_smoke_kernels_line_names_every_kernel():
+    """The kernels line's sources: K1-K12's wrappers by name, each a file in
+    the port and the JAX function it replaces at the line it names, K12 the
+    two-level DDA."""
+    import re
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        text = f.read()
+    vjp_src = re.search(r'vjp_src = "([\w/.]+)"', text).group(1)
+    entries = {m.group(1): (m.group(2) or vjp_src, m.group(3)) for m in re.finditer(
+        r'"(\w+)": \(\s*(?:"(neuralrecon_w_tpu_torch/csrc/\w+\.cu)"|vjp_src),\s*'
+        r'"(neuralrecon_w_tpu/ops/\w+\.py:\d+)"\)', text)}
+    sys.path.insert(0, ROOT)
+    from neuralrecon_w_tpu_torch.ops import kernel_counters
+
+    assert set(entries) == set(kernel_counters()) and "dda_hier" in entries
+    for name, (src, rep) in entries.items():
+        assert os.path.exists(os.path.join(ROOT, src)), name
+        path, line = rep.split(":")
+        with open(os.path.join(ROOT, path)) as f:
+            assert len(f.read().splitlines()) >= int(line), name
+    with open(os.path.join(ROOT, "neuralrecon_w_tpu/ops/ray_voxel.py")) as f:
+        assert f.read().splitlines()[197].startswith("def dda_traverse_hier(")

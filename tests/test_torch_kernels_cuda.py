@@ -1021,3 +1021,109 @@ def test_captured_step_matches_eager(dev):
     _, f2 = cs.graph_parity(cfg, state, scene, pool, fine, fine_host.level, "steady", batch=512,
                             n_inner=4)
     assert fails + f2 == []
+
+
+# ------------------- K12: the two-level DDA; the served graph -------------------
+
+
+def shell_hier(level, dev, n_points=1 << 20, seed=0):
+    """A two-level grid of a shell of n_points points of a sphere of radius
+    0.8 in the unit cube (tests/test_ops.py:168's pattern), as a host grid
+    and on the card."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+    from neuralrecon_w_tpu_torch.ops.voxel_grid import VoxelGrid, _sort_coords
+
+    v = np.random.default_rng(seed).standard_normal((n_points, 3))
+    v = v / np.linalg.norm(v, axis=1, keepdims=True) * 0.8
+    res = 1 << level
+    cells = np.clip(np.floor((v + 1.0) / 2.0 * res), 0, res - 1).astype(np.int64)
+    host = VoxelGrid(level, np.zeros(3), 1.0, _sort_coords(cells, level))
+    return host, rv.hier_grid_from_host(host, dev)
+
+
+@pytest.mark.parametrize("first_only", [False, True])
+@pytest.mark.parametrize("level", [9, 12])
+def test_dda_hier_kernel_matches_plain_bit_for_bit(dev, level, first_only):
+    """K12 against dda_traverse_hier_plain at levels 9 and 12, every output
+    equal, over chip_smoke.level10_rays's four kinds (toward the shell, axis
+    parallel, from occupied cells, misses)."""
+    from chip_smoke import level10_rays
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    host, hg = shell_hier(level, dev)
+    o, d = level10_rays(host, 8192, seed=level)
+    o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+    before = rv.dda_traverse_hier.launches
+    trips = torch.empty(o.shape[0], dtype=torch.int32, device=dev)
+    got = rv.dda_traverse_hier(hg, level, o, d, first_only, steps_out=trips)
+    touched = (torch.zeros(hg.meta.shape[0], dtype=torch.int32, device=dev),
+               torch.zeros_like(hg.fine))
+    want = rv.dda_traverse_hier_plain(hg, level, o, d, first_only, touched=touched)
+    torch.cuda.synchronize()
+    assert rv.dda_traverse_hier.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[2].any()) and bool((~got[2]).any())
+    # the plain version's meta reads (chip_smoke's bytes bound) are K12's trips
+    assert int(touched[0].sum()) == int(trips.sum())
+
+
+def test_dda_hier_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    _, hg = shell_hier(6, dev, n_points=4096)
+    o = torch.zeros(8, 3, device=dev)
+    with pytest.raises(ValueError):
+        rv.dda_traverse_hier(hg, 7, o, o)  # a level-7 grid has more meta rows
+    with pytest.raises(ValueError):
+        rv.dda_traverse_hier(hg, 6, o.double(), o.double())
+    with pytest.raises(ValueError):
+        rv.dda_traverse_hier(hg._replace(fine=hg.fine.cpu()), 6, o, o)
+
+
+def test_captured_served_chunk_matches_eager(dev):
+    """make_scan_render_fn's graph against the eager chunk loop (chip_smoke's
+    serving_graph_phase at a narrow width, both serving phases): every
+    frame equal bit for bit, and a new fine grid copied into the graph's."""
+    import chip_smoke as cs
+    import numpy as np
+    from neuralrecon_w_tpu_torch.config import (field_config_from_cfg, load_cfg,
+                                                render_config_from_cfg)
+    from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
+    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.training.step import make_render_fn, make_scan_render_fn
+    from neuralrecon_w_tpu_torch.training.validation import render_image
+
+    cfg = load_cfg(CONFIG)
+    n = cfg.NEUCONW
+    n.SDF_CONFIG.d_hidden, n.SDF_CONFIG.d_out, n.SDF_CONFIG.n_layers = 64, 65, 4
+    n.SDF_CONFIG.skip_in = (2,)
+    n.COLOR_CONFIG.d_feature, n.N_VOCAB = 64, 16
+    fc = field_config_from_cfg(cfg)
+    model = init_field(fc, torch.Generator().manual_seed(0), dev).requires_grad_(False)
+    wh = (48, 36)
+    scene, sfm_host, fine_host, frames = cs.make_scene(dev, fine_level=7, wh=wh, n_points=5000)
+    sfm, fine = device_grid_from_host(sfm_host, dev), device_grid_from_host(fine_host, dev)
+    for level, fg in ((-1, None), (fine_host.level, fine)):
+        rc = render_config_from_cfg(cfg, sfm_level=sfm_host.level, fine_level=level,
+                                    nerf_far_override=True)
+        _, launches, fails = cs.serving_graph_phase(model, fc, rc, scene, frames, fg, sfm, "p",
+                                                    wh=wh)
+        assert fails == [] and launches["up_sample"] > 0
+    # a refreshed grid of the same level: copied into the captured one
+    rc = render_config_from_cfg(cfg, sfm_level=sfm_host.level, fine_level=fine_host.level,
+                                nerf_far_override=True)
+    run = make_scan_render_fn(fc, rc, 512)
+    args = (frames[0], np.zeros(len(frames[0]), np.int64), np.zeros(len(frames[0]), np.int64),
+            wh, 512)
+    render_image(None, model, scene, *args, fine, sfm, scan_render=run)
+    thin = type(fine_host)(fine_host.level, fine_host.origin, fine_host.scale,
+                           fine_host.coords[::2])
+    fine2 = device_grid_from_host(thin, dev)
+    got = render_image(None, model, scene, *args, fine2, sfm, scan_render=run)
+    want = render_image(make_render_fn(fc, rc), model, scene, *args, fine2, sfm)
+    assert run.captures == 1 and torch.equal(fine.occ, fine2.occ)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k

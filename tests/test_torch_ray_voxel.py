@@ -145,3 +145,117 @@ def test_grid_from_points_matches_jax(expand):
     np.testing.assert_array_equal(got.occupancy_words(), want.occupancy_words())
     dg, jg = trv.device_grid_from_host(got, "cpu"), trv.device_grid_from_host(want, "cpu")
     assert torch.equal(dg.occ, jg.occ) and (dg.scale, dg.voxel_size) == (jg.scale, jg.voxel_size)
+
+
+# ------------------------------ two-level grid ------------------------------
+
+
+def hier_pair(host):
+    """JAX's HierGrid and the port's, of one host grid."""
+    return jrv.hier_grid_from_host(host), trv.hier_grid_from_host(host, "cpu")
+
+
+def shell_level12(n_rays=32, seed=11):
+    """tests/test_ops.py:168's level-12 shell (20,000 points of a sphere of
+    radius 1 in a cube of half-extent 2) and rays from below it aimed at
+    its cells."""
+    rng = np.random.RandomState(seed)
+    pts = rng.randn(20000, 3)
+    pts /= np.linalg.norm(pts, axis=-1, keepdims=True)
+    res = 1 << 12
+    cells = np.unique(np.clip(np.floor((pts * 0.5 + 1.0) / 2.0 * res), 0, res - 1)
+                      .astype(np.int64), axis=0)
+    host = VoxelGrid(12, np.zeros(3), 2.0, cells.astype(np.int32))
+    origins = host.origin + np.array([0.0, 0.0, -2.5 * host.scale]) + rng.randn(n_rays, 3) * 0.3
+    targets = host.centers_sfm()[rng.randint(0, len(cells), n_rays)]
+    dirs = targets - origins
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return host, origins.astype(np.float32), dirs.astype(np.float32)
+
+
+def test_hier_grid_matches_jax_bit_for_bit():
+    """meta (coarse words, rank bases) and fine words: JAX's uint32 bits, from
+    the same cells in the port's own order."""
+    host = random_grid(level=7, n_cells=900, seed=8)
+    shuffled = VoxelGrid(host.level, host.origin, host.scale,
+                         host.coords[np.random.default_rng(9).permutation(len(host.coords))])
+    jg, tg = jrv.hier_grid_from_host(host), trv.hier_grid_from_host(shuffled, "cpu")
+    np.testing.assert_array_equal(tg.meta.numpy().view(np.uint32), np.asarray(jg.meta))
+    np.testing.assert_array_equal(tg.fine.numpy().view(np.uint32), np.asarray(jg.fine))
+    assert (tg.scale, tg.voxel_size) == (float(jg.scale), float(jg.voxel_size))
+    assert int(tg.meta[:, 0].ne(0).sum()) > 1  # more than one word: the rank is exercised
+
+
+def assert_hier_matches(host, o, d, first_only, atol=1e-5):
+    jg, tg = hier_pair(host)
+    o_norm = ((o - host.origin) / host.scale).astype(np.float32)
+    want = jrv.dda_traverse_hier(jg, host.level, jnp.asarray(o_norm), jnp.asarray(d),
+                                 first_only)
+    got = trv.dda_traverse_hier(tg, host.level, torch.from_numpy(o_norm), torch.from_numpy(d),
+                                first_only)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=atol, rtol=0)
+    return got
+
+
+@pytest.mark.parametrize("level,n_cells", [(5, 40), (7, 300), (9, 800)])
+@pytest.mark.parametrize("first_only", [False, True])
+def test_hier_dda_matches_jax(level, n_cells, first_only):
+    host = random_grid(level=level, n_cells=n_cells, seed=level)
+    o, d = random_rays(r=96, seed=level + 1)
+    _, _, hit = assert_hier_matches(host, o, d, first_only)
+    assert hit.any() and (~hit).any()
+    # and the oracle
+    tn, tf, th = trv.grid_near_far(trv.hier_grid_from_host(host, "cpu"), level,
+                                   torch.from_numpy(o), torch.from_numpy(d), first_only)
+    bn, bf, bh = jrv.brute_force_near_far(host, o, d)
+    np.testing.assert_array_equal(th.numpy(), bh)
+    np.testing.assert_allclose(tn.numpy()[bh], bn[bh], atol=1e-4, rtol=1e-3)
+    if not first_only:
+        np.testing.assert_allclose(tf.numpy()[bh], bf[bh], atol=1e-4, rtol=1e-3)
+
+
+def test_hier_dda_level12_shell_matches_jax():
+    host, o, d = shell_level12()
+    t_first, _, hit = assert_hier_matches(host, o, d, first_only=True)
+    assert int(hit.sum()) > 28
+    tg = trv.hier_grid_from_host(host, "cpu")
+    assert tg.meta.numel() * 4 + tg.fine.numel() * 4 < 200 * 2**20  # flat: 8 GiB
+
+
+def test_hier_first_only_and_parallel_miss():
+    host = random_grid(level=6, n_cells=60, seed=3)
+    tg = trv.hier_grid_from_host(host, "cpu")
+    o, d = random_rays(seed=4)
+    nf, _, vf = trv.grid_near_far(tg, 6, torch.from_numpy(o), torch.from_numpy(d))
+    n1, _, v1 = trv.grid_near_far(tg, 6, torch.from_numpy(o), torch.from_numpy(d), True)
+    assert torch.equal(vf, v1) and torch.equal(nf, n1)
+    o_miss = torch.tensor([[0.0, 0.0, -50.0]]) + torch.from_numpy(host.origin).float()
+    near, far, valid = trv.grid_near_far(tg, 6, o_miss, torch.tensor([[0.0, 1.0, 0.0]]))
+    assert not valid.any() and float(near[0]) == 0.0 and float(far[0]) == 0.0
+
+
+def test_make_device_grid_picks_two_levels_from_level_9():
+    assert trv.HIER_LEVEL_DEFAULT == jrv.HIER_LEVEL_DEFAULT == 9
+    for level, kind in ((8, trv.DeviceGrid), (9, trv.HierGrid)):
+        host = random_grid(level=level, n_cells=50, seed=level)
+        assert isinstance(trv.make_device_grid(host, device="cpu"), kind)
+    assert isinstance(trv.make_device_grid(random_grid(), True, "cpu"), trv.HierGrid)
+
+
+def test_hier_plain_counts_the_words_k12_reads():
+    """touched: one meta row a step of an active ray, one fine word a step
+    inside an occupied block. Level 4, one occupied cell (2, 2, 12) in
+    block (0, 0, 1); a ray along +z at that cell's x, y walks the empty
+    block (0, 0, 0) in one step, then fine cells 8 .. 15 of block 1."""
+    host = VoxelGrid(4, np.zeros(3), 1.0, np.array([[2, 2, 12]], np.int32))
+    hg = trv.hier_grid_from_host(host, "cpu")
+    o = torch.tensor([[-0.6875, -0.6875, -2.0]])  # cell centre of x, y = 2
+    d = torch.tensor([[0.0, 0.0, 1.0]])
+    touched = (torch.zeros(hg.meta.shape[0], dtype=torch.int32),
+               torch.zeros_like(hg.fine))
+    t_first, t_last, hit = trv.dda_traverse_hier_plain(hg, 4, o, d, touched=touched)
+    assert hit.all() and abs(float(t_first[0]) - 2.5) < 1e-5 and float(t_last[0]) == float(
+        t_first[0])
+    assert touched[0].tolist() == [9] and int(touched[1].sum()) == 8
