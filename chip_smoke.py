@@ -66,11 +66,12 @@ takes the colour ReLU masks K7 applied (f32 against float64, and bf16 at
 torch double backward; ``bg_kernel_phase`` holds kernel 6's port (K8
 forward, K9 ``csrc/nerf_bg.cu`` + K5 backward) against its plain version
 and times it at the path's 8192 x 11 background points beside the 'xla'
-path's autograd; training takes turns over 'pallas', 'vjp' and
-'pallas_field' (with FUSED_BG) in both phases, the launches counted per
-mode; ``step_parity`` holds one step of each kernel mode to 'vjp', and
-one frame per serving phase is served in the fused mode and held to the
-default mode's chunk in f32.
+path's autograd; training takes turns over 'pallas', 'vjp',
+'pallas_field' (with FUSED_BG) and 'fwd' (the SDF gradient by forward
+mode, reverse over forward in the backward) in both phases, the launches
+and the peak device memory counted per mode; ``step_parity`` holds one
+step of each other mode to 'vjp', and one frame per serving phase is
+served in the fused mode and held to the default mode's chunk in f32.
 
 Then it trains through the entry point a user calls,
 ``tools/train_cli.main`` (``trainer_phase``): the port's synthetic
@@ -133,6 +134,23 @@ to its plain version with ``torch.equal`` and to K10 on a level-10 grid,
 seconds, the DDA's rays/s, the kept count; its keep mask on 4 views held
 to the plain DDA's), mesh mode over 8 views, and the native depth
 rasteriser held to the numpy one.
+
+The modules with no kernel of their own, driven on the card: after
+serving, ``trace_render_check`` runs ``rendering/debug.trace_render`` on
+1,024 rays of the steady frame and reads its three PLY dumps (under
+``build/trace_render``) back with ``utils/ply.read_ply``; training takes
+'fwd' in turns with the other modes (on a copy of the state, see
+``training_phase``) and ``trainer_phase`` resumes 2 steps in 'fwd' on the
+device pool with no refresh (K1, K2, K10 must launch), each printing its
+peak memory;
+``prep_phase`` runs the data-preparation tools a user starts from a COLMAP
+reconstruction with (100 views of 160x120, every tenth turned away:
+``pre_process``, ``prepare_semantic_maps --backend constant``,
+``prepare_data_split --num_test 10``, ``prepare_data_cache``,
+``load_scene_meta``; each stage's seconds and the undistort branch), and
+``image_metrics_phase`` holds SSIM and LPIPS (VGG and Alex at full
+width, ``init_lpips`` weights) on the card to float64 on the CPU, on the
+trained field's held-out view and 4 seeded images of 640x480.
 
 The last lines are the card line, a JSON object with one entry per
 kernel (K1 and K2 with their serving launches, K3 to K5 and K7 to K9 with
@@ -233,8 +251,15 @@ BG_GRAD_REL = 1e-5
 MODE_KERNELS = {"pallas": ("sdf_mlp", "up_sample", "sdf_vjp_fwd", "sdf_vjp_bwd", "dw_reduce"),
                 "vjp": ("sdf_mlp", "up_sample"),
                 "pallas_field": ("sdf_mlp", "up_sample", "dw_reduce", "field_fwd", "field_bwd",
-                                 "nerf_bg_fwd", "nerf_bg_bwd")}
-TRAIN_MODES = ("pallas", "vjp", "pallas_field")  # 'pallas_field' with FUSED_BG
+                                 "nerf_bg_fwd", "nerf_bg_bwd"),
+                "fwd": ("sdf_mlp", "up_sample")}
+# 'pallas_field' with FUSED_BG; 'fwd' (forward-mode SDF gradient) evaluates
+# its SDF net in float32 whatever the field's dtype, as the JAX package's
+TRAIN_MODES = ("pallas", "vjp", "pallas_field", "fwd")
+# modes training_phase steps on a copy of the state (see there): 'fwd' came
+# after the others, and the bf16 step_parity of 'pallas' is held to a
+# bound that some states of the tiny CPU rehearsal miss (PERF.md, section 7)
+SIDE_MODES = ("fwd",)
 
 # extraction (PERF.md holds the bounds and why)
 EXTRACT_POINTS = 500_000  # SFM points on the field's zero set
@@ -1142,12 +1167,16 @@ def launch_counters() -> dict:
 def training_phase(cfg, state, scene, pool, fine_grid, fine_level, label, n_timed=TRAIN_TIMED):
     """Steps of the training path at batch TRAIN_BATCH: one untimed step per
     mode of TRAIN_MODES, then timed steps in turns, the modes in order and
-    back ('pallas' / 'vjp' / 'pallas_field' / 'pallas_field' / 'vjp' /
-    'pallas'), each block n_timed // 2 steps. The launch counts are set to 0
+    back ('pallas' / 'vjp' / 'pallas_field' / 'fwd' / 'fwd' / 'pallas_field'
+    / 'vjp' / 'pallas'), each block n_timed // 2 steps. The launch counts are set to 0
     just before each step and read just after it, into that step's mode; on
     the card a mode fails if it leaves a kernel of MODE_KERNELS at 0 or
-    launches one that is not its own. Returns (rays/s per mode, the last
-    aux per mode, launches per mode and kernel, fails)."""
+    launches one that is not its own, and each mode's peak device memory
+    over its steps is printed. A mode of SIDE_MODES steps a copy of the
+    state on batches of a copy of the pool, its update then dropped: the
+    other modes' trajectory, and so the state step_parity starts from, stay
+    those of the runs before it. Returns (rays/s per mode, the last aux per
+    mode, launches per mode and kernel, fails)."""
     import torch
 
     steps = {m: make_steps(cfg, train_config(cfg, m), fine_level) for m in TRAIN_MODES}
@@ -1155,24 +1184,37 @@ def training_phase(cfg, state, scene, pool, fine_grid, fine_level, label, n_time
     launches = {m: dict.fromkeys(counters, 0) for m in steps}
     seconds = {m: 0.0 for m in steps}
     counts = {m: 0 for m in steps}
+    peak = {m: 0 for m in steps}
+    on_card = next(state.model.parameters()).device.type == "cuda"
     aux, fails = {}, []
+    side_pool = copy.deepcopy(pool)
 
-    def step(mode, batch):
+    def batch_for(mode):
+        return (side_pool if mode in SIDE_MODES else pool).next_batch(TRAIN_BATCH)
+
+    def step(mode, batch, st):
         for c in counters.values():
             c.launches = 0
-        _, aux[mode] = steps[mode](state, scene, batch, fine_grid)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _, aux[mode] = steps[mode](st, scene, batch, fine_grid)
         sync()
+        if on_card:
+            peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated())
         for n, c in counters.items():
             launches[mode][n] += c.launches
 
+    def state_for(mode):
+        return copy.deepcopy(state) if mode in SIDE_MODES else state
+
     for mode in TRAIN_MODES:
-        step(mode, pool.next_batch(TRAIN_BATCH))
+        step(mode, batch_for(mode), state_for(mode))
     for mode in TRAIN_MODES + TRAIN_MODES[::-1]:
         for _ in range(n_timed // 2):
-            batch = pool.next_batch(TRAIN_BATCH)
+            batch, st = batch_for(mode), state_for(mode)
             sync()
             t0 = time.perf_counter()
-            step(mode, batch)
+            step(mode, batch, st)
             seconds[mode] += time.perf_counter() - t0
             counts[mode] += 1
             bad = [k for k, v in aux[mode].items() if not bool(torch.isfinite(v))]
@@ -1184,12 +1226,15 @@ def training_phase(cfg, state, scene, pool, fine_grid, fine_level, label, n_time
               f"{m} loss {float(aux[m]['loss']):.4f}, psnr {float(aux[m]['psnr']):.2f}"
               for m in TRAIN_MODES)
           + "; terms (pallas) " + ", ".join(f"{k} {float(v):.4g}" for k, v in aux["pallas"].items()))
+    if on_card:
+        print(f"peak device memory of a training {label} step: " + ", ".join(
+            f"{m} {peak[m] / 2**30:.2f} GiB" for m in TRAIN_MODES))
     for m in TRAIN_MODES:
         print(f"launches in training {label} {m} ({counts[m] + 1} steps): " + ", ".join(
             f"{n} {v}" for n, v in launches[m].items() if v))
         # with a fine grid every step queries it: K11 (SURFACE_QUERY 'sampled')
         want = MODE_KERNELS[m] + (("sampled_hit",) if fine_grid is not None else ())
-        if next(state.model.parameters()).device.type == "cuda":
+        if on_card:
             fails += [f"{n} not launched in training {label} {m}"
                       for n in want if launches[m][n] <= 0]
             fails += [f"{n} launched in training {label} {m}, not its kernel"
@@ -1236,9 +1281,10 @@ def profile_step(cfg, state, scene, pool, fine_grid, fine_level, label) -> None:
 def step_parity(cfg, model, scene, batch, fine_grid, fine_level, label, step: int = 3):
     """From one copy of the model and one batch, one step in each mode of
     TRAIN_MODES, in f32 and in the served dtype: the losses and every
-    parameter gradient. In f32 each kernel mode ('pallas', 'pallas_field'
-    with FUSED_BG) is held to 'vjp'; in bf16 each is held to the f32 'vjp'
-    gradient (PARITY_BF16_*), as 'vjp' in bf16 is."""
+    parameter gradient. In f32 each other mode ('pallas', 'pallas_field'
+    with FUSED_BG, 'fwd') is held to 'vjp'; in bf16 each is held to the f32
+    'vjp' gradient (PARITY_BF16_*), as 'vjp' in bf16 is ('fwd' runs its SDF
+    net in f32 there too, its colour head in bf16)."""
     from neuralrecon_w_tpu_torch.training.step import TrainState
 
     fails, ref = [], None
@@ -2580,6 +2626,34 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
         fails += [f"{n} not launched by the resumed train_cli" for n in want if got[n] <= 0]
         fails += [f"{n} launched by the resumed train_cli, not its mode's" for n in counters
                   if got[n] and n not in want]
+    # and in 'fwd' on the device pool (DEVICE_POOL 'auto'): the saved grid's
+    # band cache by K10, then the plain step loop ('fwd' runs no graph); no
+    # refresh (UPDATE_FREQ 0): the other resume's took ~20 s of the run
+    cfg3 = write_cfg(os.path.join(root, "train_fwd.yaml"), root, merged(
+        overrides, {"TPU": {"SDF_GRAD_MODE": "fwd"}, "NEUCONW": {"UPDATE_FREQ": 0}}))
+    reset_counts(counters)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr3 = train_cli(cfg3, save_dir, "trainer_fwd", TRAIN_BATCH, TRAINER_RESUME, device,
+                    extra + ["--ckpt_path", ck or ""])
+    sync()
+    got = launches["resume_fwd"] = read_counts()
+    print(f"launches in train_cli resumed {TRAINER_RESUME} steps in 'fwd' on the "
+          f"{'device' if tr3.use_device_pool else 'host'} pool: "
+          + ", ".join(f"{n} {v}" for n, v in got.items() if v)
+          + f"; wall {time.perf_counter() - t0:.2f} s"
+          + (f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+             if device == "cuda" else ""))
+    if tr3.state.step != TRAINER_STEPS + TRAINER_RESUME or tr3.fine_grid_host is None:
+        fails.append(f"the 'fwd' resume ended at step {tr3.state.step}, fine grid "
+                     f"{tr3.fine_grid_host is not None}")
+    if device == "cuda":
+        # K1 bf16 (the sampler), K2, K10 (the band cache)
+        want = ("sdf_mlp_bf16", "up_sample", "dda")
+        fails += [f"{n} not launched by the 'fwd' train_cli" for n in want if got[n] <= 0]
+        fails += [f"{n} launched by the 'fwd' train_cli, not its mode's" for n, v in got.items()
+                  if v and n not in want + ("sdf_mlp", "sampled_hit")]
     pool_runs, pool_fails = device_pool_trainer_phase(root, overrides, device, extra, rate, card)
     launches.update(pool_runs)
     return launches, fails + pool_fails
@@ -2906,6 +2980,298 @@ def render_cli_dispatch_check(cfg_path: str, ck: str, root: str, device: str,
     if device == "cuda" and not (made and made[-1].captures == 1 and made[-1].replays > 0):
         fails.append("render_cli --dispatch scan did not replay a captured chunk")
     return launches, fails
+
+
+# ------------------ data preparation, image metrics, debug trace ------------------
+
+# the prep phase: a raw COLMAP layout of PREP_VIEWS views at IMG_WH (the
+# view count PR 11's filter cell stands a scene's training images with),
+# every PREP_TURN_EVERY-th view turned away from the scene for
+# view_selection to drop, PREP_TEST of the kept views held out
+PREP_VIEWS, PREP_TURN_EVERY, PREP_TEST, PREP_POINTS = 100, 10, 10, 3000
+# image metrics: SSIM and LPIPS (VGG and Alex at full width, init_lpips
+# weights) on the card in float32 (TF32 off) against float64 on the CPU,
+# on the trainer's rendered test view and METRIC_BATCH seeded images of
+# METRIC_WH; relative bounds. SSIM's variances are E[x^2] - E[x]^2, which
+# cancels in float32: the CPU's own float32 SSIM lies ~5e-5 off float64 at
+# 640x480, so the card's is held within max(SSIM_REL, 2 x that error)
+METRIC_BATCH, METRIC_WH = 4, (640, 480)
+SSIM_REL, LPIPS_REL = 1e-5, 1e-4
+TRACE_RAYS = 1024  # trace_render on the steady frame's first rays
+
+
+def write_raw_layout(root: str, raw: str, turn_every: int = 0) -> list:
+    """A raw COLMAP layout (``raw/sparse/0/*.bin``, ``raw/images/*``) from a
+    workspace's ``dense/`` one, as tools/pre_process.py takes it; the views
+    whose id is a multiple of ``turn_every`` (0: none) turned to look away
+    from the scene (the same centre, the camera's x and z axes flipped).
+    Returns the turned views' names, sorted."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.datasets import colmap
+
+    sparse = os.path.join(raw, "sparse", "0")
+    os.makedirs(sparse, exist_ok=True)
+    for f in os.listdir(os.path.join(root, "dense/sparse")):
+        shutil.copy(os.path.join(root, "dense/sparse", f), os.path.join(sparse, f))
+    shutil.copytree(os.path.join(root, "dense/images"), os.path.join(raw, "images"),
+                    dirs_exist_ok=True)
+    images = colmap.read_images_binary(os.path.join(sparse, "images.bin"))
+    flip = np.diag([-1.0, 1.0, -1.0])
+    turned = []
+    for im in images.values():
+        if turn_every and im.id % turn_every == 0:
+            im.qvec = colmap.rotmat2qvec(flip @ im.qvec2rotmat())
+            im.tvec = flip @ im.tvec
+            turned.append(im.name)
+    colmap.write_images_binary(images, os.path.join(sparse, "images.bin"))
+    return sorted(turned)
+
+
+def prep_phase(root: str, device: str = "cuda", n_views: int = PREP_VIEWS, wh=IMG_WH,
+               n_points: int = PREP_POINTS, card: str = "the CPU"):
+    """The data-preparation path a user runs from a COLMAP reconstruction:
+    a raw layout of ``n_views`` views (``testing.make_synthetic_scene``,
+    every PREP_TURN_EVERY-th turned away), then ``pre_process.main``,
+    ``prepare_semantic_maps.main --backend constant``,
+    ``prepare_data_split.main --num_test PREP_TEST``,
+    ``prepare_data_cache.main --no_voxel_filter`` (every pixel a ray, so the
+    count is exact; the trainer phase's cache runs the voxel filter) and
+    ``phototourism.load_scene_meta``, each timed. Fails unless the tsv lists
+    exactly the views ``view_selection`` keeps (PREP_TEST of them 'test', no
+    turned one) and the cache holds every pixel of every kept train view
+    and no other. Returns (seconds per stage, fails)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import yaml
+
+    from neuralrecon_w_tpu_torch.datasets.cache import read_ray_cache
+    from neuralrecon_w_tpu_torch.datasets.phototourism import load_scene_meta, read_tsv
+    from neuralrecon_w_tpu_torch.testing import make_synthetic_scene
+    from neuralrecon_w_tpu_torch.tools import pre_process
+    from neuralrecon_w_tpu_torch.tools.prepare_data import (
+        prepare_data_cache, prepare_data_split, prepare_semantic_maps)
+    from neuralrecon_w_tpu_torch.tools.prepare_data.filters import view_selection
+
+    fails, secs = [], {}
+    t0 = time.perf_counter()
+    made = os.path.join(root, "made")
+    make_synthetic_scene(made, n_images=n_views, n_test=1, img_wh=wh, n_points=n_points,
+                         seed=SEED)
+    raw = os.path.join(root, "scene")
+    turned = write_raw_layout(made, raw, PREP_TURN_EVERY)
+    secs["raw layout"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        out = pre_process.main(["--src", raw, "--dest", os.path.join(root, "workspaces")])
+    secs["pre_process"] = time.perf_counter() - t0
+    print(said.getvalue(), end="")
+    branch = ("colmap image_undistorter" if pre_process.UNDISTORTED in said.getvalue() else
+              "copy (no colmap binary)" if pre_process.COPIED in said.getvalue() else None)
+    if branch is None or len(out) != 1:
+        fails.append(f"pre_process: undistort branch {branch}, workspaces {out}")
+        return secs, fails
+    ws = out[0]
+    stages = (
+        ("prepare_semantic_maps", lambda: prepare_semantic_maps.main(
+            ["--root_dir", ws, "--backend", "constant", "--device", device])),
+        ("prepare_data_split", lambda: prepare_data_split.main(
+            ["--root_dir", ws, "--num_test", str(PREP_TEST)])),
+        ("prepare_data_cache", lambda: prepare_data_cache.main(
+            ["--root_dir", ws, "--split_to_chunks", "8", "--cache_type", "npz", "--device",
+             device, "--no_voxel_filter"])),
+        ("load_scene_meta", lambda: load_scene_meta(ws)))
+    res = {}
+    for name, fn in stages:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # one line per image
+            res[name] = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+    print(f"prep ({card}): {n_views} views of {wh[0]}x{wh[1]}, undistort branch: {branch}; "
+          "seconds " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+
+    with open(os.path.join(ws, "config.yaml")) as f:
+        sc = yaml.safe_load(f)
+    kept = view_selection(ws, sc["origin"], sc["radius"])
+    rows = read_tsv(ws)
+    n_test = sum(split == "test" for _, split in rows)
+    meta = res["load_scene_meta"]
+    rays, _ = read_ray_cache(res["prepare_data_cache"])
+    want_rays = len(meta.img_ids_train) * wh[0] * wh[1]
+    ids = sorted(set(np.unique(rays[:, 8]).astype(int).tolist()))
+    print(f"prep: view_selection kept {len(kept)} of {n_views} (turned away: {len(turned)}), "
+          f"the tsv {len(rows)} rows ({n_test} test), the cache {len(rays)} rays of "
+          f"{len(ids)} views (want {want_rays}), load_scene_meta {len(meta.img_ids_train)} "
+          f"train + {len(meta.img_ids_test)} test")
+    if sorted(n for n, _ in rows) != kept or set(kept) & set(turned) or n_test != PREP_TEST:
+        fails.append(f"prep: the tsv's {len(rows)} views ({n_test} test) are not the "
+                     f"{len(kept)} view_selection keeps")
+    if len(rays) != want_rays or ids != sorted(meta.img_ids_train):
+        fails.append(f"prep: the cache holds {len(rays)} rays of views {ids[:5]}..., not "
+                     f"{want_rays} of the {len(meta.img_ids_train)} train views")
+    return secs, fails
+
+
+def metric_images(n: int = METRIC_BATCH, wh=METRIC_WH, seed: int = SEED):
+    """(pred, gt), each (n, H, W, 3) float32 in [0, 1]: smooth seeded
+    images and a noisy copy of each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w, h = wh
+    y, x = np.mgrid[0:h, 0:w] / max(w, h)
+    f = rng.uniform(2, 12, (n, 1, 1, 3))
+    p = rng.uniform(0, 2 * np.pi, (n, 1, 1, 3))
+    gt = 0.5 + 0.4 * np.sin(f * x[None, :, :, None] + p) * np.cos(f * y[None, :, :, None] - p)
+    pred = np.clip(gt + 0.05 * rng.standard_normal(gt.shape), 0, 1)
+    return pred.astype(np.float32), gt.astype(np.float32)
+
+
+def conv_flops(model, fn) -> int:
+    """The operations of the convolutions ``fn()`` runs in ``model``, 2 a
+    multiply-add, counted by forward hooks."""
+    import torch
+
+    total = [0]
+
+    def count(m, _, out):
+        kh, kw = m.kernel_size
+        total[0] += 2 * out.numel() * (m.in_channels // m.groups) * kh * kw
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def image_metrics_phase(pairs: dict, device: str = "cuda", card: str = "the CPU",
+                        width_mult: float = 1.0):
+    """SSIM and LPIPS (VGG and Alex, ``init_lpips`` weights from a seeded
+    generator at ``width_mult``) of each named (pred, gt) pair of (N, H, W,
+    3) images: on ``device`` in float32 and on the CPU in float64, the
+    first held to the second (LPIPS_REL; SSIM within max(SSIM_REL, 2 x
+    the CPU's float32 SSIM's own error)); the ms of one call on ``device``
+    (SSIM per image, LPIPS per batch) and LPIPS's bound (its convolutions'
+    operations at the f32 product peak, ``bound``). Returns fails."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.training.lpips import init_lpips, lpips
+    from neuralrecon_w_tpu_torch.training.metrics import ssim
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    fails = []
+    nets = {net: init_lpips(torch.Generator().manual_seed(SEED), net, width_mult, device="cpu")
+            for net in ("vgg", "alex")}
+    nets = {net: (copy.deepcopy(m).to(device), m.double()) for net, m in nets.items()}
+    for name, (pred, gt) in pairs.items():
+        p, g = torch.as_tensor(pred, device=device), torch.as_tensor(gt, device=device)
+        p64, g64 = torch.as_tensor(pred).double(), torch.as_tensor(gt).double()
+        got, want, ms = {}, {}, {}
+        ssim(p[0], g[0])  # warm-up
+        vals, ms["ssim"] = timed(lambda: [ssim(p[i], g[i]) for i in range(len(p))])
+        got["ssim"] = torch.stack(vals).cpu().double()
+        want["ssim"] = torch.stack([ssim(p64[i], g64[i]) for i in range(len(p))])
+        cpu32 = torch.stack([ssim(p64[i].float(), g64[i].float()) for i in range(len(p))])
+        bounds = {"ssim": max(SSIM_REL, 2 * float((cpu32.double() - want["ssim"]).abs().max()
+                                                  / want["ssim"].abs().max()))}
+        ms["ssim"] /= len(p)
+        lp_bound = {}
+        for net, (m, m64) in nets.items():
+            flops = conv_flops(m, lambda: lpips(m, p, g))  # and the warm-up
+            lp_bound[net] = bound(flops, nbytes(p, g), "float32")["bound_ms"]
+            v, ms[f"lpips_{net}"] = timed(lambda: lpips(m, p, g))
+            got[f"lpips_{net}"] = v.cpu().double()
+            want[f"lpips_{net}"] = lpips(m64, p64, g64)
+        errs = {k: float((got[k] - want[k]).abs().max() / want[k].abs().max()) for k in got}
+        print(f"image metrics {name} ({len(p)} x {p.shape[2]}x{p.shape[1]}, {card}): "
+              + ", ".join(f"{k} {want[k].mean().item():.6f} rel err {errs[k]:.2e} (bound "
+                          f"{bounds.get(k, LPIPS_REL):.1e}) {ms[k]:.2f} ms" for k in got)
+              + "; LPIPS bound_ms " + ", ".join(f"{n} {b:.3f}" for n, b in lp_bound.items()))
+        bad = [k for k, e in errs.items() if not e <= bounds.get(k, LPIPS_REL)]
+        if bad:
+            fails.append(f"image metrics {name}: {bad} off float64")
+    return fails
+
+
+def trace_render_check(model, fc, rcfg, scene, rays, fine_grid, sfm_grid, fine_host,
+                       out_dir: str, n: int = TRACE_RAYS):
+    """``rendering/debug.trace_render`` on the first ``n`` rays of a frame,
+    its three PLY dumps written to ``out_dir`` and read back with
+    ``utils/ply.read_ply``: every array finite, as many points as
+    expected. Returns fails."""
+    import numpy as np
+    import torch
+
+    from neuralrecon_w_tpu_torch.rendering.debug import (
+        dump_depth_points_ply, dump_grid_ply, dump_weighted_points_ply, trace_render)
+    from neuralrecon_w_tpu_torch.utils.ply import read_ply
+
+    rays = torch.as_tensor(rays[:n], device=scene.origin.device)
+    t0 = time.perf_counter()
+    tr = trace_render(model, fc, rcfg, scene, rays, torch.zeros(n, dtype=torch.int32),
+                      torch.zeros(n, dtype=torch.int32), None, 1.0, fine_grid=fine_grid,
+                      sfm_grid=sfm_grid)
+    secs = time.perf_counter() - t0
+    os.makedirs(out_dir, exist_ok=True)
+    depth = tr["render"]["depth"].cpu().numpy()
+    paths = {k: os.path.join(out_dir, f"trace_{k}.ply") for k in ("weights", "grid", "depth")}
+    # each ray's point at its depth, coloured by its foreground weight sum
+    dump_weighted_points_ply(paths["weights"], tr["surface_points_sfm"],
+                             tr["render"]["weights_sum"].cpu().numpy())
+    dump_grid_ply(paths["grid"], fine_host)
+    dump_depth_points_ply(paths["depth"], rays.cpu().numpy(), depth * float(scene.radius))
+    want = {"weights": n, "grid": len(fine_host.coords),
+            "depth": int((depth > 0).sum())}
+    got = {k: read_ply(p) for k, p in paths.items()}
+    ok = {k: len(v["verts"]) == want[k] and bool(np.isfinite(v["verts"]).all())
+          for k, v in got.items()}
+    finite = all(np.isfinite(tr[k]).all() for k in ("weights", "cdf", "surface_points_sfm"))
+    print(f"trace_render on {n} steady rays: {secs:.3f} s, weights {tr['weights'].shape}, "
+          f"{tr['n_fg_samples']} fg samples, finite {finite}; PLYs read back "
+          + ", ".join(f"{k} {len(got[k]['verts'])} points ({'ok' if ok[k] else 'FAIL'})"
+                      for k in paths))
+    return [] if finite and all(ok.values()) else [f"trace_render: finite {finite}, PLYs {ok}"]
+
+
+def held_out_view_pair(root: str, device: str = "cuda"):
+    """The trainer phase's held-out view through ``render_cli`` (its latest
+    checkpoint, full resolution) and its ground-truth image: (pred, gt),
+    each (1, H, W, 3) float32 in [0, 1]."""
+    import glob
+
+    import numpy as np
+    from PIL import Image
+
+    from neuralrecon_w_tpu_torch.datasets.phototourism import load_image, load_scene_meta
+    from neuralrecon_w_tpu_torch.tools import render_cli
+    from neuralrecon_w_tpu_torch.training.checkpoint import latest_checkpoint
+
+    meta = load_scene_meta(root)
+    tid = meta.img_ids_test[0]
+    out = os.path.join(root, "render_test")
+    render_cli.main(["--cfg_path", os.path.join(root, "train.yaml"), "--ckpt_path",
+                     latest_checkpoint(os.path.join(root, "results", "trainer", "checkpoints")),
+                     "--out_dir", out, "--img_ids", str(tid), "--img_downscale", "1",
+                     "--chunk", str(CHUNK), "--device", device])
+    (png,) = [p for p in glob.glob(os.path.join(out, "*.png"))
+              if not p.endswith(("_depth.png", "_normal.png"))]
+    pred = np.asarray(Image.open(png).convert("RGB"), np.float32) / 255.0
+    return pred[None], load_image(meta, tid)[None]
 
 
 # ----------------------- the reprojection filter (K12) -----------------------
@@ -3485,6 +3851,9 @@ def main() -> int:
         fails += gfails
         for n, v in got.items():
             serve_graph[n] = serve_graph.get(n, 0) + v
+    # the render debug trace on the steady frame's first rays, its PLYs in build/
+    fails += trace_render_check(model, fc, rcfg_steady, scene, frames[1], fine_grid, sfm_grid,
+                                fine_host, os.path.join(ROOT, "build", "trace_render"))
     print(f"peak device memory after serving {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if args.profile:
         profile_chunk(model, fc, rcfg_warm, scene, frames[1], None, sfm_grid, "warm-up")
@@ -3519,7 +3888,8 @@ def main() -> int:
           f"({int((rows[:, 9] == LABEL_SKY).sum())} sky, "
           f"{int((rows[:, 9] == LABEL_PERSON).sum())} person, "
           f"{int((rows[:, 11] > 0).sum())} with depth), batch {TRAIN_BATCH}, lr {spec.schedule}, "
-          f"SDF_GRAD_MODE pallas, vjp and pallas_field with FUSED_BG in turns, act {fc.act_dtype}")
+          f"SDF_GRAD_MODE {', '.join(TRAIN_MODES)} in turns ('pallas_field' with FUSED_BG), "
+          f"act {fc.act_dtype}")
     # launches per training mode, both phases
     train_launches, rps_train = {m: {} for m in TRAIN_MODES}, {}
     for label, fg, level in (("warm-up", None, -1), ("steady", fine_grid, fine_host.level)):
@@ -3595,12 +3965,24 @@ def main() -> int:
     # the port's entry points (train_cli, extract_mesh_cli, eval_mesh,
     # render_cli); each CLI call's launches counted on their own
     del model
+    # the data-preparation tools, from a raw COLMAP layout to a ray cache
+    root = tempfile.mkdtemp(prefix="prep_", dir=os.path.join(ROOT, "build"))
+    try:
+        _, pfails = prep_phase(root, "cuda", card=card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fails += pfails
     cli_runs = {}
     for label, phase in (("train_cli", trainer_phase), ("e2e", e2e_gate_phase)):
         torch.cuda.reset_peak_memory_stats()
         root = tempfile.mkdtemp(prefix=label + "_", dir=os.path.join(ROOT, "build"))
         try:
             got, pfails = phase(root, "cuda", card=card)
+            if label == "train_cli":
+                # SSIM and LPIPS on the trained field's held-out view and a
+                # seeded batch, on the card against float64 on the CPU
+                pfails += image_metrics_phase({"held-out view": held_out_view_pair(root),
+                                               "seeded batch": metric_images()}, "cuda", card)
         finally:
             shutil.rmtree(root, ignore_errors=True)
         fails += pfails

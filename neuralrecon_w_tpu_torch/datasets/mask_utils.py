@@ -29,5 +29,17 @@ ADE20K_CLASSES = [
 ]
 
 
+id_label_mapping_ade20k = {i: name for i, name in enumerate(ADE20K_CLASSES)}
+label_id_mapping_ade20k = {name: i for i, name in enumerate(ADE20K_CLASSES)}
+
+
 def get_label_id_mapping() -> dict:
-    return {name: i for i, name in enumerate(ADE20K_CLASSES)}
+    return label_id_mapping_ade20k
+
+
+def get_id_label_mapping() -> dict:
+    return id_label_mapping_ade20k
+
+
+def get_class_ids_from_labels(labels) -> list:
+    return [label_id_mapping_ade20k[l] for l in labels]

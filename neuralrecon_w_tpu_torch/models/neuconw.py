@@ -15,7 +15,10 @@ backward, create_graph=True); 'pallas', the SDF-VJP kernels K3 / K4 / K5
 'pallas_hybrid', the plain forward with the kernels' backward; and
 'pallas_field', the whole field (SDF, gradient and colour head, per sample)
 through the fused field kernels, K6 forward and K7 + K5 backward
-(``ops/field_train.py``). 'fwd' is not ported yet (ROADMAP.md, Queue 1).
+(``ops/field_train.py``); and 'fwd', the gradient by forward mode (one
+primal and three tangent passes, ``models/sdf.sdf_value_feat_grad_fwdmode``),
+differentiated reverse over forward in training, its SDF net in float32
+whatever the field's dtype, as the JAX package's.
 ``TPU.FUSED_BG`` (``bg_mode`` 'pallas') sends the background through the
 fused NeRF++ kernels K8 / K9 (``ops/nerf_bg_fused.py``).
 
@@ -37,9 +40,8 @@ from ..config import FieldConfig
 from ..device import default_device
 from .color import RenderingNetwork, apply_color
 from .nerf_bg import NeRF, apply_nerf_bg
-from .sdf import SDFNetwork, act_dtype_of, sdf_value, sdf_value_feat_grad
-
-_NOT_PORTED = {"fwd": "the 'fwd' grad mode (ROADMAP.md, Queue 1)"}
+from .sdf import (SDFNetwork, act_dtype_of, sdf_value, sdf_value_feat_grad,
+                  sdf_value_feat_grad_fwdmode)
 
 
 class SingleVarianceNetwork(nn.Module):
@@ -88,12 +90,9 @@ def field_forward(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded,
     """Foreground field at flattened samples: rgb (N, 3), inv_s, sdf
     (N,), gradients (N, 3). dirs / a_embedded are per ray when
     n_samples is set (``neuconw.py:117-182``). create_graph keeps the
-    'vjp' mode's sdf, feature and gradient in the autograd graph, as
-    training needs; the kernel modes are always differentiable."""
+    'vjp' and 'fwd' modes' sdf, feature and gradient in the autograd graph,
+    as training needs; the kernel modes are always differentiable."""
     act = act_dtype_of(fc.act_dtype)
-    if fc.grad_mode in _NOT_PORTED:
-        raise NotImplementedError(f"SDF_GRAD_MODE={fc.grad_mode!r}: {_NOT_PORTED[fc.grad_mode]} "
-                                  "is not ported yet")
     if fc.grad_mode == "pallas_field":
         # the fused kernels take per-sample dirs and a (neuconw.py:132-149)
         from ..ops.field_train import field_rgb_sdf_grad_kernel
@@ -108,6 +107,9 @@ def field_forward(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded,
         sdf, feat, grad = sdf_value_feat_grad_kernel(
             model.neuconw.sdf_net, fc.sdf, pts, act,
             fwd_impl="plain" if fc.grad_mode == "pallas_hybrid" else "kernel")
+    elif fc.grad_mode == "fwd":
+        with torch.set_grad_enabled(create_graph and torch.is_grad_enabled()):
+            sdf, feat, grad = sdf_value_feat_grad_fwdmode(model.neuconw.sdf_net, fc.sdf_cfg, pts)
     elif fc.grad_mode == "vjp":
         sdf, feat, grad = sdf_value_feat_grad(
             model.neuconw.sdf_net, fc.sdf_cfg, pts, act, create_graph=create_graph)

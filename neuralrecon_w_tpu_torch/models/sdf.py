@@ -158,3 +158,25 @@ def sdf_value_feat_grad(net: SDFNetwork, cfg: dict, x: torch.Tensor,
     if not create_graph:
         sdf, feat, grad = sdf.detach(), feat.detach(), grad.detach()
     return sdf[..., 0], feat, grad
+
+
+def sdf_value_feat_grad_fwdmode(net: SDFNetwork, cfg: dict, x: torch.Tensor):
+    """(sdf (...,), feature, d sdf / d x (..., 3)) by forward mode
+    (``sdf.py:185-198``): one primal pass and three tangent passes, the
+    unit tangents batched by ``torch.func.vmap`` over ``torch.func.jvp``.
+    Training differentiates reverse over forward: the parameters stay
+    ordinary autograd tensors inside the transform, so a loss on the
+    tangents reaches them. The JAX function evaluates the net with
+    ``apply_sdf``'s default float32 activations whatever the field's dtype,
+    and so does this one: the feature is float32. Under ``torch.no_grad``
+    (serving) nothing carries a graph."""
+    from torch.func import jvp, vmap
+
+    def f(pts):
+        return apply_sdf_split(net, cfg, pts)
+
+    eye = torch.eye(3, dtype=x.dtype, device=x.device)
+    tangents = eye.reshape(3, *([1] * (x.dim() - 1)), 3).expand(3, *x.shape)
+    (sdf, feat), (d_sdf, _) = vmap(lambda t: jvp(f, (x,), (t,)), out_dims=((None, None), 0))(
+        tangents)
+    return sdf[..., 0], feat, torch.movedim(d_sdf[..., 0], 0, -1)

@@ -250,3 +250,23 @@ def state_from_jax(np_state, fc: FieldConfig, optimizer_spec, grid=None, device=
         fine = VoxelGrid(int(grid.level), np.asarray(grid.origin, np.float64), float(grid.scale),
                          _sort_coords(np.asarray(grid.coords), int(grid.level)))
     return TrainState(model, optimizer, int(np.asarray(np_state.step))), fine
+
+
+def lpips_from_jax(np_params: dict, net: str = "vgg", device=None):
+    """The JAX package's LPIPS pytree (``training/lpips.py``: 'slices' of
+    {'w' (O, I, k, k), 'b'} and per-slice 'heads' (C,), numpy leaves) as
+    the port's ``training.lpips.LPIPS`` module, loaded strictly, on
+    ``device`` (default: the card)."""
+    from ..training.lpips import LPIPS
+
+    convs = [c for s in np_params["slices"] for c in s]
+    model = LPIPS(net, channels=[np.shape(c["w"])[0] for c in convs], device=device)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    for name, c in zip(model.conv_names(), convs):
+        sd[f"{name}.weight"] = torch.from_numpy(np.array(c["w"], np.float32))
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(c["b"], np.float32))
+    for k, head in enumerate(np_params["heads"]):
+        w = torch.from_numpy(np.array(head, np.float32)).reshape(1, -1, 1, 1)
+        sd[f"lin{k}.model.1.weight"] = sd[f"lins.{k}.model.1.weight"] = w
+    model.load_state_dict(sd, strict=True)
+    return model

@@ -19,15 +19,20 @@ run as one dispatch (``step.make_scan_train_fn``) wherever no refresh,
 save, validation or the end falls inside them: on the card one captured
 CUDA graph replayed, for SDF_GRAD_MODE 'vjp' with the 'xla' background;
 the other modes run the same windows as eager steps (their kernels'
-GEMM lists are built on the host). Not ported: the device mesh and
-multi-process runs, and the profiler window (``profile_start``).
+GEMM lists are built on the host). ``TrainerConfig.profile_start`` /
+``profile_steps`` open a ``torch.profiler`` window over those steps (in
+place of the JAX package's ``jax.profiler`` trace, ``loop.py:292-297``)
+and write its Chrome trace under ``<exp_dir>/profile``. Not ported: the
+device mesh and multi-process runs.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import time
+import types
 from dataclasses import dataclass
 
 import numpy as np
@@ -70,23 +75,47 @@ def val_interval(val_freq: float, steps_per_epoch: int) -> int:
     return max(int(steps_per_epoch * val_freq), 1)
 
 
+def _summary_writer(log_dir: str):
+    """torch's SummaryWriter on ``log_dir``, or None without the tensorboard
+    package. Unless the process has loaded TensorFlow already, tensorboard
+    is held to its TF-free stub (the marker module of its no-TensorFlow
+    build, ``tensorboard.compat.notf``): left to itself it imports
+    TensorFlow, which can import JAX, and the port imports neither."""
+    if "tensorflow" not in sys.modules:
+        sys.modules.setdefault("tensorboard.compat.notf",
+                               types.ModuleType("tensorboard.compat.notf"))
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        return None
+    return SummaryWriter(log_dir)
+
+
 class MetricsLogger:
     """Scalars as JSON lines in ``<log_dir>/metrics.jsonl`` (in place of
-    the reference's TestTubeLogger, train.py:38-42). The JAX package also
-    mirrors them to TensorBoard; the port does not."""
+    the reference's TestTubeLogger, train.py:38-42), mirrored to a
+    TensorBoard event file in ``log_dir`` where
+    ``torch.utils.tensorboard`` imports (``loop.py:50-68``)."""
 
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, "metrics.jsonl")
         self._f = open(self.path, "a")
+        self._tb = _summary_writer(log_dir)
 
     def log(self, step: int, scalars: dict):
         rec = {"step": step, **{k: float(v) for k, v in scalars.items()}}
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
+        if self._tb is not None:
+            for k, v in rec.items():
+                if k != "step":
+                    self._tb.add_scalar(k, v, step)
 
     def close(self):
         self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 @dataclass
@@ -98,6 +127,10 @@ class TrainerConfig:
     save_dir: str = "results"
     ckpt_path: str | None = None
     log_every: int = 50  # steps between scalar logs (and the end)
+    # a torch.profiler window over steps [start, start + steps) (in place of
+    # Lightning's profiler="simple", reference train.py:59); -1: none
+    profile_start: int = -1
+    profile_steps: int = 20
 
 
 def _plain(node):
@@ -189,6 +222,7 @@ class Trainer:
         self.refreshes: list = []
         self._scan_runs: list = []
         self.val_seconds: list = []
+        self.profile_traces: list = []
 
         self.exp_dir = os.path.join(tcfg.save_dir, tcfg.exp_name)
         self.ckpt_dir = os.path.join(self.exp_dir, "checkpoints")
@@ -337,16 +371,26 @@ class Trainer:
             use_scan = scan_inner > 1
 
         step_i = int(self.state.step)
+        p0 = self.tcfg.profile_start
+        p1 = p0 + self.tcfg.profile_steps
+        prof = None
         # windowed throughput: the rate since the previous log, with the
         # validation renders kept out
         win_t, win_step = time.time(), step_i
         while step_i < total:
+            if p0 >= 0 and prof is None and p0 <= step_i < p1:
+                prof = self._start_profile()
+            elif prof is not None and step_i >= p1:
+                self._stop_profile(prof, p0)
+                prof = None
             if self.update_freq > 0 and step_i > 0 and step_i % self.update_freq == 0:
                 self.refine_surface()
             with_fine = self.fine_dgrid is not None
-            # steps to the next refresh, save, validation or the end
-            room = min([total] + [(step_i // f + 1) * f for f in
-                                  (self.update_freq, self.save_freq, val_every) if f > 0]) - step_i
+            # steps to the next refresh, save, validation, profile edge or the end
+            edges = [e for e in (p0, p1) if p0 >= 0 and e > step_i]
+            room = min([total] + edges + [(step_i // f + 1) * f for f in
+                                          (self.update_freq, self.save_freq, val_every)
+                                          if f > 0]) - step_i
             if use_scan and room >= scan_inner:
                 run = self._get_scan_run(with_fine, bs, scan_inner)
                 perm, start = device_pool.take_scan_window(bs, scan_inner)
@@ -373,8 +417,32 @@ class Trainer:
             if val_every > 0 and step_i % val_every == 0 and self.meta.img_ids_train:
                 self.validate(step_i)
                 win_t = time.time()
+        if prof is not None:
+            self._stop_profile(prof, p0)
         self.save(step_i)
         return self.state
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, start: int) -> str:
+        """Close the window and write its Chrome trace; returns the path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = os.path.join(self.exp_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        path = os.path.join(out, f"trace_step{start}.json")
+        prof.export_chrome_trace(path)
+        self.profile_traces.append(path)
+        return path
 
     def lr_at(self, count: int) -> float:
         """The LR of update ``count`` (from 0)."""

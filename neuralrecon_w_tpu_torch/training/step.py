@@ -312,7 +312,7 @@ def make_render_fn(fc: FieldConfig, rcfg: RenderConfig):
 
 # the kernel modes build their GEMM lists on the host on every call, which a
 # capture cannot hold (ROADMAP.md, Queue 1 item 7)
-_UNCAPTURED = "the kernel modes in a CUDA graph (ROADMAP.md, Queue 1 item 7)"
+_UNCAPTURED = "the modes other than 'vjp' in a CUDA graph (ROADMAP.md, Queue 1 item 7)"
 
 
 def make_scan_render_fn(fc: FieldConfig, rcfg: RenderConfig, chunk: int):

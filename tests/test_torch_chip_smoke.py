@@ -109,6 +109,12 @@ assert cs.path_check(model, fc, rc, scene, frames[1], fine, sfm, "steady") == []
 fused = cs.train_config(cfg, "pallas_field")
 assert (fused.grad_mode, fused.bg_mode) == ("pallas_field", "pallas")
 assert cs.path_check(model, fused, rc, scene, frames[1], fine, sfm, "steady fused", ref_fc=fc) == []
+# the debug trace on the frame's first rays, its PLYs read back
+import os
+import tempfile
+out = tempfile.mkdtemp()
+assert cs.trace_render_check(model, fc, rc, scene, frames[1], fine, sfm, fine_host, out, 32) == []
+assert sorted(os.listdir(out)) == ["trace_depth.ply", "trace_grid.ply", "trace_weights.ply"]
 assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
 print("ok")
 """
@@ -194,8 +200,9 @@ def test_chip_smoke_kernel_bounds():
 def test_chip_smoke_training_without_jax_package():
     """The training phases at a tiny width on the CPU, the kernels' plain
     versions standing in: the ring-camera ray cache through the port's
-    RayPool, steps in the three modes ('pallas', 'vjp', 'pallas_field' with
-    FUSED_BG), the parity of one step of each kernel mode, and no JAX."""
+    RayPool, steps in the four modes ('pallas', 'vjp', 'pallas_field' with
+    FUSED_BG, 'fwd'), the parity of one step of each other mode, and no
+    JAX."""
     code = """
 import sys
 import numpy as np
@@ -236,7 +243,7 @@ assert fails == [] and f2 == [], fails + f2
 assert set(launches) == set(cs.MODE_KERNELS) and set(launches["pallas"]) == set(
     cs.launch_counters())
 assert all(v == 0 for m in launches.values() for v in m.values()), launches
-assert state.step == 18 and set(rps) == {"pallas", "vjp", "pallas_field"}
+assert state.step == 18 and set(rps) == {"pallas", "vjp", "pallas_field", "fwd"}
 assert cs.train_config(cfg, "pallas_field").bg_mode == "pallas"
 assert cs.train_config(cfg, "pallas").bg_mode == "xla"
 assert all(not torch.equal(a, b) for a, b in zip(before, state.model.parameters()))
@@ -328,13 +335,15 @@ def test_chip_smoke_reduce_library_matches_plain(pairs):
 def test_chip_smoke_trainer_phase_without_jax_package(tmp_path):
     """trainer_phase at a tiny width on the CPU, the kernels' plain versions
     standing in: the port's workspace and ray cache, train_cli with two
-    refreshes, saves and a validation, then the resume in 'pallas_field'
-    with FUSED_BG, every refresh held to the plain SDF; then the same run on
+    refreshes, saves and a validation, then the resumes in 'pallas_field'
+    with FUSED_BG and in 'fwd', every refresh held to the plain SDF, the
+    held-out view rendered for the image metrics; then the same run on
     the device pool in windows of 2 steps (the plain loop on the CPU), its
     band cache held to the plain DDA, and its resume; every check passing,
     and no JAX."""
     code = f"""
 import sys
+import numpy as np
 import torch
 import chip_smoke as cs
 
@@ -349,8 +358,10 @@ extra = {{"NEUCONW": {{"SDF_CONFIG": {{"d_hidden": 64, "d_out": 65, "n_layers": 
 launches, fails = cs.trainer_phase({str(tmp_path)!r}, "cpu", extra, sfm_voxel=0.1875,
                                    train_voxel=0.05, fine_level=6)
 assert fails == [], fails
-assert set(launches) == {{"trainer", "render_scan", "render_chunk", "resume", "device_pool",
-                         "device_pool_resume"}}
+assert set(launches) == {{"trainer", "render_scan", "render_chunk", "resume", "resume_fwd",
+                         "device_pool", "device_pool_resume"}}
+pred, gt = cs.held_out_view_pair({str(tmp_path)!r}, "cpu")
+assert pred.shape == gt.shape == (1, 18, 24, 3) and pred.dtype == gt.dtype == np.float32
 assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
 print("ok")
 """
@@ -475,3 +486,50 @@ def test_chip_smoke_kernels_line_names_every_kernel():
             assert len(f.read().splitlines()) >= int(line), name
     with open(os.path.join(ROOT, "neuralrecon_w_tpu/ops/ray_voxel.py")) as f:
         assert f.read().splitlines()[197].startswith("def dda_traverse_hier(")
+
+
+def test_chip_smoke_prep_phase_without_jax_package(tmp_path):
+    """prep_phase at a CPU size (20 views of 32x24, two turned away, 10
+    test): pre_process's copy branch, the constant semantic maps, the split
+    and the cache, every check passing, and no JAX."""
+    code = f"""
+import sys
+import chip_smoke as cs
+
+cs.PREP_TURN_EVERY = 10
+secs, fails = cs.prep_phase({str(tmp_path)!r}, "cpu", n_views=20, wh=(32, 24), n_points=400)
+assert fails == [], fails
+assert list(secs) == ["raw layout", "pre_process", "prepare_semantic_maps",
+                      "prepare_data_split", "prepare_data_cache", "load_scene_meta"]
+assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
+print("ok")
+"""
+    proc = run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    out = proc.stdout
+    assert "undistort branch: copy (no colmap binary)" in out
+    assert "view_selection kept 18 of 20 (turned away: 2)" in out
+    assert "the cache 6144 rays of 8 views (want 6144)" in out
+    assert out.strip().endswith("ok")
+
+
+def test_chip_smoke_image_metrics_phase():
+    """image_metrics_phase at a CPU size (LPIPS at width 0.125, a batch of 2
+    at 64x48): float32 on the CPU within its bounds of float64; and an LPIPS
+    1e-3 off fails."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    torch.set_num_threads(2)
+    pred, gt = cs.metric_images(2, (64, 48))
+    assert pred.shape == gt.shape == (2, 48, 64, 3) and 0 <= pred.min() and gt.max() <= 1
+    assert cs.image_metrics_phase({"batch": (pred, gt)}, "cpu", width_mult=0.125) == []
+    from unittest import mock
+
+    from neuralrecon_w_tpu_torch.training import lpips
+
+    real = lpips.lpips
+    with mock.patch.object(lpips, "lpips", lambda m, p, g: real(m, p, g) * (
+            1 + 1e-3 * (next(m.parameters()).dtype == torch.float32))):
+        fails = cs.image_metrics_phase({"batch": (pred, gt)}, "cpu", width_mult=0.125)
+    assert fails and "lpips_vgg" in fails[0] and "lpips_alex" in fails[0]

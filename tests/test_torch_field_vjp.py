@@ -15,7 +15,9 @@ import jax.numpy as jnp  # noqa: E402
 from neuralrecon_w_tpu.models.sdf import _layer_weight, init_sdf  # noqa: E402
 from neuralrecon_w_tpu.ops import field_vjp_math as jax_fvm  # noqa: E402
 from neuralrecon_w_tpu.ops.pallas_field_vjp import sdf_value_feat_grad_pallas  # noqa: E402
+from neuralrecon_w_tpu.models.sdf import sdf_value_feat_grad_fwdmode as jax_fwdmode  # noqa: E402
 from neuralrecon_w_tpu_torch.models.sdf import sdf_value_feat_grad  # noqa: E402
+from neuralrecon_w_tpu_torch.models.sdf import sdf_value_feat_grad_fwdmode  # noqa: E402
 from neuralrecon_w_tpu_torch.ops import field_vjp_math as fvm  # noqa: E402
 from neuralrecon_w_tpu_torch.ops import sdf_field_vjp as vjp  # noqa: E402
 from test_torch_sdf_mlp import live_sdf_params, sdf_cfg, torch_net  # noqa: E402
@@ -23,6 +25,9 @@ from test_torch_sdf_mlp import live_sdf_params, sdf_cfg, torch_net  # noqa: E402
 torch.set_num_threads(1)
 
 PRIMAL_ATOL = 1e-5
+FWD_ATOL = 1e-5  # 'fwd' against JAX's 'fwd' and the port's 'vjp', f32
+FWD_GRAD_REL_L2 = 1e-5  # one 'fwd' training step against JAX's, every parameter gradient
+# (or twice the two packages' 'vjp' steps' own distance, where that is larger)
 # the JAX suite's own bounds (tests/test_pallas_field_vjp.py:36-38, 66, 132)
 GRAD_ATOL = {"shallow": 2e-4, "deep": 3e-4}
 NETS = {"shallow": (128, 4, (2,), 1.3), "deep": (64, 8, (4,), 1.3)}
@@ -237,9 +242,10 @@ def test_pack_layout():
 
 @pytest.mark.parametrize("mode", ["fwd", "pallas_field"])
 def test_unported_grad_modes_raise(mode):
-    """'fwd' is not ported: it raises, pointing at ROADMAP.md. 'pallas_field'
-    was not either until kernel 5's port; it now runs (on the CPU through
-    the plain versions) and gives per-sample rgb, sdf and grad."""
+    """Neither mode raises any more: 'pallas_field' since kernel 5's port (on
+    the CPU through the plain versions), 'fwd' since the forward-mode port;
+    each gives per-sample rgb, sdf and grad, and 'fwd''s equal 'vjp''s on
+    the same field (f32, 1e-5)."""
     from neuralrecon_w_tpu.config import get_cfg_defaults
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg
     from neuralrecon_w_tpu_torch.models.neuconw import field_forward
@@ -253,11 +259,101 @@ def test_unported_grad_modes_raise(mode):
     cfg.TPU.SDF_GRAD_MODE = mode
     fc = field_config_from_cfg(cfg)
     model = init_field(fc, torch.Generator().manual_seed(0), "cpu")
-    args = (model, fc, torch.zeros(4, 3), torch.zeros(4, 3), torch.zeros(4, 48))
+    pts = torch.from_numpy(np.random.RandomState(0).randn(4, 3).astype(np.float32) * 0.5)
+    args = (model, fc, pts, torch.zeros(4, 3), torch.zeros(4, 48))
+    rgb, _, sdf, grad = field_forward(*args)
+    assert rgb.shape == (4, 3) and sdf.shape == (4,) and grad.shape == (4, 3)
+    assert all(bool(torch.isfinite(t).all()) for t in (rgb, sdf, grad))
     if mode == "fwd":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            field_forward(*args)
-    else:
-        rgb, _, sdf, grad = field_forward(*args)
-        assert rgb.shape == (4, 3) and sdf.shape == (4,) and grad.shape == (4, 3)
-        assert all(bool(torch.isfinite(t).all()) for t in (rgb, sdf, grad))
+        want = field_forward(model, fc._replace(grad_mode="vjp"), *args[2:])
+        for g, w in zip((rgb, sdf, grad), (want[0], want[2], want[3])):
+            torch.testing.assert_close(g, w, atol=FWD_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["shallow", "deep"])
+def test_fwdmode_matches_jax_and_vjp(name):
+    """sdf_value_feat_grad_fwdmode (one primal and three tangent passes)
+    against JAX's (jax.linearize) and the port's 'vjp': sdf, feature and
+    gradient in f32 within 1e-5; under no_grad none carries a graph, under
+    autograd all three do."""
+    cfg, params, x, _, _ = setup(name)
+    want = [np.asarray(t) for t in jax_fwdmode(params, cfg, jnp.asarray(x))]
+    net = torch_net(params, cfg).requires_grad_(True)
+    got = sdf_value_feat_grad_fwdmode(net, cfg, torch.from_numpy(x))
+    vjp_ = sdf_value_feat_grad(net, cfg, torch.from_numpy(x))
+    assert all(t.requires_grad for t in got)
+    for g, v, w in zip(got, vjp_, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.detach().numpy(), w, atol=FWD_ATOL, rtol=0)
+        np.testing.assert_allclose(g.detach().numpy(), v.numpy(), atol=FWD_ATOL, rtol=0)
+    with torch.no_grad():
+        served = sdf_value_feat_grad_fwdmode(net, cfg, torch.from_numpy(x))
+    assert not any(t.requires_grad for t in served)
+
+
+def test_fwd_train_step_matches_jax():
+    """One steady-phase training step in 'fwd' (reverse over forward)
+    against JAX's 'fwd' step from the same weights and batch (f32): every
+    loss term within 1e-5, and every parameter gradient within rel-L2
+    max(1e-5, 2 x the same parameter's error between the two packages'
+    'vjp' steps). The two packages sum the step's f32 gradients in other
+    orders, which leaves the 'vjp' steps ~1.6e-5 apart on some parameters
+    (the background's among them, which 'fwd' does not touch)."""
+    from test_torch_train_step import (grid_host, jax_step, make_batch, port_step, rel_l2,
+                                       setup_cfg)
+    from test_torch_sdf_mlp import live_field_params
+    from neuralrecon_w_tpu.models import field_config_from_cfg as jax_field_config
+    from neuralrecon_w_tpu.models import init_field as jax_init_field
+
+    batch, fine = make_batch(), grid_host()
+    out = {}
+    for mode in ("fwd", "vjp"):
+        cfg = setup_cfg()
+        cfg.TPU.SDF_GRAD_MODE = mode
+        params = live_field_params(jax_init_field(jax.random.PRNGKey(0), jax_field_config(cfg)))
+        out[mode] = (jax_step(cfg, params, batch, fine), port_step(cfg, params, batch, fine, mode))
+    (want_aux, want_g), (got_aux, got_g) = out["fwd"]
+    (_, vjp_want), (_, vjp_got) = out["vjp"]
+    assert set(want_aux) == set(got_aux)
+    for k, v in want_aux.items():
+        assert got_aux[k] == pytest.approx(v, rel=FWD_ATOL, abs=1e-7), k
+    assert set(got_g) == set(want_g)
+    errs = {k: rel_l2(got_g[k].numpy(), want_g[k].numpy()) for k in want_g}
+    floor = {k: 2 * rel_l2(vjp_got[k].numpy(), vjp_want[k].numpy()) for k in want_g}
+    bad = {k: (e, floor[k]) for k, e in errs.items() if e > max(FWD_GRAD_REL_L2, floor[k])}
+    assert not bad, bad
+    assert all(float(got_g[k].abs().max()) > 0 for k in got_g if k.startswith("neuconw.sdf_net."))
+
+
+def test_fwd_runs_sdf_in_float32_under_bf16():
+    """With FIELD_DTYPE bfloat16 'fwd' still evaluates the SDF net in f32
+    (as JAX's apply_sdf default): sdf, feature and gradient are f32 and
+    equal the f32 field's; the colour head runs in bf16 (its rgb within bf16
+    rounding of the f32 field's, not equal)."""
+    from neuralrecon_w_tpu.config import get_cfg_defaults
+    from neuralrecon_w_tpu_torch.config import field_config_from_cfg
+    from neuralrecon_w_tpu_torch.models.neuconw import field_forward
+    from neuralrecon_w_tpu_torch.tools.convert import init_field
+
+    cfg = get_cfg_defaults()
+    n = cfg.NEUCONW
+    n.SDF_CONFIG.d_hidden, n.SDF_CONFIG.d_out, n.SDF_CONFIG.n_layers = 64, 65, 4
+    n.SDF_CONFIG.skip_in = (2,)
+    n.COLOR_CONFIG.d_feature, n.N_VOCAB = 64, 4
+    cfg.TPU.SDF_GRAD_MODE = "fwd"
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg.TPU.FIELD_DTYPE = dt
+        fc = field_config_from_cfg(cfg)
+        assert fc.act_dtype == dt
+        model = init_field(fc, torch.Generator().manual_seed(0), "cpu")
+        pts = torch.from_numpy(np.random.RandomState(1).randn(16, 3).astype(np.float32) * 0.5)
+        sdf, feat, grad = sdf_value_feat_grad_fwdmode(model.neuconw.sdf_net, fc.sdf_cfg, pts)
+        rgb = field_forward(model, fc, pts, torch.zeros(16, 3), torch.zeros(16, 48))[0]
+        out[dt] = (sdf, feat, grad, rgb)
+    for a, b in zip(out["float32"][:3], out["bfloat16"][:3]):
+        assert b.dtype == torch.float32
+        assert torch.equal(a, b)
+    rgb32, rgb16 = out["float32"][3].float(), out["bfloat16"][3].float()
+    assert not torch.equal(rgb32, rgb16)
+    torch.testing.assert_close(rgb16, rgb32, atol=2e-2, rtol=0)

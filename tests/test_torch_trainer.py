@@ -393,3 +393,31 @@ def test_trainer_device_pool_band_cache(pool_runs):
         assert bool(hit.any()), name
     back = pool_runs["back"]
     assert back.state.step == POOL_STEPS + 2 and not back.refreshes
+
+
+def test_profile_window_and_tensorboard_mirror(workspace, tmp_path):
+    """TrainerConfig.profile_start / profile_steps open a torch.profiler
+    window over those steps and write its Chrome trace under
+    <exp_dir>/profile (JAX: a jax.profiler trace, loop.py:292-297); the
+    logged scalars are mirrored to a TensorBoard event file beside
+    metrics.jsonl (loop.py:50-68)."""
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    cfg_path, _ = workspace
+    tr = loop.Trainer(port_cfg(cfg_path), tcfg(loop, str(tmp_path), "prof", log_every=1,
+                                               profile_start=1, profile_steps=2), device="cpu")
+    tr.fit(max_steps=3)
+    tr.logger.close()
+    want = os.path.join(str(tmp_path), "prof", "profile", "trace_step1.json")
+    assert tr.profile_traces == [want]
+    with open(want) as f:
+        trace = json.load(f)
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert "train.render_loss" in names and "train.optimizer" in names
+    logged = read_log(tr.logger.path)
+    events = EventAccumulator(os.path.dirname(tr.logger.path))
+    events.Reload()
+    got = {e.step: e.value for e in events.Scalars("loss")}
+    assert sorted(got) == [1, 2, 3]
+    for step, v in got.items():
+        assert v == pytest.approx(logged[step]["loss"], rel=1e-6)
