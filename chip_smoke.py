@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port: its serving path (eager and
 as a CUDA graph), its training step, mesh extraction, the reprojection
-filter and the training CLI up to the e2e gate.
+filter, the training CLI up to the e2e gate, and data parallelism.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -151,6 +151,25 @@ reconstruction with (100 views of 160x120, every tenth turned away:
 ``image_metrics_phase`` holds SSIM and LPIPS (VGG and Alex at full
 width, ``init_lpips`` weights) on the card to float64 on the CPU, on the
 trained field's held-out view and 4 seeded images of 640x480.
+
+Data parallelism (``multi_rank_phase``, in trainer_phase's workspace from
+its last checkpoint): 3 'vjp' steps at batch 8192 with an NCCL group of
+one rank (``parallel.mesh.init_data_group(1)``) held bit for bit to the
+same steps without a group, and a refresh sweep through that group to the
+one without; then two ranks on the one card over gloo (an explicit choice:
+NCCL refuses two ranks on one device), spawned by ``parallel.mesh.spawn``
+(the kernels built before, so the ranks only load them), each running
+train_cli's Trainer at the global batch 8192 (4096 a rank, the device pool
+sharded) for 6 steps with refreshes at its first step and 3 steps later,
+saves every 3 and a split validation at the end, then a 2-step resume:
+both ranks' parameters and fine grids bit for bit equal after each, rank
+0 alone logging and writing, K1, K2, K10 and K11 launched on each rank;
+then one float32 step at PERTURB 0 of the two ranks on a fixed batch whose
+halves hold different numbers of ray-masked rays, the reduced gradient
+within rel-L2 1e-5 per parameter of one rank's step on the whole batch; it
+prints the per-step wall of two ranks and of one on that batch, the flat
+all-reduce's size and time for NCCL (one rank) and gloo (two), and each
+rank's refresh walls.
 
 The last lines are the card line, a JSON object with one entry per
 kernel (K1 and K2 with their serving launches, K3 to K5 and K7 to K9 with
@@ -2659,6 +2678,272 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
     return launches, fails + pool_fails
 
 
+# the data-parallel phase (parallel/mesh.py) in trainer_phase's workspace,
+# from its last checkpoint: MULTI_NCCL_STEPS steps with a world-1 group
+# (NCCL on the card) against the same steps without one, and the refresh's
+# sweep through it; two ranks on the one card over gloo through
+# train_cli's Trainer, MULTI_STEPS steps at the global batch MULTI_BATCH
+# (a refresh at each multiple of MULTI_UPDATE: one, from step 60; saves
+# every MULTI_SAVE, a split validation at the end), then a
+# MULTI_RESUME-step resume; one step of the two ranks on a fixed batch
+# whose halves hold MULTI_MASKED of their rays ray-masked, its reduced
+# gradient against one rank's on the whole batch within MULTI_GRAD_REL per
+# parameter (float32, PERTURB 0), and MULTI_TIMED more steps of each timed.
+# A refresh costs ~13 s on the host (PERF.md section 5): one keeps the
+# phase near two minutes
+MULTI_BATCH = 8192
+MULTI_STEPS, MULTI_UPDATE, MULTI_SAVE, MULTI_RESUME = 6, 7, 3, 2
+MULTI_NCCL_STEPS, MULTI_TIMED, MULTI_REDUCE_REPS = 3, 3, 10
+MULTI_MASKED = (0.05, 0.25)
+MULTI_GRAD_REL = 1e-5
+# kernels every rank's run must launch: K1 (the sampler, the refresh and
+# the mesh sweeps), K2, K10 (the band cache, the validation's SFM near /
+# far), K11 (the validation's fine-grid query)
+MULTI_KERNELS = ("sdf_mlp", "up_sample", "dda", "sampled_hit")
+
+
+def fixed_global_batch(pool, n: int, mask_id: int, seed: int = SEED) -> dict:
+    """n rows of ``pool`` drawn with a seed; in each half a share
+    MULTI_MASKED[half] of the rays relabelled ``mask_id`` (ray-masked)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    batch = pool.gather(rng.choice(len(pool), n, replace=False))
+    labels = batch["labels"].copy()
+    h = n // 2
+    for half, share in enumerate(MULTI_MASKED):
+        labels[rng.choice(np.arange(half * h, (half + 1) * h), int(share * h),
+                          replace=False)] = mask_id
+    return {**batch, "labels": labels}
+
+
+def grads_rel_l2(got: dict, want: dict) -> dict:
+    import numpy as np
+
+    return {k: float(np.linalg.norm((got[k] - want[k]).double().numpy())
+                     / max(float(np.linalg.norm(want[k].double().numpy())), 1e-30))
+            for k in want}
+
+
+def multi_rank_phase(root: str, ck: str, device: str = "cuda", card: str = "the CPU",
+                     extra_cfg: dict | None = None, train_voxel: float = TRAINER_VOXEL):
+    """Data parallelism from the checkpoint ``ck`` of the workspace at
+    ``root`` (see MULTI_BATCH). Returns ({run: launches}, fails)."""
+    import numpy as np
+    import torch
+
+    from neuralrecon_w_tpu_torch.config import (
+        field_config_from_cfg, load_cfg, render_config_from_cfg)
+    from neuralrecon_w_tpu_torch.datasets.mask_utils import get_label_id_mapping
+    from neuralrecon_w_tpu_torch.parallel import mesh
+    from neuralrecon_w_tpu_torch.parallel.sweep import sharded_sdf_sweep
+    from neuralrecon_w_tpu_torch.testing import ranks
+    from neuralrecon_w_tpu_torch.training.checkpoint import load_field, restore_checkpoint
+    from neuralrecon_w_tpu_torch.training.loop import Trainer, TrainerConfig
+    from neuralrecon_w_tpu_torch.training.losses import loss_config_from_cfg
+    from neuralrecon_w_tpu_torch.training.schedule import make_optimizer, scaled_lr
+    from neuralrecon_w_tpu_torch.training.step import make_train_step
+
+    t_phase = time.perf_counter()
+    fails, launches = [], {}
+    counters = launch_counters()
+    dev = torch.device("cpu" if device == "cpu" else "cuda:0")
+    cfg_path = write_cfg(os.path.join(root, "multi.yaml"), root, merged({
+        "NEUCONW": {"UPDATE_FREQ": MULTI_UPDATE, "TRAIN_VOXEL_SIZE": train_voxel},
+        "TRAINER": {"VAL_FREQ": float(MULTI_STEPS), "SAVE_FREQ": MULTI_SAVE}}, extra_cfg))
+    save = os.path.join(root, "results_multi")
+    step0 = restore_checkpoint(ck)["step"]
+
+    # 1. a world-1 group (NCCL on the card) against no group, from one state
+    cfg = load_cfg(cfg_path)
+    cfg.TRAINER.LR = scaled_lr(cfg, MULTI_BATCH)  # as train_cli sets it
+    tr = Trainer(cfg, TrainerConfig(batch_size=MULTI_BATCH, ckpt_path=ck, exp_name="multi_w1",
+                                    save_dir=save), device=dev)
+    rcfg = render_config_from_cfg(cfg, sfm_level=-1, fine_level=tr.train_level,
+                                  nerf_far_override=False)
+    pool = tr.load_rays()
+    batches = [pool.next_batch(MULTI_BATCH) for _ in range(MULTI_NCCL_STEPS)]
+    group = mesh.init_data_group(1, device=dev)
+    try:
+        states = []
+        for g in (None, group):
+            st = copy.deepcopy(tr.state)
+            step = make_train_step(tr.fc, rcfg, tr.lcfg, tr.anneal_end, tr.ray_mask_ids,
+                                   seed=int(cfg.TRAINER.SEED) + 1, group=g)
+            if g is not None:
+                reset_counts(counters)
+            for b in batches:
+                st, aux = step(st, tr.scene, b, tr.fine_dgrid, None)
+            sync()
+            if g is not None:
+                launches["multi_rank world1"] = read_counts()
+            states.append(st)
+        differ = [k for (k, a), b in zip(states[0].model.named_parameters(),
+                                         states[1].model.parameters()) if not torch.equal(a, b)]
+        print(f"multi-rank: {MULTI_NCCL_STEPS} 'vjp' steps at batch {MULTI_BATCH} from step "
+              f"{step0} with a {group.backend} group of 1 rank and without a group: parameters "
+              f"{'equal bit for bit' if not differ else f'DIFFER in {differ[:4]}'} (loss "
+              f"{float(aux['loss']):.6f})")
+        if differ:
+            fails.append(f"{group.backend} world 1 moved {len(differ)} parameter tensors off "
+                         f"the run without a group")
+        # the refresh's K1 f32 sweep over its candidates, with and without
+        sc = tr.meta.scene_config
+        pts = ((tr.sfm_grid.upsample(tr.train_level).centers_sfm() - np.asarray(sc["origin"]))
+               / float(sc["radius"])).astype(np.float32)
+        sdfs, walls = [], []
+        for g in (None, group):
+            t0 = time.perf_counter()
+            sdfs.append(sharded_sdf_sweep(states[0].model, tr.fc, pts, device=dev, group=g))
+            sync()
+            walls.append(time.perf_counter() - t0)
+        same = np.array_equal(sdfs[0], sdfs[1])
+        print(f"multi-rank: the refresh's sweep over {len(pts)} level-{tr.train_level} "
+              f"candidates through the {group.backend} group of 1 rank: "
+              f"{'equal' if same else 'NOT equal'} to the sweep without a group; "
+              f"{walls[1]:.3f} s ({walls[0]:.3f} s without) ({card})")
+        if not same:
+            fails.append(f"the {group.backend} world-1 sweep differs")
+        del pts, sdfs
+        n_flat = sum(p.numel() for p in tr.state.model.parameters()) + len(aux) + 1
+        buf = torch.ones(n_flat, device=dev)
+        mesh.all_reduce_sum_(group, buf)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(MULTI_REDUCE_REPS):
+            mesh.all_reduce_sum_(group, buf)
+        sync()
+        w1_reduce_ms = (time.perf_counter() - t0) * 1e3 / MULTI_REDUCE_REPS
+        backend1 = group.backend
+    finally:
+        mesh.destroy(group)
+    del tr, states, batches
+    if device != "cpu":
+        torch.cuda.empty_cache()
+
+    # 2. two ranks on the one card over gloo: train_cli's Trainer, a resume
+    print(f"multi-rank: two ranks on {'one card' if device != 'cpu' else 'the CPU'} over gloo, "
+          f"by an explicit backend choice (NCCL refuses two ranks on one device; no path falls "
+          f"back to gloo by itself)")
+    base = ["--cfg_path", cfg_path, "--batch_size", str(MULTI_BATCH), "--test_batch_size",
+            str(MULTI_BATCH), "--num_epochs", "1000", "--save_dir", save, "--device", device,
+            "--log_every", "1"]
+    end = step0 + MULTI_STEPS
+    run = base + ["--max_steps", str(MULTI_STEPS), "--exp_name", "multi", "--ckpt_path", ck]
+    resume = base + ["--max_steps", str(MULTI_RESUME), "--exp_name", "multi_resume",
+                     "--ckpt_path", os.path.join(save, "multi", "checkpoints", f"step_{end}.ckpt")]
+    out = os.path.join(root, "multi_rank{rank}.json")
+    t0 = time.perf_counter()
+    mesh.spawn(ranks.cli_rank, 2, (run, resume, 2, mesh.free_coordinator(), out, "gloo",
+                                   str(dev)))
+    spawn_wall = time.perf_counter() - t0
+    rec = []
+    for r in (0, 1):
+        with open(out.format(rank=r)) as f:
+            rec.append(json.load(f))
+    for r in rec:
+        if r["backend"] != "gloo" or r["world_size"] != 2 or r["foreign_modules"]:
+            fails.append(f"rank {r['rank']}: {r['backend']}, world {r['world_size']}, "
+                         f"{r['foreign_modules']}")
+    want_refresh = {name: [s for s in range(a, b) if s > 0 and s % MULTI_UPDATE == 0]
+                    for name, a, b in (("run", step0, end), ("resume", end, end + MULTI_RESUME))}
+    for name in ("run", "resume"):
+        a, b = rec[0][name], rec[1][name]
+        same = a["params"] == b["params"]
+        grid = a["fine_grid"] is not None and a["fine_grid"] == b["fine_grid"]
+        steps = [[x["step"] for x in r[name]["refreshes"]] for r in rec]
+        print(f"multi-rank {name}: step {a['step']} / {b['step']}; parameters "
+              f"{'bit for bit equal' if same else 'DIFFER'} on the two ranks; fine grid "
+              f"{'equal' if grid else 'NOT equal'} ({a['fine_grid']}); refreshes at {steps[0]} / "
+              f"{steps[1]}, walls " + "; ".join(
+                  f"rank {r['rank']} " + ", ".join(
+                      f"{x['seconds']:.3f} s (sweep {x.get('sweep_seconds', float('nan')):.3f} s, "
+                      f"kept {x.get('n_kept')})" for x in r[name]["refreshes"]) for r in rec)
+              + f"; run walls {a['seconds']:.2f} / {b['seconds']:.2f} s ({card})")
+        if not same or not grid or steps[0] != steps[1] or steps[0] != want_refresh[name]:
+            fails.append(f"two gloo ranks' {name}: parameters equal {same}, grids equal {grid}, "
+                         f"refreshes {steps}")
+        if not all(x.get("n_kept", 0) > 0 for r in rec for x in r[name]["refreshes"]):
+            fails.append(f"a refresh of the two gloo ranks' {name} kept no cell")
+        want_step = end if name == "run" else end + MULTI_RESUME
+        if a["step"] != want_step:
+            fails.append(f"two gloo ranks' {name} ended at step {a['step']}, not {want_step}")
+    if not rec[0]["run"]["is_main"] or rec[1]["run"]["is_main"] or rec[1]["run"]["logger_path"]:
+        fails.append("rank 1 is main or logs")
+    recs = log_records(os.path.join(save, "multi", "logs", "metrics.jsonl"))
+    logged = [r["step"] for r in recs if "loss" in r]
+    ckpts = sorted(f for f in os.listdir(os.path.join(save, "multi", "checkpoints"))
+                   if f.endswith(".ckpt"))
+    val = [r for r in recs if "val/psnr" in r]
+    print(f"multi-rank: rank 0's log steps {logged}, {len(val)} validation(s) (psnr "
+          f"{val[0]['val/psnr'] if val else float('nan'):.3f}), checkpoints {ckpts}; the two "
+          f"ranks' spawn to exit {spawn_wall:.2f} s")
+    want_ckpts = sorted({f"step_{s}.ckpt" for s in range(step0 + 1, end + 1)
+                         if s % MULTI_SAVE == 0 or s == end})
+    if logged != list(range(step0 + 1, end + 1)) or len(val) != 1 or ckpts != want_ckpts:
+        fails.append(f"two gloo ranks wrote log steps {logged}, {len(val)} validations, "
+                     f"checkpoints {ckpts}")
+    for r in rec:
+        got = {k: r["run"]["launches"][k] + r["resume"]["launches"][k]
+               for k in r["run"]["launches"]}
+        launches[f"multi_rank rank{r['rank']}"] = got
+        print(f"launches in rank {r['rank']}'s run and resume: "
+              + ", ".join(f"{n} {v}" for n, v in got.items() if v))
+        if device != "cpu":
+            fails += [f"{n} not launched by rank {r['rank']}" for n in MULTI_KERNELS
+                      if got[n] <= 0]
+
+    # 3. the reduced gradient against one rank's, and the steps' walls
+    cfg32 = load_cfg(cfg_path)
+    cfg32.TPU.FIELD_DTYPE = "float32"
+    cfg32.NEUCONW.PERTURB = 0.0
+    fc32 = field_config_from_cfg(cfg32)
+    lid = get_label_id_mapping()
+    mask_ids = tuple(lid[x] for x in cfg32.NEUCONW.RAY_MASK_LIST)
+    spec = {"fc": fc32, "rcfg": render_config_from_cfg(cfg32, sfm_level=-1, fine_level=-1,
+                                                       nerf_far_override=False),
+            "lcfg": loss_config_from_cfg(cfg32), "anneal_end": int(cfg32.NEUCONW.ANNEAL_END),
+            "mask_ids": mask_ids, "seed": int(cfg32.TRAINER.SEED) + 1,
+            "optimizer": make_optimizer(cfg32, MULTI_BATCH)[0],
+            "state_dict": {k: v.cpu() for k, v in load_field(ck, fc32, dev).state_dict().items()},
+            "batch": fixed_global_batch(pool, MULTI_BATCH, mask_ids[0]), "step": step0,
+            "scene": (np.asarray(sc["origin"], np.float32), np.float32(sc["radius"]),
+                      np.asarray(sc["sfm2gt"], np.float32)),
+            "device": str(dev), "backend": "gloo", "time_steps": MULTI_TIMED,
+            "reduce_reps": MULTI_REDUCE_REPS}
+    h = MULTI_BATCH // 2
+    masked = [int(np.isin(spec["batch"]["labels"][i * h:(i + 1) * h], mask_ids).sum())
+              for i in (0, 1)]
+    outs = os.path.join(root, "multi_step{rank}.pt")
+    mesh.spawn(ranks.step_rank, 2, (2, mesh.free_coordinator(), spec, outs))
+    two = [torch.load(outs.format(rank=r), weights_only=False) for r in (0, 1)]
+    one = ranks.one_step(spec)
+    equal = all(torch.equal(two[0]["grads"][k], two[1]["grads"][k]) for k in two[0]["grads"])
+    rel = grads_rel_l2(two[0]["grads"], one["grads"])
+    worst = max(rel, key=rel.get)
+    ok = equal and set(two[0]["grads"]) == set(one["grads"]) and rel[worst] <= MULTI_GRAD_REL
+    print(f"multi-rank: one f32 step at PERTURB 0 on a fixed batch of {MULTI_BATCH} (halves "
+          f"with {masked[0]} / {masked[1]} ray-masked rays): the two gloo ranks' reduced "
+          f"gradients {'equal' if equal else 'DIFFER'}; against one rank on the whole batch "
+          f"worst rel-L2 {rel[worst]:.2e} ({worst}), bound {MULTI_GRAD_REL}; loss "
+          f"{two[0]['aux']['loss']:.7f} / {one['aux']['loss']:.7f} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fails.append(f"the reduced gradient: ranks equal {equal}, worst rel-L2 {rel[worst]:.2e} "
+                     f"({worst})")
+    med = lambda w: sorted(w)[len(w) // 2] * 1e3  # noqa: E731
+    print(f"multi-rank per-step wall at global batch {MULTI_BATCH} ({card}): two ranks, two "
+          f"processes sharing one card over gloo (not a two-card rate), median "
+          f"{med(two[0]['walls']):.1f} / {med(two[1]['walls']):.1f} ms (rank 0 / 1); one rank "
+          f"{med(one['walls']):.1f} ms; {MULTI_TIMED} steps each")
+    mb = two[0]["reduce_numel"] * 4 / 1e6
+    print(f"multi-rank flat all-reduce ({card}): {two[0]['reduce_numel']} floats = {mb:.2f} MB; "
+          f"{backend1} world 1 {w1_reduce_ms:.3f} ms, gloo 2 ranks on one card "
+          f"{two[0]['reduce_ms']:.3f} / {two[1]['reduce_ms']:.3f} ms (rank 0 / 1); "
+          f"{MULTI_REDUCE_REPS} reps")
+    print(f"multi-rank phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, fails
+
+
 def e2e_gate_phase(root: str, device: str = "cuda", card: str = "the CPU"):
     """tests/test_e2e.py:79-191 through the port's CLIs: its workspace (6
     views of 40x30) and cache, train_cli 300 steps at batch 512 (the
@@ -3983,6 +4268,15 @@ def main() -> int:
                 # seeded batch, on the card against float64 on the CPU
                 pfails += image_metrics_phase({"held-out view": held_out_view_pair(root),
                                                "seeded batch": metric_images()}, "cuda", card)
+                # data parallelism from the trained checkpoint: its ranks'
+                # launches count under "train_cli multi_rank ..."
+                from neuralrecon_w_tpu_torch.training.checkpoint import latest_checkpoint
+
+                ranked, mfails = multi_rank_phase(
+                    root, latest_checkpoint(os.path.join(root, "results", "trainer",
+                                                         "checkpoints")), "cuda", card)
+                got.update(ranked)
+                pfails += mfails
         finally:
             shutil.rmtree(root, ignore_errors=True)
         fails += pfails

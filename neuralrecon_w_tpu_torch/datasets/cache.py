@@ -18,9 +18,10 @@ inputs (reference datasets/phototourism.py:709-724): rays (10 columns: o,
 d, near, far, depth, weight), ts, labels and rgbs; and draws shuffled
 without-replacement batches from a ``numpy.random.RandomState(seed)``, the
 same batches as the JAX package's ``RayPool`` for the same seed.
-``DeviceRayPool`` (``cache.py:188-449``) holds those rows on the card,
-gathers every batch there, and carries the surface-band cache
-(``attach_surface``) that the training step reads after a refresh.
+``DeviceRayPool`` (``cache.py:188-449``) holds those rows on the card (a
+rank's shard of them in a data-parallel run), gathers every batch there,
+and carries the surface-band cache (``attach_surface``) that the training
+step reads after a refresh.
 """
 
 from __future__ import annotations
@@ -166,29 +167,43 @@ class DeviceRayPool:
     ``torch.Generator`` seeded from (seed, epoch) and advanced by a host
     cursor; the stream is not JAX's ``jax.random.permutation``, the
     semantics are: each row once an epoch, windows disjoint. 'replacement'
-    draws each batch with replacement. One card: the JAX package's mesh
-    branches are its one-shard case.
+    draws each batch with replacement.
+
+    ``shard=(index, count)`` is one rank's part of a pool split over the
+    ``count`` ranks of its host, the JAX package's data-mesh pool
+    (``cache.py:206-310``): of the host pool's first (n // count) * count
+    rows, shard ``index`` holds its own contiguous block, draws from its own
+    permutation per epoch (seeded from (seed, epoch, index)), and each
+    ``next_batch(batch_size)`` takes batch_size / count rows of it. Shard
+    (0, 1), the default, is the whole pool.
 
     The permutation and the band cache are written in place (one tensor
     each for the pool's life), so a captured step that reads them keeps
     valid pointers."""
 
-    def __init__(self, pool: RayPool, device=None, sampling: str = "epoch", seed: int = 0):
+    def __init__(self, pool: RayPool, device=None, sampling: str = "epoch", seed: int = 0,
+                 shard: tuple = (0, 1)):
         import torch
 
         from ..device import default_device
+        from ..parallel.mesh import rank_seed
 
         if sampling not in ("epoch", "replacement"):
             raise ValueError(f"unknown sampling mode {sampling!r}")
+        index, count = (int(v) for v in shard)
+        if not 0 <= index < count:
+            raise ValueError(f"shard {index} of {count}")
         self.device = default_device(device)
         self.sampling = sampling
-        self._seed = int(seed)
+        self.shard = (index, count)
+        self._seed = rank_seed(seed, index)  # shard 0's streams: the unsharded pool's
         self._epoch_i = 0
         self._cursor = 0
         self._perm = None
         self._surf = None
-        self.n = len(pool)
-        self.data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+        self.n = len(pool) // count  # this shard's rows
+        rows = slice(index * self.n, (index + 1) * self.n)
+        self.data = {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(self.device)
                      for k, v in (("rays", pool.rays.astype(np.float32)), ("ts", pool.ts),
                                   ("labels", pool.labels),
                                   ("rgbs", pool.rgbs.astype(np.float32)))}
@@ -198,7 +213,13 @@ class DeviceRayPool:
         return self.n
 
     def epoch_batches(self, batch_size: int) -> int:
-        return self.n // batch_size
+        return self.n // self._per_shard(batch_size)
+
+    def _per_shard(self, batch_size: int) -> int:
+        count = self.shard[1]
+        if batch_size % count:
+            raise ValueError(f"a batch of {batch_size} rays does not divide over {count} shards")
+        return batch_size // count
 
     def _reshuffle(self):
         """The next epoch's permutation, written into the pool's one
@@ -219,10 +240,11 @@ class DeviceRayPool:
         return {k: v.index_select(0, idx) for k, v in self.data.items()}
 
     def next_batch(self, batch_size: int) -> dict:
-        """A batch on the device: the next window of the epoch's
-        permutation ('epoch'), or a draw with replacement."""
+        """This shard's part of a batch on the device: the next window of
+        the epoch's permutation ('epoch'), or a draw with replacement."""
         import torch
 
+        batch_size = self._per_shard(batch_size)
         if self.sampling == "replacement":
             return self.gather(torch.randint(0, self.n, (batch_size,), generator=self._gen,
                                              device=self.device))
@@ -235,7 +257,10 @@ class DeviceRayPool:
     def take_scan_window(self, batch_size: int, n_inner: int):
         """Reserve the next n_inner consecutive epoch batches for a
         multi-step dispatch: (perm, start) for ``make_scan_train_fn``, or
-        (None, None) with 'replacement' sampling."""
+        (None, None) with 'replacement' sampling. An unsharded pool only, as
+        the multi-step dispatch (``cache.py:377-378``)."""
+        if self.shard[1] != 1:
+            raise ValueError("take_scan_window requires an unsharded pool")
         if self.sampling == "replacement":
             return None, None
         need = batch_size * n_inner

@@ -11,6 +11,9 @@ card sweeps, host meshing.
   * area-weighted vertex normals;
   * optionally vertex colours at view direction (0, 0, 1) and one
     appearance index (``sharded_rgb_sweep``: K6 in the activation dtype).
+
+With a data group both sweeps are split over its ranks (``mesh.py:97-142``)
+and every rank meshes the same field.
 """
 
 from __future__ import annotations
@@ -76,10 +79,11 @@ def sparse_eval_grid(scene_config: dict, points3d: dict, eval_level: int) -> Eva
 def extract_mesh(model, fc, grid: EvalGrid, scene_origin, scene_radius: float,
                  chunk: int = 102144, with_color: bool = False, a_index: int = 1123,
                  chunk_rgb: int = 65536, device=None,
-                 timings: Optional[dict] = None) -> MeshData | None:
+                 timings: Optional[dict] = None, group=None) -> MeshData | None:
     """The zero isosurface over the grid, vertices in SFM coordinates, or
     None when the surface is empty. ``device`` defaults to the card;
-    ``timings``, when given, gets the wall seconds of each stage."""
+    ``timings``, when given, gets the wall seconds of each stage; ``group``
+    splits the sweeps over its ranks."""
     device = default_device(device)
     timings = {} if timings is None else timings
     clock = [time.perf_counter()]
@@ -91,7 +95,7 @@ def extract_mesh(model, fc, grid: EvalGrid, scene_origin, scene_radius: float,
 
     scene_origin = np.asarray(scene_origin, np.float64)
     pts_unit = (grid.points_sfm - scene_origin) / scene_radius
-    sdf = sharded_sdf_sweep(model, fc, pts_unit.astype(np.float32), chunk, device)
+    sdf = sharded_sdf_sweep(model, fc, pts_unit.astype(np.float32), chunk, device, group=group)
     lap("sdf sweep")
 
     if grid.indices is None:
@@ -118,7 +122,8 @@ def extract_mesh(model, fc, grid: EvalGrid, scene_origin, scene_radius: float,
     if with_color:
         verts_unit = (verts_sfm - scene_origin) / scene_radius
         rgb = sharded_rgb_sweep(model, fc, verts_unit.astype(np.float32),
-                                np.array([0.0, 0.0, 1.0], np.float32), a_index, chunk_rgb, device)
+                                np.array([0.0, 0.0, 1.0], np.float32), a_index, chunk_rgb, device,
+                                group=group)
         colors = np.clip(rgb * 255.0, 0, 255).astype(np.uint8)
         lap("colour sweep")
     return MeshData(verts_sfm, faces, norms, colors)

@@ -1,4 +1,4 @@
-"""Chunked field sweeps over large host point sets, on one card
+"""Chunked field sweeps over large host point sets
 (``neuralrecon_w_tpu/parallel/sweep.py:31-217``).
 
 The point set streams to the card in host-side macro batches of 2^22
@@ -9,8 +9,13 @@ by chunk, and brought back. The SDF sweep runs K1 in float32
 (``ops/field_forward.fused_field_forward``) in the field's activation
 dtype when the field has an appearance code, and ``models/neuconw.
 field_rgb`` otherwise, as the JAX package does. On CPU tensors each runs
-its plain version. The multi-process and multi-card sweeps of the JAX
-package (``_sweep_multihost``, the device mesh) are not ported.
+its plain version.
+
+With a data group (``parallel/mesh.py``) of W ranks the sweep follows
+``_sweep_multihost`` (``sweep.py:79-106``): every rank holds the same host
+point set, evaluates the contiguous block of ceil(n / W) points that is its
+own on its card, and the blocks, padded to one length, are gathered on
+every rank and trimmed to n. Every rank ends with the whole result.
 """
 
 from __future__ import annotations
@@ -21,22 +26,25 @@ import numpy as np
 import torch
 
 from ..device import default_device
+from .mesh import all_gather_rows, rank_block, split_for_devices
 
 MACRO = 1 << 22
 
 
-def _pad(pts: np.ndarray, multiple: int):
-    n = pts.shape[0]
-    target = ((max(n, 1) + multiple - 1) // multiple) * multiple
-    if target != n:
-        pts = np.concatenate([pts, np.zeros((target - n,) + pts.shape[1:], pts.dtype)], axis=0)
-    return pts, n
-
-
-def sweep(fn, chunk: int, *host_arrays, device=None, macro: int = MACRO) -> np.ndarray:
+def sweep(fn, chunk: int, *host_arrays, device=None, macro: int = MACRO,
+          group=None) -> np.ndarray:
     """fn(*chunks) -> (chunk, ...) tensor, over the arrays' leading axis in
-    chunks of ``chunk`` rows on ``device`` (default: the card); the result
-    as one host array of the arrays' length."""
+    chunks of ``chunk`` rows on ``device`` (default: the card, or the
+    group's); the result as one host array of the arrays' length. With a
+    ``group``, each rank sweeps its block and every rank gets the whole."""
+    if group is not None:
+        n = host_arrays[0].shape[0]
+        lo, per = rank_block(group, n)
+        blocks = [split_for_devices(np.asarray(a[lo:lo + per]), per)[0] for a in host_arrays]
+        out = sweep(fn, chunk, *blocks, device=group.device, macro=macro)
+        with torch.no_grad():
+            got = all_gather_rows(group, torch.from_numpy(out).to(group.device), n)
+        return got.cpu().numpy()
     device = default_device(device)
     macro = max(chunk, (macro // chunk) * chunk)
     n = host_arrays[0].shape[0]
@@ -45,7 +53,7 @@ def sweep(fn, chunk: int, *host_arrays, device=None, macro: int = MACRO) -> np.n
     with torch.no_grad():
         for s in range(0, max(n, 1), macro):
             piece_n = min(macro, n - s) if n else 0
-            padded = [torch.from_numpy(_pad(a[s:s + macro], chunk)[0]).to(device)
+            padded = [torch.from_numpy(split_for_devices(a[s:s + macro], chunk)[0]).to(device)
                       for a in arrays]
             out = torch.cat([fn(*(p[c:c + chunk] for p in padded))
                              for c in range(0, padded[0].shape[0], chunk)])
@@ -54,17 +62,19 @@ def sweep(fn, chunk: int, *host_arrays, device=None, macro: int = MACRO) -> np.n
 
 
 def sharded_sdf_sweep(model, fc, pts: np.ndarray, chunk: int = 65536, device=None,
-                      macro: int = MACRO) -> np.ndarray:
-    """SDF at every point, float32 (N,), through K1 in float32."""
+                      macro: int = MACRO, group=None) -> np.ndarray:
+    """SDF at every point, float32 (N,), through K1 in float32; split over
+    the ranks of ``group`` where given."""
     from ..ops.sdf_mlp import fused_sdf_head, pack_sdf_weights
 
     packed = pack_sdf_weights(model.neuconw.sdf_net, fc.sdf, "float32")
     return sweep(lambda b: fused_sdf_head(packed, b), chunk, np.asarray(pts, np.float32),
-                 device=device, macro=macro)
+                 device=device, macro=macro, group=group)
 
 
 def sharded_rgb_sweep(model, fc, pts: np.ndarray, view_dir, a_index: int,
-                      chunk: int = 65536, device=None, macro: int = MACRO) -> np.ndarray:
+                      chunk: int = 65536, device=None, macro: int = MACRO,
+                      group=None) -> np.ndarray:
     """Vertex colours (N, 3) at one view direction and appearance index
     (reference utils/visualization.py:124-156). An index past the
     vocabulary is clamped to its last entry, as ``sweep.py:201-209`` does."""
@@ -91,4 +101,4 @@ def sharded_rgb_sweep(model, fc, pts: np.ndarray, view_dir, a_index: int,
     else:
         def fn(p, d, e):
             return field_rgb(model, fc, p, d, e)
-    return sweep(fn, chunk, pts, dirs, a, device=device, macro=macro)
+    return sweep(fn, chunk, pts, dirs, a, device=device, macro=macro, group=group)

@@ -312,7 +312,10 @@ def render_core(model, fc, rcfg, rays_o, rays_d, z_vals, sample_dist, a_embedded
 
     grad_norm_err = (torch.linalg.vector_norm(gradients, dim=-1) - 1.0) ** 2
     relax = relax_inside * ray_mask[:, None]
-    gradient_error = torch.sum(relax * grad_norm_err) / (torch.sum(relax) + 1e-5)
+    # the eikonal term's numerator and count apart too: a data-parallel
+    # loss divides the rank's numerator by the count over every rank
+    eikonal_sum, relax_sum = torch.sum(relax * grad_norm_err), torch.sum(relax)
+    gradient_error = eikonal_sum / (relax_sum + 1e-5)
 
     return {
         "color": color,
@@ -328,6 +331,8 @@ def render_core(model, fc, rcfg, rays_o, rays_d, z_vals, sample_dist, a_embedded
         "inside_sphere": inside_sphere,
         "depth": depth,
         "gradient_error": gradient_error,
+        "eikonal_sum": eikonal_sum,
+        "relax_sum": relax_sum,
         "gradients": gradients,
         "normals": normals,
     }
@@ -432,6 +437,8 @@ def render_rays(model, fc: FieldConfig, rcfg: RenderConfig, scene: SceneInfo,
         "weights_sum": weights_sum,
         "weights_max": torch.amax(ret["weights"], dim=-1, keepdim=True),
         "gradient_error": ret["gradient_error"],
+        "eikonal_sum": ret["eikonal_sum"],
+        "relax_sum": ret["relax_sum"],
         "inside_sphere": ret["inside_sphere"],
         "depth": ret["depth"],
         "floor_normal_error": floor_normal_error,

@@ -17,8 +17,12 @@ The flags and the output name are the JAX CLI's, with two differences:
   * ``--device`` is new, default ``cuda``: the sweeps run on that device
     (``cpu`` runs the kernels' plain versions, as the tests do).
 
-One card: the SDF sweep runs K1 in float32 and the vertex colours K6 in
-the field's activation dtype; the mesher runs on the host.
+The SDF sweep runs K1 in float32 and the vertex colours K6 in the field's
+activation dtype; the mesher runs on the host. With more than one visible
+card (``--device cuda``) the CLI spawns a rank per card, as the JAX CLI's
+``make_mesh()`` spans every local device (``extract_mesh_cli.py:50-62``):
+both sweeps split over the ranks (``parallel/mesh.py``), and rank 0
+writes the ply.
 """
 
 from __future__ import annotations
@@ -58,15 +62,30 @@ def get_opts(argv=None):
 
 
 def main(argv=None) -> Extracted | None:
-    """Extract and write the mesh; None when the surface is empty."""
+    """Extract and write the mesh; None when the surface is empty, or when
+    the ranks of several cards ran in spawned processes."""
     args = get_opts(argv)
+    import torch
 
+    n = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
+    if n <= 1:
+        return extract(args)
+    from ..parallel.mesh import free_coordinator, run_rank, spawn
+
+    spawn(run_rank, n, (extract, args, n, 1, 0, free_coordinator()))
+    return None
+
+
+def extract(args, group=None) -> Extracted | None:
+    """``main``'s work on ``args`` (parsed), as a rank of ``group`` where
+    given (rank 0 writes)."""
     import numpy as np
 
     from ..config import field_config_from_cfg, load_cfg
     from ..datasets.colmap import read_points3d_binary
     from ..datasets.phototourism import load_scene_config
     from ..extraction import dense_eval_grid, extract_mesh, save_mesh_ply, sparse_eval_grid
+    from ..parallel.mesh import is_main
     from ..training.checkpoint import load_field
 
     cfg = load_cfg(args.cfg_path)
@@ -75,7 +94,8 @@ def main(argv=None) -> Extracted | None:
     origin = np.asarray(scene_config["origin"], np.float64)
     radius = float(scene_config["radius"])
     fc = field_config_from_cfg(cfg)
-    model = load_field(args.ckpt_path, fc, args.device).eval().requires_grad_(False)
+    device = args.device if group is None else group.device
+    model = load_field(args.ckpt_path, fc, device).eval().requires_grad_(False)
 
     t0 = time.perf_counter()
     if args.eval_level > 0:
@@ -88,9 +108,11 @@ def main(argv=None) -> Extracted | None:
 
     mesh = extract_mesh(model, fc, grid, origin, radius, chunk=args.chunk,
                         with_color=args.vertex_color, a_index=args.a_index,
-                        device=args.device, timings=seconds)
+                        device=device, timings=seconds, group=group)
     if mesh is None:
         print("empty surface; no mesh written")
+        return None
+    if not is_main(group):
         return None
     out = args.out or os.path.join(
         os.path.dirname(os.path.dirname(args.ckpt_path)),

@@ -25,7 +25,11 @@ rays captured in a CUDA graph and replayed for every chunk, the frame
 fetched once; it serves SDF_GRAD_MODE 'vjp' with the 'xla' background and
 raises for the kernel modes (ROADMAP.md, Queue 1 item 7). ``--dispatch
 chunk`` renders a host loop of ``training/step.make_render_fn`` calls, in
-any mode. The JAX CLI's device-mesh sharding is not ported.
+any mode. With more than one visible card (``--device cuda``) the CLI
+spawns a rank per card, as the JAX CLI's mesh spans every local device
+(``render_cli.py:155-157``): each chunk is split over the ranks (the scan
+dispatch is then not used; ``--chunk`` must divide over them), and rank 0
+writes the images.
 """
 
 from __future__ import annotations
@@ -110,7 +114,19 @@ def _save_frame(out_dir, name, out):
 
 def main(argv=None):
     args = get_opts(argv)
+    import torch
 
+    n = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
+    if n <= 1:
+        return render(args)
+    from ..parallel.mesh import free_coordinator, run_rank, spawn
+
+    spawn(run_rank, n, (render, args, n, 1, 0, free_coordinator()))
+
+
+def render(args, group=None):
+    """``main``'s work on ``args`` (parsed), as a rank of ``group`` where
+    given (rank 0 writes)."""
     import numpy as np
     import torch
 
@@ -118,13 +134,15 @@ def main(argv=None):
     from ..datasets.phototourism import build_image_rays, load_image
     from ..models.neuconw import NeuconWField
     from ..ops.ray_voxel import device_grid_from_host
+    from ..parallel.mesh import is_main
     from ..tools.convert import without_dead_entries
     from ..training.checkpoint import restore_checkpoint
     from ..training.step import make_render_fn, make_scan_render_fn
     from ..training.validation import render_image
     from ..utils.scene import load_scene_bundle, val_downscale
 
-    device = torch.device(args.device)
+    device = torch.device(args.device) if group is None else group.device
+    main_rank = is_main(group)
     cfg = load_cfg(args.cfg_path)
     ds = args.img_downscale if args.img_downscale > 0 else val_downscale(cfg)
     meta, scene, sfm_grid, sfm_dgrid = load_scene_bundle(cfg, ds, device)
@@ -149,9 +167,10 @@ def main(argv=None):
     def render_view(rays10, ts, wh, name):
         labels = np.zeros((len(rays10),), np.int32)
         out = render_image(render_chunk, model, scene, rays10, ts, labels, wh, args.chunk,
-                           fine_dgrid, sfm_dgrid, scan_render=scan_render)
-        _save_frame(args.out_dir, name, out)
-        print(f"wrote {args.out_dir}/{name}.png ({wh[0]}x{wh[1]})")
+                           fine_dgrid, sfm_dgrid, scan_render=scan_render, group=group)
+        if main_rank:
+            _save_frame(args.out_dir, name, out)
+            print(f"wrote {args.out_dir}/{name}.png ({wh[0]}x{wh[1]})")
         return out
 
     table = model.embedding_a.weight
@@ -186,7 +205,7 @@ def main(argv=None):
         finally:
             with torch.no_grad():
                 table[0].copy_(row0)
-        if args.gif:
+        if args.gif and main_rank:
             from PIL import Image as PILImage
 
             frames = [PILImage.open(os.path.join(args.out_dir, f"interp_{i}_{j}_{k:03d}.png"))

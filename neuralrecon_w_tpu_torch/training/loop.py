@@ -22,12 +22,26 @@ the other modes run the same windows as eager steps (their kernels'
 GEMM lists are built on the host). ``TrainerConfig.profile_start`` /
 ``profile_steps`` open a ``torch.profiler`` window over those steps (in
 place of the JAX package's ``jax.profiler`` trace, ``loop.py:292-297``)
-and write its Chrome trace under ``<exp_dir>/profile``. Not ported: the
-device mesh and multi-process runs.
+and write its Chrome trace under ``<exp_dir>/profile``.
+
+With a data group (``parallel/mesh.py``; ``loop.py:103-107, 143-145,
+181-184, 262-279, 413-427``) every rank runs this loop in lockstep on its
+own card: ``batch_size`` is the process's batch, split over its
+``n_local`` ranks (it must divide); a process of a multi-process group
+reads its own share of the cache splits; the device pool is sharded over
+the host's ranks and the multi-step dispatch is off (a captured step takes
+no collective); the step all-reduces (``training/step.py``); the refresh,
+the validation render and the inline mesh sweep are split over the ranks
+(the render only when the group lies on one host and ``test_batch_size``
+divides over it; else every rank renders the whole image). Rank 0 alone
+writes checkpoints, logs, validation images and profiles; every rank checks
+at each save that the ranks' parameters are bit for bit equal, then waits
+at a barrier.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import sys
@@ -39,11 +53,12 @@ import numpy as np
 import torch
 
 from ..config import field_config_from_cfg, render_config_from_cfg
-from ..datasets.cache import DeviceRayPool, RayPool, read_ray_cache
+from ..datasets.cache import DeviceRayPool, RayPool, local_split_names, read_ray_cache
 from ..datasets.mask_utils import get_label_id_mapping
 from ..device import default_device
 from ..ops.ray_voxel import device_grid_from_host
 from ..ops.voxel_grid import VoxelGrid
+from ..parallel.mesh import all_gather_rows, barrier, is_main, shard_rays
 from ..tools.convert import without_dead_entries
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .losses import loss_config_from_cfg
@@ -118,6 +133,19 @@ class MetricsLogger:
             self._tb.close()
 
 
+class NullLogger:
+    """The logger of every rank but 0, which logs nowhere (``loop.py:71-78``;
+    the reference logs through Lightning's rank-zero logger)."""
+
+    path = None
+
+    def log(self, step: int, scalars: dict):
+        pass
+
+    def close(self):
+        pass
+
+
 @dataclass
 class TrainerConfig:
     batch_size: int = 2048
@@ -180,12 +208,19 @@ class _BatchMover:
 
 
 class Trainer:
-    """Single-card trainer for one scene; ``device`` defaults to the card."""
+    """The trainer of one scene: on one card (``device``, default the card),
+    or as one rank of a data ``group`` on the group's card."""
 
-    def __init__(self, cfg, tcfg: TrainerConfig, device=None):
+    def __init__(self, cfg, tcfg: TrainerConfig, device=None, group=None):
         self.cfg = cfg
         self.tcfg = tcfg
-        self.device = default_device(device)
+        self.group = group
+        self.device = group.device if group is not None else default_device(device)
+        n_local = 1 if group is None else group.n_local
+        if tcfg.batch_size % n_local:
+            raise ValueError(f"batch_size {tcfg.batch_size} does not divide over the "
+                             f"{n_local} ranks of this host")
+        self.is_main = is_main(group)
         self.use_device_pool = resolve_device_pool(getattr(cfg.TPU, "DEVICE_POOL", "auto"),
                                                    self.device)
         self.device_pool: DeviceRayPool | None = None
@@ -226,7 +261,8 @@ class Trainer:
 
         self.exp_dir = os.path.join(tcfg.save_dir, tcfg.exp_name)
         self.ckpt_dir = os.path.join(self.exp_dir, "checkpoints")
-        self.logger = MetricsLogger(os.path.join(self.exp_dir, "logs"))
+        self.logger = (MetricsLogger(os.path.join(self.exp_dir, "logs")) if self.is_main
+                       else NullLogger())
 
         seed = int(cfg.TRAINER.SEED)
         self.state = init_state(self.fc, self.opt_spec, torch.Generator().manual_seed(seed),
@@ -267,9 +303,15 @@ class Trainer:
     # ------------------------------ data ------------------------------
 
     def load_rays(self) -> RayPool:
+        """The cache's rays: all splits, or in a group of several processes
+        this process's share (``loop.py:175-187``)."""
         p = self.cfg.DATASET.PHOTOTOURISM
         split_root = os.path.join(self.cfg.DATASET.ROOT_DIR, p.CACHE_DIR, "splits")
-        rays, rgbs = read_ray_cache(split_root, None, p.IMG_DOWNSCALE)
+        names = None
+        if self.group is not None and self.group.num_processes > 1:
+            names = local_split_names(split_root, self.group.num_processes,
+                                      self.group.process_id)
+        rays, rgbs = read_ray_cache(split_root, names, p.IMG_DOWNSCALE)
         return RayPool(rays, rgbs, with_semantics=p.WITH_SEMANTICS,
                        seed=int(self.cfg.TRAINER.SEED))
 
@@ -285,7 +327,8 @@ class Trainer:
                                           nerf_far_override=False)
             self._steps[key] = make_train_step(self.fc, rcfg, self.lcfg, self.anneal_end,
                                                self.ray_mask_ids,
-                                               seed=int(self.cfg.TRAINER.SEED) + 1)
+                                               seed=int(self.cfg.TRAINER.SEED) + 1,
+                                               group=self.group)
         return self._steps[key]
 
     def refine_surface(self):
@@ -297,7 +340,8 @@ class Trainer:
         host, dev = octree_update(
             self.state.model, self.fc, self.sfm_grid, sc,
             np.asarray(sc["origin"], np.float64), float(sc["radius"]),
-            float(self.cfg.NEUCONW.TRAIN_VOXEL_SIZE), self.sdf_threshold, stats_out=stats)
+            float(self.cfg.NEUCONW.TRAIN_VOXEL_SIZE), self.sdf_threshold, stats_out=stats,
+            group=self.group)
         if host is not None:
             self._set_fine_grid(host, dev)
             self._attach_pool_surface()
@@ -356,15 +400,18 @@ class Trainer:
 
         device_pool = None
         if self.use_device_pool:
+            g = self.group
             device_pool = DeviceRayPool(pool, self.device,
                                         sampling=str(getattr(self.cfg.TPU, "POOL_SAMPLING",
                                                              "epoch")),
-                                        seed=int(self.cfg.TRAINER.SEED) + 3)
+                                        seed=int(self.cfg.TRAINER.SEED) + 3,
+                                        shard=(0, 1) if g is None else (g.local_rank, g.n_local))
         self.device_pool = device_pool
         # a resumed fine grid: its band cache
         self._attach_pool_surface()
         scan_inner = int(getattr(self.cfg.TPU, "SCAN_INNER", 50))
-        use_scan = device_pool is not None and scan_inner > 1
+        # a captured step takes no collective: one card only (loop.py:262-279)
+        use_scan = device_pool is not None and self.group is None and scan_inner > 1
         if use_scan and device_pool.sampling == "epoch":
             # a window is scan_inner consecutive batches of one epoch
             scan_inner = min(scan_inner, device_pool.n // bs)
@@ -378,7 +425,7 @@ class Trainer:
         # validation renders kept out
         win_t, win_step = time.time(), step_i
         while step_i < total:
-            if p0 >= 0 and prof is None and p0 <= step_i < p1:
+            if p0 >= 0 and self.is_main and prof is None and p0 <= step_i < p1:
                 prof = self._start_profile()
             elif prof is not None and step_i >= p1:
                 self._stop_profile(prof, p0)
@@ -400,7 +447,7 @@ class Trainer:
             else:
                 step = self._get_step(with_fine)
                 batch = (device_pool.next_batch(bs) if device_pool is not None
-                         else self._move(pool.next_batch(bs)))
+                         else self._move(shard_rays(self.group, pool.next_batch(bs))))
                 self.state, aux = step(self.state, self.scene, batch, self.fine_dgrid,
                                        self.sfm_dgrid)
                 step_i += 1
@@ -450,14 +497,32 @@ class Trainer:
         return float(s(count) if callable(s) else s)
 
     def save(self, step: int):
-        save_checkpoint(os.path.join(self.ckpt_dir, f"step_{step}.ckpt"), self.state.model,
-                        step, self.state.optimizer, self.fine_grid_host)
-        snap = os.path.join(self.ckpt_dir, "config_snapshot.yaml")
-        if not os.path.exists(snap):
-            import yaml
+        """The checkpoint of ``step``, written by rank 0; in a group every
+        rank first checks the replicas, then waits for the write."""
+        if self.group is not None:
+            self.check_replicas()
+        if self.is_main:
+            save_checkpoint(os.path.join(self.ckpt_dir, f"step_{step}.ckpt"), self.state.model,
+                            step, self.state.optimizer, self.fine_grid_host)
+            snap = os.path.join(self.ckpt_dir, "config_snapshot.yaml")
+            if not os.path.exists(snap):
+                import yaml
 
-            with open(snap, "w") as f:
-                yaml.safe_dump(_plain(self.cfg), f)
+                with open(snap, "w") as f:
+                    yaml.safe_dump(_plain(self.cfg), f)
+        barrier(self.group)
+
+    def check_replicas(self) -> None:
+        """Every rank's parameters bit for bit equal (a rank that stepped from
+        its own gradient would differ): raises otherwise."""
+        h = hashlib.sha256()
+        for p in self.state.model.parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+        mine = torch.frombuffer(bytearray(h.digest()), dtype=torch.uint8).to(self.device)
+        every = all_gather_rows(self.group, mine[None])
+        if not bool((every == mine).all()):
+            raise RuntimeError(f"rank {self.group.rank}: the ranks' parameters differ at step "
+                               f"{self.state.step}")
 
     def validate(self, step: int) -> dict:
         """PSNR of the first training image at the validation downscale,
@@ -480,10 +545,19 @@ class Trainer:
             self._val_meta = load_scene_meta(self.cfg.DATASET.ROOT_DIR, val_downscale(self.cfg),
                                              sfm_path=self.meta.sfm_path)
         val_id = self._val_meta.img_ids_train[0]  # reference phototourism.py:695
+        # split over the ranks when they share a host and the chunk divides
+        # over them; else every rank renders the whole image and rank 0
+        # writes (loop.py:405-427, the reference's "validate same image for
+        # all gpus")
+        g = self.group
+        split = (g is not None and g.num_processes == 1
+                 and self.tcfg.test_batch_size % g.world_size == 0)
         metrics = validation_report(
             self._steps[key], self.state.model, self.scene, self._val_meta, val_id,
             chunk=self.tcfg.test_batch_size, fine_grid=self.fine_dgrid,
-            sfm_grid=self.sfm_dgrid, out_dir=os.path.join(self.exp_dir, "val"), step=step)
+            sfm_grid=self.sfm_dgrid,
+            out_dir=os.path.join(self.exp_dir, "val") if self.is_main else None, step=step,
+            group=g if split else None)
         metrics.update(self._inline_mesh_eval(step))
         self.val_seconds.append(time.perf_counter() - t0)
         self.logger.log(step, metrics)
@@ -505,7 +579,7 @@ class Trainer:
         bbx = sc.get("eval_bbx_detail", sc["eval_bbx"])
         mesh = extract_mesh(self.state.model, self.fc, box_eval_grid(bbx, dim),
                             np.asarray(sc["origin"], np.float64), float(sc["radius"]),
-                            device=self.device)
+                            device=self.device, group=self.group)
         if mesh is None:
             return {"val/fscore": 0.0}
         # ground truth cropped to the detail box too (neuconw_system.py:517-527)

@@ -9,6 +9,16 @@ ray mask is a weight, not a ray drop. The sampler's jitter draws from a
 ``torch.Generator`` seeded from (seed, step); its numbers are not JAX's
 ``fold_in``.
 
+With a data group (``parallel/mesh.py``) of W ranks, each rank steps on
+its slice of the batch: the loss's batch counts are summed over the ranks
+before its divisions (one all-reduce of a (5,) vector, ``losses.
+batch_counts``), so each rank's loss is its numerator over the global
+batch's count; after the backward one SUM all-reduce of a flat buffer of
+every gradient (and the aux terms' parts) gives every rank the global
+batch's gradient, bit for bit the same, and the clip and the update follow.
+That is JAX's step over a data mesh (``step.py:114-146``), whose loss is the
+global batch's; DistributedDataParallel's average of per-rank means is not.
+
 ``make_scan_train_fn`` is ``step.py:169-229``: n_inner steps over
 consecutive windows of a device pool's epoch permutation. On the CPU it is
 a plain loop of the step. On the card it captures one step in a
@@ -35,9 +45,9 @@ from torch.profiler import record_function
 from ..config import FieldConfig, RenderConfig
 from ..models.neuconw import NeuconWField
 from ..rendering.renderer import render_rays
+from ..parallel.mesh import all_reduce_sum_, rank_seed
 from ..tools.convert import init_field
-from .losses import LossConfig, loss_terms
-from .metrics import psnr
+from .losses import LossConfig, batch_counts, loss_terms
 from .schedule import Optimizer
 
 
@@ -63,22 +73,57 @@ def ray_mask_from_labels(labels: torch.Tensor, ray_mask_ids, dtype=torch.float32
     return mask
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The sampler's generator for one step: seeded from (seed, step)."""
-    return torch.Generator(device=device).manual_seed(int(seed) * 1_000_003 + int(step))
+def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
+    """The sampler's generator for one step: seeded from (seed, step) and,
+    past rank 0, the data-parallel rank."""
+    return torch.Generator(device=device).manual_seed(
+        rank_seed(int(seed) * 1_000_003 + int(step), rank))
+
+
+# a data-parallel step's aux parts that sum to the global batch's psnr
+_SQ, _MASKED = "_sq_err", "_masked"
+
+
+def all_reduce_grads(group, params, aux: dict) -> dict:
+    """One SUM all-reduce of every gradient and the aux scalars, coalesced
+    in one flat float32 buffer; the gradients are written back in place.
+    Returns the summed aux. Every rank holds the same parameters with
+    gradients or without (that depends on the configuration alone)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    keys = list(aux)
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [torch.stack([aux[k].detach().float() for k in keys])])
+    all_reduce_sum_(group, flat)
+    o = 0
+    for g in grads:
+        g.copy_(flat[o:o + g.numel()].view_as(g))
+        o += g.numel()
+    return dict(zip(keys, flat[o:]))
+
+
+def finish_aux(aux: dict) -> dict:
+    """The step's aux, detached, with psnr made of its summed parts
+    (``metrics.psnr``'s formula)."""
+    aux = {k: v.detach() for k, v in aux.items()}
+    sq, masked = aux.pop(_SQ), aux.pop(_MASKED)
+    aux["psnr"] = -10.0 * torch.log10(torch.clamp(sq / (masked * 3 + 1e-8), min=1e-10))
+    return aux
 
 
 def make_train_step(fc: FieldConfig, rcfg: RenderConfig, lcfg: LossConfig,
-                    anneal_end: int, ray_mask_ids: tuple = (), seed: int = 0):
+                    anneal_end: int, ray_mask_ids: tuple = (), seed: int = 0, group=None):
     """step_fn(state, scene, batch, fine_grid=None, sfm_grid=None) ->
     (state, aux), updating state in place. batch = {"rays": (R, >= 8),
     "ts": (R,), "labels": (R,), "rgbs": (R, 3)}, numpy or tensors, and
     with a fine grid optionally the pool's band cache "surf_t" / "surf_hit"
     (``step.py:73-80``); aux holds psnr, s_val and every loss term as
-    detached scalar tensors. ``step_fn.loss_fn`` is the render and loss
-    alone, which the captured step reuses."""
+    detached scalar tensors. With a data ``group`` the batch is this rank's
+    slice and aux is the global batch's. ``step_fn.loss_fn`` is the render
+    and loss alone, which the captured step reuses (without a group, where
+    the count all-reduce is the identity); its aux holds psnr's two parts,
+    which ``finish_aux`` makes psnr of."""
 
-    def loss_fn(model, scene, batch, rng, cos_anneal, fine_grid, sfm_grid):
+    def loss_fn(model, scene, batch, rng, cos_anneal, fine_grid, sfm_grid, group=None):
         ray_mask = ray_mask_from_labels(batch["labels"], ray_mask_ids)
         surf_cache = None
         if fine_grid is not None and "surf_t" in batch:
@@ -86,9 +131,14 @@ def make_train_step(fc: FieldConfig, rcfg: RenderConfig, lcfg: LossConfig,
         results = render_rays(model, fc, rcfg, scene, batch["rays"], batch["ts"],
                               batch["labels"], rng, cos_anneal, fine_grid=fine_grid,
                               sfm_grid=sfm_grid, ray_mask=ray_mask, surf_cache=surf_cache)
-        terms = loss_terms(lcfg, results, batch["rgbs"])
-        aux = {"psnr": psnr(results["color"], batch["rgbs"], results["ray_mask"][:, None]),
-               "s_val": torch.mean(results["s_val"]), **terms}
+        with record_function("train.all_reduce_counts"):
+            counts = all_reduce_sum_(group, batch_counts(results))
+        terms = loss_terms(lcfg, results, batch["rgbs"], counts)
+        # this rank's parts of the global aux: each sums over the ranks
+        mask = results["ray_mask"][:, None]
+        aux = {"s_val": torch.mean(results["s_val"]) * (mask.shape[0] / counts[4]), **terms,
+               _SQ: torch.sum((results["color"] - batch["rgbs"]) ** 2 * mask),
+               _MASKED: torch.sum(mask)}
         return terms["loss"], aux
 
     def step_fn(state: TrainState, scene, batch: dict, fine_grid=None,
@@ -96,16 +146,20 @@ def make_train_step(fc: FieldConfig, rcfg: RenderConfig, lcfg: LossConfig,
         dev = scene.origin.device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         cos_anneal = min(1.0, state.step / anneal_end) if anneal_end > 0 else 1.0
-        rng = step_generator(seed, state.step, dev)
+        rng = step_generator(seed, state.step, dev, 0 if group is None else group.rank)
         state.model.train()
         state.optimizer.zero_grad()
         with record_function("train.render_loss"):
-            loss, aux = loss_fn(state.model, scene, batch, rng, cos_anneal, fine_grid, sfm_grid)
+            loss, aux = loss_fn(state.model, scene, batch, rng, cos_anneal, fine_grid, sfm_grid,
+                                group)
         loss.backward()
+        if group is not None:
+            with record_function("train.all_reduce_grads"):
+                aux = all_reduce_grads(group, state.model.parameters(), aux)
         with record_function("train.optimizer"):
             state.optimizer.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in aux.items()}
+        return state, finish_aux(aux)
 
     step_fn.loss_fn = loss_fn
     step_fn.anneal_end = anneal_end
@@ -206,7 +260,7 @@ class ScanRun:
         with record_function("train.optimizer"):
             opt.graph_step(self._count_t)
         self._step_t += 1
-        return {k: v.detach() for k, v in aux.items()}
+        return finish_aux(aux)
 
     def _capture(self, state, scene, pool_data, fine_grid, sfm_grid, perm):
         dev = pool_data["rays"].device

@@ -7,8 +7,10 @@ are kept, and the fine grid built from them recentres the next steps' ray
 sampling on the current zero set (reference
 lightning_modules/neuconw_system.py:186-312). The sweep is
 ``parallel/sweep.sharded_sdf_sweep``: K1 in float32 on the card (its plain
-version for a model on the CPU). The rebuilt grid goes to the device as a
-packed bitfield.
+version for a model on the CPU); with a data group it is split over the
+ranks and gathered, so every rank builds the same grid
+(``surface.py:55``, the JAX package's sweep over its mesh). The rebuilt
+grid goes to the device as a packed bitfield.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def surface_level(scene_config: dict, train_voxel_size: float) -> int:
 def surface_selection(model, fc, sfm_grid: VoxelGrid, train_level: int,
                       scene_origin: np.ndarray, scene_radius: float,
                       sdf_threshold: float = 0.0, chunk: int = 65536,
-                      stats_out: dict | None = None):
+                      stats_out: dict | None = None, group=None):
     """The cell centres (SFM and unit-sphere coordinates) whose SDF is <=
     the threshold (reference neuconw_system.py:186-266). ``stats_out``, when
     given, gets n_candidates / n_kept / kept_frac and the sweep's wall
@@ -44,7 +46,8 @@ def surface_selection(model, fc, sfm_grid: VoxelGrid, train_level: int,
     centers_unit = (centers_sfm - scene_origin) / scene_radius
     device = next(model.parameters()).device
     t0 = time.perf_counter()
-    sdf = sharded_sdf_sweep(model, fc, centers_unit.astype(np.float32), chunk, device)
+    sdf = sharded_sdf_sweep(model, fc, centers_unit.astype(np.float32), chunk, device,
+                            group=group)
     sweep_seconds = time.perf_counter() - t0
     keep = sdf <= sdf_threshold
     kept_frac = float(np.count_nonzero(keep)) / max(len(keep), 1)
@@ -66,7 +69,7 @@ def surface_selection(model, fc, sfm_grid: VoxelGrid, train_level: int,
 def octree_update(model, fc, sfm_grid: VoxelGrid, scene_config: dict,
                   scene_origin: np.ndarray, scene_radius: float, train_voxel_size: float,
                   sdf_threshold: float = 0.0, chunk: int = 65536,
-                  stats_out: dict | None = None
+                  stats_out: dict | None = None, group=None
                   ) -> tuple[VoxelGrid, DeviceGrid] | tuple[None, None]:
     """The fine surface grid rebuilt from the current SDF (reference
     neuconw_system.py:268-312), in the SFM grid's cube, on the model's
@@ -74,7 +77,8 @@ def octree_update(model, fc, sfm_grid: VoxelGrid, scene_config: dict,
     survives, and the caller keeps its grid."""
     level = surface_level(scene_config, train_voxel_size)
     centers_sfm, _ = surface_selection(model, fc, sfm_grid, level, scene_origin, scene_radius,
-                                       sdf_threshold, chunk, stats_out=stats_out)
+                                       sdf_threshold, chunk, stats_out=stats_out,
+                                       group=group)
     if len(centers_sfm) == 0:
         return None, None
     res = 1 << level

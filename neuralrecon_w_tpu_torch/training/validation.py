@@ -1,7 +1,8 @@
 """Validation and whole-image rendering (``neuralrecon_w_tpu/training/
 validation.py``; reference lightning_modules/neuconw_system.py:404-546): a
 frame rendered as a host chunk loop or, with ``scan_render``, as one
-dispatch of ``training/step.make_scan_render_fn`` (without the device
+dispatch of ``training/step.make_scan_render_fn``, or split over the ranks
+of a data group (``validation.py:73-85``, the JAX package's render over its
 mesh); a held-out image's PSNR, and a GT / prediction / depth / normal PNG.
 """
 
@@ -12,6 +13,7 @@ import os
 import numpy as np
 import torch
 
+from ..parallel.mesh import all_gather_rows
 from ..utils.colormap import jet_uint8
 
 
@@ -27,14 +29,16 @@ def visualize_depth(depth: np.ndarray, near_p: float = 1.0, far_p: float = 99.0)
 def render_image(render_chunk, model, scene, rays: np.ndarray, ts: np.ndarray,
                  labels: np.ndarray, img_wh: tuple, chunk: int = 512,
                  fine_grid=None, sfm_grid=None, rng=None, device=None,
-                 scan_render=None) -> dict:
+                 scan_render=None, group=None) -> dict:
     """Render (H*W) rays in chunks of ``chunk`` on ``device`` (default:
     the model's). The last chunk is padded by repeating the last ray. With
     ``scan_render`` (``make_scan_render_fn``'s run, of the same chunk) the
     padded frame goes to the device in one copy, renders in one call and
     comes back in one fetch (``validation.py:87-96``); without it, a host
-    loop of ``render_chunk`` calls. Returns (H, W, ...) numpy images: color,
-    depth and the weight-averaged normal."""
+    loop of ``render_chunk`` calls. With a ``group`` of W > 1 ranks each
+    chunk is split over the ranks (W must divide it) and gathered on every
+    rank; ``scan_render`` is then not used. Returns (H, W, ...) numpy
+    images: color, depth and the weight-averaged normal."""
     if device is None:
         device = next(model.parameters()).device
     w, h = img_wh
@@ -48,32 +52,38 @@ def render_image(render_chunk, model, scene, rays: np.ndarray, ts: np.ndarray,
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device, non_blocking=True)
 
-    if scan_render is not None:
+    split = group is not None and group.world_size > 1
+    if scan_render is not None and not split:
         out = scan_render(model, scene, put(rays), put(ts), put(labels), rng, fine_grid, sfm_grid)
-        packed = torch.cat([out["color"], out["depth"][:, None], out["normal"]], 1).cpu().numpy()
-        return {"color": packed[:n, :3].reshape(h, w, 3), "depth": packed[:n, 3].reshape(h, w),
-                "normal": packed[:n, 4:].reshape(h, w, 3)}
-
-    colors, depths, normals = [], [], []
-    for i in range(0, len(rays), chunk):
-        out = render_chunk(model, scene, put(rays[i:i + chunk]), put(ts[i:i + chunk]),
-                           put(labels[i:i + chunk]), rng, fine_grid, sfm_grid)
-        g = out["gradients"]
-        wgt = out["weights"][:, : g.shape[1], None]
-        colors.append(out["color"].cpu().numpy())
-        depths.append(out["depth"].cpu().numpy())
-        normals.append((g * wgt).sum(dim=1).cpu().numpy())
-    color = np.concatenate(colors)[:n].reshape(h, w, 3)
-    depth = np.concatenate(depths)[:n].reshape(h, w)
-    normal = np.concatenate(normals)[:n].reshape(h, w, 3)
-    return {"color": color, "depth": depth, "normal": normal}
+        packed = torch.cat([out["color"], out["depth"][:, None], out["normal"]], 1)
+    else:
+        per, lo = chunk, 0
+        if split:
+            # rank r renders rows [r * chunk / W, (r + 1) * chunk / W) of every chunk
+            if chunk % group.world_size:
+                raise ValueError(f"chunk {chunk} must divide over {group.world_size} ranks")
+            per = chunk // group.world_size
+            lo = group.rank * per
+        parts = []
+        for i in range(lo, len(rays), chunk):
+            out = render_chunk(model, scene, put(rays[i:i + per]), put(ts[i:i + per]),
+                               put(labels[i:i + per]), rng, fine_grid, sfm_grid)
+            g = out["gradients"]
+            wgt = out["weights"][:, : g.shape[1], None]
+            part = torch.cat([out["color"], out["depth"][:, None], (g * wgt).sum(dim=1)], 1)
+            parts.append(all_gather_rows(group, part) if split else part)
+        packed = torch.cat(parts)
+    packed = packed.cpu().numpy()
+    return {"color": packed[:n, :3].reshape(h, w, 3), "depth": packed[:n, 3].reshape(h, w),
+            "normal": packed[:n, 4:].reshape(h, w, 3)}
 
 
 def validation_report(render_chunk, model, scene, meta, id_: int, chunk: int = 512,
                       fine_grid=None, sfm_grid=None, out_dir: str | None = None,
-                      step: int = 0) -> dict:
-    """Render the validation image, its PSNR, and (with ``out_dir``) the
-    PNG ``val_{step}.png``. Returns {"val/psnr": float}."""
+                      step: int = 0, group=None) -> dict:
+    """Render the validation image (split over ``group``'s ranks where
+    given), its PSNR, and (with ``out_dir``) the PNG ``val_{step}.png``.
+    Returns {"val/psnr": float}."""
     from ..datasets.phototourism import build_image_rays, load_image
     from .metrics import psnr
 
@@ -85,7 +95,7 @@ def validation_report(render_chunk, model, scene, meta, id_: int, chunk: int = 5
     rays10 = np.concatenate([rays[:, :8], rays[:, 9:11]], axis=1)
 
     out = render_image(render_chunk, model, scene, rays10, ts, labels, (w, h), chunk,
-                       fine_grid, sfm_grid)
+                       fine_grid, sfm_grid, group=group)
     val_psnr = float(psnr(torch.from_numpy(out["color"]), torch.from_numpy(img)))
     if out_dir is not None:
         from PIL import Image as PILImage

@@ -533,3 +533,48 @@ def test_chip_smoke_image_metrics_phase():
             1 + 1e-3 * (next(m.parameters()).dtype == torch.float32))):
         fails = cs.image_metrics_phase({"batch": (pred, gt)}, "cpu", width_mult=0.125)
     assert fails and "lpips_vgg" in fails[0] and "lpips_alex" in fails[0]
+
+
+def test_chip_smoke_multi_rank_phase_without_jax_package(tmp_path):
+    """multi_rank_phase at a tiny width on the CPU (gloo for the world-1
+    group and the two ranks, the kernels' plain versions): from a 3-step
+    train_cli checkpoint, the world-1 steps and sweep bit for bit those
+    without a group, two spawned ranks in lockstep through a refresh,
+    saves, a split validation and a resume, rank 0 alone writing, the
+    reduced gradient within its bound of one rank's on a batch whose halves
+    differ in masked rays; every check passing, and no JAX in the script
+    or its ranks."""
+    code = f"""
+import os
+import sys
+import torch
+import chip_smoke as cs
+
+torch.set_num_threads(2)
+os.environ["OMP_NUM_THREADS"] = "2"
+cs.TRAINER_CAMS, cs.IMG_WH, cs.TRAINER_POINTS = 5, (24, 18), 1500
+cs.MULTI_BATCH, cs.MULTI_TIMED, cs.MULTI_REDUCE_REPS = 128, 1, 2
+extra = {{"NEUCONW": {{"SDF_CONFIG": {{"d_hidden": 64, "d_out": 65, "n_layers": 4, "skip_in": [2]}},
+                     "COLOR_CONFIG": {{"d_feature": 64, "d_hidden": 32, "n_layers": 2}},
+                     "N_VOCAB": 8}}}}
+root = {str(tmp_path)!r}
+cs.cli_workspace(root, "cpu", cs.TRAINER_CAMS + 1, cs.IMG_WH, cs.TRAINER_POINTS, 1.7, 64, 0.1875)
+cfg = cs.write_cfg(os.path.join(root, "train.yaml"), root, cs.merged(
+    {{"NEUCONW": {{"TRAIN_VOXEL_SIZE": 0.05, "UPDATE_FREQ": 3}},
+     "TRAINER": {{"SAVE_FREQ": 3, "VAL_FREQ": 1000.0}}, "TPU": {{"DEVICE_POOL": False}}}}, extra))
+cs.train_cli(cfg, os.path.join(root, "results"), "trainer", 128, 3, "cpu")
+ck = os.path.join(root, "results", "trainer", "checkpoints", "step_3.ckpt")
+launches, fails = cs.multi_rank_phase(root, ck, "cpu", extra_cfg=extra, train_voxel=0.05)
+assert fails == [], fails
+assert set(launches) == {{"multi_rank world1", "multi_rank rank0", "multi_rank rank1"}}
+assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
+print("ok")
+"""
+    proc = run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    out = proc.stdout
+    assert "with a gloo group of 1 rank and without a group: parameters equal bit for bit" in out
+    assert "multi-rank run: step 9 / 9; parameters bit for bit equal on the two ranks" in out
+    assert "refreshes at [7] / [7]" in out and "1 validation(s)" in out
+    assert "the two gloo ranks' reduced gradients equal" in out
+    assert out.strip().endswith("ok")

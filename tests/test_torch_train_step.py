@@ -30,7 +30,8 @@ from neuralrecon_w_tpu_torch.datasets.mask_utils import get_label_id_mapping  # 
 from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host  # noqa: E402
 from neuralrecon_w_tpu_torch.rendering.renderer import SceneInfo  # noqa: E402
 from neuralrecon_w_tpu_torch.tools.convert import field_from_jax, params_from_jax  # noqa: E402
-from neuralrecon_w_tpu_torch.training.losses import loss_config_from_cfg, loss_terms  # noqa: E402
+from neuralrecon_w_tpu_torch.training.losses import (  # noqa: E402
+    batch_counts, loss_config_from_cfg, loss_terms)
 from neuralrecon_w_tpu_torch.training.step import (  # noqa: E402
     TrainState,
     make_train_step,
@@ -236,7 +237,11 @@ def test_ray_mask_and_loss_terms_match_jax():
     assert ray_mask_from_labels(torch.from_numpy(labels), ()).sum() == 8
     rng = np.random.default_rng(3)
     n = 16
-    res = {"color": rng.random((n, 3)), "gradient_error": np.float32(0.37),
+    # the eikonal term's numerator and count, as render_rays returns them,
+    # beside their quotient, JAX's gradient_error
+    eikonal_sum, relax_sum = np.float32(2.59), np.float32(7.0)
+    res = {"color": rng.random((n, 3)), "eikonal_sum": eikonal_sum, "relax_sum": relax_sum,
+           "gradient_error": eikonal_sum / (relax_sum + np.float32(1e-5)),
            "ray_mask": (rng.random(n) > 0.3), "mask_error": rng.random((n, 1)),
            "sfm_depth_sq": rng.random(n), "sfm_depth_valid": (rng.random(n) > 0.5),
            "floor_normal_error": rng.random((n, 3)), "floor_count": np.float32(5.0)}
@@ -246,8 +251,9 @@ def test_ray_mask_and_loss_terms_match_jax():
     cfg.NEUCONW.FLOOR_NORMAL = True
     want = jax_loss_terms(jax_loss_config(cfg), {k: jnp.asarray(v) for k, v in res.items()},
                           jnp.asarray(rgbs))
-    got = loss_terms(loss_config_from_cfg(cfg), {k: torch.from_numpy(v) for k, v in res.items()},
-                     torch.from_numpy(rgbs))
+    t_res = {k: torch.from_numpy(v) for k, v in res.items()}
+    got = loss_terms(loss_config_from_cfg(cfg), t_res, torch.from_numpy(rgbs),
+                     batch_counts(t_res))
     assert set(got) == set(want) == {"color_loss", "normal_loss", "mask_error", "sfm_depth_loss",
                                      "floor_normal_error", "loss"}
     for k in want:

@@ -282,8 +282,10 @@ def test_val_interval_matches_jax(val_freq, steps_per_epoch):
 
 def test_guards(workspace, tmp_path):
     """TPU.DEVICE_POOL true builds the device pool (here on the CPU) and
-    trains through it; the multi-card flags raise, naming the ROADMAP item
-    that carries them."""
+    trains through it; --n_devices beyond the visible cards raises, naming
+    their count (nothing falls back to fewer cards or the CPU), as do the
+    multi-process flags without each other; --n_devices 1 and -1 on the
+    CPU train one process as before."""
     from neuralrecon_w_tpu_torch.datasets.cache import DeviceRayPool
     from neuralrecon_w_tpu_torch.tools.train_cli import main
 
@@ -295,9 +297,20 @@ def test_guards(workspace, tmp_path):
     tr.fit(max_steps=1)
     assert isinstance(tr.device_pool, DeviceRayPool) and tr.state.step == 1
     assert tr.device_pool.data["rays"].device.type == "cpu"
-    for flags in (["--n_devices", "2"], ["--multihost"], ["--coordinator", "localhost:1"]):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+    visible = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"this host has {visible} visible CUDA card"):
+        main(["--cfg_path", cfg_path, "--n_devices", str(max(2, visible + 1))])
+    for flags, msg in ((["--multihost"], "--multihost needs --coordinator"),
+                       (["--coordinator", "localhost:1"], "go with --multihost"),
+                       (["--n_devices", "0"], "a count of ranks")):
+        with pytest.raises(ValueError, match=msg):
             main(["--cfg_path", cfg_path, "--device", "cpu"] + flags)
+    for n in ("1", "-1"):
+        one = main(["--cfg_path", cfg_path, "--device", "cpu", "--n_devices", n,
+                    "--batch_size", str(BATCH), "--max_steps", "1", "--save_dir", str(tmp_path),
+                    "--exp_name", f"one{n}"])
+        assert one.group is None and one.is_main and one.state.step == 1
+        assert os.path.exists(os.path.join(one.ckpt_dir, "step_1.ckpt"))
 
 
 # the device-pool run: windows of SCAN_INNER steps, a refresh and a
