@@ -85,9 +85,9 @@ validation at 50 (with the inline mesh F-score against the workspace's
 gt.ply); it checks the step, the refreshed grid (non-empty, kept share
 below 0.9), finite logged losses that fall, moved parameters, the metrics
 and the checkpoint's optimiser state and grid, and that exactly K1 bf16,
-K2 and K1 f32 launched; then it resumes 2 steps from that checkpoint in
-'pallas_field' with FUSED_BG (a refresh first) and checks that exactly
-that mode's kernels launched. Every refresh, the resume's too, is held to
+K2 and K1 f32 launched; then it resumes 3 steps from that checkpoint in
+'pallas_field' with FUSED_BG on the device pool (a refresh first, then one
+captured window) and checks that exactly that mode's kernels launched. Every refresh, the resume's too, is held to
 the plain float32 SDF of the state it swept on 2^20 seeded candidates,
 and the median SDF at the SFM points (the zero set's level shift) is
 printed beside it.
@@ -135,14 +135,27 @@ seconds, the DDA's rays/s, the kept count; its keep mask on 4 views held
 to the plain DDA's), mesh mode over 8 views, and the native depth
 rasteriser held to the numpy one.
 
+The kernel modes in CUDA graphs: after the 'vjp' windows, ``graph_parity``
+holds each kernel mode's captured window ('pallas', 'pallas_field' with
+FUSED_BG, 'fwd'; steady, full width, batch 8192) to its eager windows (K5's
+atomics make two eager windows differ: the bound follows their spread),
+and ``graph_rates`` times 'vjp', 'pallas', 'pallas_hybrid', 'pallas_field'
+and 'fwd' eager against graph in turns, with each capture call's peak
+memory and a captured step's launches by kernel; serving replays the
+'pallas' (K3) and the 'pallas_field' + FUSED_BG (K6, K8) frames in turns
+with their eager frames, bit for bit; ``trainer_phase``'s 'pallas_field'
+and 'fwd' resumes each run one captured window on the device pool, and
+the 'pallas_field' checkpoint goes through ``render_cli --dispatch scan``
+and ``--dispatch chunk``, the same PNGs.
+
 The modules with no kernel of their own, driven on the card: after
 serving, ``trace_render_check`` runs ``rendering/debug.trace_render`` on
 1,024 rays of the steady frame and reads its three PLY dumps (under
 ``build/trace_render``) back with ``utils/ply.read_ply``; training takes
 'fwd' in turns with the other modes (on a copy of the state, see
-``training_phase``) and ``trainer_phase`` resumes 2 steps in 'fwd' on the
-device pool with no refresh (K1, K2, K10 must launch), each printing its
-peak memory;
+``training_phase``) and ``trainer_phase`` resumes 3 steps in 'fwd' on the
+device pool with no refresh, one captured window (K1, K2, K10 must
+launch), each printing its peak memory;
 ``prep_phase`` runs the data-preparation tools a user starts from a COLMAP
 reconstruction with (100 views of 160x120, every tenth turned away:
 ``pre_process``, ``prepare_semantic_maps --backend constant``,
@@ -326,7 +339,9 @@ TRAINER_CAMS = 12
 TRAINER_POINTS = 40_000
 TRAINER_CAM_DIST = 3.0
 TRAINER_VOXEL = 0.004  # ceil(log2(3 / 0.004)) = 10
-TRAINER_STEPS, TRAINER_RESUME = 60, 2
+# each kernel-mode resume is one SCAN_INNER window of TRAINER_RESUME steps
+# on the device pool: GRAPH_WARMUP eager steps, the capture, one replay
+TRAINER_STEPS, TRAINER_RESUME = 60, 3
 TRAINER_UPDATE, TRAINER_VAL, TRAINER_LOG = 20, 50, 10
 DEGENERATE_KEEP = 0.9
 REFRESH_CHECK_PTS = 1 << 20
@@ -1511,15 +1526,33 @@ def ray_kernel_phase(scene, sfm_grid, sfm_level, fine_grid, fine_host, frames, r
 # f32 at PERTURB 0: the same kernels in the same order, every sum in a fixed
 # order (the appearance rows are gathered by indexing, whose backward is a
 # sorted index_put; an index_add's atomics made graph and eager differ by up
-# to 3e-4 on the depth term, PERF.md section 6), so the two agree to the
-# bit in practice; GRAPH_LOSS_RTOL on every loss term and GRAPH_PARAM_REL
-# (rel-L2) on all parameters leave room for a library kernel that sums in
-# another order on the capture stream. At the operating point (bf16,
-# perturb on) the graph's jitter comes from its own generator, not the
-# eager steps' per-step ones, so only the mean of the per-step losses over
-# the window is held, within GRAPH_MEAN_REL.
-GRAPH_INNER = 10
+# to 3e-4 on the depth term, PERF.md section 6), so in 'vjp' and 'fwd' the
+# two agree to the bit in practice; GRAPH_LOSS_RTOL on every loss term and
+# GRAPH_PARAM_REL (rel-L2) on all parameters leave room for a library kernel
+# that sums in another order on the capture stream. K5 sums its dW with
+# float atomics, so in the modes that run it (ATOMIC_MODES) a window differs
+# from itself, eager or replayed, and the steps amplify that: there two
+# graph and two eager windows run in turns, and the first graph window is
+# held to the first eager one within max(GRAPH_LOSS_RTOL, 2 x the larger
+# of the two windows' own spreads, graph against graph and eager against
+# eager) on each term, and max(GRAPH_PARAM_REL, 2 x that) on the
+# parameters. Every window is GRAPH_INNER steps, few enough to keep the
+# four modes' windows within the script's wall. At the
+# operating point (bf16, perturb on) the graph's jitter comes from its own
+# generator, not the eager steps' per-step ones, so only the mean of the
+# per-step losses over the window is held, within GRAPH_MEAN_REL.
+GRAPH_INNER = 5
 GRAPH_LOSS_RTOL, GRAPH_PARAM_REL, GRAPH_MEAN_REL = 1e-5, 1e-5, 2e-2
+ATOMIC_MODES = ("pallas", "pallas_hybrid", "pallas_field")
+# the kernel modes held graph against eager at full width (steady phase),
+# and the modes timed eager against graph in turns (RATE_INNER steps a
+# window), 'vjp' beside them
+GRAPH_MODES = ("pallas", "pallas_field", "fwd")
+RATE_MODES = ("vjp", "pallas", "pallas_hybrid", "pallas_field", "fwd")
+# 'pallas_hybrid' runs the plain SDF forward and the kernels' backward
+RATE_KERNELS = {**MODE_KERNELS,
+                "pallas_hybrid": ("sdf_mlp", "up_sample", "sdf_vjp_bwd", "dw_reduce")}
+RATE_INNER = 5
 
 
 def flat_params(model):
@@ -1528,40 +1561,66 @@ def flat_params(model):
     return torch.cat([p.detach().float().reshape(-1) for p in model.parameters()])
 
 
-def graph_parity(cfg, state0, scene, pool, fine_grid, fine_level, label, batch=TRAIN_BATCH,
-                 n_inner=GRAPH_INNER, profile=False):
-    """make_scan_train_fn with graph=True against graph=False from copies of
-    state0 over one window of ``pool`` (a DeviceRayPool, its band cache
-    attached where fine_grid is given): in f32 at PERTURB 0 one call of
-    n_inner steps each; at the operating point n_inner one-step calls each,
-    the per-step losses. With ``profile``, a torch.profiler window over one
-    more call of n_inner replays: the device's busy share."""
-    import torch
-
-    from neuralrecon_w_tpu_torch.config import render_config_from_cfg
+def scan_run(cfg, fc, rcfg, batch: int, n_inner: int, graph: bool):
     from neuralrecon_w_tpu_torch.datasets.mask_utils import get_label_id_mapping
     from neuralrecon_w_tpu_torch.training.losses import loss_config_from_cfg
     from neuralrecon_w_tpu_torch.training.step import make_scan_train_fn
 
     lid = get_label_id_mapping()
-    mask_ids = tuple(lid[x] for x in cfg.NEUCONW.RAY_MASK_LIST)
+    # a graph run captures on the card and runs the plain loop on the CPU
+    return make_scan_train_fn(fc, rcfg, loss_config_from_cfg(cfg), int(cfg.NEUCONW.ANNEAL_END),
+                              tuple(lid[x] for x in cfg.NEUCONW.RAY_MASK_LIST), batch, n_inner,
+                              seed=int(cfg.TRAINER.SEED) + 1, graph=None if graph else False)
+
+
+def capturable_copy(state):
+    """A copy of a training state, its Adam made capturable on the card (the
+    same update eager and replayed); on the CPU a plain copy."""
+    st = copy.deepcopy(state)
+    if next(st.model.parameters()).device.type == "cuda":
+        st.optimizer.make_capturable()
+    return st
+
+
+def free_cached() -> None:
+    """Every cached block back to the card (a no-op on the CPU)."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def graph_parity(cfg, state0, scene, pool, fine_grid, fine_level, label, batch=TRAIN_BATCH,
+                 n_inner=GRAPH_INNER, profile=False, mode="vjp"):
+    """make_scan_train_fn with graph=True against graph=False in SDF_GRAD_MODE
+    ``mode`` (train_config's) from copies of state0 over one window of
+    ``pool`` (a DeviceRayPool, its band cache attached where fine_grid is
+    given): in f32 at PERTURB 0 one call of n_inner steps each (two of each
+    in turns in ATOMIC_MODES); at the operating point n_inner one-step calls
+    each, the per-step losses. Each window's run is released before the
+    next, so that a graph and an eager window never hold their memory at
+    once.
+    With ``profile``, a torch.profiler window over one more call of n_inner
+    replays: the device's busy share."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.config import render_config_from_cfg
+
     fails, out = [], {}
-    served = train_config(cfg, "vjp").act_dtype
+    served = train_config(cfg, mode).act_dtype
+    atomic = mode in ATOMIC_MODES
     for act, perturb in (("float32", 0.0), (served, float(cfg.NEUCONW.PERTURB))):
-        fc = train_config(cfg, "vjp", act)
+        fc = train_config(cfg, mode, act)
         rcfg = render_config_from_cfg(cfg, sfm_level=-1, fine_level=fine_level,
                                       nerf_far_override=False, perturb=perturb)
         perm, start = pool.take_scan_window(batch, n_inner)
         perm = perm.clone()
-        trace = {}
-        for mode in ("graph", "eager"):
-            st = copy.deepcopy(state0)
-            st.optimizer.make_capturable()
-            one = act != "float32"
-            run = make_scan_train_fn(fc, rcfg, loss_config_from_cfg(cfg),
-                                     int(cfg.NEUCONW.ANNEAL_END), mask_ids, batch,
-                                     1 if one else n_inner, seed=int(cfg.TRAINER.SEED) + 1,
-                                     graph=mode == "graph")
+        one = act != "float32"
+        trace = []
+        for run_mode in ("graph", "eager") * (2 if atomic and not one else 1):
+            st = capturable_copy(state0)
+            run = scan_run(cfg, fc, rcfg, batch, 1 if one else n_inner, run_mode == "graph")
             losses, aux = [], None
             sync()
             t0 = time.perf_counter()
@@ -1572,41 +1631,153 @@ def graph_parity(cfg, state0, scene, pool, fine_grid, fine_level, label, batch=T
                     losses.append(float(aux["loss"]))
             sync()
             wall = time.perf_counter() - t0
-            trace[mode] = (aux, flat_params(st.model), losses, wall, run, st)
-        (a_g, p_g, l_g, w_g, run_g, st_g), (a_e, p_e, l_e, w_e, _, _) = trace["graph"], \
-            trace["eager"]
+            trace.append({"aux": {k: float(v) for k, v in aux.items()},
+                          "params": flat_params(st.model), "losses": losses, "wall": wall,
+                          "runs": (run.captures, run.replays)})
+            run.release()
+            del run, st, aux
+            free_cached()
+        g, e = trace[0], trace[1]
         if act == "float32":
-            rel = {k: abs(float(a_g[k]) - float(a_e[k])) / max(abs(float(a_e[k])), 1e-30)
-                   for k in a_e}
-            worst = max(rel, key=rel.get)
-            p_rel = float((p_g - p_e).norm() / p_e.norm())
-            ok = rel[worst] <= GRAPH_LOSS_RTOL and p_rel <= GRAPH_PARAM_REL
-            print(f"graph vs eager {label} f32 PERTURB 0, {n_inner} steps from one state "
-                  f"({run_g.captures} capture, {run_g.replays} replays): loss "
-                  f"{float(a_g['loss']):.7f} / {float(a_e['loss']):.7f}; worst term {worst} "
-                  f"rel {rel[worst]:.2e}; parameters rel-L2 {p_rel:.2e}; wall {w_g:.3f} / "
-                  f"{w_e:.3f} s -> {'ok' if ok else 'FAIL'}")
-            out["f32"] = {"worst_term": worst, "term_rel": rel[worst], "param_rel_l2": p_rel}
+            def term_rel(a, b):
+                return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b}
+
+            def param_rel(a, b):
+                return float((a - b).norm() / b.norm())
+
+            rel, p_rel = term_rel(g["aux"], e["aux"]), param_rel(g["params"], e["params"])
+            t_bound = dict.fromkeys(rel, GRAPH_LOSS_RTOL)
+            p_bound, spread = GRAPH_PARAM_REL, ""
+            if atomic:
+                g_rel, e_rel = (term_rel(trace[i + 2]["aux"], trace[i]["aux"]) for i in (0, 1))
+                g_p, e_p = (param_rel(trace[i + 2]["params"], trace[i]["params"])
+                            for i in (0, 1))
+                t_bound = {k: max(GRAPH_LOSS_RTOL, 2 * g_rel[k], 2 * e_rel[k]) for k in rel}
+                p_bound = max(GRAPH_PARAM_REL, 2 * g_p, 2 * e_p)
+                spread = (f"; graph against graph / eager against eager: worst term rel "
+                          f"{max(g_rel.values()):.2e} / {max(e_rel.values()):.2e}, parameters "
+                          f"rel-L2 {g_p:.2e} / {e_p:.2e}")
+            worst = max(rel, key=lambda k: rel[k] / t_bound[k])
+            ok = all(rel[k] <= t_bound[k] for k in rel) and p_rel <= p_bound
+            print(f"graph vs eager {label} {mode} f32 PERTURB 0, {n_inner} steps from one state "
+                  f"({g['runs'][0]} capture, {g['runs'][1]} replays): loss "
+                  f"{g['aux']['loss']:.7f} / {e['aux']['loss']:.7f}; worst term {worst} rel "
+                  f"{rel[worst]:.2e} (bound {t_bound[worst]:.2e}); parameters rel-L2 "
+                  f"{p_rel:.2e} (bound {p_bound:.2e}){spread}; wall "
+                  + " / ".join(f"{t['wall']:.3f}" for t in trace)
+                  + f" s -> {'ok' if ok else 'FAIL'}")
+            out["f32"] = {"worst_term": worst, "term_rel": rel[worst], "param_rel_l2": p_rel,
+                          "param_bound": p_bound}
         else:
-            m_g, m_e = sum(l_g) / len(l_g), sum(l_e) / len(l_e)
+            m_g, m_e = (sum(t["losses"]) / len(t["losses"]) for t in (g, e))
             rel = abs(m_g - m_e) / abs(m_e)
-            ok = rel <= GRAPH_MEAN_REL and all(map(math.isfinite, l_g))
-            print(f"graph vs eager {label} {act} perturb {perturb}, {n_inner} one-step calls: "
-                  f"mean loss {m_g:.5f} / {m_e:.5f} (rel {rel:.2e}); per step graph "
-                  + ", ".join(f"{v:.4f}" for v in l_g) + "; eager "
-                  + ", ".join(f"{v:.4f}" for v in l_e) + f" -> {'ok' if ok else 'FAIL'}")
+            ok = rel <= GRAPH_MEAN_REL and all(map(math.isfinite, g["losses"]))
+            print(f"graph vs eager {label} {mode} {act} perturb {perturb}, {n_inner} one-step "
+                  f"calls: mean loss {m_g:.5f} / {m_e:.5f} (rel {rel:.2e}); per step graph "
+                  + ", ".join(f"{v:.4f}" for v in g["losses"]) + "; eager "
+                  + ", ".join(f"{v:.4f}" for v in e["losses"]) + f" -> {'ok' if ok else 'FAIL'}")
             out[act] = {"mean_loss_rel": rel}
         if not ok:
-            fails.append(f"graph vs eager {label} {act}")
+            fails.append(f"graph vs eager {label} {mode} {act}")
     if profile:
-        fc = train_config(cfg, "vjp")
         rcfg = render_config_from_cfg(cfg, sfm_level=-1, fine_level=fine_level,
                                       nerf_far_override=False)
-        st = copy.deepcopy(state0)
-        run = make_scan_train_fn(fc, rcfg, loss_config_from_cfg(cfg), int(cfg.NEUCONW.ANNEAL_END),
-                                 mask_ids, batch, n_inner, seed=int(cfg.TRAINER.SEED) + 1)
-        profile_replays(run, st, scene, pool, fine_grid, batch, n_inner, label)
+        run = scan_run(cfg, train_config(cfg, mode), rcfg, batch, n_inner, True)
+        profile_replays(run, copy.deepcopy(state0), scene, pool, fine_grid, batch, n_inner,
+                        f"{label} {mode}")
+        run.release()
+        free_cached()
     return out, fails
+
+
+def graph_rates(cfg, state0, scene, pool, fine_grid, fine_level, label, modes=RATE_MODES,
+                batch=TRAIN_BATCH, n_inner=RATE_INNER):
+    """Per mode at the operating point, from copies of state0, windows of
+    n_inner steps timed in turns: eager, graph, graph, eager. The graph's
+    first call (its warm-up steps and the capture) comes before its first
+    timed window and is timed on its own, its peak device memory read over
+    it, and the memory the allocator holds once it is done (the graph's
+    private pool and the live state: ``memory_reserved``); the graph is
+    released before the last eager window, so that the two never hold
+    their memory at once. Returns ({mode: {"eager", "graph" rays/s,
+    "capture_s", "peak_gib", "held_gib", "per_step"}}, launches by kernel of
+    the windows, eager and replayed, fails). Every mode must
+    replay a graph and launch its RATE_KERNELS in a captured step."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.config import render_config_from_cfg
+    from neuralrecon_w_tpu_torch.training.step import GRAPH_WARMUP
+
+    rcfg = render_config_from_cfg(cfg, sfm_level=-1, fine_level=fine_level,
+                                  nerf_far_override=False)
+    warm = min(GRAPH_WARMUP, n_inner)
+    counters = launch_counters()
+    launches = dict.fromkeys(read_counts(), 0)
+    on_card = scene.origin.device.type == "cuda"
+    res, fails = {}, []
+    for mode in modes:
+        fc = train_config(cfg, mode)
+        runs = {m: scan_run(cfg, fc, rcfg, batch, n_inner, m == "graph")
+                for m in ("eager", "graph")}
+        states = {m: capturable_copy(state0) for m in runs}
+        walls = {"eager": [], "graph": []}
+        r = res[mode] = {}
+
+        def window(m):
+            perm, start = pool.take_scan_window(batch, n_inner)
+            sync()
+            t0 = time.perf_counter()
+            states[m], aux = runs[m](states[m], scene, pool.data, fine_grid, None, perm, start)
+            sync()
+            bad = [k for k, v in aux.items() if not bool(torch.isfinite(v))]
+            if bad:
+                fails.append(f"graph rates {label} {mode} {m}: {bad} not finite")
+            return time.perf_counter() - t0
+
+        reset_counts(counters)
+        walls["eager"].append(window("eager"))
+        free_cached()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        r["capture_s"] = window("graph")
+        if on_card:
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            r["held_gib"] = torch.cuda.memory_reserved() / 2**30
+        walls["graph"] += [window("graph"), window("graph")]
+        g = runs["graph"]
+        r["per_step"] = dict(g.per_step_launches)
+        got = read_counts()
+        got = {k: v + g.replays * g.per_step_launches.get(k, 0) for k, v in got.items()}
+        g.release()
+        free_cached()
+        reset_counts(counters)
+        walls["eager"].append(window("eager"))
+        got = {k: v + read_counts()[k] for k, v in got.items()}
+        for k, v in got.items():
+            launches[k] += v
+        r.update({m: n_inner * batch / (sum(w) / len(w)) for m, w in walls.items()})
+        mem = (f"; peak {r['peak_gib']:.2f} GiB over the capture call, "
+               f"{r['held_gib']:.2f} GiB held after it" if on_card else "")
+        print(f"graph rates {label} {mode}, {n_inner}-step windows of {batch} rays in turns "
+              f"eager / graph / graph / eager: " + " / ".join(
+                  f"{n_inner * batch / w:.1f}" for w in (walls["eager"][0], *walls["graph"],
+                                                         walls["eager"][1]))
+              + f" rays/s; capture call ({warm} warm-up steps, the capture, {n_inner - warm} "
+              f"replays) "
+              f"{r['capture_s']:.3f} s{mem}; {g.captures} capture, {g.replays} replays; "
+              "launches a captured step: " + ", ".join(
+                  f"{k} {v}" for k, v in sorted(r["per_step"].items())))
+        want = RATE_KERNELS[mode]
+        if on_card:
+            if not graph_ran(g):
+                fails.append(f"graph rates {label} {mode}: no graph replayed")
+            fails += [f"graph rates {label} {mode}: {n} not in a captured step" for n in want
+                      if r["per_step"].get(n, 0) <= 0]
+            fails += [f"graph rates {label} {mode}: {n} in a captured step, not its kernel"
+                      for n in r["per_step"] if n not in want + ("sdf_mlp_bf16", "sdf_mlp_f32")]
+        del runs, states, g
+        free_cached()
+    return res, launches, fails
 
 
 def profile_replays(run, state, scene, pool, fine_grid, batch, n_inner, label) -> None:
@@ -1675,7 +1846,21 @@ def graph_launches(tr, counted: dict) -> dict:
 
 def graph_ran(run) -> bool:
     """A multi-step run that captured one graph and replayed it."""
-    return run.graph and run.captures == 1 and run.replays > 0
+    return run.captures == 1 and run.replays > 0
+
+
+def resume_graph_fails(tr, mode: str) -> list:
+    """A resumed Trainer must have run its window as one replayed graph
+    whose captured step launched the kernels of ``mode`` (MODE_KERNELS)."""
+    runs = tr.scan_runs()
+    if len(runs) != 1 or not graph_ran(runs[0]):
+        return [f"the {mode} train_cli resume ran no captured window: "
+                + ", ".join(f"{r.captures} capture(s), {r.replays} replays" for r in runs)]
+    per = runs[0].per_step_launches
+    print(f"the {mode} train_cli resume's captured step: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(per.items())) + f"; {runs[0].replays} replays")
+    return [f"the {mode} train_cli resume: {n} not in its captured step"
+            for n in MODE_KERNELS[mode] if per.get(n, 0) <= 0]
 
 
 def device_pool_trainer_phase(root: str, overrides: dict, device: str, extra: list,
@@ -2599,17 +2784,22 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
           + f"; validation {sum(tr.val_seconds):.3f} s (psnr {val[0]['val/psnr']:.3f}, F@0.1 "
           f"{val[0].get('val/fscore', float('nan')):.4f}); wall {wall:.2f} s")
 
-    # resume in the fused mode: the CLI path through K6, K7, K5, K8, K9
+    # resume in the fused mode on the device pool (DEVICE_POOL 'auto'): the
+    # CLI path through K6, K7, K5, K8, K9, its window a replayed graph
     cfg2 = write_cfg(os.path.join(root, "train_fused.yaml"), root, merged(
-        host, {"TPU": {"SDF_GRAD_MODE": "pallas_field", "FUSED_BG": True}}))
+        overrides, {"TPU": {"SDF_GRAD_MODE": "pallas_field", "FUSED_BG": True,
+                            "SCAN_INNER": TRAINER_RESUME}}))
     reset_counts(counters)
     t0 = time.perf_counter()
     tr2 = train_cli(cfg2, save_dir, "trainer_resume", TRAIN_BATCH, TRAINER_RESUME, device,
                     extra + ["--ckpt_path", ck or ""])
     sync()
     got = launches["resume"] = read_counts()
+    launches["resume_graph"] = graph_launches(tr2, got)
     print(f"launches in train_cli resumed {TRAINER_RESUME} steps in 'pallas_field' + FUSED_BG "
-          f"(a refresh first): " + ", ".join(f"{n} {v}" for n, v in got.items() if v)
+          f"on the {'device' if tr2.use_device_pool else 'host'} pool (a refresh first): "
+          + ", ".join(f"{n} {v}" for n, v in got.items() if v) + "; by graph replays "
+          + ", ".join(f"{n} {v}" for n, v in launches["resume_graph"].items() if v)
           + f"; wall {time.perf_counter() - t0:.2f} s; its refresh " + ", ".join(
               f"{r['seconds']:.3f} s, kept {r.get('n_kept')} ({r.get('kept_frac', 0):.3f})"
               for r in tr2.refreshes))
@@ -2641,15 +2831,28 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
             fails.append(f"refresh at step {r['step']}: {c['wrong_clear']} cells against the "
                          f"plain SDF")
     if device == "cuda":
-        want = MODE_KERNELS["pallas_field"] + ("sampled_hit",)
+        # the refresh's K1 f32 sweep, K10 for the band cache, the mode's kernels
+        want = MODE_KERNELS["pallas_field"] + ("dda",)
         fails += [f"{n} not launched by the resumed train_cli" for n in want if got[n] <= 0]
-        fails += [f"{n} launched by the resumed train_cli, not its mode's" for n in counters
-                  if got[n] and n not in want]
-    # and in 'fwd' on the device pool (DEVICE_POOL 'auto'): the saved grid's
-    # band cache by K10, then the plain step loop ('fwd' runs no graph); no
-    # refresh (UPDATE_FREQ 0): the other resume's took ~20 s of the run
+        fails += [f"{n} launched by the resumed train_cli, not its mode's" for n, v in got.items()
+                  if v and n not in want + ("sdf_mlp_bf16", "sdf_mlp_f32", "sampled_hit")]
+        fails += resume_graph_fails(tr2, "pallas_field")
+    # the resumed checkpoint through render_cli in its kernel mode (K6, K8
+    # in the captured chunk)
+    ck2 = latest_checkpoint(tr2.ckpt_dir)
+    if ck2:
+        rendered, rfails = render_cli_dispatch_check(cfg2, ck2, root, device,
+                                                     tag="pallas_field_")
+        launches.update(rendered)
+        fails += rfails
+    else:
+        fails.append("the pallas_field resume saved no checkpoint")
+    # and in 'fwd' on the device pool: the saved grid's band cache by K10,
+    # then one captured window; no refresh (UPDATE_FREQ 0): the other
+    # resume's took ~20 s of the run
     cfg3 = write_cfg(os.path.join(root, "train_fwd.yaml"), root, merged(
-        overrides, {"TPU": {"SDF_GRAD_MODE": "fwd"}, "NEUCONW": {"UPDATE_FREQ": 0}}))
+        overrides, {"TPU": {"SDF_GRAD_MODE": "fwd", "SCAN_INNER": TRAINER_RESUME},
+                    "NEUCONW": {"UPDATE_FREQ": 0}}))
     reset_counts(counters)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -2658,9 +2861,11 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
                     extra + ["--ckpt_path", ck or ""])
     sync()
     got = launches["resume_fwd"] = read_counts()
+    launches["resume_fwd_graph"] = graph_launches(tr3, got)
     print(f"launches in train_cli resumed {TRAINER_RESUME} steps in 'fwd' on the "
           f"{'device' if tr3.use_device_pool else 'host'} pool: "
-          + ", ".join(f"{n} {v}" for n, v in got.items() if v)
+          + ", ".join(f"{n} {v}" for n, v in got.items() if v) + "; by graph replays "
+          + ", ".join(f"{n} {v}" for n, v in launches["resume_fwd_graph"].items() if v)
           + f"; wall {time.perf_counter() - t0:.2f} s"
           + (f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
              if device == "cuda" else ""))
@@ -2673,6 +2878,7 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
         fails += [f"{n} not launched by the 'fwd' train_cli" for n in want if got[n] <= 0]
         fails += [f"{n} launched by the 'fwd' train_cli, not its mode's" for n, v in got.items()
                   if v and n not in want + ("sdf_mlp", "sampled_hit")]
+        fails += resume_graph_fails(tr3, "fwd")
     pool_runs, pool_fails = device_pool_trainer_phase(root, overrides, device, extra, rate, card)
     launches.update(pool_runs)
     return launches, fails + pool_fails
@@ -3123,6 +3329,14 @@ def sync_warnings(model, fc, rcfg, scene, rays, fine_grid, sfm_grid) -> list:
                    if "synchroniz" in str(w.message) and "prototype" not in str(w.message)})
 
 
+def serving_kernels(fc) -> tuple:
+    """The forward kernels a served chunk runs besides the sampler's and
+    the grid queries: K3 in 'pallas', K6 in 'pallas_field', K8 with
+    FUSED_BG."""
+    return ({"pallas": ("sdf_vjp_fwd",), "pallas_field": ("field_fwd",)}.get(fc.grad_mode, ())
+            + (("nerf_bg_fwd",) if fc.bg_mode == "pallas" else ()))
+
+
 def serving_graph_phase(model, fc, rcfg, scene, frames, fine_grid, sfm_grid, label,
                         profile=False, wh=IMG_WH):
     """The served frames rendered in turns as eager chunks (render_image's
@@ -3176,7 +3390,7 @@ def serving_graph_phase(model, fc, rcfg, scene, frames, fine_grid, sfm_grid, lab
         fails.append(f"serving graph {label}: {scan.captures} captures, {scan.replays} replays")
     launches = {k: v * (scan.replays + scan.captures) for k, v in scan.per_chunk_launches.items()}
     wanted = ("sdf_mlp", "up_sample", "dda") + (("sampled_hit",) if fine_grid is not None
-                                                  else ())
+                                                  else ()) + serving_kernels(fc)
     if on_card:
         fails += [f"serving graph {label}: {n} not in the captured chunk" for n in wanted
                   if scan.per_chunk_launches.get(n, 0) <= 0]
@@ -3219,10 +3433,12 @@ def profile_scan_frame(scan, model, scene, rays, fine_grid, sfm_grid, label, wh=
 
 
 def render_cli_dispatch_check(cfg_path: str, ck: str, root: str, device: str,
-                              downscale: int = 1):
+                              downscale: int = 1, tag: str = ""):
     """``render_cli.main`` on a checkpoint with ``--dispatch scan`` and
     ``--dispatch chunk`` (the first training view at ``downscale``, chunks
-    of CHUNK): the same PNG arrays. Returns ({"render_scan", "render_chunk":
+    of CHUNK), in the cfg's SDF_GRAD_MODE and background: the same PNG
+    arrays, and on the card the mode's forward kernels (``serving_kernels``)
+    in the captured chunk. Returns ({"render_<tag>scan", "render_<tag>chunk":
     launches}, fails); the scan run's launches count its graph's replays
     (``scan_launches``)."""
     import numpy as np
@@ -3237,10 +3453,12 @@ def render_cli_dispatch_check(cfg_path: str, ck: str, root: str, device: str,
         made.append(real(*args, **kw))
         return made[-1]
 
+    from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
+
     counters = launch_counters()
     pngs, launches = {}, {}
     for d in ("scan", "chunk"):
-        out = os.path.join(root, f"render_{d}")
+        out = os.path.join(root, f"render_{tag}{d}")
         reset_counts(counters)
         t0 = time.perf_counter()
         with mock.patch.object(step, "make_scan_render_fn", recording):
@@ -3250,20 +3468,26 @@ def render_cli_dispatch_check(cfg_path: str, ck: str, root: str, device: str,
         sync()
         wall = time.perf_counter() - t0
         got = read_counts()
-        launches[f"render_{d}"] = scan_launches(got, made[-1]) if d == "scan" else got
+        launches[f"render_{tag}{d}"] = scan_launches(got, made[-1]) if d == "scan" else got
         pngs[d] = {n: np.asarray(Image.open(os.path.join(out, n))) for n in sorted(os.listdir(out))}
-        print(f"render_cli --dispatch {d}: {sorted(pngs[d])} in {wall:.2f} s"
-              + (f" ({made[-1].captures} capture, {made[-1].replays} replays)" if d == "scan"
-                 else ""))
+        print(f"render_cli {tag}--dispatch {d}: {sorted(pngs[d])} in {wall:.2f} s"
+              + (f" ({made[-1].captures} capture, {made[-1].replays} replays, a captured chunk "
+                 + ", ".join(f"{k} {v}" for k, v in sorted(made[-1].per_chunk_launches.items()))
+                 + ")" if d == "scan" else ""))
     same = (sorted(pngs["scan"]) == sorted(pngs["chunk"]) and len(pngs["scan"]) == 3
             and all(np.array_equal(pngs["scan"][n], pngs["chunk"][n]) for n in pngs["chunk"]))
     worst = max((int(np.abs(pngs["scan"][n].astype(int) - pngs["chunk"][n]).max())
                  for n in pngs["chunk"] if n in pngs["scan"]), default=-1)
-    print(f"render_cli scan vs chunk PNGs: max|diff| {worst} levels -> "
+    print(f"render_cli {tag}scan vs chunk PNGs: max|diff| {worst} levels -> "
           f"{'equal' if same else 'FAIL'}")
-    fails = [] if same else [f"render_cli --dispatch scan differs from chunk ({worst} levels)"]
-    if device == "cuda" and not (made and made[-1].captures == 1 and made[-1].replays > 0):
-        fails.append("render_cli --dispatch scan did not replay a captured chunk")
+    fails = [] if same else [f"render_cli {tag}--dispatch scan differs from chunk "
+                             f"({worst} levels)"]
+    if device == "cuda":
+        if not (made and made[-1].captures == 1 and made[-1].replays > 0):
+            fails.append(f"render_cli {tag}--dispatch scan did not replay a captured chunk")
+        fails += [f"render_cli {tag}--dispatch scan: {n} not in the captured chunk"
+                  for n in serving_kernels(field_config_from_cfg(load_cfg(cfg_path)))
+                  if made and made[-1].per_chunk_launches.get(n, 0) <= 0]
     return launches, fails
 
 
@@ -4136,6 +4360,19 @@ def main() -> int:
         fails += gfails
         for n, v in got.items():
             serve_graph[n] = serve_graph.get(n, 0) + v
+    # the kernel modes' served frames as one graph: 'pallas' (K3) and
+    # 'pallas_field' with FUSED_BG (K6, K8), both phases, each frame held to
+    # the eager one bit for bit
+    serve_graph_k, rps_graph_k = {}, {}
+    for mode in ("pallas", "pallas_field"):
+        for label, rc, fg in (("warm-up", rcfg_warm, None), ("steady", rcfg_steady, fine_grid)):
+            rps_graph_k[f"{label} {mode}"], got, gfails = serving_graph_phase(
+                model, train_config(cfg, mode), rc, scene, frames, fg, sfm_grid,
+                f"{label} {mode}" + (" + FUSED_BG" if mode == "pallas_field" else ""),
+                args.profile)
+            fails += gfails
+            for n, v in got.items():
+                serve_graph_k[n] = serve_graph_k.get(n, 0) + v
     # the render debug trace on the steady frame's first rays, its PLYs in build/
     fails += trace_render_check(model, fc, rcfg_steady, scene, frames[1], fine_grid, sfm_grid,
                                 fine_host, os.path.join(ROOT, "build", "trace_render"))
@@ -4145,7 +4382,7 @@ def main() -> int:
         profile_chunk(model, fc, rcfg_steady, scene, frames[1], fine_grid, sfm_grid, "steady")
     print(f"serving rays/s ({card}): warm-up {rps_warm:.1f}, steady {rps_steady:.1f}; in turns "
           f"eager / graph: " + "; ".join(f"{label} {r['eager']:.1f} / {r['graph']:.1f}"
-                                         for label, r in rps_graph.items()))
+                                         for label, r in {**rps_graph, **rps_graph_k}.items()))
 
     # the SDF-VJP kernels against their plain version, and their times; then
     # kernel 5's port (K6, K7 + K5) and kernel 6's (K8, K9 + K5) at the
@@ -4210,6 +4447,19 @@ def main() -> int:
     _, gfails = graph_parity(cfg, state, scene, dpool, fine_grid, fine_host.level, "steady",
                              profile=args.profile)
     fails += gfails
+    # each kernel mode's captured window against its eager windows, then
+    # every mode's windows timed eager against graph in turns
+    for mode in GRAPH_MODES:
+        _, gfails = graph_parity(cfg, state, scene, dpool, fine_grid, fine_host.level, "steady",
+                                 profile=args.profile, mode=mode)
+        fails += gfails
+    rates, rate_launches, gfails = graph_rates(cfg, state, scene, dpool, fine_grid,
+                                               fine_host.level, "steady")
+    fails += gfails
+    print(f"training rays/s in {RATE_INNER}-step windows, steady, eager / graph ({card}): "
+          + ", ".join(f"{m} {r['eager']:.1f} / {r['graph']:.1f}" for m, r in rates.items())
+          + "; peak device memory of the capture call / held after it " + ", ".join(
+              f"{m} {r['peak_gib']:.2f} / {r['held_gib']:.2f} GiB" for m, r in rates.items()))
     print(f"training rays/s ({card}): " + "; ".join(
         f"{label} " + ", ".join(f"{m} {r[m]:.1f}" for m in TRAIN_MODES)
         for label, r in rps_train.items()))
@@ -4345,6 +4595,13 @@ def main() -> int:
     kres["field_fwd"]["extraction"] = kres.pop("field_fwd_extraction")
     kres["nerf_bg_fwd"]["by_path"] = {"training": fused["nerf_bg_fwd"],
                                       "serving": serve_fused["nerf_bg_fwd"]}
+    # the captured windows (graph_rates: their eager steps, warm-ups and
+    # replays) and the kernel modes' served graphs (replays)
+    for name in sources:
+        launches[name] += rate_launches[name] + serve_graph_k.get(name, 0)
+        kres[name]["training_graph"] = rate_launches[name]
+        if serve_graph_k.get(name):
+            kres[name]["serving_graph"] = kres[name].get("serving_graph", 0) + serve_graph_k[name]
     # the CLI runs' launches: added to each kernel's count, and by run
     for name in sources:
         launches[name] += sum(got[name] for got in cli_runs.values())

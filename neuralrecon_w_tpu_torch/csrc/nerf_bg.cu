@@ -484,13 +484,6 @@ bool bg_sched(const Bg& bg, bool bwd, Sched* out) {
   return sb.ok;
 }
 
-template <typename K>
-int prepare_bg(K kernel, size_t smem) {
-  if (int err = prepare(kernel, smem)) return err;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                   (int)cudaSharedmemCarveoutMaxShared);
-}
-
 template <typename T>
 int launch_fwd(const float* p4, const float* dirs, const float* app, long long n_pts,
                const void* w, const float* b, const Bg& bg, const Sched& sched, float* density,
@@ -498,7 +491,7 @@ int launch_fwd(const float* p4, const float* dirs, const float* app, long long n
   using C = FwdCfg<T>;
   auto kern = bg_fwd_kernel<T, C>;
   const size_t smem = bg_bytes<T, C>(0);
-  if (int err = prepare_bg(kern, smem)) return err;
+  if (int err = prepare(kern, smem, true)) return err;
   kern<<<(unsigned)((n_pts + C::P - 1) / C::P), C::THREADS, smem, s>>>(
       p4, dirs, app, n_pts, static_cast<const T*>(w), b, bg, sched, density, rgb);
   return (int)cudaGetLastError();
@@ -511,7 +504,7 @@ int launch_bwd(const float* p4, const float* dirs, const float* app, const float
   using C = BwdCfg<T>;
   auto kern = bg_bwd_kernel<T, C>;
   const size_t smem = bg_bytes<T, C>(BG_D + bg.n_head);
-  if (int err = prepare_bg(kern, smem)) return err;
+  if (int err = prepare(kern, smem, true)) return err;
   kern<<<(unsigned)((n_pts + C::P - 1) / C::P), C::THREADS, smem, s>>>(
       p4, dirs, app, cot, n_pts, static_cast<const T*>(w), b, bg, sched, wk, d_p4, d_dirs, d_a);
   return (int)cudaGetLastError();

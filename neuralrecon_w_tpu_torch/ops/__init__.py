@@ -1,5 +1,15 @@
 """The port's Hopper kernels (K1-K12, ``csrc/``), their build, their
-wrappers and the plain PyTorch versions beside them."""
+wrappers and the plain PyTorch versions beside them.
+
+Every wrapper can be captured in a ``torch.cuda.CUDAGraph``: it allocates
+its outputs and workspace with ``torch.empty`` / ``torch.zeros`` (the
+caller's allocator, the graph's pool under capture), packs the weights
+from the tensors it is given on every call (so a replay reads the weights
+as they are then, after an in-place update), passes the per-layer tables
+as host arrays read while the launch is set up, and reads nothing back
+to the host; the tile-pass kernels (K3-K9) set their launch attributes
+once (``csrc/sdf_tile.cuh`` ``prepare``). A wrapper's ``launches`` ticks when it issues a launch,
+eagerly or into a capture: a graph's replays are not counted."""
 
 
 def kernel_counters() -> dict:

@@ -22,10 +22,9 @@ the fine grid the trainer saved in it drives surface-guided sampling.
 ``--dispatch scan`` (the default) renders a frame as one call of
 ``training/step.make_scan_render_fn``: on the card, one chunk of ``--chunk``
 rays captured in a CUDA graph and replayed for every chunk, the frame
-fetched once; it serves SDF_GRAD_MODE 'vjp' with the 'xla' background and
-raises for the kernel modes (ROADMAP.md, Queue 1 item 7). ``--dispatch
-chunk`` renders a host loop of ``training/step.make_render_fn`` calls, in
-any mode. With more than one visible card (``--device cuda``) the CLI
+fetched once, in every SDF_GRAD_MODE and with either background.
+``--dispatch chunk`` renders a host loop of ``training/step.make_render_fn``
+calls. With more than one visible card (``--device cuda``) the CLI
 spawns a rank per card, as the JAX CLI's mesh spans every local device
 (``render_cli.py:155-157``): each chunk is split over the ranks (the scan
 dispatch is then not used; ``--chunk`` must divide over them), and rank 0

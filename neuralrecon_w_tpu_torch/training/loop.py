@@ -17,9 +17,8 @@ surface-band cache is re-attached after every refresh that keeps cells,
 and ``TPU.SCAN_INNER`` steps (capped to an epoch's batches, off below 2)
 run as one dispatch (``step.make_scan_train_fn``) wherever no refresh,
 save, validation or the end falls inside them: on the card one captured
-CUDA graph replayed, for SDF_GRAD_MODE 'vjp' with the 'xla' background;
-the other modes run the same windows as eager steps (their kernels'
-GEMM lists are built on the host). ``TrainerConfig.profile_start`` /
+CUDA graph replayed, in every SDF_GRAD_MODE and with either background;
+on the CPU the plain loop of the step. ``TrainerConfig.profile_start`` /
 ``profile_steps`` open a ``torch.profiler`` window over those steps (in
 place of the JAX package's ``jax.profiler`` trace, ``loop.py:292-297``)
 and write its Chrome trace under ``<exp_dir>/profile``.
@@ -369,11 +368,10 @@ class Trainer:
             rcfg = render_config_from_cfg(self.cfg, sfm_level=-1,
                                           fine_level=self.train_level if with_fine else -1,
                                           nerf_far_override=False)
-            graph = (self.device.type == "cuda" and self.fc.grad_mode == "vjp"
-                     and self.fc.bg_mode == "xla")
             self._steps[key] = make_scan_train_fn(
                 self.fc, rcfg, self.lcfg, self.anneal_end, self.ray_mask_ids, batch_size,
-                n_inner, seed=int(self.cfg.TRAINER.SEED) + 1, graph=graph)
+                n_inner, seed=int(self.cfg.TRAINER.SEED) + 1,
+                graph=self.device.type == "cuda")
             self._scan_runs.append(self._steps[key])
         return self._steps[key]
 

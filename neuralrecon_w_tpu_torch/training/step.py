@@ -22,12 +22,17 @@ global batch's; DistributedDataParallel's average of per-rank means is not.
 ``make_scan_train_fn`` is ``step.py:169-229``: n_inner steps over
 consecutive windows of a device pool's epoch permutation. On the CPU it is
 a plain loop of the step. On the card it captures one step in a
-``torch.cuda.CUDAGraph`` and replays it: the batch is gathered inside the
-graph by a device cursor, and the step counter (the cos-anneal ratio),
-the update count (the LR) and Adam's state are device tensors the graph
-advances. Inside the graph the sampler's jitter draws from one generator
-registered with the graph, seeded once from (seed, step at capture), so
-its stream differs from the eager steps' per-(seed, step) generators.
+``torch.cuda.CUDAGraph`` and replays it, in every SDF_GRAD_MODE and with
+either background: the batch is gathered inside the graph by a device
+cursor, and the step counter (the cos-anneal ratio), the update count (the
+LR) and Adam's state are device tensors the graph advances. The kernel
+modes' wrappers pack the weights from the live parameters inside the
+captured step, so every replay reads the weights Adam left in place.
+Inside the graph the sampler's jitter draws from one generator registered
+with the graph, seeded once from (seed, step at capture), so its stream
+differs from the eager steps' per-(seed, step) generators. K5 sums with
+float atomics, so in the modes that run it a replayed step equals an
+eager one only to rounding.
 
 ``make_render_fn`` renders one chunk; ``make_scan_render_fn``
 (``step.py:239-281``) a whole frame of chunks, on the card as replays of
@@ -329,6 +334,10 @@ class ScanRun:
             if self._data_gen is not None:
                 g.register_generator_state(self._data_gen)
             before = read_launches()
+            # entering the capture synchronises and empties the allocator's
+            # cache: the warm-up's blocks go back to the card before the
+            # graph's private pool fills, so 'fwd' at batch 8192 (~40 GiB a
+            # step) holds one step's memory, not two
             with torch.cuda.graph(g):
                 self._aux = self._body()
             after = read_launches()
@@ -364,11 +373,6 @@ def make_render_fn(fc: FieldConfig, rcfg: RenderConfig):
     return render_chunk
 
 
-# the kernel modes build their GEMM lists on the host on every call, which a
-# capture cannot hold (ROADMAP.md, Queue 1 item 7)
-_UNCAPTURED = "the modes other than 'vjp' in a CUDA graph (ROADMAP.md, Queue 1 item 7)"
-
-
 def make_scan_render_fn(fc: FieldConfig, rcfg: RenderConfig, chunk: int):
     """Whole-frame render over chunk-sized ray tiles (``step.py:239-281``):
     run(model, scene, rays, ts, labels, rng=None, fine_grid=None,
@@ -395,8 +399,9 @@ class ScanRender:
     and a call with another model or grid layout raises. A capture that
     fails raises. ``captures``, ``replays`` and ``per_chunk_launches`` (the
     kernel launches one captured chunk records) say what ran: the
-    wrappers' counters tick at capture only. Serves the default 'vjp' field
-    with the 'xla' background; on the card the kernel modes raise."""
+    wrappers' counters tick at capture only. Serves every SDF_GRAD_MODE
+    with either background: the forward kernels (K3, K6, K8) have no
+    atomics, so a replayed chunk equals an eager one bit for bit."""
 
     def __init__(self, fc: FieldConfig, rcfg: RenderConfig, chunk: int):
         self.fc, self.rcfg, self.chunk = fc, rcfg, int(chunk)
@@ -432,10 +437,6 @@ class ScanRender:
     def _capture(self, model, scene, rays, ts, labels, fine_grid, sfm_grid):
         from ..ops import read_launches
 
-        if self.fc.grad_mode != "vjp" or self.fc.bg_mode != "xla":
-            raise ValueError(f"a captured frame serves SDF_GRAD_MODE 'vjp' with the 'xla' "
-                             f"background, not {self.fc.grad_mode!r} / {self.fc.bg_mode!r}: "
-                             f"{_UNCAPTURED} is not ported yet; render with --dispatch chunk")
         c, dev = self.chunk, rays.device
         st = {"model": model, "scene": scene, "fine_grid": fine_grid, "sfm_grid": sfm_grid,
               "rays": rays[:c].clone(), "ts": ts[:c].clone(), "labels": labels[:c].clone()}

@@ -257,6 +257,66 @@ print("ok")
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_chip_smoke_graph_phases_without_jax_package():
+    """graph_parity in each kernel mode of GRAPH_MODES and graph_rates over
+    RATE_MODES at a tiny width on the CPU, on the device pool's CPU path
+    with its band cache (the scan run's plain loop standing in for the
+    graph, the kernels' plain versions for the kernels): every check
+    passing, no kernel launched, and no JAX."""
+    code = """
+import sys
+import torch
+import chip_smoke as cs
+from neuralrecon_w_tpu_torch.config import load_cfg
+from neuralrecon_w_tpu_torch.datasets.cache import DeviceRayPool, RayPool
+from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
+from neuralrecon_w_tpu_torch.training.schedule import make_optimizer
+from neuralrecon_w_tpu_torch.training.step import init_state
+
+torch.set_num_threads(2)
+rows, rgbs = cs.training_rays(n_cams=2, wh=(12, 8))
+cfg = load_cfg(cs.CONFIG)
+n = cfg.NEUCONW
+n.SDF_CONFIG.d_hidden, n.SDF_CONFIG.d_out, n.SDF_CONFIG.n_layers = 64, 65, 4
+n.SDF_CONFIG.skip_in = (2,)
+n.COLOR_CONFIG.d_feature, n.COLOR_CONFIG.d_hidden, n.COLOR_CONFIG.n_layers = 64, 32, 2
+n.N_VOCAB = 4
+pool = DeviceRayPool(RayPool(rows, rgbs, seed=0), "cpu")
+spec, _ = make_optimizer(cfg, 48)
+state = init_state(cs.train_config(cfg, "vjp"), spec, torch.Generator().manual_seed(0), "cpu")
+scene, _, fine_host, _ = cs.make_scene("cpu", fine_level=5, sfm_voxel=0.2, wh=(4, 3),
+                                       n_points=2000)
+fine = device_grid_from_host(fine_host, "cpu")
+pool.attach_surface(fine, fine_host.level)
+fails = []
+for mode in cs.GRAPH_MODES:
+    out, f = cs.graph_parity(cfg, state, scene, pool, fine, fine_host.level, "steady", batch=48,
+                             n_inner=2, mode=mode)
+    fails += f
+    # the plain loop stands in for the graph: the same steps exactly
+    assert out["f32"]["param_rel_l2"] == 0.0 and out["f32"]["term_rel"] == 0.0, (mode, out)
+rates, launches, f = cs.graph_rates(cfg, state, scene, pool, fine, fine_host.level, "steady",
+                                    batch=48, n_inner=2)
+fails += f
+assert fails == [], fails
+assert set(rates) == set(cs.RATE_MODES) and all(min(r["eager"], r["graph"]) > 0
+                                                for r in rates.values())
+assert all(r["per_step"] == {} for r in rates.values()) and not any(launches.values())
+assert state.step == 0
+assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
+print("ok")
+"""
+    proc = run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    out = proc.stdout
+    for mode in ("pallas", "pallas_field", "fwd"):
+        assert f"graph vs eager steady {mode} f32 PERTURB 0, 2 steps" in out, mode
+    # 'pallas' and 'pallas_field' run K5: two graph and two eager windows
+    assert out.count("graph against graph / eager against eager") == 2
+    assert out.count("graph rates steady") == 5 and "0 capture, 0 replays" in out
+    assert out.strip().endswith("ok")
+
+
 def test_chip_smoke_check_helpers():
     """check_forward holds f32 outputs to atol / rtol and bf16 ones to
     rel-L2; check_outputs holds each output to its bound, or under the f32
@@ -336,7 +396,8 @@ def test_chip_smoke_trainer_phase_without_jax_package(tmp_path):
     """trainer_phase at a tiny width on the CPU, the kernels' plain versions
     standing in: the port's workspace and ray cache, train_cli with two
     refreshes, saves and a validation, then the resumes in 'pallas_field'
-    with FUSED_BG and in 'fwd', every refresh held to the plain SDF, the
+    with FUSED_BG (its checkpoint rendered through render_cli's scan and
+    chunk dispatch) and in 'fwd', every refresh held to the plain SDF, the
     held-out view rendered for the image metrics; then the same run on
     the device pool in windows of 2 steps (the plain loop on the CPU), its
     band cache held to the plain DDA, and its resume; every check passing,
@@ -352,14 +413,19 @@ cs.TRAINER_CAMS, cs.IMG_WH, cs.TRAINER_POINTS, cs.TRAIN_BATCH = 5, (24, 18), 150
 cs.TRAINER_STEPS, cs.TRAINER_UPDATE, cs.TRAINER_VAL, cs.REFRESH_CHECK_PTS = 6, 2, 5, 4096
 cs.TRAINER_LOG, cs.TRAINER_CAM_DIST = 1, 1.7  # the 4 x 64 init crosses near |x| 0.5
 cs.POOL_SCAN_INNER = 2
+cs.TRAINER_RESUME = 2  # a resume within one refresh interval, as on the card
 extra = {{"NEUCONW": {{"SDF_CONFIG": {{"d_hidden": 64, "d_out": 65, "n_layers": 4, "skip_in": [2]}},
                      "COLOR_CONFIG": {{"d_feature": 64, "d_hidden": 32, "n_layers": 2}},
                      "N_VOCAB": 8}}}}
 launches, fails = cs.trainer_phase({str(tmp_path)!r}, "cpu", extra, sfm_voxel=0.1875,
                                    train_voxel=0.05, fine_level=6)
 assert fails == [], fails
-assert set(launches) == {{"trainer", "render_scan", "render_chunk", "resume", "resume_fwd",
-                         "device_pool", "device_pool_resume"}}
+assert set(launches) == {{"trainer", "render_scan", "render_chunk", "resume", "resume_graph",
+                         "render_pallas_field_scan", "render_pallas_field_chunk", "resume_fwd",
+                         "resume_fwd_graph", "device_pool", "device_pool_resume"}}
+# the resumes' windows run the plain loop on the CPU: no replayed launch
+assert not any(launches["resume_graph"].values()) and not any(
+    launches["resume_fwd_graph"].values())
 pred, gt = cs.held_out_view_pair({str(tmp_path)!r}, "cpu")
 assert pred.shape == gt.shape == (1, 18, 24, 3) and pred.dtype == gt.dtype == np.float32
 assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
@@ -373,6 +439,7 @@ print("ok")
     assert "eager 2-step run: 0 capture(s), 0 replays" in out
     assert "host pool against device pool + graph" in out
     assert "render_cli scan vs chunk PNGs: max|diff| 0 levels -> equal" in out
+    assert "render_cli pallas_field_scan vs chunk PNGs: max|diff| 0 levels -> equal" in out
     assert out.strip().endswith("ok")
 
 
@@ -416,6 +483,51 @@ print("ok")
     assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
     out = proc.stdout
     assert out.count("-> bit for bit") == 2 and "0 capture, 0 replays (3 a frame)" in out
+    assert out.strip().endswith("ok")
+
+
+def test_chip_smoke_kernel_mode_serving_graph_phase_without_jax_package():
+    """serving_graph_phase in the kernel modes at a tiny width on the CPU:
+    'pallas' and 'pallas_field' with FUSED_BG (the forward kernels' plain
+    versions), both phases, every scan frame equal to the eager frame, and
+    no JAX."""
+    code = """
+import sys
+import torch
+import chip_smoke as cs
+from neuralrecon_w_tpu_torch.config import load_cfg, render_config_from_cfg
+from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
+from neuralrecon_w_tpu_torch.tools.convert import init_field
+
+torch.set_num_threads(2)
+wh = (12, 8)
+cs.CHUNK = 40  # 96 rays: 3 chunks, the last padded
+scene, sfm_host, fine_host, frames = cs.make_scene("cpu", fine_level=5, sfm_voxel=0.2, wh=wh,
+                                                   n_points=2000)
+cfg = load_cfg(cs.CONFIG)
+n = cfg.NEUCONW
+n.SDF_CONFIG.d_hidden, n.SDF_CONFIG.d_out, n.SDF_CONFIG.n_layers = 64, 65, 4
+n.SDF_CONFIG.skip_in = (2,)
+n.COLOR_CONFIG.d_feature, n.N_VOCAB = 64, 4
+sfm, fine = device_grid_from_host(sfm_host, "cpu"), device_grid_from_host(fine_host, "cpu")
+for mode, kernels in (("pallas", ("sdf_vjp_fwd",)), ("pallas_field", ("field_fwd", "nerf_bg_fwd"))):
+    fc = cs.train_config(cfg, mode)
+    assert cs.serving_kernels(fc) == kernels
+    model = init_field(fc, torch.Generator().manual_seed(0), "cpu").requires_grad_(False)
+    for level, fg in ((-1, None), (fine_host.level, fine)):
+        rc = render_config_from_cfg(cfg, sfm_level=sfm_host.level, fine_level=level,
+                                    nerf_far_override=True)
+        rps, launches, fails = cs.serving_graph_phase(model, fc, rc, scene, frames, fg, sfm,
+                                                      mode, wh=wh)
+        assert fails == [], fails
+        assert set(rps) == {"eager", "graph"} and min(rps.values()) > 0 and launches == {}
+assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
+print("ok")
+"""
+    proc = run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    out = proc.stdout
+    assert out.count("-> bit for bit") == 4 and "0 capture, 0 replays (3 a frame)" in out
     assert out.strip().endswith("ok")
 
 

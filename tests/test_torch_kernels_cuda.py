@@ -1127,3 +1127,146 @@ def test_captured_served_chunk_matches_eager(dev):
     assert run.captures == 1 and torch.equal(fine.occ, fine2.occ)
     for k in want:
         assert np.array_equal(got[k], want[k]), k
+
+
+# ------------- the kernel modes' autograd Functions in a CUDA graph -------------
+
+# a replay after the weights moved in place against an eager call on the
+# new weights: the forward kernels (K3, K6, K8) have no atomics, so their
+# outputs agree to the bit; K5 sums dW with float atomics, so the gradients
+# agree to f32 summation order: REPLAY_GRAD_REL, rel-L2 per tensor
+REPLAY_GRAD_REL = 1e-5
+
+
+def replay_after_update(fn, params, n_out, seed):
+    """fn() -> (forward outputs..., gradients...), the first n_out the
+    forward's, every one detached (an output that kept its autograd graph
+    alive would keep its leaves' gradient nodes on the stream that made
+    them, which a capture on another stream cannot wait on). Runs it once
+    eagerly on a side stream, once eagerly as the
+    reference on the capture-time weights, captures it in a CUDAGraph, moves
+    every parameter in place (seeded noise), replays, and runs it eagerly
+    on the new weights. Returns (before, replayed, eager, launches at
+    capture by counter)."""
+    from neuralrecon_w_tpu_torch.ops import read_launches
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    before = [t.clone() for t in fn()]
+    g = torch.cuda.CUDAGraph()
+    counts = read_launches()
+    with torch.cuda.graph(g):
+        static = fn()
+    after = read_launches()
+    gen = torch.Generator(device=params[0].device).manual_seed(seed)
+    with torch.no_grad():
+        for p in params:
+            p.add_(torch.randn(p.shape, generator=gen, device=p.device)
+                   * (0.02 * float(p.abs().mean()) + 1e-3))
+    g.replay()
+    got = [t.clone() for t in static]
+    want = fn()
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == len(before) and n_out < len(got)
+    return before, got, want, {k: after[k] - counts[k] for k in after if after[k] - counts[k]}
+
+
+def check_replay(before, got, want, n_out):
+    """The replay equals the eager call on the new weights (forward to the
+    bit, gradients within REPLAY_GRAD_REL); the forward outputs moved with
+    the weights, and the gradients as a whole moved far more than that
+    tolerance (some, such as an output bias's, do not depend on them), so
+    a pack frozen at capture would fail."""
+    for i, (b, k, w) in enumerate(zip(before, got, want)):
+        assert bool(torch.isfinite(k).all()), i
+        if i < n_out:
+            assert not torch.equal(k, b), f"output {i} did not follow the weights"
+            assert torch.equal(k, w), i
+        else:
+            assert rel_l2(k, w) <= REPLAY_GRAD_REL, (i, rel_l2(k, w))
+    flat = lambda ts: torch.cat([t.reshape(-1) for t in ts[n_out:]])  # noqa: E731
+    assert rel_l2(flat(before), flat(want)) > 100 * REPLAY_GRAD_REL
+
+
+@pytest.mark.parametrize("fwd_impl", ["kernel", "plain"])
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_sdf_value_grad_replays_follow_weights(dev, flagship, act, fwd_impl):
+    """_SDFValueGrad (K3 forward, or the plain one of 'pallas_hybrid', and
+    K4 + K5 backward) captured once, forward and backward: after the SDF
+    net's parameters move in place a replay equals an eager call on the new
+    weights (the pack is rebuilt inside the graph on every replay)."""
+    from neuralrecon_w_tpu_torch.ops.sdf_field_vjp import sdf_value_feat_grad_kernel
+
+    fc, net = flagship
+    net = copy.deepcopy(net).requires_grad_(True)
+    params = list(net.parameters())
+    _, _, x, c_out, c_grad = vjp_inputs(net, 8192, 31)
+    x = x.requires_grad_(True)
+
+    def fn():
+        s, f, g = sdf_value_feat_grad_kernel(net, fc.sdf, x, act, fwd_impl=fwd_impl)
+        loss = torch.sum(s * c_out[:, 0]) + torch.sum(f * c_out[:, 1:]) + torch.sum(g * c_grad)
+        return (s.detach(), f.detach(), g.detach(), *torch.autograd.grad(loss, params + [x]))
+
+    before, got, want, launched = replay_after_update(fn, params, 3, 32)
+    check_replay(before, got, want, 3)
+    assert launched["sdf_vjp_bwd"] == 1 and launched["dw_reduce"] == net.n_layers
+    assert launched.get("sdf_vjp_fwd", 0) == (1 if fwd_impl == "kernel" else 0)
+
+
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_field_train_replays_follow_weights(dev, field, act):
+    """_FieldTrain (K6 forward, K7 + K5 backward) captured once through
+    field_forward's 'pallas_field' mode, per-ray dirs and a: after every SDF
+    and colour parameter moves in place a replay equals an eager call."""
+    from neuralrecon_w_tpu_torch.models.neuconw import field_forward
+
+    fc, model = field
+    fc = fc._replace(act_dtype=act, grad_mode="pallas_field")
+    model = copy.deepcopy(model).requires_grad_(True)
+    params = [p for k, p in model.named_parameters() if "_net." in k]
+    n_rays, n_samples = 512, 16
+    pts, dirs, a = field_inputs(fc, n_rays * n_samples, dev, 33)
+    xs = [t.requires_grad_(True) for t in (pts, dirs[:n_rays].clone(), a[:n_rays].clone())]
+    gen = torch.Generator().manual_seed(34)
+    c = [torch.randn(n_rays * n_samples, k, generator=gen).to(dev).squeeze(1) for k in (3, 1, 3)]
+
+    def fn():
+        rgb, _, sdf, grad = field_forward(model, fc, *xs, n_samples, create_graph=True)
+        loss = torch.sum(rgb * c[0]) + torch.sum(sdf * c[1]) + torch.sum(grad * c[2])
+        return (rgb.detach(), sdf.detach(), grad.detach(),
+                *torch.autograd.grad(loss, params + xs))
+
+    before, got, want, launched = replay_after_update(fn, params, 3, 35)
+    check_replay(before, got, want, 3)
+    assert launched["field_fwd"] == 1 and launched["field_bwd"] == 1
+    assert launched["dw_reduce"] > 0
+
+
+@pytest.mark.parametrize("act", ["float32", "bfloat16"])
+def test_nerf_bg_replays_follow_weights(dev, act):
+    """_NerfBG (K8 forward, K9 + K5 backward) captured once with the
+    appearance head: after every layer moves in place a replay equals an
+    eager call on the new weights."""
+    from neuralrecon_w_tpu_torch.models.nerf_bg import NeRF, init_nerf_bg_
+    from neuralrecon_w_tpu_torch.ops import nerf_bg_fused as bgf
+
+    net = NeRF(True, 48, dev)
+    init_nerf_bg_(net, torch.Generator().manual_seed(36))
+    layers = bgf.bg_layers(net, True)
+    params = [p for m in layers for p in (m.weight, m.bias)]
+    _, _, x, (c_den, c_rgb) = bg_case(True, 8192, dev, 37)
+    xs = [t.requires_grad_(True) for t in x]
+
+    def fn():
+        den, rgb = bgf.nerf_bg_kernel(net, True, *xs, act=act)
+        loss = torch.sum(den * c_den) + torch.sum(rgb * c_rgb)
+        return (den.detach(), rgb.detach(), *torch.autograd.grad(loss, params + xs))
+
+    before, got, want, launched = replay_after_update(fn, params, 2, 38)
+    check_replay(before, got, want, 2)
+    assert launched["nerf_bg_fwd"] == 1 and launched["nerf_bg_bwd"] == 1
+    assert launched["dw_reduce"] == len(layers)

@@ -45,12 +45,32 @@ def configs(phase):
     return cfg, params, model, host, jrc, rc._replace(fused_sampler_sdf=True)
 
 
-@pytest.mark.parametrize("phase", ["warmup", "steady"])
-def test_scan_render_matches_jax_and_the_chunk_loop(phase):
+# the port's grad modes ('pallas_field' with FUSED_BG) and the JAX mode each
+# is held to: JAX's kernel modes run Pallas, which its scan render cannot
+# interpret on the CPU, so they are held to JAX's 'vjp' frame, as
+# test_torch_render holds one chunk of 'pallas_field'; 'fwd' to JAX's 'fwd'
+SCAN_MODES = {"vjp": "vjp", "pallas": "vjp", "pallas_hybrid": "vjp", "pallas_field": "vjp",
+              "fwd": "fwd"}
+
+
+def mode_cfg(cfg, mode):
+    """cfg in SDF_GRAD_MODE ``mode``, FUSED_BG with 'pallas_field'."""
+    cfg = cfg.clone()
+    cfg.TPU.SDF_GRAD_MODE = mode
+    cfg.TPU.FUSED_BG = mode == "pallas_field"
+    return cfg
+
+
+@pytest.mark.parametrize("mode,phase", [
+    pytest.param(m, p, id=p if m == "vjp" else f"{m}-{p}")
+    for m in SCAN_MODES for p in ("warmup", "steady")])
+def test_scan_render_matches_jax_and_the_chunk_loop(phase, mode):
     """color, depth and normal of a 20-ray frame (3 chunks, a ragged tail)
-    through JAX's make_scan_render_fn (via its render_image) and the
-    port's, within the serving tolerance (f32); and the port's equal to its
-    own chunk loop, exactly (the same chunk body on the same inputs)."""
+    through JAX's make_scan_render_fn (via its render_image) in
+    SCAN_MODES[mode] and the port's in each grad mode (the kernels' plain
+    versions on the CPU), within the serving tolerance (f32); and the
+    port's equal to its own chunk loop, exactly (the same chunk body on the
+    same inputs)."""
     from neuralrecon_w_tpu.training.step import make_render_fn as jax_make_render_fn
     from neuralrecon_w_tpu.training.step import make_scan_render_fn as jax_make_scan
     from neuralrecon_w_tpu.training.validation import render_image as jax_render_image
@@ -58,7 +78,8 @@ def test_scan_render_matches_jax_and_the_chunk_loop(phase):
     cfg, params, model, host, jrc, rc = configs(phase)
     rays, ts, labels = make_rays(r=20, seed=5)
     jgrid = jax_device_grid(host)
-    jfc = jax_field_config(cfg)
+    jfc = jax_field_config(mode_cfg(cfg, SCAN_MODES[mode]))
+    cfg = mode_cfg(cfg, mode)
     fine = phase == "steady"
     want = jax_render_image(jax_make_render_fn(jfc, jrc), params,
                             JaxSceneInfo(jnp.zeros(3), jnp.asarray(2.0), jnp.eye(4)),
@@ -67,6 +88,7 @@ def test_scan_render_matches_jax_and_the_chunk_loop(phase):
                             scan_render=jax_make_scan(jfc, jrc, CHUNK))
     grid = device_grid_from_host(host, "cpu")
     fc = field_config_from_cfg(cfg)
+    assert (fc.grad_mode, fc.bg_mode) == (mode, "pallas" if mode == "pallas_field" else "xla")
     scene = SceneInfo(torch.zeros(3), torch.tensor(2.0), torch.eye(4))
     run = make_scan_render_fn(fc, rc, CHUNK)
     got = render_image(make_render_fn(fc, rc), model, scene, rays, ts, labels, WH, chunk=CHUNK,
@@ -102,20 +124,25 @@ def test_scan_render_run_on_padded_rays_matches_jax():
                                    err_msg=k)
 
 
-def test_scan_render_refuses_ragged_frames_and_uncaptured_modes():
+@pytest.mark.parametrize("mode", list(SCAN_MODES))
+def test_scan_render_refuses_ragged_frames_and_serves_every_mode(mode):
+    """A frame that is not whole chunks raises in every mode; a whole one
+    renders in every mode (no mode is refused a scan render)."""
     cfg, _, model, host, _, rc = configs("warmup")
+    cfg = mode_cfg(cfg, mode)
     rays, ts, labels = make_rays(r=12, seed=1)
     scene = SceneInfo(torch.zeros(3), torch.tensor(2.0), torch.eye(4))
     args = (model, scene, torch.from_numpy(rays), torch.from_numpy(ts),
             torch.from_numpy(labels))
+    fc = field_config_from_cfg(cfg)
     with pytest.raises(ValueError, match="chunks of 8"):
-        make_scan_render_fn(field_config_from_cfg(cfg), rc, CHUNK)(*args)
-    # a kernel mode's capture (the card's path) raises, naming the queue
-    # item, before any device call
-    cfg.TPU.SDF_GRAD_MODE = "pallas"
-    run = make_scan_render_fn(field_config_from_cfg(cfg), rc, 4)
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        run._capture(*args, None, None)
+        make_scan_render_fn(fc, rc, CHUNK)(*args)
+    run = make_scan_render_fn(fc, rc, 4)
+    grid = device_grid_from_host(host, "cpu")
+    out = run(*args, None, None, grid)
+    assert {k: tuple(v.shape) for k, v in out.items()} == {
+        "color": (12, 3), "depth": (12,), "normal": (12, 3)}
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
     assert run.captures == 0
 
 

@@ -131,20 +131,26 @@ def pool_rows(n=POOL_ROWS, seed=0):
     return rays, b["rgbs"]
 
 
-@pytest.mark.parametrize("phase", ["warmup", "steady"])
-def test_scan_train_fn_matches_jax(phase):
-    """make_scan_train_fn's loop (the CPU path) over one window of a numpy
-    permutation, from the JAX state carried across (state_from_jax),
-    N_INNER steps against the JAX package's scan over the same window: the
-    last step's aux within LOSS_RTOL, the parameters by the Adam rule
-    above; the steady phase reads each pool's band cache."""
-    cfg = setup_cfg()
-    rays, rgbs = pool_rows()
-    perm = np.random.RandomState(1).permutation(POOL_ROWS)
-    start = 64
+# the port's grad modes ('pallas_field' with FUSED_BG) and the JAX mode each
+# is held to: JAX's kernel modes run Pallas, which its scan cannot
+# interpret on the CPU, so they are held to JAX's 'vjp' window, as
+# test_torch_train_step holds one step of them; 'fwd' to JAX's 'fwd'
+SCAN_MODES = {"vjp": "vjp", "pallas": "vjp", "pallas_hybrid": "vjp", "pallas_field": "vjp",
+              "fwd": "fwd"}
+_JAX_WINDOWS: dict = {}
+
+
+def jax_scan_window(cfg, phase, jax_mode, rays, rgbs, perm, start):
+    """JAX's make_scan_train_fn over the window in ``jax_mode`` from the
+    live initial state: (numpy initial state, final state, last aux),
+    computed once per phase and mode."""
+    key = (phase, jax_mode)
+    if key in _JAX_WINDOWS:
+        return _JAX_WINDOWS[key]
+    cfg = copy.deepcopy(cfg)
+    cfg.TPU.SDF_GRAD_MODE = jax_mode
     fine = grid_host() if phase == "steady" else None
     level = fine.level if fine else -1
-
     jfc = jax_field_config(cfg)
     opt, _ = jax_make_optimizer(cfg, BATCH)
     jstate = jax_init_state(jax.random.PRNGKey(0), jfc, opt)
@@ -161,9 +167,34 @@ def test_scan_train_fn_matches_jax(phase):
     jscene = JaxSceneInfo(jnp.zeros(3), jnp.asarray(2.0), jnp.eye(4))
     jout, jaux = jrun(jstate, jscene, jpool.data, jax.random.PRNGKey(2), jax.random.PRNGKey(3),
                       jgrid, None, jnp.asarray(perm, jnp.int32), jnp.asarray(start, jnp.int32))
-    jaux = {k: float(v) for k, v in jaux.items()}
+    _JAX_WINDOWS[key] = (np_state, jax.device_get(jout),
+                         {k: float(v) for k, v in jaux.items()})
+    return _JAX_WINDOWS[key]
 
-    fc = config.field_config_from_cfg(cfg)
+
+@pytest.mark.parametrize("mode,phase", [
+    pytest.param(m, p, id=p if m == "vjp" else f"{m}-{p}")
+    for m in SCAN_MODES for p in ("warmup", "steady")])
+def test_scan_train_fn_matches_jax(phase, mode):
+    """make_scan_train_fn's loop (the CPU path, each kernel's plain version)
+    over one window of a numpy permutation, from the JAX state carried
+    across (state_from_jax), N_INNER steps in each grad mode against the
+    JAX package's scan over the same window in SCAN_MODES[mode]: the last
+    step's aux within LOSS_RTOL, the parameters by the Adam rule above; the
+    steady phase reads each pool's band cache."""
+    cfg = setup_cfg()
+    rays, rgbs = pool_rows()
+    perm = np.random.RandomState(1).permutation(POOL_ROWS)
+    start = 64
+    fine = grid_host() if phase == "steady" else None
+    level = fine.level if fine else -1
+    np_state, jout, jaux = jax_scan_window(cfg, phase, SCAN_MODES[mode], rays, rgbs, perm, start)
+
+    pcfg = copy.deepcopy(cfg)
+    pcfg.TPU.SDF_GRAD_MODE = mode
+    pcfg.TPU.FUSED_BG = mode == "pallas_field"  # the fused kernels' mode, as trained
+    fc = config.field_config_from_cfg(pcfg)
+    assert (fc.grad_mode, fc.bg_mode) == (mode, "pallas" if mode == "pallas_field" else "xla")
     spec, _ = make_optimizer(cfg, BATCH)
     state, _ = state_from_jax(np_state, fc, spec, device="cpu")
     pool = DeviceRayPool(RayPool(rays, rgbs), "cpu")
@@ -183,7 +214,7 @@ def test_scan_train_fn_matches_jax(phase):
     for k, v in jaux.items():
         tol = SCALAR_ATOL if k in ("psnr", "s_val") else LOSS_RTOL * abs(v)
         assert abs(float(aux[k]) - v) <= tol, (k, float(aux[k]), v)
-    want = params_from_jax(jax.device_get(jout.params))
+    want = params_from_jax(jout.params)
     got = {k: v.detach() for k, v in state.model.state_dict().items()}
     diffs = np.concatenate([(got[k] - want[k]).abs().flatten().numpy() for k in want])
     lr = float(spec.schedule)

@@ -434,3 +434,33 @@ def test_profile_window_and_tensorboard_mirror(workspace, tmp_path):
     assert sorted(got) == [1, 2, 3]
     for step, v in got.items():
         assert v == pytest.approx(logged[step]["loss"], rel=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["vjp", "pallas", "pallas_hybrid", "pallas_field", "fwd"])
+def test_scan_window_graph_follows_the_device_alone(workspace, tmp_path, monkeypatch, mode):
+    """The Trainer's multi-step runs ask make_scan_train_fn for a CUDA graph
+    exactly when it trains on the card, in every SDF_GRAD_MODE ('pallas_field'
+    with FUSED_BG): the CPU Trainer gets the plain loop, and the same
+    Trainer with a CUDA device (make_scan_train_fn builds nothing on it) a
+    graph, in both phases."""
+    cfg_path, _ = workspace
+    cfg = port_cfg(cfg_path)
+    cfg.TPU.SDF_GRAD_MODE = mode
+    cfg.TPU.FUSED_BG = mode == "pallas_field"
+    tr = loop.Trainer(cfg, tcfg(loop, str(tmp_path), mode), device="cpu")
+    assert (tr.fc.grad_mode, tr.fc.bg_mode) == (mode, "pallas" if mode == "pallas_field"
+                                                else "xla")
+    asked = []
+    real = loop.make_scan_train_fn
+
+    def spy(*args, **kw):
+        asked.append(kw["graph"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(loop, "make_scan_train_fn", spy)
+    tr._get_scan_run(False, BATCH, 3)
+    tr.device = torch.device("cuda", 0)
+    tr._get_scan_run(False, BATCH, 4)
+    tr._get_scan_run(True, BATCH, 4)
+    assert asked == [False, True, True]
+    assert [r.graph for r in tr.scan_runs()] == asked
