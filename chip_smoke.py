@@ -85,12 +85,14 @@ validation at 50 (with the inline mesh F-score against the workspace's
 gt.ply); it checks the step, the refreshed grid (non-empty, kept share
 below 0.9), finite logged losses that fall, moved parameters, the metrics
 and the checkpoint's optimiser state and grid, and that exactly K1 bf16,
-K2 and K1 f32 launched; then it resumes 3 steps from that checkpoint in
-'pallas_field' with FUSED_BG on the device pool (a refresh first, then one
-captured window) and checks that exactly that mode's kernels launched. Every refresh, the resume's too, is held to
-the plain float32 SDF of the state it swept on 2^20 seeded candidates,
-and the median SDF at the SFM points (the zero set's level shift) is
-printed beside it.
+K2 and K1 f32 launched; then it resumes 2 steps from that checkpoint in
+'pallas_field' with FUSED_BG on the host pool (a refresh first) and
+checks that exactly that mode's kernels launched, and 3 steps each in
+'pallas_field' with FUSED_BG and in 'fwd' on the device pool, each one
+captured window with its mode's kernels. Every refresh, the resume's too,
+is held to the plain float32 SDF of the state it swept on 2^20 seeded
+candidates, and the median SDF at the SFM points (the zero set's level
+shift) is printed beside it.
 Last, ``e2e_gate_phase`` runs tests/test_e2e.py:79-191 through the port's
 CLIs (6 views of 40x30, 300 steps at batch 512, extract_mesh_cli at 48^3
 with vertex colours, eval_mesh against the analytic sphere, render_cli,
@@ -138,15 +140,17 @@ rasteriser held to the numpy one.
 The kernel modes in CUDA graphs: after the 'vjp' windows, ``graph_parity``
 holds each kernel mode's captured window ('pallas', 'pallas_field' with
 FUSED_BG, 'fwd'; steady, full width, batch 8192) to its eager windows (K5's
-atomics make two eager windows differ: the bound follows their spread),
+atomics make two eager windows differ: the bound follows the eager
+windows' spread, and the graph windows are held to each other within it),
 and ``graph_rates`` times 'vjp', 'pallas', 'pallas_hybrid', 'pallas_field'
 and 'fwd' eager against graph in turns, with each capture call's peak
 memory and a captured step's launches by kernel; serving replays the
 'pallas' (K3) and the 'pallas_field' + FUSED_BG (K6, K8) frames in turns
-with their eager frames, bit for bit; ``trainer_phase``'s 'pallas_field'
-and 'fwd' resumes each run one captured window on the device pool, and
-the 'pallas_field' checkpoint goes through ``render_cli --dispatch scan``
-and ``--dispatch chunk``, the same PNGs.
+with their eager frames, bit for bit; ``trainer_phase``'s device-pool
+'pallas_field' and 'fwd' resumes each run one captured window, and the
+host-pool 'pallas_field' checkpoint goes through ``render_cli --dispatch
+scan`` and ``--dispatch chunk``, the same PNGs. The run ends with each
+phase's wall (``PhaseClock``).
 
 The modules with no kernel of their own, driven on the card: after
 serving, ``trace_render_check`` runs ``rendering/debug.trace_render`` on
@@ -203,6 +207,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import itertools
 import json
 import math
 import os
@@ -339,9 +344,10 @@ TRAINER_CAMS = 12
 TRAINER_POINTS = 40_000
 TRAINER_CAM_DIST = 3.0
 TRAINER_VOXEL = 0.004  # ceil(log2(3 / 0.004)) = 10
-# each kernel-mode resume is one SCAN_INNER window of TRAINER_RESUME steps
-# on the device pool: GRAPH_WARMUP eager steps, the capture, one replay
-TRAINER_STEPS, TRAINER_RESUME = 60, 3
+# the host-pool resume takes TRAINER_RESUME steps; each device-pool resume
+# one SCAN_INNER window of GRAPH_RESUME: GRAPH_WARMUP eager steps, the
+# capture, one replay
+TRAINER_STEPS, TRAINER_RESUME, GRAPH_RESUME = 60, 2, 3
 TRAINER_UPDATE, TRAINER_VAL, TRAINER_LOG = 20, 50, 10
 DEGENERATE_KEEP = 0.9
 REFRESH_CHECK_PTS = 1 << 20
@@ -1531,13 +1537,16 @@ def ray_kernel_phase(scene, sfm_grid, sfm_level, fine_grid, fine_host, frames, r
 # GRAPH_PARAM_REL (rel-L2) on all parameters leave room for a library kernel
 # that sums in another order on the capture stream. K5 sums its dW with
 # float atomics, so in the modes that run it (ATOMIC_MODES) a window differs
-# from itself, eager or replayed, and the steps amplify that: there two
-# graph and two eager windows run in turns, and the first graph window is
-# held to the first eager one within max(GRAPH_LOSS_RTOL, 2 x the larger
-# of the two windows' own spreads, graph against graph and eager against
-# eager) on each term, and max(GRAPH_PARAM_REL, 2 x that) on the
-# parameters. Every window is GRAPH_INNER steps, few enough to keep the
-# four modes' windows within the script's wall. At the
+# from itself, eager or replayed, and the steps amplify that: there three
+# eager and two graph windows run in turns (eager, graph, eager, graph,
+# eager). The noise is read from the eager windows alone, the largest
+# difference of any two of them: each graph window is held to the first
+# eager one within max(GRAPH_LOSS_RTOL, 2 x that) on each term and
+# max(GRAPH_PARAM_REL, 2 x that) on the parameters, and the two graph
+# windows to each other within the same bounds, so that a graph that does
+# not repeat fails and cannot widen its own bound. Every window is
+# GRAPH_INNER steps, few enough to keep the modes' windows within the
+# script's wall. At the
 # operating point (bf16, perturb on) the graph's jitter comes from its own
 # generator, not the eager steps' per-step ones, so only the mean of the
 # per-step losses over the window is held, within GRAPH_MEAN_REL.
@@ -1546,13 +1555,14 @@ GRAPH_LOSS_RTOL, GRAPH_PARAM_REL, GRAPH_MEAN_REL = 1e-5, 1e-5, 2e-2
 ATOMIC_MODES = ("pallas", "pallas_hybrid", "pallas_field")
 # the kernel modes held graph against eager at full width (steady phase),
 # and the modes timed eager against graph in turns (RATE_INNER steps a
-# window), 'vjp' beside them
+# window, 3 to keep the script's wall: a mode runs 2 + 5 x RATE_INNER
+# steps), 'vjp' beside them
 GRAPH_MODES = ("pallas", "pallas_field", "fwd")
 RATE_MODES = ("vjp", "pallas", "pallas_hybrid", "pallas_field", "fwd")
 # 'pallas_hybrid' runs the plain SDF forward and the kernels' backward
 RATE_KERNELS = {**MODE_KERNELS,
                 "pallas_hybrid": ("sdf_mlp", "up_sample", "sdf_vjp_bwd", "dw_reduce")}
-RATE_INNER = 5
+RATE_INNER = 3
 
 
 def flat_params(model):
@@ -1596,9 +1606,10 @@ def graph_parity(cfg, state0, scene, pool, fine_grid, fine_level, label, batch=T
     """make_scan_train_fn with graph=True against graph=False in SDF_GRAD_MODE
     ``mode`` (train_config's) from copies of state0 over one window of
     ``pool`` (a DeviceRayPool, its band cache attached where fine_grid is
-    given): in f32 at PERTURB 0 one call of n_inner steps each (two of each
-    in turns in ATOMIC_MODES); at the operating point n_inner one-step calls
-    each, the per-step losses. Each window's run is released before the
+    given): in f32 at PERTURB 0 one call of n_inner steps each (in
+    ATOMIC_MODES three eager and two graph ones in turns, the bounds from
+    the eager ones: see GRAPH_INNER); at the operating point n_inner
+    one-step calls each, the per-step losses. Each window's run is released before the
     next, so that a graph and an eager window never hold their memory at
     once.
     With ``profile``, a torch.profiler window over one more call of n_inner
@@ -1617,8 +1628,10 @@ def graph_parity(cfg, state0, scene, pool, fine_grid, fine_level, label, batch=T
         perm, start = pool.take_scan_window(batch, n_inner)
         perm = perm.clone()
         one = act != "float32"
-        trace = []
-        for run_mode in ("graph", "eager") * (2 if atomic and not one else 1):
+        order = (("eager", "graph") * 2 + ("eager",) if atomic and not one
+                 else ("graph", "eager"))
+        trace, walls = {"graph": [], "eager": []}, []
+        for run_mode in order:
             st = capturable_copy(state0)
             run = scan_run(cfg, fc, rcfg, batch, 1 if one else n_inner, run_mode == "graph")
             losses, aux = [], None
@@ -1630,14 +1643,14 @@ def graph_parity(cfg, state0, scene, pool, fine_grid, fine_level, label, batch=T
                 if one:
                     losses.append(float(aux["loss"]))
             sync()
-            wall = time.perf_counter() - t0
-            trace.append({"aux": {k: float(v) for k, v in aux.items()},
-                          "params": flat_params(st.model), "losses": losses, "wall": wall,
-                          "runs": (run.captures, run.replays)})
+            walls.append(time.perf_counter() - t0)
+            trace[run_mode].append({"aux": {k: float(v) for k, v in aux.items()},
+                                    "params": flat_params(st.model), "losses": losses,
+                                    "runs": (run.captures, run.replays)})
             run.release()
             del run, st, aux
             free_cached()
-        g, e = trace[0], trace[1]
+        g, e = trace["graph"][0], trace["eager"][0]
         if act == "float32":
             def term_rel(a, b):
                 return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b}
@@ -1645,27 +1658,38 @@ def graph_parity(cfg, state0, scene, pool, fine_grid, fine_level, label, batch=T
             def param_rel(a, b):
                 return float((a - b).norm() / b.norm())
 
-            rel, p_rel = term_rel(g["aux"], e["aux"]), param_rel(g["params"], e["params"])
+            def spread(ts):
+                """The largest difference of any two windows: per term, parameters."""
+                pairs = list(itertools.combinations(ts, 2))
+                rels = [term_rel(x["aux"], y["aux"]) for x, y in pairs]
+                return ({k: max(r[k] for r in rels) for k in rels[0]},
+                        max(param_rel(x["params"], y["params"]) for x, y in pairs))
+
+            # every graph window against the first eager one
+            rels = [term_rel(t["aux"], e["aux"]) for t in trace["graph"]]
+            rel = {k: max(r[k] for r in rels) for k in rels[0]}
+            p_rel = max(param_rel(t["params"], e["params"]) for t in trace["graph"])
             t_bound = dict.fromkeys(rel, GRAPH_LOSS_RTOL)
-            p_bound, spread = GRAPH_PARAM_REL, ""
+            p_bound, note, ok = GRAPH_PARAM_REL, "", True
             if atomic:
-                g_rel, e_rel = (term_rel(trace[i + 2]["aux"], trace[i]["aux"]) for i in (0, 1))
-                g_p, e_p = (param_rel(trace[i + 2]["params"], trace[i]["params"])
-                            for i in (0, 1))
-                t_bound = {k: max(GRAPH_LOSS_RTOL, 2 * g_rel[k], 2 * e_rel[k]) for k in rel}
-                p_bound = max(GRAPH_PARAM_REL, 2 * g_p, 2 * e_p)
-                spread = (f"; graph against graph / eager against eager: worst term rel "
-                          f"{max(g_rel.values()):.2e} / {max(e_rel.values()):.2e}, parameters "
-                          f"rel-L2 {g_p:.2e} / {e_p:.2e}")
+                e_rel, e_p = spread(trace["eager"])
+                g_rel, g_p = spread(trace["graph"])
+                t_bound = {k: max(GRAPH_LOSS_RTOL, 2 * e_rel[k]) for k in rel}
+                p_bound = max(GRAPH_PARAM_REL, 2 * e_p)
+                g_worst = max(g_rel, key=lambda k: g_rel[k] / t_bound[k])
+                ok = all(g_rel[k] <= t_bound[k] for k in g_rel) and g_p <= p_bound
+                note = (f"; the {len(trace['eager'])} eager windows' spread: worst term rel "
+                        f"{max(e_rel.values()):.2e}, parameters rel-L2 {e_p:.2e}; graph against "
+                        f"graph (held to the same bounds): {g_worst} rel {g_rel[g_worst]:.2e}, "
+                        f"parameters rel-L2 {g_p:.2e}")
             worst = max(rel, key=lambda k: rel[k] / t_bound[k])
-            ok = all(rel[k] <= t_bound[k] for k in rel) and p_rel <= p_bound
+            ok = ok and all(rel[k] <= t_bound[k] for k in rel) and p_rel <= p_bound
             print(f"graph vs eager {label} {mode} f32 PERTURB 0, {n_inner} steps from one state "
                   f"({g['runs'][0]} capture, {g['runs'][1]} replays): loss "
                   f"{g['aux']['loss']:.7f} / {e['aux']['loss']:.7f}; worst term {worst} rel "
                   f"{rel[worst]:.2e} (bound {t_bound[worst]:.2e}); parameters rel-L2 "
-                  f"{p_rel:.2e} (bound {p_bound:.2e}){spread}; wall "
-                  + " / ".join(f"{t['wall']:.3f}" for t in trace)
-                  + f" s -> {'ok' if ok else 'FAIL'}")
+                  f"{p_rel:.2e} (bound {p_bound:.2e}){note}; wall (" + ", ".join(order) + ") "
+                  + " / ".join(f"{w:.3f}" for w in walls) + f" s -> {'ok' if ok else 'FAIL'}")
             out["f32"] = {"worst_term": worst, "term_rel": rel[worst], "param_rel_l2": p_rel,
                           "param_bound": p_bound}
         else:
@@ -1693,7 +1717,8 @@ def graph_parity(cfg, state0, scene, pool, fine_grid, fine_level, label, batch=T
 def graph_rates(cfg, state0, scene, pool, fine_grid, fine_level, label, modes=RATE_MODES,
                 batch=TRAIN_BATCH, n_inner=RATE_INNER):
     """Per mode at the operating point, from copies of state0, windows of
-    n_inner steps timed in turns: eager, graph, graph, eager. The graph's
+    n_inner steps timed in turns: eager, graph, graph, eager, each eager
+    one after an untimed eager step. The graph's
     first call (its warm-up steps and the capture) comes before its first
     timed window and is timed on its own, its peak device memory read over
     it, and the memory the allocator holds once it is done (the graph's
@@ -1734,7 +1759,17 @@ def graph_rates(cfg, state0, scene, pool, fine_grid, fine_level, label, modes=RA
                 fails.append(f"graph rates {label} {mode} {m}: {bad} not finite")
             return time.perf_counter() - t0
 
+        def eager_step():
+            # one untimed eager step before each eager window, so that no
+            # timed window pays for the mode's first use or for the
+            # allocator's blocks after free_cached
+            perm, start = pool.take_scan_window(batch, 1)
+            states["eager"], _ = one_step(states["eager"], scene, pool.data, fine_grid, None,
+                                          perm, start)
+
+        one_step = scan_run(cfg, fc, rcfg, batch, 1, False)
         reset_counts(counters)
+        eager_step()
         walls["eager"].append(window("eager"))
         free_cached()
         if on_card:
@@ -1746,11 +1781,13 @@ def graph_rates(cfg, state0, scene, pool, fine_grid, fine_level, label, modes=RA
         walls["graph"] += [window("graph"), window("graph")]
         g = runs["graph"]
         r["per_step"] = dict(g.per_step_launches)
-        got = read_counts()
-        got = {k: v + g.replays * g.per_step_launches.get(k, 0) for k, v in got.items()}
+        # a capture counts its launches but runs no step
+        got = {k: v + (g.replays - g.captures) * g.per_step_launches.get(k, 0)
+               for k, v in read_counts().items()}
         g.release()
         free_cached()
         reset_counts(counters)
+        eager_step()
         walls["eager"].append(window("eager"))
         got = {k: v + read_counts()[k] for k, v in got.items()}
         for k, v in got.items():
@@ -1834,13 +1871,15 @@ def plain_band(grid, level: int, rays):
 
 
 def graph_launches(tr, counted: dict) -> dict:
-    """The launches a Trainer's CUDA graph replays ran, keyed as ``counted``:
-    replays x the launches one captured step records (the wrappers' counts
-    tick at capture only), summed over its multi-step runs."""
+    """What a Trainer's CUDA graphs add to the launches counted in its run,
+    keyed as ``counted``: the wrappers count each captured launch once, at
+    capture, and a capture runs no step, so each multi-step run adds
+    (replays - captures) x the launches one captured step records (as
+    ``scan_launches`` does for a served frame)."""
     out = dict.fromkeys(counted, 0)
     for run in tr.scan_runs():
         for n, v in run.per_step_launches.items():
-            out[n] = out.get(n, 0) + v * run.replays
+            out[n] = out.get(n, 0) + v * (run.replays - run.captures)
     return out
 
 
@@ -1870,8 +1909,8 @@ def device_pool_trainer_phase(root: str, overrides: dict, device: str, extra: li
     on trainer_phase's workspace and cache, its refreshes, saves and
     validation, then a resume of POOL_RESUME steps from the last save.
     Checks the step, that the device pool and (on the card) the graph ran,
-    every graph launch accounted (replays x the launches one captured step
-    records, and no kernel beyond K1 and K2 in a step), the band cache after
+    every graph launch accounted ((replays - captures) x the launches one
+    captured step records, and no kernel beyond K1 and K2 in a step), the band cache after
     every attach against the plain DDA on every pool row (torch.equal), the
     epoch windows disjoint, the logged losses finite and falling. Returns
     ({run: launches}, fails)."""
@@ -1971,14 +2010,14 @@ def device_pool_trainer_phase(root: str, overrides: dict, device: str, extra: li
     scan = tr.scan_runs()
     graph = graph_launches(tr, runs["device_pool"])
     print("device-pool runs: " + "; ".join(
-        f"{'graph' if r.graph else 'eager'} {r.n_inner}-step run: {r.captures} capture(s), "
+        f"{'graph' if r.captures else 'eager'} {r.n_inner}-step run: {r.captures} capture(s), "
         f"{r.replays} replays, per captured step " + ", ".join(
             f"{n} {v}" for n, v in r.per_step_launches.items()) for r in scan))
     got = runs["device_pool"]
     print(f"launches in train_cli on the device pool ({TRAINER_STEPS} steps): counted (eager "
           "steps, warm-ups, captures, refreshes, validation) " + ", ".join(
-              f"{n} {v}" for n, v in got.items() if v) + "; by graph replays (replays x per "
-          "step) " + ", ".join(f"{n} {v}" for n, v in graph.items() if v))
+              f"{n} {v}" for n, v in got.items() if v) + "; added by the graphs ((replays - "
+          "captures) x per step) " + ", ".join(f"{n} {v}" for n, v in graph.items() if v))
     print(f"launches in the device-pool resume ({POOL_RESUME} steps): " + ", ".join(
         f"{n} {v}" for n, v in runs["device_pool_resume"].items() if v))
     if device == "cuda":
@@ -2683,10 +2722,13 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
     TRAIN_BATCH, TRAINER_STEPS steps in the default 'vjp' mode (refreshes at
     steps TRAINER_UPDATE and 2 x TRAINER_UPDATE, a save at each, one validation),
     then TRAINER_RESUME steps resumed from its checkpoint in 'pallas_field'
-    with FUSED_BG. The launch counts are set to 0 just before each CLI call
-    and read just after. Every refresh is held to the plain version
-    (``refresh_check``), the logged loss must fall. Returns ({run:
-    launches}, fails)."""
+    with FUSED_BG on the host pool (eager steps, a refresh first; its
+    checkpoint through ``render_cli_dispatch_check``), and GRAPH_RESUME steps
+    each in 'pallas_field' with FUSED_BG and in 'fwd' on the device pool (on
+    the card one captured window, ``resume_graph_fails``). The launch counts
+    are set to 0 just before each CLI call and read just after. Every
+    refresh is held to the plain version (``refresh_check``), the logged
+    loss must fall. Returns ({run: launches}, fails)."""
     import numpy as np
     import torch
 
@@ -2784,22 +2826,18 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
           + f"; validation {sum(tr.val_seconds):.3f} s (psnr {val[0]['val/psnr']:.3f}, F@0.1 "
           f"{val[0].get('val/fscore', float('nan')):.4f}); wall {wall:.2f} s")
 
-    # resume in the fused mode on the device pool (DEVICE_POOL 'auto'): the
-    # CLI path through K6, K7, K5, K8, K9, its window a replayed graph
+    # resume in the fused mode on the host pool: the CLI path through K6,
+    # K7, K5, K8, K9 as eager steps fed by host batches, a refresh first
     cfg2 = write_cfg(os.path.join(root, "train_fused.yaml"), root, merged(
-        overrides, {"TPU": {"SDF_GRAD_MODE": "pallas_field", "FUSED_BG": True,
-                            "SCAN_INNER": TRAINER_RESUME}}))
+        host, {"TPU": {"SDF_GRAD_MODE": "pallas_field", "FUSED_BG": True}}))
     reset_counts(counters)
     t0 = time.perf_counter()
     tr2 = train_cli(cfg2, save_dir, "trainer_resume", TRAIN_BATCH, TRAINER_RESUME, device,
                     extra + ["--ckpt_path", ck or ""])
     sync()
     got = launches["resume"] = read_counts()
-    launches["resume_graph"] = graph_launches(tr2, got)
     print(f"launches in train_cli resumed {TRAINER_RESUME} steps in 'pallas_field' + FUSED_BG "
-          f"on the {'device' if tr2.use_device_pool else 'host'} pool (a refresh first): "
-          + ", ".join(f"{n} {v}" for n, v in got.items() if v) + "; by graph replays "
-          + ", ".join(f"{n} {v}" for n, v in launches["resume_graph"].items() if v)
+          f"(a refresh first): " + ", ".join(f"{n} {v}" for n, v in got.items() if v)
           + f"; wall {time.perf_counter() - t0:.2f} s; its refresh " + ", ".join(
               f"{r['seconds']:.3f} s, kept {r.get('n_kept')} ({r.get('kept_frac', 0):.3f})"
               for r in tr2.refreshes))
@@ -2831,12 +2869,10 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
             fails.append(f"refresh at step {r['step']}: {c['wrong_clear']} cells against the "
                          f"plain SDF")
     if device == "cuda":
-        # the refresh's K1 f32 sweep, K10 for the band cache, the mode's kernels
-        want = MODE_KERNELS["pallas_field"] + ("dda",)
+        want = MODE_KERNELS["pallas_field"] + ("sampled_hit",)
         fails += [f"{n} not launched by the resumed train_cli" for n in want if got[n] <= 0]
-        fails += [f"{n} launched by the resumed train_cli, not its mode's" for n, v in got.items()
-                  if v and n not in want + ("sdf_mlp_bf16", "sdf_mlp_f32", "sampled_hit")]
-        fails += resume_graph_fails(tr2, "pallas_field")
+        fails += [f"{n} launched by the resumed train_cli, not its mode's" for n in counters
+                  if got[n] and n not in want]
     # the resumed checkpoint through render_cli in its kernel mode (K6, K8
     # in the captured chunk)
     ck2 = latest_checkpoint(tr2.ckpt_dir)
@@ -2847,38 +2883,43 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
         fails += rfails
     else:
         fails.append("the pallas_field resume saved no checkpoint")
-    # and in 'fwd' on the device pool: the saved grid's band cache by K10,
-    # then one captured window; no refresh (UPDATE_FREQ 0): the other
-    # resume's took ~20 s of the run
-    cfg3 = write_cfg(os.path.join(root, "train_fwd.yaml"), root, merged(
-        overrides, {"TPU": {"SDF_GRAD_MODE": "fwd", "SCAN_INNER": TRAINER_RESUME},
-                    "NEUCONW": {"UPDATE_FREQ": 0}}))
-    reset_counts(counters)
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    tr3 = train_cli(cfg3, save_dir, "trainer_fwd", TRAIN_BATCH, TRAINER_RESUME, device,
-                    extra + ["--ckpt_path", ck or ""])
-    sync()
-    got = launches["resume_fwd"] = read_counts()
-    launches["resume_fwd_graph"] = graph_launches(tr3, got)
-    print(f"launches in train_cli resumed {TRAINER_RESUME} steps in 'fwd' on the "
-          f"{'device' if tr3.use_device_pool else 'host'} pool: "
-          + ", ".join(f"{n} {v}" for n, v in got.items() if v) + "; by graph replays "
-          + ", ".join(f"{n} {v}" for n, v in launches["resume_fwd_graph"].items() if v)
-          + f"; wall {time.perf_counter() - t0:.2f} s"
-          + (f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
-             if device == "cuda" else ""))
-    if tr3.state.step != TRAINER_STEPS + TRAINER_RESUME or tr3.fine_grid_host is None:
-        fails.append(f"the 'fwd' resume ended at step {tr3.state.step}, fine grid "
-                     f"{tr3.fine_grid_host is not None}")
-    if device == "cuda":
-        # K1 bf16 (the sampler), K2, K10 (the band cache)
-        want = ("sdf_mlp_bf16", "up_sample", "dda")
-        fails += [f"{n} not launched by the 'fwd' train_cli" for n in want if got[n] <= 0]
-        fails += [f"{n} launched by the 'fwd' train_cli, not its mode's" for n, v in got.items()
-                  if v and n not in want + ("sdf_mlp", "sampled_hit")]
-        fails += resume_graph_fails(tr3, "fwd")
+    # the same resume on the device pool (DEVICE_POOL 'auto'), and one in
+    # 'fwd': the saved grid's band cache by K10, then GRAPH_RESUME steps as
+    # one window, on the card a captured graph replayed; no refresh
+    # (UPDATE_FREQ 0): the host-pool resume's took ~20 s of the run
+    for run, mode, bg in (("resume_pool", "pallas_field", True), ("resume_fwd", "fwd", False)):
+        cfg3 = write_cfg(os.path.join(root, f"train_{run}.yaml"), root, merged(
+            overrides, {"TPU": {"SDF_GRAD_MODE": mode, "FUSED_BG": bg,
+                                "SCAN_INNER": GRAPH_RESUME}, "NEUCONW": {"UPDATE_FREQ": 0}}))
+        reset_counts(counters)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr3 = train_cli(cfg3, save_dir, f"trainer_{run}", TRAIN_BATCH, GRAPH_RESUME, device,
+                        extra + ["--ckpt_path", ck or ""])
+        sync()
+        got = launches[run] = read_counts()
+        launches[f"{run}_graph"] = graph_launches(tr3, got)
+        print(f"launches in train_cli resumed {GRAPH_RESUME} steps in '{mode}'"
+              + (" + FUSED_BG" if bg else "")
+              + f" on the {'device' if tr3.use_device_pool else 'host'} pool: "
+              + ", ".join(f"{n} {v}" for n, v in got.items() if v) + "; added by the graph "
+              "((replays - captures) x a captured step) "
+              + (", ".join(f"{n} {v}" for n, v in launches[f"{run}_graph"].items() if v)
+                 or "none")
+              + f"; wall {time.perf_counter() - t0:.2f} s"
+              + (f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+                 if device == "cuda" else ""))
+        if tr3.state.step != TRAINER_STEPS + GRAPH_RESUME or tr3.fine_grid_host is None:
+            fails.append(f"the '{mode}' {run} ended at step {tr3.state.step}, fine grid "
+                         f"{tr3.fine_grid_host is not None}")
+        if device == "cuda":
+            # K1 bf16 (the sampler), K2, K10 (the band cache), the mode's kernels
+            want = MODE_KERNELS[mode] + ("sdf_mlp_bf16", "dda")
+            fails += [f"{n} not launched by the '{mode}' {run}" for n in want if got[n] <= 0]
+            fails += [f"{n} launched by the '{mode}' {run}, not its mode's"
+                      for n, v in got.items() if v and n not in want + ("sampled_hit",)]
+            fails += resume_graph_fails(tr3, mode)
     pool_runs, pool_fails = device_pool_trainer_phase(root, overrides, device, extra, rate, card)
     launches.update(pool_runs)
     return launches, fails + pool_fails
@@ -3190,9 +3231,9 @@ def e2e_gate_phase(root: str, device: str = "cuda", card: str = "the CPU"):
     scan = tr.scan_runs()
     print(f"e2e gate's train_cli: {type(tr.device_pool).__name__ if tr.device_pool else 'host'}"
           " pool; " + "; ".join(
-              f"{'graph' if r.graph else 'eager'} {r.n_inner}-step run: {r.captures} "
+              f"{'graph' if r.captures else 'eager'} {r.n_inner}-step run: {r.captures} "
               f"capture(s), {r.replays} replays" for r in scan)
-          + "; launches by graph replays (replays x per step) "
+          + "; launches added by the graphs ((replays - captures) x per step) "
           + ", ".join(f"{n} {v}" for n, v in graph.items() if v))
     if device == "cuda":
         from neuralrecon_w_tpu_torch.datasets.cache import DeviceRayPool
@@ -4231,6 +4272,24 @@ def ptxas_report(log: str) -> list:
     return out
 
 
+class PhaseClock:
+    """The wall seconds of the run's phases, in order: ``lap(name)`` closes
+    the phase that ran since the last lap (or the clock's start); ``line()``
+    prints them with their sum."""
+
+    def __init__(self):
+        self.t, self.walls = time.perf_counter(), {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.walls[name] = self.walls.get(name, 0.0) + now - self.t
+        self.t = now
+
+    def line(self) -> str:
+        return ("phase walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in self.walls.items())
+                + f"; total {sum(self.walls.values()):.1f}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -4262,17 +4321,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    clock = PhaseClock()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
 
     path, secs, log = build.build()
-    print(f"built {os.path.relpath(path, ROOT)} in {secs:.1f} s")
+    import re
+
+    print(f"built {os.path.relpath(path, ROOT)} in {secs:.1f} s (by source: " + ", ".join(
+        f"{src} {t} s" for src, t in re.findall(r"^nvcc (\S+): ([\d.]+) s$", log, re.M)) + ")")
     for line in ptxas_report(log):
         print("  ptxas:", line)
     build.kernels()
     t0 = time.perf_counter()
     print(f"built {os.path.relpath(native.build(), ROOT)} (the host mesher) in "
           f"{time.perf_counter() - t0:.1f} s")
+    clock.lap("build")
 
     cfg = load_cfg(CONFIG)
     fc = field_config_from_cfg(cfg)
@@ -4307,6 +4371,7 @@ def main() -> int:
                                     rcfg_steady)
     kres.update(rres)
     fails += rfails
+    clock.lap("kernel checks")
 
     # serving: launches are counted from here on
     serve_k = {"sdf_mlp": fused_sdf_head, "up_sample": up_sample_round, "dda": dda_traverse,
@@ -4360,6 +4425,7 @@ def main() -> int:
         fails += gfails
         for n, v in got.items():
             serve_graph[n] = serve_graph.get(n, 0) + v
+    clock.lap("serving")
     # the kernel modes' served frames as one graph: 'pallas' (K3) and
     # 'pallas_field' with FUSED_BG (K6, K8), both phases, each frame held to
     # the eager one bit for bit
@@ -4373,6 +4439,7 @@ def main() -> int:
             fails += gfails
             for n, v in got.items():
                 serve_graph_k[n] = serve_graph_k.get(n, 0) + v
+    clock.lap("serving graphs, kernel modes")
     # the render debug trace on the steady frame's first rays, its PLYs in build/
     fails += trace_render_check(model, fc, rcfg_steady, scene, frames[1], fine_grid, sfm_grid,
                                 fine_host, os.path.join(ROOT, "build", "trace_render"))
@@ -4388,6 +4455,7 @@ def main() -> int:
     # kernel 5's port (K6, K7 + K5) and kernel 6's (K8, K9 + K5) at the
     # training path's shapes: 8192 x 30 foreground and 8192 x 11 background
     # points in the steady phase
+    clock.lap("serving")
     vres, vfails = vjp_kernel_phase(model, fc)
     fails += vfails
     kres.update(vres)
@@ -4398,6 +4466,7 @@ def main() -> int:
     bres, bfails = bg_kernel_phase(model, fc, TRAIN_BATCH, n_bg)
     fails += bfails
 
+    clock.lap("K3-K9 checks")
     # training: Adam steps of make_train_step over RayPool batches
     torch.cuda.reset_peak_memory_stats()
     rows, rgbs = training_rays()
@@ -4434,6 +4503,7 @@ def main() -> int:
     batch = pool.next_batch(TRAIN_BATCH)
     fails += step_parity(cfg, state.model, scene, batch, None, -1, "warm-up")
     fails += step_parity(cfg, state.model, scene, batch, fine_grid, fine_host.level, "steady")
+    clock.lap("training")
     # a captured window against eager steps from one state, on the device
     # pool of the same rays (the steady phase with its band cache)
     dpool = DeviceRayPool(pool, dev, seed=SEED)
@@ -4447,12 +4517,14 @@ def main() -> int:
     _, gfails = graph_parity(cfg, state, scene, dpool, fine_grid, fine_host.level, "steady",
                              profile=args.profile)
     fails += gfails
+    clock.lap("graph parity, vjp")
     # each kernel mode's captured window against its eager windows, then
     # every mode's windows timed eager against graph in turns
     for mode in GRAPH_MODES:
         _, gfails = graph_parity(cfg, state, scene, dpool, fine_grid, fine_host.level, "steady",
                                  profile=args.profile, mode=mode)
         fails += gfails
+    clock.lap("graph parity, kernel modes")
     rates, rate_launches, gfails = graph_rates(cfg, state, scene, dpool, fine_grid,
                                                fine_host.level, "steady")
     fails += gfails
@@ -4464,6 +4536,7 @@ def main() -> int:
         f"{label} " + ", ".join(f"{m} {r[m]:.1f}" for m in TRAIN_MODES)
         for label, r in rps_train.items()))
 
+    clock.lap("graph rates")
     # extraction: K6 and K1 f32 against their plain versions, then the
     # served field through extract_mesh_cli at EXTRACT_LEVEL. Not the trained
     # one: 28 steps on the synthetic sphere leave it no closed surface
@@ -4496,6 +4569,7 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     fails += xfails
 
+    clock.lap("extraction, reprojection filter")
     # the training CLI at full width, then tests/test_e2e.py's gate, through
     # the port's entry points (train_cli, extract_mesh_cli, eval_mesh,
     # render_cli); each CLI call's launches counted on their own
@@ -4507,17 +4581,20 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     fails += pfails
+    clock.lap("prep")
     cli_runs = {}
     for label, phase in (("train_cli", trainer_phase), ("e2e", e2e_gate_phase)):
         torch.cuda.reset_peak_memory_stats()
         root = tempfile.mkdtemp(prefix=label + "_", dir=os.path.join(ROOT, "build"))
         try:
             got, pfails = phase(root, "cuda", card=card)
+            clock.lap(label)
             if label == "train_cli":
                 # SSIM and LPIPS on the trained field's held-out view and a
                 # seeded batch, on the card against float64 on the CPU
                 pfails += image_metrics_phase({"held-out view": held_out_view_pair(root),
                                                "seeded batch": metric_images()}, "cuda", card)
+                clock.lap("image metrics")
                 # data parallelism from the trained checkpoint: its ranks'
                 # launches count under "train_cli multi_rank ..."
                 from neuralrecon_w_tpu_torch.training.checkpoint import latest_checkpoint
@@ -4527,12 +4604,14 @@ def main() -> int:
                                                          "checkpoints")), "cuda", card)
                 got.update(ranked)
                 pfails += mfails
+                clock.lap("multi-rank")
         finally:
             shutil.rmtree(root, ignore_errors=True)
         fails += pfails
         cli_runs.update({f"{label} {run}": v for run, v in got.items()})
         print(f"peak device memory in {label} {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    print(clock.line())
     if fails:
         print("FAILED: " + "; ".join(fails), file=sys.stderr)
         return 1

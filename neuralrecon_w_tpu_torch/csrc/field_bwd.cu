@@ -225,6 +225,71 @@ int launch(const float* pts, const float* dirs, const float* app, const float* c
 
 }  // namespace
 
+// nw_field_bwd's parameters, and its body for one activation dtype. Each
+// dtype's kernel builds from a source of its own, so that the two
+// instantiations, which take most of the kernels' build, compile in
+// parallel: this file builds the bfloat16 one and the entry, and
+// field_bwd_f32.cu includes it with NW_FIELD_BWD_F32 defined for the float
+// one (nw::field_bwd_f32).
+#define NW_FIELD_BWD_PARAMS                                                                    \
+  const float* pts, const float* dirs, const float* app, const float* cot, long long n_pts,      \
+      const void* w, const float* b, int bf16_act, int n_layers, int multires, float scale,     \
+      int skip_mask, const int* k, const int* n, const int* kpad, const int* npad,              \
+      const long long* w_off, const long long* wt_off, const int* b_off, const void* cw,        \
+      const float* cb, int c_layers, int n_static, int multires_view, int n_a, const int* ck,   \
+      const int* cn, const int* ckpad, const int* cnpad, const long long* cw_off,               \
+      const long long* cwt_off, const int* cb_off, float* work, long long work_rows,            \
+      int work_slots, float* dx, float* d_dirs, float* d_a, void* stream
+#define NW_FIELD_BWD_ARGS                                                                       \
+  pts, dirs, app, cot, n_pts, w, b, bf16_act, n_layers, multires, scale, skip_mask, k, n, kpad,  \
+      npad, w_off, wt_off, b_off, cw, cb, c_layers, n_static, multires_view, n_a, ck, cn, ckpad, \
+      cnpad, cw_off, cwt_off, cb_off, work, work_rows, work_slots, dx, d_dirs, d_a, stream
+
+namespace {
+
+template <typename ActT>
+int field_bwd_as(NW_FIELD_BWD_PARAMS) {
+  Net net;
+  Color col;
+  if (make_net(n_layers, multires, scale, skip_mask, k, n, kpad, npad, w_off, wt_off, b_off,
+               &net) ||
+      make_color(c_layers, n_static, multires_view, n_a, n[n_layers - 1] - 1, ck, cn, ckpad,
+                 cnpad, cw_off, cwt_off, cb_off, &col) ||
+      !color_fits<ActT>(col) ||
+      work_rows < ((n_pts + 63) / 64) * 64 ||
+      work_slots < 6 * n_layers + color_slots(c_layers))
+    return -1;
+  SchedMaker sb;
+  sb.F(net);
+  sb.last(net);
+  color_fwd_sched(sb, col, 0, n_static + 1);
+  sb.G(net);
+  color_fwd_sched(sb, col, n_static + 1, c_layers);
+  for (int i = c_layers - 1; i >= 2; --i)
+    sb.add(1, col.wt_off[i], col.npad[i], col.kpad[i], col.npad[i]);
+  for (int j0 = ((col.k[1] - 1) / NMAX) * NMAX; j0 >= 0; j0 -= NMAX) {
+    const int rows = col.kpad[1] - j0 < NMAX ? col.kpad[1] - j0 : NMAX;
+    sb.add(1, col.wt_off[1] + (long long)j0 * col.npad[1], col.npad[1], rows, col.npad[1]);
+  }
+  sb.add(1, col.wt_off[0], col.npad[0], col.kpad[0], col.npad[0]);
+  sb.backward(net);
+  if (!sb.ok) return -1;
+  Work wk{work, work_rows, n_layers, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_pts <= 0) return 0;
+  return launch<ActT>(pts, dirs, app, cot, n_pts, w, b, net, cw, cb, col, sb.s, wk, dx, d_dirs,
+                      d_a, s);
+}
+
+}  // namespace
+
+namespace nw {
+int field_bwd_f32(NW_FIELD_BWD_PARAMS);
+}
+
+#ifdef NW_FIELD_BWD_F32
+int nw::field_bwd_f32(NW_FIELD_BWD_PARAMS) { return field_bwd_as<float>(NW_FIELD_BWD_ARGS); }
+#else
 // Returns a cudaError_t value (0 = launched) or -1 for shapes the kernel
 // does not take. The SDF arguments are nw_sdf_vjp_bwd's (sdf_vjp.cu), the
 // colour net's nw_field_fwd's (field_fwd.cu) with, per layer, npad and the
@@ -247,36 +312,7 @@ extern "C" int nw_field_bwd(const float* pts, const float* dirs, const float* ap
                             const long long* cwt_off, const int* cb_off, float* work,
                             long long work_rows, int work_slots, float* dx, float* d_dirs,
                             float* d_a, void* stream) {
-  Net net;
-  Color col;
-  if (make_net(n_layers, multires, scale, skip_mask, k, n, kpad, npad, w_off, wt_off, b_off,
-               &net) ||
-      make_color(c_layers, n_static, multires_view, n_a, n[n_layers - 1] - 1, ck, cn, ckpad,
-                 cnpad, cw_off, cwt_off, cb_off, &col) ||
-      !(bf16_act ? color_fits<bf16>(col) : color_fits<float>(col)) ||
-      work_rows < ((n_pts + 63) / 64) * 64 ||
-      work_slots < 6 * n_layers + color_slots(c_layers))
-    return -1;
-  SchedMaker sb;
-  sb.F(net);
-  sb.last(net);
-  color_fwd_sched(sb, col, 0, n_static + 1);
-  sb.G(net);
-  color_fwd_sched(sb, col, n_static + 1, c_layers);
-  for (int i = c_layers - 1; i >= 2; --i)
-    sb.add(1, col.wt_off[i], col.npad[i], col.kpad[i], col.npad[i]);
-  for (int j0 = ((col.k[1] - 1) / NMAX) * NMAX; j0 >= 0; j0 -= NMAX) {
-    const int rows = col.kpad[1] - j0 < NMAX ? col.kpad[1] - j0 : NMAX;
-    sb.add(1, col.wt_off[1] + (long long)j0 * col.npad[1], col.npad[1], rows, col.npad[1]);
-  }
-  sb.add(1, col.wt_off[0], col.npad[0], col.kpad[0], col.npad[0]);
-  sb.backward(net);
-  if (!sb.ok) return -1;
-  Work wk{work, work_rows, n_layers, 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_pts <= 0) return 0;
-  return bf16_act ? launch<bf16>(pts, dirs, app, cot, n_pts, w, b, net, cw, cb, col, sb.s, wk, dx,
-                                 d_dirs, d_a, s)
-                  : launch<float>(pts, dirs, app, cot, n_pts, w, b, net, cw, cb, col, sb.s, wk,
-                                  dx, d_dirs, d_a, s);
+  return bf16_act ? field_bwd_as<bf16>(NW_FIELD_BWD_ARGS)
+                  : nw::field_bwd_f32(NW_FIELD_BWD_ARGS);
 }
+#endif

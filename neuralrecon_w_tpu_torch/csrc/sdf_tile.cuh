@@ -36,10 +36,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <map>
-#include <mutex>
 #include <type_traits>
-#include <utility>
 
 #include "tile_mma.cuh"
 
@@ -776,31 +773,17 @@ struct SchedMaker {
   }
 };
 
-// A kernel's launch attributes, set once per kernel and device (again only
-// for a larger shared-memory size): its dynamic shared memory and, with
-// max_carveout, the largest shared-memory carveout. No cudaFuncSetAttribute
-// then lands inside a CUDA graph capture or in front of every launch; the
-// first setting's error is kept and returned on every later call.
+// A kernel's launch attributes before its launch: its dynamic shared memory
+// and, with max_carveout, the largest shared-memory carveout. Neither call
+// is a stream operation, so a launch inside a CUDA graph capture sets them
+// as an eager one does.
 template <typename K>
 int prepare(K kernel, size_t smem, bool max_carveout = false) {
-  struct Set {
-    size_t smem;
-    int err;
-  };
-  static std::mutex mu;
-  static std::map<std::pair<const void*, int>, Set> done;
-  int dev = 0;
-  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
-  std::lock_guard<std::mutex> lock(mu);
-  Set& s = done[{reinterpret_cast<const void*>(kernel), dev}];
-  if (s.err || (s.smem && smem <= s.smem)) return s.err;
-  s.err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem);
-  if (!s.err && max_carveout)
-    s.err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                      (int)cudaSharedmemCarveoutMaxShared);
-  s.smem = smem;
-  return s.err;
+  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (!err && max_carveout)
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                    (int)cudaSharedmemCarveoutMaxShared);
+  return err;
 }
 
 }  // namespace

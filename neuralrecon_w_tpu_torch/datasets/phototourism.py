@@ -260,36 +260,51 @@ def build_image_rays(meta: SceneMeta, id_: int, with_semantics: bool = True,
     return np.concatenate(cols, axis=1), rgbs
 
 
-def apply_voxel_near_far(rays: np.ndarray, rgbs: np.ndarray, meta: SceneMeta,
-                         chunk: int = 262144, device=None):
-    """Near / far replaced by voxel-band intersections and the rays that
-    miss the SFM grid dropped (reference phototourism.py:638-657): which
-    rays are kept from the expand=1 / radius=1 grid, near / far from the
-    expand=2 / radius=1.5 grid. The DDA runs on ``device`` (default: the
-    card)."""
-    import torch
-
+def voxel_band_grids(meta: SceneMeta, device=None) -> tuple:
+    """The two SFM grids of ``apply_voxel_near_far`` on ``device`` (default:
+    the card): ((tight device grid, level), (wide device grid, level)), the
+    expand=1 / radius=1 grid that decides which rays are kept and the
+    expand=2 / radius=1.5 one that gives near / far (reference
+    phototourism.py:638-657). A scene's images share them."""
     from ..device import default_device
-    from ..ops.ray_voxel import device_grid_from_host, grid_near_far
+    from ..ops.ray_voxel import device_grid_from_host
     from ..ops.voxel_grid import grid_from_sfm_points
 
     device = default_device(device)
     sc = meta.scene_config
     vs = float(sc["voxel_size"])
-    tight = grid_from_sfm_points(sc, meta.points3d, sc["min_track_length"], vs, expand=1,
-                                 radius=1.0)
-    wide = grid_from_sfm_points(sc, meta.points3d, sc["min_track_length"], vs, expand=2,
-                                radius=1.5)
-    d_tight = device_grid_from_host(tight, device)
-    d_wide = device_grid_from_host(wide, device)
+    out = []
+    for expand, radius in ((1, 1.0), (2, 1.5)):
+        g = grid_from_sfm_points(sc, meta.points3d, sc["min_track_length"], vs, expand=expand,
+                                 radius=radius)
+        out.append((device_grid_from_host(g, device), g.level))
+    return tuple(out)
+
+
+def apply_voxel_near_far(rays: np.ndarray, rgbs: np.ndarray, meta: SceneMeta,
+                         chunk: int = 262144, device=None, grids: tuple | None = None):
+    """Near / far replaced by voxel-band intersections and the rays that
+    miss the SFM grid dropped (reference phototourism.py:638-657): which
+    rays are kept from the expand=1 / radius=1 grid, near / far from the
+    expand=2 / radius=1.5 grid. The DDA runs on ``device`` (default: the
+    card); ``grids``, ``voxel_band_grids(meta, device)`` where a caller
+    filters many images of one scene, else built here."""
+    import torch
+
+    from ..device import default_device
+    from ..ops.ray_voxel import grid_near_far
+
+    device = default_device(device)
+    vs = float(meta.scene_config["voxel_size"])
+    (d_tight, tight_level), (d_wide, wide_level) = grids or voxel_band_grids(meta, device)
 
     valid_all, near_all, far_all = [], [], []
     with torch.no_grad():
         for i in range(0, len(rays), chunk):
             o = torch.from_numpy(np.ascontiguousarray(rays[i:i + chunk, 0:3])).to(device)
             d = torch.from_numpy(np.ascontiguousarray(rays[i:i + chunk, 3:6])).to(device)
-            _, _, v1 = grid_near_far(d_tight, tight.level, o, d)
-            nr, fr, _ = grid_near_far(d_wide, wide.level, o, d)
+            _, _, v1 = grid_near_far(d_tight, tight_level, o, d)
+            nr, fr, _ = grid_near_far(d_wide, wide_level, o, d)
             valid_all.append(v1.cpu().numpy())
             near_all.append(nr.cpu().numpy())
             far_all.append(fr.cpu().numpy() + vs)

@@ -7,9 +7,11 @@ caller's allocator, the graph's pool under capture), packs the weights
 from the tensors it is given on every call (so a replay reads the weights
 as they are then, after an in-place update), passes the per-layer tables
 as host arrays read while the launch is set up, and reads nothing back
-to the host; the tile-pass kernels (K3-K9) set their launch attributes
-once (``csrc/sdf_tile.cuh`` ``prepare``). A wrapper's ``launches`` ticks when it issues a launch,
-eagerly or into a capture: a graph's replays are not counted."""
+to the host; the tile-pass kernels' (K3-K9) launch attributes are set
+before each launch (``csrc/sdf_tile.cuh`` ``prepare``), which is no stream
+operation and so is legal under capture. A wrapper's ``launches`` ticks
+when it issues a launch, eagerly or into a capture: a graph's replays are
+not counted."""
 
 
 def kernel_counters() -> dict:

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -91,8 +92,20 @@ def build() -> tuple:
     procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(_sources(), objs)]
-    outs = [proc.communicate()[0] for proc in procs]
-    log = "".join(outs)
+    outs, done = [""] * len(procs), [0.0] * len(procs)
+
+    def drain(i):
+        outs[i] = procs[i].communicate()[0]
+        done[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=drain, args=(i,)) for i in range(len(procs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    # each source's compile wall closes its part of the log
+    log = "".join(f"{out}nvcc {os.path.basename(src)}: {secs:.1f} s\n"
+                  for src, out, secs in zip(_sources(), outs, done))
     if any(proc.returncode for proc in procs):
         raise RuntimeError(f"nvcc failed:\n{log}")
     link = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs], capture_output=True, text=True)

@@ -57,12 +57,15 @@ class DeviceGrid(NamedTuple):
     voxel_size: float  # cell edge in SFM units (float32 value)
 
 
-def device_grid_from_host(grid: VoxelGrid, device=None) -> DeviceGrid:
+def device_grid_from_host(grid: VoxelGrid, device=None, occ: torch.Tensor | None = None
+                          ) -> DeviceGrid:
     """A host grid (``ops/voxel_grid.VoxelGrid``, or the JAX package's,
-    which has the same fields) on ``device`` (default: the card)."""
+    which has the same fields) on ``device`` (default: the card); ``occ``,
+    its occupancy words where the caller built them on ``device``."""
     device = default_device(device)
     return DeviceGrid(
-        occ=torch.from_numpy(grid.occupancy_words().view(np.int32)).to(device),
+        occ=(torch.from_numpy(grid.occupancy_words().view(np.int32)).to(device) if occ is None
+             else occ),
         origin=torch.as_tensor(np.asarray(grid.origin, np.float32), device=device),
         scale=float(np.float32(grid.scale)),
         voxel_size=float(np.float32(grid.voxel_size)),

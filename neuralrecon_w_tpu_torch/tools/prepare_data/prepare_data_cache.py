@@ -44,7 +44,7 @@ def main(argv=None):
     from ...datasets.cache import write_ray_cache
     from ...datasets.phototourism import (SCENE_DEFAULTS, apply_voxel_near_far,
                                           build_image_rays, load_scene_meta,
-                                          oversample_depth_rays)
+                                          oversample_depth_rays, voxel_band_grids)
 
     scene = os.path.basename(os.path.normpath(args.root_dir))
     depth_percent = (args.depth_percent if args.depth_percent >= 0
@@ -57,13 +57,18 @@ def main(argv=None):
 
     rng = np.random.RandomState(0)
     rays_list, rgbs_list = [], []
-    voxel_s = 0.0
+    voxel_s, grids = 0.0, None
+    if not args.no_voxel_filter:
+        t0 = time.perf_counter()
+        grids = voxel_band_grids(meta, args.device)
+        voxel_s += time.perf_counter() - t0
     for id_ in meta.img_ids_train:
         rays, rgbs = build_image_rays(meta, id_, with_semantics=not args.no_semantics,
                                       semantic_map_path=args.semantic_map_path)
         if not args.no_voxel_filter:
             t0 = time.perf_counter()
-            rays, rgbs = apply_voxel_near_far(rays, rgbs, meta, device=args.device)
+            rays, rgbs = apply_voxel_near_far(rays, rgbs, meta, device=args.device,
+                                              grids=grids)
             voxel_s += time.perf_counter() - t0
         rays, rgbs = oversample_depth_rays(rays, rgbs, depth_percent, rng)
         print(f"image {id_}: {len(rays)} rays")

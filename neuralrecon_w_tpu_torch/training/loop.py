@@ -370,8 +370,7 @@ class Trainer:
                                           nerf_far_override=False)
             self._steps[key] = make_scan_train_fn(
                 self.fc, rcfg, self.lcfg, self.anneal_end, self.ray_mask_ids, batch_size,
-                n_inner, seed=int(self.cfg.TRAINER.SEED) + 1,
-                graph=self.device.type == "cuda")
+                n_inner, seed=int(self.cfg.TRAINER.SEED) + 1)
             self._scan_runs.append(self._steps[key])
         return self._steps[key]
 

@@ -213,11 +213,14 @@ class ScanRun:
 
     def __call__(self, state: TrainState, scene, pool_data: dict, fine_grid=None, sfm_grid=None,
                  perm=None, start=None):
-        dev = pool_data["rays"].device
-        use_graph = dev.type == "cuda" if self.graph is None else self.graph
-        if use_graph:
+        if self.captures_on(pool_data["rays"].device):
             return self._replay(state, scene, pool_data, fine_grid, sfm_grid, perm, start)
         return self._loop(state, scene, pool_data, fine_grid, sfm_grid, perm, start)
+
+    def captures_on(self, device) -> bool:
+        """Whether a call on ``device`` replays a graph: ``graph`` if given,
+        else the device decides (the card captures, the CPU loops)."""
+        return torch.device(device).type == "cuda" if self.graph is None else self.graph
 
     def _data_generator(self, dev) -> torch.Generator:
         """The with-replacement draw's generator (``perm`` None)."""

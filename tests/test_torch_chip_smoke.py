@@ -311,8 +311,11 @@ print("ok")
     out = proc.stdout
     for mode in ("pallas", "pallas_field", "fwd"):
         assert f"graph vs eager steady {mode} f32 PERTURB 0, 2 steps" in out, mode
-    # 'pallas' and 'pallas_field' run K5: two graph and two eager windows
-    assert out.count("graph against graph / eager against eager") == 2
+    # 'pallas' and 'pallas_field' run K5: three eager and two graph windows,
+    # the bounds from the eager ones, the graph pair held to them
+    assert out.count("the 3 eager windows' spread") == 2
+    assert out.count("graph against graph (held to the same bounds)") == 2
+    assert out.count("wall (eager, graph, eager, graph, eager)") == 2
     assert out.count("graph rates steady") == 5 and "0 capture, 0 replays" in out
     assert out.strip().endswith("ok")
 
@@ -396,8 +399,9 @@ def test_chip_smoke_trainer_phase_without_jax_package(tmp_path):
     """trainer_phase at a tiny width on the CPU, the kernels' plain versions
     standing in: the port's workspace and ray cache, train_cli with two
     refreshes, saves and a validation, then the resumes in 'pallas_field'
-    with FUSED_BG (its checkpoint rendered through render_cli's scan and
-    chunk dispatch) and in 'fwd', every refresh held to the plain SDF, the
+    with FUSED_BG on the host pool (its checkpoint rendered through
+    render_cli's scan and chunk dispatch) and on the device pool, and in
+    'fwd', every refresh held to the plain SDF, the
     held-out view rendered for the image metrics; then the same run on
     the device pool in windows of 2 steps (the plain loop on the CPU), its
     band cache held to the plain DDA, and its resume; every check passing,
@@ -413,18 +417,18 @@ cs.TRAINER_CAMS, cs.IMG_WH, cs.TRAINER_POINTS, cs.TRAIN_BATCH = 5, (24, 18), 150
 cs.TRAINER_STEPS, cs.TRAINER_UPDATE, cs.TRAINER_VAL, cs.REFRESH_CHECK_PTS = 6, 2, 5, 4096
 cs.TRAINER_LOG, cs.TRAINER_CAM_DIST = 1, 1.7  # the 4 x 64 init crosses near |x| 0.5
 cs.POOL_SCAN_INNER = 2
-cs.TRAINER_RESUME = 2  # a resume within one refresh interval, as on the card
 extra = {{"NEUCONW": {{"SDF_CONFIG": {{"d_hidden": 64, "d_out": 65, "n_layers": 4, "skip_in": [2]}},
                      "COLOR_CONFIG": {{"d_feature": 64, "d_hidden": 32, "n_layers": 2}},
                      "N_VOCAB": 8}}}}
 launches, fails = cs.trainer_phase({str(tmp_path)!r}, "cpu", extra, sfm_voxel=0.1875,
                                    train_voxel=0.05, fine_level=6)
 assert fails == [], fails
-assert set(launches) == {{"trainer", "render_scan", "render_chunk", "resume", "resume_graph",
-                         "render_pallas_field_scan", "render_pallas_field_chunk", "resume_fwd",
-                         "resume_fwd_graph", "device_pool", "device_pool_resume"}}
-# the resumes' windows run the plain loop on the CPU: no replayed launch
-assert not any(launches["resume_graph"].values()) and not any(
+assert set(launches) == {{"trainer", "render_scan", "render_chunk", "resume",
+                         "render_pallas_field_scan", "render_pallas_field_chunk", "resume_pool",
+                         "resume_pool_graph", "resume_fwd", "resume_fwd_graph", "device_pool",
+                         "device_pool_resume"}}
+# the device-pool resumes' windows run the plain loop on the CPU: no graph
+assert not any(launches["resume_pool_graph"].values()) and not any(
     launches["resume_fwd_graph"].values())
 pred, gt = cs.held_out_view_pair({str(tmp_path)!r}, "cpu")
 assert pred.shape == gt.shape == (1, 18, 24, 3) and pred.dtype == gt.dtype == np.float32

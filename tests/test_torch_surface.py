@@ -133,3 +133,37 @@ def test_octree_update_keeps_nothing():
     g = voxel_grid.grid_from_points(shell_points(), [-1, -1, -1], [1, 1, 1], 0.5, expand=0)
     assert surface.octree_update(model, fc, g, SCENE, np.zeros(3), 1.0, 0.3, -1e6,
                                  chunk=256) == (None, None)
+
+
+@pytest.mark.parametrize("threshold", [0.0, 0.05])
+def test_octree_update_is_the_quantised_selection(threshold):
+    """The refresh builds its grid on the model's device from the densified
+    cells it keeps: the host grid equals the reference's quantisation of
+    surface_selection's kept centres into the cube, the device words equal
+    the host grid's packed bitfield, and the candidates are the host
+    upsample's, bit for bit."""
+    cfg = small_cfg()
+    _, model, fc = make_pair(cfg)
+    g = voxel_grid.grid_from_points(shell_points(), [-1, -1, -1], [1, 1, 1], 0.1, expand=1)
+    origin, radius = np.array([0.1, -0.2, 0.05]), 1.3
+    host, dev = surface.octree_update(model, fc, g, SCENE, origin, radius, 0.03, threshold,
+                                      chunk=4096)
+    level = surface.surface_level(SCENE, 0.03)
+    centers_sfm, centers_unit = surface.surface_selection(model, fc, g, level, origin, radius,
+                                                          threshold, chunk=4096)
+    # the host path: upsample, centres, the same sweep
+    dense = g.upsample(level)
+    want_sfm = dense.centers_sfm()
+    want_unit = (want_sfm - origin) / radius
+    kept = surface.sharded_sdf_sweep(model, fc, want_unit.astype(np.float32), 4096,
+                                     "cpu") <= threshold
+    np.testing.assert_array_equal(centers_sfm, want_sfm[kept])
+    np.testing.assert_array_equal(centers_unit, want_unit[kept])
+    res = 1 << level
+    cells = np.clip(np.floor(((centers_sfm - g.origin) / g.scale + 1.0) / 2.0 * res), 0, res - 1)
+    np.testing.assert_array_equal(host.coords, voxel_grid._sort_coords(cells.astype(np.int64),
+                                                                       level))
+    assert host.coords.dtype == np.int32 and 0 < len(host.coords) < len(dense.coords)
+    ref = surface.device_grid_from_host(host, "cpu")
+    assert torch.equal(dev.occ, ref.occ) and torch.equal(dev.origin, ref.origin)
+    assert (dev.scale, dev.voxel_size) == (ref.scale, ref.voxel_size)

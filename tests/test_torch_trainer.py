@@ -438,11 +438,10 @@ def test_profile_window_and_tensorboard_mirror(workspace, tmp_path):
 
 @pytest.mark.parametrize("mode", ["vjp", "pallas", "pallas_hybrid", "pallas_field", "fwd"])
 def test_scan_window_graph_follows_the_device_alone(workspace, tmp_path, monkeypatch, mode):
-    """The Trainer's multi-step runs ask make_scan_train_fn for a CUDA graph
-    exactly when it trains on the card, in every SDF_GRAD_MODE ('pallas_field'
-    with FUSED_BG): the CPU Trainer gets the plain loop, and the same
-    Trainer with a CUDA device (make_scan_train_fn builds nothing on it) a
-    graph, in both phases."""
+    """The Trainer's multi-step runs leave the graph to make_scan_train_fn,
+    in every SDF_GRAD_MODE ('pallas_field' with FUSED_BG): it asks for none
+    (``graph`` None), so each run captures exactly when its tensors lie on
+    the card and loops on the CPU, in both phases."""
     cfg_path, _ = workspace
     cfg = port_cfg(cfg_path)
     cfg.TPU.SDF_GRAD_MODE = mode
@@ -454,13 +453,14 @@ def test_scan_window_graph_follows_the_device_alone(workspace, tmp_path, monkeyp
     real = loop.make_scan_train_fn
 
     def spy(*args, **kw):
-        asked.append(kw["graph"])
+        asked.append(kw.get("graph"))
         return real(*args, **kw)
 
     monkeypatch.setattr(loop, "make_scan_train_fn", spy)
     tr._get_scan_run(False, BATCH, 3)
-    tr.device = torch.device("cuda", 0)
-    tr._get_scan_run(False, BATCH, 4)
     tr._get_scan_run(True, BATCH, 4)
-    assert asked == [False, True, True]
-    assert [r.graph for r in tr.scan_runs()] == asked
+    assert asked == [None, None]
+    runs = tr.scan_runs()
+    assert [r.graph for r in runs] == [None, None]
+    assert all(r.captures_on(torch.device("cuda", 0)) and not r.captures_on("cpu")
+               for r in runs)
