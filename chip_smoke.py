@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port: its serving path (eager and
 as a CUDA graph), its training step, mesh extraction, the reprojection
-filter, the training CLI up to the e2e gate, and data parallelism.
+filter, the training CLI up to the e2e gate, and data and tensor
+parallelism.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -187,6 +188,23 @@ within rel-L2 1e-5 per parameter of one rank's step on the whole batch; it
 prints the per-step wall of two ranks and of one on that batch, the flat
 all-reduce's size and time for NCCL (one rank) and gloo (two), and each
 rank's refresh walls.
+
+Tensor parallelism (``tensor_parallel_phase``, after the data-parallel
+phase, from the same checkpoint): two ranks on the one card over gloo, one
+data shard and a model axis of 2, the field split by
+``parallel.mesh.field_param_specs`` (65 column, 5 row, 1 vocab, 9 whole
+parameters at full width) through ``parallel.tensor.shard_field``; two
+float32 Adam steps at PERTURB 0 on one fixed batch of 8192 rays in 'vjp'
+(the field split through ``models.layers.tp_linear``; the sampler's K1
+and K2 on the gathered SDF weights) and in 'pallas' (K3-K5 on the
+gathered weights), each against one rank with no group from the same
+state: every step's loss within rtol 1e-5, every parameter gathered
+within 1e-4, the first step's gathered gradients within 1e-3 of one
+rank's leaf by leaf, the whole parameters bit for bit on both ranks; one
+bf16 step at the operating point on those rays finite; K1 and K2 (and K3-K5 in 'pallas')
+launched on each rank. It prints the spec counts, each rank's step wall
+against one rank's, the model axis's all-reduce and all-gather calls and
+bytes in a step, and gloo's rate between the ranks, timed at 256 MB.
 
 The last lines are the card line, a JSON object with one entry per
 kernel (K1 and K2 with their serving launches, K3 to K5 and K7 to K9 with
@@ -2972,6 +2990,38 @@ def grads_rel_l2(got: dict, want: dict) -> dict:
             for k in want}
 
 
+def fixed_step_spec(cfg_path: str, ck: str, pool, sc: dict, step0: int, dev, n: int) -> dict:
+    """``testing/ranks.one_step``'s spec from the checkpoint ``ck`` under
+    the config at ``cfg_path`` in float32 at PERTURB 0 (no fine grid): the
+    fixed batch of ``n`` rows of ``pool`` (``fixed_global_batch``), the
+    scene ``sc``, the optimiser at batch ``n``."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.config import (
+        field_config_from_cfg, load_cfg, render_config_from_cfg)
+    from neuralrecon_w_tpu_torch.datasets.mask_utils import get_label_id_mapping
+    from neuralrecon_w_tpu_torch.training.checkpoint import load_field
+    from neuralrecon_w_tpu_torch.training.losses import loss_config_from_cfg
+    from neuralrecon_w_tpu_torch.training.schedule import make_optimizer
+
+    cfg32 = load_cfg(cfg_path)
+    cfg32.TPU.FIELD_DTYPE = "float32"
+    cfg32.NEUCONW.PERTURB = 0.0
+    fc32 = field_config_from_cfg(cfg32)
+    lid = get_label_id_mapping()
+    mask_ids = tuple(lid[x] for x in cfg32.NEUCONW.RAY_MASK_LIST)
+    return {"fc": fc32, "rcfg": render_config_from_cfg(cfg32, sfm_level=-1, fine_level=-1,
+                                                      nerf_far_override=False),
+            "lcfg": loss_config_from_cfg(cfg32), "anneal_end": int(cfg32.NEUCONW.ANNEAL_END),
+            "mask_ids": mask_ids, "seed": int(cfg32.TRAINER.SEED) + 1,
+            "optimizer": make_optimizer(cfg32, n)[0],
+            "state_dict": {k: v.cpu() for k, v in load_field(ck, fc32, dev).state_dict().items()},
+            "batch": fixed_global_batch(pool, n, mask_ids[0]), "step": step0,
+            "scene": (np.asarray(sc["origin"], np.float32), np.float32(sc["radius"]),
+                      np.asarray(sc["sfm2gt"], np.float32)),
+            "device": str(dev)}
+
+
 def multi_rank_phase(root: str, ck: str, device: str = "cuda", card: str = "the CPU",
                      extra_cfg: dict | None = None, train_voxel: float = TRAINER_VOXEL):
     """Data parallelism from the checkpoint ``ck`` of the workspace at
@@ -2979,16 +3029,13 @@ def multi_rank_phase(root: str, ck: str, device: str = "cuda", card: str = "the 
     import numpy as np
     import torch
 
-    from neuralrecon_w_tpu_torch.config import (
-        field_config_from_cfg, load_cfg, render_config_from_cfg)
-    from neuralrecon_w_tpu_torch.datasets.mask_utils import get_label_id_mapping
+    from neuralrecon_w_tpu_torch.config import load_cfg, render_config_from_cfg
     from neuralrecon_w_tpu_torch.parallel import mesh
     from neuralrecon_w_tpu_torch.parallel.sweep import sharded_sdf_sweep
     from neuralrecon_w_tpu_torch.testing import ranks
-    from neuralrecon_w_tpu_torch.training.checkpoint import load_field, restore_checkpoint
+    from neuralrecon_w_tpu_torch.training.checkpoint import restore_checkpoint
     from neuralrecon_w_tpu_torch.training.loop import Trainer, TrainerConfig
-    from neuralrecon_w_tpu_torch.training.losses import loss_config_from_cfg
-    from neuralrecon_w_tpu_torch.training.schedule import make_optimizer, scaled_lr
+    from neuralrecon_w_tpu_torch.training.schedule import scaled_lr
     from neuralrecon_w_tpu_torch.training.step import make_train_step
 
     t_phase = time.perf_counter()
@@ -3141,23 +3188,9 @@ def multi_rank_phase(root: str, ck: str, device: str = "cuda", card: str = "the 
                       if got[n] <= 0]
 
     # 3. the reduced gradient against one rank's, and the steps' walls
-    cfg32 = load_cfg(cfg_path)
-    cfg32.TPU.FIELD_DTYPE = "float32"
-    cfg32.NEUCONW.PERTURB = 0.0
-    fc32 = field_config_from_cfg(cfg32)
-    lid = get_label_id_mapping()
-    mask_ids = tuple(lid[x] for x in cfg32.NEUCONW.RAY_MASK_LIST)
-    spec = {"fc": fc32, "rcfg": render_config_from_cfg(cfg32, sfm_level=-1, fine_level=-1,
-                                                       nerf_far_override=False),
-            "lcfg": loss_config_from_cfg(cfg32), "anneal_end": int(cfg32.NEUCONW.ANNEAL_END),
-            "mask_ids": mask_ids, "seed": int(cfg32.TRAINER.SEED) + 1,
-            "optimizer": make_optimizer(cfg32, MULTI_BATCH)[0],
-            "state_dict": {k: v.cpu() for k, v in load_field(ck, fc32, dev).state_dict().items()},
-            "batch": fixed_global_batch(pool, MULTI_BATCH, mask_ids[0]), "step": step0,
-            "scene": (np.asarray(sc["origin"], np.float32), np.float32(sc["radius"]),
-                      np.asarray(sc["sfm2gt"], np.float32)),
-            "device": str(dev), "backend": "gloo", "time_steps": MULTI_TIMED,
-            "reduce_reps": MULTI_REDUCE_REPS}
+    spec = {**fixed_step_spec(cfg_path, ck, pool, sc, step0, dev, MULTI_BATCH),
+            "backend": "gloo", "time_steps": MULTI_TIMED, "reduce_reps": MULTI_REDUCE_REPS}
+    mask_ids = spec["mask_ids"]
     h = MULTI_BATCH // 2
     masked = [int(np.isin(spec["batch"]["labels"][i * h:(i + 1) * h], mask_ids).sum())
               for i in (0, 1)]
@@ -3188,6 +3221,160 @@ def multi_rank_phase(root: str, ck: str, device: str = "cuda", card: str = "the 
           f"{two[0]['reduce_ms']:.3f} / {two[1]['reduce_ms']:.3f} ms (rank 0 / 1); "
           f"{MULTI_REDUCE_REPS} reps")
     print(f"multi-rank phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, fails
+
+
+# the tensor-parallel phase (parallel/tensor.py) in the same workspace and
+# from the same checkpoint: two ranks on the one card over gloo, one data
+# shard split over a model axis of 2 by field_param_specs, and one rank with
+# no group, TP_STEPS Adam steps each from the checkpoint on one fixed batch
+# of TP_BATCH rays in float32 at PERTURB 0, in 'vjp' and in 'pallas' (K3-K5
+# on the gathered SDF weights): each step's loss within TP_LOSS_RTOL of one
+# rank's, every parameter gathered within TP_PARAM_ATOL (JAX's own TP
+# bounds, tests/test_training.py:207-214), the whole leaves bit for bit on
+# both ranks, and the first step's gradients, gathered, within TP_GRAD_RTOL
+# of one rank's, leaf by leaf relative to the leaf's largest: Adam's first
+# update does not see a gradient's scale, so a gradient n_model times too
+# large (the library all-reduce in a reduce's place) or a leaf counted
+# twice reads 1.0 here and passes the loss and parameter bounds. One bf16
+# step at the operating point (PERTURB 1) on the same batch finite; each
+# rank's runs launching TP_KERNELS[mode]. The model axis moves ~19 GB a
+# 'vjp' step at 8192 rays, and gloo between two ranks on one H100 runs at
+# ~1 GB/s: ~20 s a step (PERF.md section 6)
+TP_BATCH = 8192
+TP_STEPS = 2
+TP_LOSS_RTOL, TP_PARAM_ATOL = 1e-5, 1e-4
+TP_GRAD_RTOL = 1e-3
+TP_KERNELS = {"vjp": ("sdf_mlp", "up_sample"), "bf16": ("sdf_mlp", "up_sample"),
+              "pallas": MODE_KERNELS["pallas"]}
+# the model axis's all-reduce and all-gather timed at TP_WIRE_MB over
+# TP_WIRE_REPS calls: the rate that predicts the collectives' time in a step
+TP_WIRE_MB, TP_WIRE_REPS = 256, 3
+
+
+def tensor_parallel_phase(root: str, ck: str, device: str = "cuda", card: str = "the CPU",
+                          extra_cfg: dict | None = None, train_voxel: float = TRAINER_VOXEL):
+    """Tensor parallelism from the checkpoint ``ck`` of the workspace at
+    ``root`` (see TP_BATCH). Returns ({run: launches}, fails)."""
+    import numpy as np
+    import torch
+
+    from neuralrecon_w_tpu_torch.config import (
+        field_config_from_cfg, load_cfg, render_config_from_cfg)
+    from neuralrecon_w_tpu_torch.models.neuconw import NeuconWField
+    from neuralrecon_w_tpu_torch.parallel import mesh
+    from neuralrecon_w_tpu_torch.testing import ranks
+    from neuralrecon_w_tpu_torch.training.loop import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    fails = []
+    dev = torch.device("cpu" if device == "cpu" else "cuda:0")
+    cfg_path = write_cfg(os.path.join(root, "tp.yaml"), root, merged(
+        {"NEUCONW": {"TRAIN_VOXEL_SIZE": train_voxel}}, extra_cfg))
+    tr = Trainer(load_cfg(cfg_path), TrainerConfig(batch_size=TP_BATCH, ckpt_path=ck,
+                                                   exp_name="tp", save_dir=root), device=dev)
+    pool, sc, step0 = tr.load_rays(), tr.meta.scene_config, tr.state.step
+    del tr
+    spec = fixed_step_spec(cfg_path, ck, pool, sc, step0, dev, TP_BATCH)
+    del pool
+    cfg, cfg32 = load_cfg(cfg_path), load_cfg(cfg_path)
+    cfg32.TPU.FIELD_DTYPE, cfg32.TPU.SDF_GRAD_MODE = "float32", "pallas"
+    runs = [{"label": "vjp", "fc": spec["fc"], "n_steps": TP_STEPS},
+            {"label": "pallas", "fc": field_config_from_cfg(cfg32), "n_steps": TP_STEPS},
+            {"label": "bf16", "fc": field_config_from_cfg(cfg), "n_steps": 1,
+             "rcfg": render_config_from_cfg(cfg, sfm_level=-1, fine_level=-1,
+                                            nerf_far_override=False)}]
+    spec.update(runs=runs, backend="gloo", wire_mb=TP_WIRE_MB, wire_reps=TP_WIRE_REPS)
+    specs = mesh.field_param_specs(2, NeuconWField(spec["fc"], "cpu"))
+    kinds = {k: sum(1 for s in specs.values() if s == k) for k in ("col", "row", "vocab", None)}
+    print(f"tensor-parallel: field_param_specs over 2 model ranks: {kinds['col']} column, "
+          f"{kinds['row']} row ({', '.join(k for k, s in specs.items() if s == 'row')}), "
+          f"{kinds['vocab']} vocab, {kinds[None]} whole of {len(specs)} parameters; two ranks "
+          f"on {'one card' if device != 'cpu' else 'the CPU'} over gloo (n_data 1, n_model 2)")
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    out = os.path.join(root, "tp_rank{rank}.pt")
+    t0 = time.perf_counter()
+    mesh.spawn(ranks.tp_step_rank, 2, (2, 2, mesh.free_coordinator(), spec, out))
+    spawn_wall = time.perf_counter() - t0
+    two = [torch.load(out.format(rank=r), weights_only=False) for r in (0, 1)]
+    one = ranks.tp_step({**spec, "runs": runs[:2]})
+    for r in two:
+        if r["foreign_modules"]:
+            fails.append(f"tensor-parallel rank {r['rank']} loaded {r['foreign_modules']}")
+    ms = lambda w: w[-1] * 1e3  # noqa: E731  the last step's wall (the first warms up)
+    wire = two[0]["wire"]
+    rate = {k: wire["mb"] / wire[k] for k in ("all_reduce", "all_gather")}  # MB / ms
+    print(f"tensor-parallel gloo between the two ranks ({card}): all-reduce of "
+          f"{wire['mb']:.0f} MB {wire['all_reduce']:.1f} ms ({rate['all_reduce']:.3f} GB/s), "
+          f"all-gather of {wire['mb']:.0f} MB {wire['all_gather']:.1f} ms "
+          f"({rate['all_gather']:.3f} GB/s), {TP_WIRE_REPS} calls each")
+    for label in ("vjp", "pallas"):
+        a, b = (r[label] for r in two)
+        o = one[label]
+        loss_err = max(abs(x - y) / abs(y) for r in (a, b) for x, y in zip(r["losses"],
+                                                                           o["losses"]))
+        param_err = {k: float((a["params"][k] - v).abs().max()) for k, v in o["params"].items()}
+        worst = max(param_err, key=param_err.get)
+        whole_equal = a["whole_digests"] == b["whole_digests"]
+        pre_equal = a["pre_sync_digests"] == b["pre_sync_digests"]
+        gathered_equal = all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+        grad_err = {k: max(float((r["grads"][k] - g).abs().max() / g.abs().max().clamp_min(
+            1e-30)) for r in (a, b)) for k, g in o["grads"].items()}
+        worst_g = max(grad_err, key=grad_err.get)
+        ok = (loss_err <= TP_LOSS_RTOL and param_err[worst] <= TP_PARAM_ATOL and whole_equal
+              and gathered_equal and set(a["params"]) == set(o["params"])
+              and grad_err[worst_g] <= TP_GRAD_RTOL and set(a["grads"]) == set(o["grads"]))
+        print(f"tensor-parallel {label}: {TP_STEPS} f32 steps at PERTURB 0 on a fixed batch of "
+              f"{TP_BATCH} from step {step0}: losses {[f'{x:.7f}' for x in a['losses']]} / "
+              f"{[f'{x:.7f}' for x in b['losses']]} (rank 0 / 1) against one rank's "
+              f"{[f'{x:.7f}' for x in o['losses']]}: worst rel {loss_err:.2e} (bound "
+              f"{TP_LOSS_RTOL}); gathered parameters worst |diff| {param_err[worst]:.2e} "
+              f"({worst}; bound {TP_PARAM_ATOL}); the first step's gathered gradients worst "
+              f"{grad_err[worst_g]:.2e} of the leaf's largest ({worst_g}; bound "
+              f"{TP_GRAD_RTOL}); the {len(a['whole_digests'])} whole "
+              f"parameters {'bit for bit equal' if whole_equal else 'DIFFER'} on the two ranks "
+              f"(their gradients before the sync {'equal' if pre_equal else 'differ'}) -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"tensor-parallel {label}: loss rel {loss_err:.2e}, params "
+                         f"{param_err[worst]:.2e} ({worst}), gradients {grad_err[worst_g]:.2e} "
+                         f"({worst_g}), whole equal {whole_equal}, "
+                         f"gathered equal {gathered_equal}")
+        t = a["traffic"]
+        predicted = sum(t[k]["bytes"] / 1e6 / rate[k] for k in rate)
+        print(f"tensor-parallel {label} step wall ({card}): two ranks sharing "
+              f"{'one card' if device != 'cpu' else 'the CPU'} over gloo {ms(a['walls']):.1f} / "
+              f"{ms(b['walls']):.1f} ms (rank 0 / 1), one rank {ms(o['walls']):.1f} ms (the "
+              f"last of {TP_STEPS} steps); the model group's collectives in that step on rank "
+              f"0: all-reduce {t['all_reduce']['calls']} calls "
+              f"{t['all_reduce']['bytes'] / 1e6:.1f} MB, all-gather "
+              f"{t['all_gather']['calls']} calls {t['all_gather']['bytes'] / 1e6:.1f} MB, "
+              f"{predicted:.1f} ms at the timed gloo rates")
+    bf = [r["bf16"] for r in two]
+    finite = all(np.isfinite(r["losses"]).all() and all(bool(torch.isfinite(v).all())
+                                                         for v in r["params"].values())
+                 for r in bf)
+    print(f"tensor-parallel bf16: one step at the operating point (PERTURB "
+          f"{cfg.NEUCONW.PERTURB}) on the {TP_BATCH} rays: loss {bf[0]['losses'][0]:.6f} / {bf[1]['losses'][0]:.6f}, "
+          f"{'finite' if finite else 'NOT finite'}; wall {ms(bf[0]['walls']):.1f} ms ({card})")
+    if not finite or bf[0]["losses"] != bf[1]["losses"]:
+        fails.append(f"tensor-parallel bf16 step: finite {finite}, losses "
+                     f"{[r['losses'] for r in bf]}")
+    launches = {}
+    for r in two:
+        got = {k: sum(r[label]["launches"][k] for label in TP_KERNELS) for k in
+               r["vjp"]["launches"]}
+        launches[f"tensor_parallel rank{r['rank']}"] = got
+        print(f"launches in tensor-parallel rank {r['rank']}: " + "; ".join(
+            f"{label} " + ", ".join(f"{n} {v}" for n, v in r[label]["launches"].items() if v)
+            for label in TP_KERNELS))
+        if device != "cpu":
+            fails += [f"{n} not launched by tensor-parallel rank {r['rank']} in {label}"
+                      for label, names in TP_KERNELS.items() for n in names
+                      if r[label]["launches"][n] <= 0]
+    print(f"tensor-parallel phase: {time.perf_counter() - t_phase:.1f} s (the two ranks' spawn "
+          f"to exit {spawn_wall:.1f} s)")
     return launches, fails
 
 
@@ -4599,12 +4786,17 @@ def main() -> int:
                 # launches count under "train_cli multi_rank ..."
                 from neuralrecon_w_tpu_torch.training.checkpoint import latest_checkpoint
 
-                ranked, mfails = multi_rank_phase(
-                    root, latest_checkpoint(os.path.join(root, "results", "trainer",
-                                                         "checkpoints")), "cuda", card)
+                ck = latest_checkpoint(os.path.join(root, "results", "trainer", "checkpoints"))
+                ranked, mfails = multi_rank_phase(root, ck, "cuda", card)
                 got.update(ranked)
                 pfails += mfails
                 clock.lap("multi-rank")
+                # tensor parallelism from the same checkpoint: its ranks'
+                # launches count under "train_cli tensor_parallel ..."
+                ranked, tfails = tensor_parallel_phase(root, ck, "cuda", card)
+                got.update(ranked)
+                pfails += tfails
+                clock.lap("tensor-parallel")
         finally:
             shutil.rmtree(root, ignore_errors=True)
         fails += pfails

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import WNLinear, apply_linear_parts, pe_dim, positional_encoding, wn_weight
+from .layers import WNLinear, linear, pe_dim, per_sample, positional_encoding
 from .sdf import act_dtype_of
 
 
@@ -84,19 +84,6 @@ def init_color_(net: RenderingNetwork, generator: torch.Generator) -> None:
             init_linear_(module, generator)
 
 
-def weight_bias(layer: nn.Module, dtype: torch.dtype):
-    """(weight, bias) cast to ``dtype``. As the JAX package casts every
-    parameter (v and g included) before the weight norm, so does this."""
-    if isinstance(layer, WNLinear):
-        return wn_weight(layer.weight_v.to(dtype), layer.weight_g.to(dtype)), layer.bias.to(dtype)
-    return layer.weight.to(dtype), layer.bias.to(dtype)
-
-
-def linear(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    w, b = weight_bias(layer, dtype)
-    return x @ w.t() + b
-
-
 def apply_color(net: RenderingNetwork, cfg: dict, encode_a: bool, points, normals,
                 view_dirs, feature, a_embedded=None, act_dtype=torch.float32,
                 n_samples=None):
@@ -114,27 +101,13 @@ def apply_color(net: RenderingNetwork, cfg: dict, encode_a: bool, points, normal
     if encode_a:
         xyz_final = linear(net.xyz_encoding_final, feature, dt)
         head = net.static_encoding
-        w, b = weight_bias(head.layer(0), dt)
-        if n_samples is not None:
-            d_f = xyz_final.shape[-1]
-            z_pt = xyz_final @ w[:, :d_f].t()
-            z_ray = apply_linear_parts(w[:, d_f:], b, (view_dirs, a_embedded))
-            z = (z_pt.reshape(-1, n_samples, z_pt.shape[-1])
-                 + z_ray[:, None, :]).reshape(z_pt.shape)
-            h = F.relu(z)
-        else:
-            h = F.relu(apply_linear_parts(w, b, (xyz_final, view_dirs, a_embedded)))
+        h = F.relu(linear(head.layer(0), (xyz_final, view_dirs, a_embedded), dt,
+                          n_samples=n_samples))
         for s in range(1, head.n_layers):
             h = F.relu(linear(head.layer(s), h, dt))
         first_parts = (points, normals, h)
     else:
-        if n_samples is not None:
-            def up(t):
-                return t[:, None, :].expand(t.shape[0], n_samples, t.shape[-1]).reshape(-1, t.shape[-1])
-
-            view_dirs = up(view_dirs)
-            if a_embedded is not None:
-                a_embedded = up(a_embedded)
+        view_dirs, a_embedded = per_sample(view_dirs, n_samples), per_sample(a_embedded, n_samples)
         if cfg["mode"] == "idr":
             first_parts = (points, view_dirs, normals, feature)
         elif cfg["mode"] == "no_view_dir":
@@ -142,8 +115,7 @@ def apply_color(net: RenderingNetwork, cfg: dict, encode_a: bool, points, normal
         else:  # no_normal
             first_parts = (points, view_dirs, feature)
 
-    w, b = weight_bias(net.layer(0), dt)
-    x = apply_linear_parts(w, b, first_parts)
+    x = linear(net.layer(0), first_parts, dt)
     for l in range(1, net.n_layers):
         x = linear(net.layer(l), F.relu(x), dt)
     return torch.sigmoid(x.float())

@@ -10,8 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .color import StaticEncoding, init_linear_, linear, weight_bias
-from .layers import apply_linear_parts, pe_dim, positional_encoding
+from .color import StaticEncoding, init_linear_
+from .layers import linear, pe_dim, positional_encoding
 from .sdf import act_dtype_of
 
 D = 8
@@ -63,33 +63,17 @@ def apply_nerf_bg(net: NeRF, encode_appearance: bool, pts4, view_dirs,
     h = pe
     skipped = False
     for i, layer in enumerate(net.pts_linears):
-        if skipped:
-            w, b = weight_bias(layer, dt)
-            h = F.relu(apply_linear_parts(w, b, (pe, h)))
-        else:
-            h = F.relu(linear(layer, h, dt))
+        h = F.relu(linear(layer, (pe, h) if skipped else h, dt))
         skipped = i in SKIPS
 
     alpha = linear(net.alpha_linear, h, dt)
     feature = linear(net.feature_linear, h, dt)
-
-    def head(layer, ray_parts):
-        w, b = weight_bias(layer, dt)
-        d_f = feature.shape[-1]
-        z = feature @ w[:, :d_f].t()
-        z_ray = apply_linear_parts(w[:, d_f:], b, ray_parts)
-        if n_samples is None:
-            z = z + z_ray
-        else:
-            z = (z.reshape(-1, n_samples, z.shape[-1]) + z_ray[:, None, :]).reshape(z.shape)
-        return F.relu(z)
-
     if encode_appearance:
         enc = net.apperence_encoding
-        h = head(enc.layer(0), (pe_view, a_embedded))
+        h = F.relu(linear(enc.layer(0), (feature, pe_view, a_embedded), dt, n_samples=n_samples))
         for s in range(1, enc.n_layers):
             h = F.relu(linear(enc.layer(s), h, dt))
     else:
-        h = head(net.views_linears[0], (pe_view,))
+        h = F.relu(linear(net.views_linears[0], (feature, pe_view), dt, n_samples=n_samples))
     rgb = linear(net.rgb_linear, h, dt)
     return alpha.float(), rgb.float()

@@ -39,6 +39,7 @@ from torch import nn
 from ..config import FieldConfig
 from ..device import default_device
 from .color import RenderingNetwork, apply_color
+from .layers import per_sample
 from .nerf_bg import NeRF, apply_nerf_bg
 from .sdf import (SDFNetwork, act_dtype_of, sdf_value, sdf_value_feat_grad,
                   sdf_value_feat_grad_fwdmode)
@@ -77,14 +78,6 @@ def field_sdf(model: NeuconWField, fc: FieldConfig, pts: torch.Tensor) -> torch.
     return sdf_value(model.neuconw.sdf_net, fc.sdf_cfg, pts, act_dtype_of(fc.act_dtype))
 
 
-def _per_sample(t, n_samples: int):
-    """Per-ray rows (R, d) repeated for each of a ray's n_samples samples;
-    autograd sums their cotangents back per ray."""
-    if t is None:
-        return None
-    return t[:, None, :].expand(t.shape[0], n_samples, t.shape[-1]).reshape(-1, t.shape[-1])
-
-
 def field_forward(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded,
                   n_samples=None, create_graph: bool = False):
     """Foreground field at flattened samples: rgb (N, 3), inv_s, sdf
@@ -97,8 +90,7 @@ def field_forward(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded,
         # the fused kernels take per-sample dirs and a (neuconw.py:132-149)
         from ..ops.field_train import field_rgb_sdf_grad_kernel
 
-        if n_samples is not None:
-            dirs, a_embedded = _per_sample(dirs, n_samples), _per_sample(a_embedded, n_samples)
+        dirs, a_embedded = per_sample(dirs, n_samples), per_sample(a_embedded, n_samples)
         rgb, sdf, grad = field_rgb_sdf_grad_kernel(model, fc, pts, dirs, a_embedded)
         return rgb, inv_s(model), sdf, grad
     if fc.grad_mode in ("pallas", "pallas_hybrid"):
@@ -136,8 +128,7 @@ def field_background(model: NeuconWField, fc: FieldConfig, pts4, dirs, a_embedde
     if fc.bg_mode == "pallas":
         from ..ops.nerf_bg_fused import nerf_bg_kernel
 
-        if n_samples is not None:
-            dirs, a = _per_sample(dirs, n_samples), _per_sample(a, n_samples)
+        dirs, a = per_sample(dirs, n_samples), per_sample(a, n_samples)
         return nerf_bg_kernel(model.nerf, fc.encode_a_bg, pts4, dirs, a, fc.act_dtype)
     if fc.bg_mode != "xla":
         raise ValueError(f"unknown bg_mode {fc.bg_mode!r}")

@@ -14,7 +14,8 @@ import math
 import torch
 from torch import nn
 
-from .layers import WNLinear, layer_weight, pe_dim, positional_encoding, softplus_beta
+from .layers import (WNLinear, layer_bias, layer_weight, linear, pe_dim, positional_encoding,
+                     softplus_beta)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -103,10 +104,13 @@ def init_sdf_(net: SDFNetwork, cfg: dict, generator: torch.Generator) -> None:
 
 
 def apply_sdf_split(net: SDFNetwork, cfg: dict, x: torch.Tensor,
-                    act_dtype=torch.float32, with_feature: bool = True):
+                    act_dtype=torch.float32, with_feature: bool = True, weights=None):
     """(..., 3) -> (sdf (..., 1) f32 (or f64), feature (..., d_out-1) in act_dtype
     or None) (``sdf.py:100-155``): the skip layer runs as two row-block
-    products, the last layer as [sdf | feature] column blocks."""
+    products, the last layer as [sdf | feature] column blocks (a layer split
+    over a model axis: after its collective). ``weights``, every layer's
+    whole (weight, bias), stands in for the net's layers: 'fwd' passes
+    them, as no collective runs inside ``torch.func``'s transforms."""
     act = act_dtype_of(act_dtype)
     skip_in = tuple(cfg["skip_in"])
     scale = float(cfg["scale"])
@@ -115,28 +119,28 @@ def apply_sdf_split(net: SDFNetwork, cfg: dict, x: torch.Tensor,
     x = x.reshape(-1, cfg["d_in"])
     inputs = positional_encoding(x, cfg["multires"]) if cfg["multires"] > 0 else x
     inputs = inputs.to(act)
+    layers = weights if weights is not None else [net.layer(l) for l in range(net.n_layers)]
 
     h = inputs
     # made on the device (no host copy, which a captured step cannot hold)
     inv_sqrt2 = torch.full((), 1.0 / math.sqrt(2), dtype=act, device=x.device)
-    for l in range(net.n_layers - 1):
-        layer = net.layer(l)
-        w = layer_weight(layer).to(act)
-        b = layer.bias.to(act)
+    for l, layer in enumerate(layers[:-1]):
         if l in skip_in:
-            d_h = h.shape[-1]
-            h = (h @ w[:, :d_h].t() + inputs @ w[:, d_h:].t()) * inv_sqrt2 + b
+            h = linear(layer, (h, inputs), act, scale=inv_sqrt2, norm_first=True)
         else:
-            h = h @ w.t() + b
+            h = linear(layer, h, act, norm_first=True)
         h = softplus_beta(h, 100.0)
-    last = net.layer(net.n_layers - 1)
-    w = layer_weight(last).to(act)
-    b = last.bias.to(act)
+    outs = (slice(0, 1), slice(1, None)) if with_feature else (slice(0, 1),)
+    sdf, *feat = linear(layers[-1], h, act, outs=outs, norm_first=True)
     # sdf in float32 (float64 stays float64, for the tests' exact references)
-    sdf = (h @ w[:1].t() + b[:1]).to(torch.promote_types(act, torch.float32)) / scale
-    feat = (h @ w[1:].t() + b[1:]) if with_feature else None
+    sdf = sdf.to(torch.promote_types(act, torch.float32)) / scale
     return sdf.reshape(*shape, 1), (
-        feat.reshape(*shape, feat.shape[-1]) if with_feature else None)
+        feat[0].reshape(*shape, feat[0].shape[-1]) if with_feature else None)
+
+
+def whole_weights(net: SDFNetwork) -> list:
+    """Every layer's whole (weight, bias); a split layer's gathered."""
+    return [(layer_weight(net.layer(l)), layer_bias(net.layer(l))) for l in range(net.n_layers)]
 
 
 def sdf_value(net: SDFNetwork, cfg: dict, x: torch.Tensor, act_dtype=torch.float32):
@@ -172,8 +176,10 @@ def sdf_value_feat_grad_fwdmode(net: SDFNetwork, cfg: dict, x: torch.Tensor):
     (serving) nothing carries a graph."""
     from torch.func import jvp, vmap
 
+    weights = whole_weights(net)
+
     def f(pts):
-        return apply_sdf_split(net, cfg, pts)
+        return apply_sdf_split(net, cfg, pts, weights=weights)
 
     eye = torch.eye(3, dtype=x.dtype, device=x.device)
     tangents = eye.reshape(3, *([1] * (x.dim() - 1)), 3).expand(3, *x.shape)

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.color import RenderingNetwork
-from ..models.layers import layer_weight
+from ..models.layers import layer_bias, layer_weight
 from ..models.sdf import act_dtype_of
 from . import field_vjp_math as fvm
 from .build import check, kernels, stream_handle
@@ -94,7 +94,7 @@ def pack_color_weights(net: RenderingNetwork, color_cfg_items: tuple, act) -> Co
     in float32, then each layer padded to multiples of 16 (the TPU pads to
     128 lanes); the padding stays zero."""
     layers = color_layers(net)
-    return pack_color_tensors([layer_weight(m) for m in layers], [m.bias for m in layers],
+    return pack_color_tensors([layer_weight(m) for m in layers], [layer_bias(m) for m in layers],
                               net.static_encoding.n_layers,
                               int(dict(color_cfg_items)["multires_view"]), act)
 
@@ -104,7 +104,7 @@ def pack_field(model, fc) -> FieldPack:
     net = model.neuconw.sdf_net
     with torch.no_grad():
         ws = [layer_weight(net.layer(l)) for l in range(net.n_layers)]
-        bs = [net.layer(l).bias for l in range(net.n_layers)]
+        bs = [layer_bias(net.layer(l)) for l in range(net.n_layers)]
         sdf = pack_vjp_weights(ws, bs, fc.sdf_cfg, fc.act_dtype)
     return FieldPack(sdf, pack_color_weights(model.neuconw.color_net, fc.color, fc.act_dtype))
 

@@ -29,7 +29,7 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..models.layers import layer_weight
+from ..models.layers import layer_bias, layer_weight
 from ..models.sdf import act_dtype_of
 from . import field_vjp_math as fvm
 from .build import check, kernels, stream_handle
@@ -287,8 +287,8 @@ def field_weights(model) -> list:
     net = model.neuconw.sdf_net
     sdf = [net.layer(l) for l in range(net.n_layers)]
     col = color_layers(model.neuconw.color_net)
-    return ([layer_weight(m) for m in sdf] + [m.bias for m in sdf]
-            + [layer_weight(m) for m in col] + [m.bias for m in col])
+    return ([layer_weight(m) for m in sdf] + [layer_bias(m) for m in sdf]
+            + [layer_weight(m) for m in col] + [layer_bias(m) for m in col])
 
 
 def field_rgb_sdf_grad_kernel(model, fc, pts, dirs, a):

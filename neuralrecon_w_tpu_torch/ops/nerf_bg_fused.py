@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..models.layers import layer_bias, layer_weight
 from ..models.nerf_bg import NeRF
 from ..models.sdf import act_dtype_of
 from . import field_vjp_math as fvm
@@ -339,4 +340,4 @@ def nerf_bg_kernel(net: NeRF, encode_a: bool, pts4, dirs, a=None, act="float32")
     backward, or raise."""
     layers = bg_layers(net, encode_a)
     return _NerfBG.apply(act, pts4, dirs, a if encode_a else None,
-                         *[m.weight for m in layers], *[m.bias for m in layers])
+                         *[layer_weight(m) for m in layers], *[layer_bias(m) for m in layers])

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..models.layers import layer_weight
+from ..models.layers import layer_bias, layer_weight
 from ..models.sdf import SDFNetwork, act_dtype_of
 from . import field_vjp_math as fvm
 from .build import check, kernels, stream_handle
@@ -259,7 +259,7 @@ def sdf_value_feat_grad_kernel(net: SDFNetwork, cfg_items: tuple, x: torch.Tenso
     cfg = dict(cfg_items)
     shape = x.shape[:-1]
     weights = [layer_weight(net.layer(l)) for l in range(net.n_layers)]
-    biases = [net.layer(l).bias for l in range(net.n_layers)]
+    biases = [layer_bias(net.layer(l)) for l in range(net.n_layers)]
     out, grad = _SDFValueGrad.apply((tuple(sorted(cfg.items())), act_dtype, fwd_impl),
                                     x.reshape(-1, 3), *weights, *biases)
     scale = float(cfg["scale"])

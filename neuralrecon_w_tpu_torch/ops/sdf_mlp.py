@@ -29,7 +29,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..models.layers import layer_weight, positional_encoding
+from ..models.layers import layer_bias, layer_weight, positional_encoding
 from ..models.sdf import SDFNetwork, act_dtype_of, sdf_layer_shapes
 from .build import check, kernels, stream_handle
 
@@ -82,7 +82,7 @@ def pack_sdf_weights(net: SDFNetwork, sdf_cfg_items: tuple, act_dtype="float32")
     for l, (d_in, d_out) in enumerate(shapes):
         layer = net.layer(l)
         w = layer_weight(layer).float()  # (d_out, d_in)
-        b = layer.bias.float()
+        b = layer_bias(layer).float()
         if l == n_layers - 1:
             w, b, d_out, rows = w[:1], b[:1], 1, 1
         else:

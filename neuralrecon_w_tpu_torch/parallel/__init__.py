@@ -1,4 +1,5 @@
-"""Data parallelism over ``torch.distributed`` and the chunked field sweeps.
+"""Data parallelism over ``torch.distributed`` and the chunked field sweeps
+(tensor parallelism over the model axis: ``parallel/tensor.py``).
 The exports are the JAX package's (``neuralrecon_w_tpu/parallel/__init__.py``)
 where a counterpart exists; the mesh constructors' counterparts are the
 group's (``mesh.py``'s docstring)."""

@@ -19,6 +19,7 @@ from ..config import FieldConfig, RenderConfig
 from ..models.neuconw import field_background, field_forward
 from ..ops.importance_sampler import fused_importance_sampler, importance_sampler_plain
 from ..ops.ray_voxel import DeviceGrid, grid_near_far, sampled_first_hit
+from ..parallel.tensor import vocab_lookup
 from .sampling import merge_sorted
 
 
@@ -383,8 +384,9 @@ def render_rays(model, fc: FieldConfig, rcfg: RenderConfig, scene: SceneInfo,
 
     # the embedding's rows by indexing: its backward is a sorted
     # index_put (deterministic), where nn.Embedding's reads a segment count
-    # back from the device, which a captured step cannot
-    a_embedded = model.embedding_a.weight[ts.long()]
+    # back from the device, which a captured step cannot; a table split by
+    # vocab rows over a model axis sums the ranks' rows
+    a_embedded = vocab_lookup(model.embedding_a.weight, ts.long())
 
     perturb = rcfg.perturb if perturb_overwrite < 0 else perturb_overwrite
     z_vals, z_vals_outside, sample_dist = sparse_sampler(

@@ -12,6 +12,11 @@ ENCODE_A_BG, ``nerf.views_linears.0``): ``without_dead_entries`` drops
 them on the way in, ``with_dead_entries`` writes them zero-filled on the
 way out, as the exporter does, so the reference's strict loader reads
 what the port saves.
+
+A field split over a model axis starts whole, from any of these, and
+``parallel.tensor.shard_field`` keeps each rank's blocks;
+``parallel.tensor.gather_field`` gives it back whole, with the reference's
+names, for a checkpoint or a comparison.
 """
 
 from __future__ import annotations

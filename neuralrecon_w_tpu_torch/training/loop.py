@@ -216,6 +216,9 @@ class Trainer:
         self.group = group
         self.device = group.device if group is not None else default_device(device)
         n_local = 1 if group is None else group.n_local
+        if group is not None and group.n_model > 1:
+            # as in JAX, a model axis is a library path (parallel/tensor.py)
+            raise ValueError("the Trainer takes a data group; a model axis is not one")
         if tcfg.batch_size % n_local:
             raise ValueError(f"batch_size {tcfg.batch_size} does not divide over the "
                              f"{n_local} ranks of this host")

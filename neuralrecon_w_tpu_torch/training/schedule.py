@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from ..parallel.tensor import all_reduce_raw
+
 EPS = 1e-7  # the reference's Adam epsilon (reference utils/__init__.py:24)
 
 
@@ -62,9 +64,23 @@ def make_lr_schedule(cfg, base_lr: float, total_steps: int):
 
 def clip_by_global_norm_(params, max_norm: float) -> None:
     """Scales the gradients in place as optax's clip_by_global_norm does,
-    without reading the norm back to the host."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    without reading the norm back to the host. With parameters split over
+    a model axis (``parallel/tensor.py``) the norm is JAX's over its split
+    tree: the split blocks' sums of squares summed over the model ranks,
+    and each whole parameter counted once."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    split = [p for p in params if getattr(p, "tp", None) is not None]
+    if not split:
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
+                                                     for g in grads]))
+    else:
+        sq = all_reduce_raw(torch.stack([torch.linalg.vector_norm(p.grad) for p in split])
+                            .square().sum(), split[0].tp.axis)
+        whole = [p.grad for p in params if getattr(p, "tp", None) is None]
+        if whole:
+            sq = sq + torch.stack([torch.linalg.vector_norm(g) for g in whole]).square().sum()
+        norm = torch.sqrt(sq)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))

@@ -19,6 +19,16 @@ batch's gradient, bit for bit the same, and the clip and the update follow.
 That is JAX's step over a data mesh (``step.py:114-146``), whose loss is the
 global batch's; DistributedDataParallel's average of per-rank means is not.
 
+A group with a model axis (``n_model`` > 1) trains a field split by
+``parallel.tensor.shard_field``: JAX's step with ``param_specs``
+(``step.py:114-166``). The model ranks of a data shard take the same slice
+and the same jitter (the generator is seeded by the data rank) and compute
+the same loss; the collectives of ``parallel/tensor.py`` give each its
+blocks' gradients. The whole parameters' gradients are then made the first
+model rank's (``sync_replicated_grads``), the counts and the gradients are
+summed over the data ranks only, and the clip sums the split blocks'
+squares over the model ranks. Each rank's optimiser holds its blocks.
+
 ``make_scan_train_fn`` is ``step.py:169-229``: n_inner steps over
 consecutive windows of a device pool's epoch permutation. On the CPU it is
 a plain loop of the step. On the card it captures one step in a
@@ -51,6 +61,7 @@ from ..config import FieldConfig, RenderConfig
 from ..models.neuconw import NeuconWField
 from ..rendering.renderer import render_rays
 from ..parallel.mesh import all_reduce_sum_, rank_seed
+from ..parallel.tensor import is_split, sync_replicated_grads
 from ..tools.convert import init_field
 from .losses import LossConfig, batch_counts, loss_terms
 from .schedule import Optimizer
@@ -90,8 +101,9 @@ _SQ, _MASKED = "_sq_err", "_masked"
 
 
 def all_reduce_grads(group, params, aux: dict) -> dict:
-    """One SUM all-reduce of every gradient and the aux scalars, coalesced
-    in one flat float32 buffer; the gradients are written back in place.
+    """One SUM all-reduce over the data ranks of every gradient and the aux
+    scalars, coalesced in one flat float32 buffer; the gradients are written
+    back in place.
     Returns the summed aux. Every rank holds the same parameters with
     gradients or without (that depends on the configuration alone)."""
     grads = [p.grad for p in params if p.grad is not None]
@@ -123,7 +135,8 @@ def make_train_step(fc: FieldConfig, rcfg: RenderConfig, lcfg: LossConfig,
     with a fine grid optionally the pool's band cache "surf_t" / "surf_hit"
     (``step.py:73-80``); aux holds psnr, s_val and every loss term as
     detached scalar tensors. With a data ``group`` the batch is this rank's
-    slice and aux is the global batch's. ``step_fn.loss_fn`` is the render
+    slice and aux is the global batch's; with a model axis the field is
+    ``shard_field``'s (split before the optimiser was made). ``step_fn.loss_fn`` is the render
     and loss alone, which the captured step reuses (without a group, where
     the count all-reduce is the identity); its aux holds psnr's two parts,
     which ``finish_aux`` makes psnr of."""
@@ -151,13 +164,16 @@ def make_train_step(fc: FieldConfig, rcfg: RenderConfig, lcfg: LossConfig,
         dev = scene.origin.device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         cos_anneal = min(1.0, state.step / anneal_end) if anneal_end > 0 else 1.0
-        rng = step_generator(seed, state.step, dev, 0 if group is None else group.rank)
+        rng = step_generator(seed, state.step, dev, 0 if group is None else group.data_rank)
         state.model.train()
         state.optimizer.zero_grad()
         with record_function("train.render_loss"):
             loss, aux = loss_fn(state.model, scene, batch, rng, cos_anneal, fine_grid, sfm_grid,
                                 group)
         loss.backward()
+        if group is not None and group.n_model > 1:
+            with record_function("train.sync_replicated_grads"):
+                sync_replicated_grads(group, state.model.parameters())
         if group is not None:
             with record_function("train.all_reduce_grads"):
                 aux = all_reduce_grads(group, state.model.parameters(), aux)
@@ -213,6 +229,11 @@ class ScanRun:
 
     def __call__(self, state: TrainState, scene, pool_data: dict, fine_grid=None, sfm_grid=None,
                  perm=None, start=None):
+        if is_split(state.model):
+            # a gloo collective cannot be captured; JAX's scan takes one
+            # data shard and no model axis either (step.py:184-185)
+            raise ValueError("the multi-step dispatch takes a whole field, not one split over "
+                             "a model axis")
         if self.captures_on(pool_data["rays"].device):
             return self._replay(state, scene, pool_data, fine_grid, sfm_grid, perm, start)
         return self._loop(state, scene, pool_data, fine_grid, sfm_grid, perm, start)
@@ -428,6 +449,9 @@ class ScanRender:
                              "(pad the frame first)")
         with torch.no_grad():
             if rays.device.type == "cuda":
+                if is_split(model):
+                    raise ValueError("a captured frame takes a whole field, not one split over "
+                                     "a model axis (a gloo collective cannot be captured)")
                 return self._replay(model, scene, rays, ts, labels, fine_grid, sfm_grid)
             outs = [self.body(model, scene, rays[i:i + self.chunk], ts[i:i + self.chunk],
                               labels[i:i + self.chunk], fine_grid, sfm_grid)

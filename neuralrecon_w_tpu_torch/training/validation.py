@@ -35,10 +35,12 @@ def render_image(render_chunk, model, scene, rays: np.ndarray, ts: np.ndarray,
     ``scan_render`` (``make_scan_render_fn``'s run, of the same chunk) the
     padded frame goes to the device in one copy, renders in one call and
     comes back in one fetch (``validation.py:87-96``); without it, a host
-    loop of ``render_chunk`` calls. With a ``group`` of W > 1 ranks each
-    chunk is split over the ranks (W must divide it) and gathered on every
-    rank; ``scan_render`` is then not used. Returns (H, W, ...) numpy
-    images: color, depth and the weight-averaged normal."""
+    loop of ``render_chunk`` calls. With a ``group`` of W > 1 data shards
+    each chunk is split over them (W must divide it) and gathered on every
+    rank; ``scan_render`` is then not used. The model ranks of a data shard
+    (a group with a model axis) render the same rays, from a whole field or
+    from one split over them. Returns (H, W, ...) numpy images: color, depth
+    and the weight-averaged normal."""
     if device is None:
         device = next(model.parameters()).device
     w, h = img_wh
@@ -52,18 +54,19 @@ def render_image(render_chunk, model, scene, rays: np.ndarray, ts: np.ndarray,
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device, non_blocking=True)
 
-    split = group is not None and group.world_size > 1
+    n_data, data_rank = (1, 0) if group is None else (group.n_data, group.data_rank)
+    split = n_data > 1
     if scan_render is not None and not split:
         out = scan_render(model, scene, put(rays), put(ts), put(labels), rng, fine_grid, sfm_grid)
         packed = torch.cat([out["color"], out["depth"][:, None], out["normal"]], 1)
     else:
         per, lo = chunk, 0
         if split:
-            # rank r renders rows [r * chunk / W, (r + 1) * chunk / W) of every chunk
-            if chunk % group.world_size:
-                raise ValueError(f"chunk {chunk} must divide over {group.world_size} ranks")
-            per = chunk // group.world_size
-            lo = group.rank * per
+            # data shard r renders rows [r * chunk / W, (r + 1) * chunk / W) of every chunk
+            if chunk % n_data:
+                raise ValueError(f"chunk {chunk} must divide over {n_data} ranks")
+            per = chunk // n_data
+            lo = data_rank * per
         parts = []
         for i in range(lo, len(rays), chunk):
             out = render_chunk(model, scene, put(rays[i:i + per]), put(ts[i:i + per]),

@@ -694,3 +694,49 @@ print("ok")
     assert "refreshes at [7] / [7]" in out and "1 validation(s)" in out
     assert "the two gloo ranks' reduced gradients equal" in out
     assert out.strip().endswith("ok")
+
+
+def test_chip_smoke_tensor_parallel_phase_without_jax_package(tmp_path):
+    """tensor_parallel_phase at a tiny width on the CPU (two gloo ranks on
+    a model axis of 2, the kernels' plain versions): from a 3-step
+    train_cli checkpoint, 'vjp' and 'pallas' steps of the split field held
+    to one rank's (loss, parameters and the first step's gradients), the
+    whole leaves bit for bit on both ranks, a finite bf16 step; every check passing, and no JAX in the script or its
+    ranks."""
+    code = f"""
+import os
+import sys
+import torch
+import chip_smoke as cs
+
+torch.set_num_threads(2)
+os.environ["OMP_NUM_THREADS"] = "2"
+cs.TRAINER_CAMS, cs.IMG_WH, cs.TRAINER_POINTS = 5, (24, 18), 1500
+cs.TP_BATCH, cs.TP_WIRE_MB = 128, 8
+extra = {{"NEUCONW": {{"SDF_CONFIG": {{"d_hidden": 64, "d_out": 65, "n_layers": 4, "skip_in": [2]}},
+                     "COLOR_CONFIG": {{"d_feature": 64, "d_hidden": 32, "n_layers": 2}},
+                     "N_VOCAB": 8}}}}
+root = {str(tmp_path)!r}
+cs.cli_workspace(root, "cpu", cs.TRAINER_CAMS + 1, cs.IMG_WH, cs.TRAINER_POINTS, 1.7, 64, 0.1875)
+cfg = cs.write_cfg(os.path.join(root, "train.yaml"), root, cs.merged(
+    {{"NEUCONW": {{"TRAIN_VOXEL_SIZE": 0.05}}, "TRAINER": {{"SAVE_FREQ": 3, "VAL_FREQ": 1000.0}},
+     "TPU": {{"DEVICE_POOL": False}}}}, extra))
+cs.train_cli(cfg, os.path.join(root, "results"), "trainer", 128, 3, "cpu")
+ck = os.path.join(root, "results", "trainer", "checkpoints", "step_3.ckpt")
+launches, fails = cs.tensor_parallel_phase(root, ck, "cpu", extra_cfg=extra, train_voxel=0.05)
+assert fails == [], fails
+assert set(launches) == {{"tensor_parallel rank0", "tensor_parallel rank1"}}
+assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
+print("ok")
+"""
+    proc = run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    out = proc.stdout
+    assert "field_param_specs over 2 model ranks:" in out
+    assert "row (neuconw.sdf_net.lin1.weight_v, neuconw.sdf_net.lin4.weight_v" in out
+    for mode in ("vjp", "pallas"):
+        assert f"tensor-parallel {mode}: 2 f32 steps" in out and "-> ok" in out
+    assert "bit for bit equal on the two ranks" in out and "on the 128 rays" in out
+    assert "the first step's gathered gradients worst" in out
+    assert "finite;" in out and "GB/s), all-gather of 8 MB" in out
+    assert out.strip().endswith("ok")

@@ -76,13 +76,10 @@ def test_rank_blocks_cover_the_set(n, world):
     np.testing.assert_array_equal(covered, np.arange(n))
 
 
-class _Rank:
-    """A stand-in group: only the fields the helpers read."""
-
-    def __init__(self, rank, world, n_local=None):
-        self.rank = self.local_rank = rank
-        self.world_size = world
-        self.n_local = world if n_local is None else n_local
+def _Rank(rank, world, n_local=None):
+    """A stand-in group: a rank's ``DataGroup`` with no process group."""
+    return mesh.DataGroup(world, rank, rank, world if n_local is None else n_local, 1, 0,
+                          torch.device("cpu"), "gloo", None)
 
 
 @pytest.mark.parametrize("world", [2, 4])
