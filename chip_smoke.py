@@ -206,6 +206,19 @@ launched on each rank. It prints the spec counts, each rank's step wall
 against one rank's, the model axis's all-reduce and all-gather calls and
 bytes in a step, and gloo's rate between the ranks, timed at 256 MB.
 
+The optimisers (``optimizer_phase``, after the tensor-parallel phase, from
+the same checkpoint's parameters and fine grid, each optimiser's state
+fresh): for SGD and RAdam, 'vjp' at batch 8192 on the device pool in the
+steady phase, ``graph_parity`` over a window of 8 steps (RAdam's sixth
+update its first rectified one) within its 'vjp' bounds, the graph's
+change of the parameters over the window within 1e-3 of the plain loop's,
+and no host sync in an update; then train_cli with
+TRAINER.OPTIMIZER set, ``DEVICE_POOL: auto`` and SCAN_INNER 5: one
+captured window, a save at update 5, a resumed window, each replayed with
+K1 and K2 in its captured step, the resumed optimiser state bit for bit
+the saved one. It prints the ms a step of replayed windows for Adam, SGD
+and RAdam, timed in turns.
+
 The last lines are the card line, a JSON object with one entry per
 kernel (K1 and K2 with their serving launches, K3 to K5 and K7 to K9 with
 their training launches, K6 with its launches on every path, each plus
@@ -1602,8 +1615,9 @@ def scan_run(cfg, fc, rcfg, batch: int, n_inner: int, graph: bool):
 
 
 def capturable_copy(state):
-    """A copy of a training state, its Adam made capturable on the card (the
-    same update eager and replayed); on the CPU a plain copy."""
+    """A copy of a training state, its optimiser (any TRAINER.OPTIMIZER)
+    made capturable on the card (the same update eager and replayed); on
+    the CPU a plain copy."""
     st = copy.deepcopy(state)
     if next(st.model.parameters()).device.type == "cuda":
         st.optimizer.make_capturable()
@@ -1622,21 +1636,28 @@ def free_cached() -> None:
 def graph_parity(cfg, state0, scene, pool, fine_grid, fine_level, label, batch=TRAIN_BATCH,
                  n_inner=GRAPH_INNER, profile=False, mode="vjp"):
     """make_scan_train_fn with graph=True against graph=False in SDF_GRAD_MODE
-    ``mode`` (train_config's) from copies of state0 over one window of
+    ``mode`` (train_config's) from copies of state0 (``capturable_copy``:
+    its optimiser, whichever it is, made capturable) over one window of
     ``pool`` (a DeviceRayPool, its band cache attached where fine_grid is
     given): in f32 at PERTURB 0 one call of n_inner steps each (in
     ATOMIC_MODES three eager and two graph ones in turns, the bounds from
     the eager ones: see GRAPH_INNER); at the operating point n_inner
     one-step calls each, the per-step losses. Each window's run is released before the
     next, so that a graph and an eager window never hold their memory at
-    once.
+    once. Beside the bounds, ``out["f32"]`` reports how far the graph's
+    change of the parameters over the window is from the eager one's
+    (``change_rel``: ||p_graph - p_eager|| / ||p_eager - p0||), how far the
+    eager window moved them (``moved``: rel-L2 from p0), the graph run's
+    (captures, replays) and each side's update count; ``out["runs"]``
+    holds every window's run, released.
     With ``profile``, a torch.profiler window over one more call of n_inner
     replays: the device's busy share."""
     import torch
 
     from neuralrecon_w_tpu_torch.config import render_config_from_cfg
 
-    fails, out = [], {}
+    fails, out = [], {"runs": []}
+    p0 = flat_params(state0.model)
     served = train_config(cfg, mode).act_dtype
     atomic = mode in ATOMIC_MODES
     for act, perturb in (("float32", 0.0), (served, float(cfg.NEUCONW.PERTURB))):
@@ -1664,8 +1685,10 @@ def graph_parity(cfg, state0, scene, pool, fine_grid, fine_level, label, batch=T
             walls.append(time.perf_counter() - t0)
             trace[run_mode].append({"aux": {k: float(v) for k, v in aux.items()},
                                     "params": flat_params(st.model), "losses": losses,
-                                    "runs": (run.captures, run.replays)})
+                                    "runs": (run.captures, run.replays),
+                                    "count": st.optimizer.count})
             run.release()
+            out["runs"].append(run)
             del run, st, aux
             free_cached()
         g, e = trace["graph"][0], trace["eager"][0]
@@ -1702,14 +1725,21 @@ def graph_parity(cfg, state0, scene, pool, fine_grid, fine_level, label, batch=T
                         f"parameters rel-L2 {g_p:.2e}")
             worst = max(rel, key=lambda k: rel[k] / t_bound[k])
             ok = ok and all(rel[k] <= t_bound[k] for k in rel) and p_rel <= p_bound
+            step_e = float((e["params"] - p0).norm())
+            change = max(float((t["params"] - e["params"]).norm()) / max(step_e, 1e-30)
+                         for t in trace["graph"])
+            moved = step_e / float(p0.norm())
             print(f"graph vs eager {label} {mode} f32 PERTURB 0, {n_inner} steps from one state "
                   f"({g['runs'][0]} capture, {g['runs'][1]} replays): loss "
                   f"{g['aux']['loss']:.7f} / {e['aux']['loss']:.7f}; worst term {worst} rel "
                   f"{rel[worst]:.2e} (bound {t_bound[worst]:.2e}); parameters rel-L2 "
-                  f"{p_rel:.2e} (bound {p_bound:.2e}){note}; wall (" + ", ".join(order) + ") "
+                  f"{p_rel:.2e} (bound {p_bound:.2e}){note}; their change over the window "
+                  f"against eager's rel-L2 {change:.2e}, eager moved them rel-L2 {moved:.3e}; "
+                  "wall (" + ", ".join(order) + ") "
                   + " / ".join(f"{w:.3f}" for w in walls) + f" s -> {'ok' if ok else 'FAIL'}")
             out["f32"] = {"worst_term": worst, "term_rel": rel[worst], "param_rel_l2": p_rel,
-                          "param_bound": p_bound}
+                          "param_bound": p_bound, "change_rel": change, "moved": moved,
+                          "runs": g["runs"], "counts": (g["count"], e["count"])}
         else:
             m_g, m_e = (sum(t["losses"]) / len(t["losses"]) for t in (g, e))
             rel = abs(m_g - m_e) / abs(m_e)
@@ -1888,14 +1918,15 @@ def plain_band(grid, level: int, rays):
     return torch.where(valid, t_first * grid.scale, torch.zeros_like(t_first)), valid
 
 
-def graph_launches(tr, counted: dict) -> dict:
-    """What a Trainer's CUDA graphs add to the launches counted in its run,
-    keyed as ``counted``: the wrappers count each captured launch once, at
-    capture, and a capture runs no step, so each multi-step run adds
-    (replays - captures) x the launches one captured step records (as
-    ``scan_launches`` does for a served frame)."""
+def graph_launches(runs, counted: dict) -> dict:
+    """What the CUDA graphs of ``runs`` (multi-step runs: a Trainer's
+    ``scan_runs()``) add to the launches counted while they ran, keyed as
+    ``counted``: the wrappers count each captured launch once, at capture,
+    and a capture runs no step, so each run adds (replays - captures) x the
+    launches one captured step records (as ``scan_launches`` does for a
+    served frame)."""
     out = dict.fromkeys(counted, 0)
-    for run in tr.scan_runs():
+    for run in runs:
         for n, v in run.per_step_launches.items():
             out[n] = out.get(n, 0) + v * (run.replays - run.captures)
     return out
@@ -2026,7 +2057,7 @@ def device_pool_trainer_phase(root: str, overrides: dict, device: str, extra: li
     rate = {r["step"]: r["rays_per_sec"] for r in recs if "rays_per_sec" in r}
 
     scan = tr.scan_runs()
-    graph = graph_launches(tr, runs["device_pool"])
+    graph = graph_launches(tr.scan_runs(), runs["device_pool"])
     print("device-pool runs: " + "; ".join(
         f"{'graph' if r.captures else 'eager'} {r.n_inner}-step run: {r.captures} capture(s), "
         f"{r.replays} replays, per captured step " + ", ".join(
@@ -2917,7 +2948,7 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
                         extra + ["--ckpt_path", ck or ""])
         sync()
         got = launches[run] = read_counts()
-        launches[f"{run}_graph"] = graph_launches(tr3, got)
+        launches[f"{run}_graph"] = graph_launches(tr3.scan_runs(), got)
         print(f"launches in train_cli resumed {GRAPH_RESUME} steps in '{mode}'"
               + (" + FUSED_BG" if bg else "")
               + f" on the {'device' if tr3.use_device_pool else 'host'} pool: "
@@ -3378,6 +3409,237 @@ def tensor_parallel_phase(root: str, ck: str, device: str = "cuda", card: str = 
     return launches, fails
 
 
+# every TRAINER.OPTIMIZER on the captured window (optimizer_phase), in
+# trainer_phase's workspace from its last checkpoint's parameters and fine
+# grid with no optimiser state (each optimiser starts fresh; a state of
+# another would raise), the steady phase on the device pool and its band
+# cache, 'vjp' at batch TRAIN_BATCH. For each of OPT_NAMES: (a) graph_parity
+# from a fresh state over a window of OPT_WINDOW steps (GRAPH_WARMUP eager,
+# the capture, the replays: RAdam's updates 1-5 unrectified, 6-8 rectified)
+# against the plain loop over the same rays, its 'vjp' bounds (in float32 at
+# PERTURB 0 the loss terms within GRAPH_LOSS_RTOL, the parameters within
+# GRAPH_PARAM_REL; the operating point's mean loss); besides, the graph's
+# change of the parameters over the window within OPT_CHANGE_REL of the
+# eager one's (the window moves them by ~1e-5 of their norm, so
+# GRAPH_PARAM_REL alone would pass a graph whose replays updated nothing),
+# and no host sync in an eager or a graph_step update
+# (torch.cuda.set_sync_debug_mode "warn"); (b) train_cli with
+# TRAINER.OPTIMIZER set, DEVICE_POOL 'auto' and SCAN_INNER OPT_SCAN: one
+# window from the parameters-only file, saved at update OPT_SCAN, then one
+# resumed window, each a captured graph replayed whose step launched K1 and
+# K2 and nothing outside MODE_KERNELS['vjp'] and K10 / K11, the restored
+# optimiser state bit for bit the saved one, the logged scalars finite.
+# (c) A record, in turns for adam and OPT_NAMES: the ms a step of
+# OPT_RATE_INNER-step replayed windows at the operating point
+OPT_NAMES = ("sgd", "radam")
+OPT_WINDOW, OPT_SCAN, OPT_RATE_INNER = 8, 5, 5
+OPT_CHANGE_REL = 1e-3
+OPT_STEP_KERNELS = MODE_KERNELS["vjp"] + ("sdf_mlp_bf16", "sdf_mlp_f32", "dda", "sampled_hit")
+
+
+def update_syncs(state) -> list:
+    """The host syncs (``host_syncs``) of an eager update and a
+    ``graph_step`` of a capturable copy of ``state``'s optimiser, after one
+    untimed update."""
+    import torch
+
+    st = capturable_copy(state)
+    for p in st.model.parameters():
+        p.grad = torch.full_like(p, 1e-4)
+    count_t = torch.zeros((), dtype=torch.float64, device=next(st.model.parameters()).device)
+    st.optimizer.step()
+    sync()
+    return host_syncs(lambda: (st.optimizer.step(), st.optimizer.graph_step(count_t)))
+
+
+def same_state(a: dict, b: dict) -> bool:
+    """Two ``Optimizer.state_dict()``s equal bit for bit: name, count and
+    every state tensor (wherever each lies)."""
+    import torch
+
+    sa, sb = a["state"]["state"], b["state"]["state"]
+    return (a["name"] == b["name"] and a["count"] == b["count"] and sa.keys() == sb.keys()
+            and all(sa[i].keys() == sb[i].keys()
+                    and all(torch.equal(sa[i][k].cpu(), sb[i][k].cpu()) for k in sa[i])
+                    for i in sa))
+
+
+def optimizer_phase(root: str, ck: str, device: str = "cuda", card: str = "the CPU",
+                    extra_cfg: dict | None = None, train_voxel: float = TRAINER_VOXEL):
+    """Every TRAINER.OPTIMIZER from the checkpoint ``ck`` of the workspace
+    at ``root`` (see OPT_NAMES). Returns ({run: launches}, fails)."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.config import load_cfg, render_config_from_cfg
+    from neuralrecon_w_tpu_torch.datasets.cache import DeviceRayPool
+    from neuralrecon_w_tpu_torch.training import loop
+    from neuralrecon_w_tpu_torch.training.checkpoint import latest_checkpoint, restore_checkpoint
+    from neuralrecon_w_tpu_torch.training.schedule import make_optimizer, scaled_lr
+    from neuralrecon_w_tpu_torch.training.step import GRAPH_WARMUP, TrainState
+
+    t_phase = time.perf_counter()
+    fails, launches = [], {}
+    counters = launch_counters()
+    dev = torch.device("cpu" if device == "cpu" else "cuda:0")
+    start_ck = torch.load(ck, map_location="cpu", weights_only=False)
+    del start_ck["optimizer"]
+    ck0 = os.path.join(root, "optimizer_start.ckpt")
+    torch.save(start_ck, ck0)
+    step0 = int(start_ck["global_step"])
+    if step0 % OPT_SCAN:
+        fails.append(f"optimizer phase: step {step0} is no multiple of SCAN_INNER {OPT_SCAN}, so "
+                     "the SAVE_FREQ edge splits its windows")
+    base = merged({"NEUCONW": {"UPDATE_FREQ": 0, "TRAIN_VOXEL_SIZE": train_voxel},
+                   "TRAINER": {"VAL_FREQ": 1000.0, "SAVE_FREQ": OPT_SCAN},
+                   "TPU": {"DEVICE_POOL": "auto" if device == "cuda" else True,
+                           "SCAN_INNER": OPT_SCAN}}, extra_cfg)
+    save = os.path.join(root, "results_optimizer")
+    cfg = load_cfg(write_cfg(os.path.join(root, "optimizer.yaml"), root, base))
+    cfg.TRAINER.LR = scaled_lr(cfg, TRAIN_BATCH)  # as train_cli sets it
+    tr = loop.Trainer(cfg, loop.TrainerConfig(batch_size=TRAIN_BATCH, ckpt_path=ck0,
+                                              exp_name="optimizer", save_dir=save), device=dev)
+    pool = DeviceRayPool(tr.load_rays(), dev, seed=SEED)
+    pool.attach_surface(tr.fine_dgrid, tr.train_level)
+    level = tr.train_level
+
+    def fresh(name):
+        c = copy.deepcopy(cfg)
+        c.TRAINER.OPTIMIZER = name
+        model = copy.deepcopy(tr.state.model)
+        return TrainState(model, make_optimizer(c, TRAIN_BATCH)[0].init(model.parameters()),
+                          tr.state.step)
+
+    # (a) a captured window against the plain loop, per optimiser
+    reset_counts(counters)
+    runs = []
+    for name in OPT_NAMES:
+        state0 = fresh(name)
+        out, pfails = graph_parity(cfg, state0, tr.scene, pool, tr.fine_dgrid, level,
+                                   f"optimizer {name}", batch=TRAIN_BATCH, n_inner=OPT_WINDOW)
+        runs += out["runs"]
+        f32 = out["f32"]
+        syncs = update_syncs(state0) if device == "cuda" else []
+        want_runs = (1, OPT_WINDOW - GRAPH_WARMUP) if device == "cuda" else (0, 0)
+        ok = (not pfails and f32["change_rel"] <= OPT_CHANGE_REL and f32["moved"] > 0
+              and not syncs and f32["runs"] == want_runs
+              and f32["counts"] == (OPT_WINDOW, OPT_WINDOW))
+        print(f"optimizer {name}: graph vs eager, steady vjp, {OPT_WINDOW} steps from a fresh "
+              f"state ({f32['runs'][0]} capture, {f32['runs'][1]} replays, update counts "
+              f"{f32['counts']}): graph_parity's bounds "
+              + ("held" if not pfails else "FAILED") + f"; the parameters' change rel-L2 "
+              f"{f32['change_rel']:.2e} of eager's (bound {OPT_CHANGE_REL:.0e}), moved rel-L2 "
+              f"{f32['moved']:.3e}; host syncs in an update: " + (", ".join(syncs) or "none")
+              + f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"optimizer {name}: graph vs eager")
+        del state0, out
+    launches["optimizer parity"] = read_counts()
+    launches["optimizer parity_graph"] = graph_launches(runs, launches["optimizer parity"])
+
+    # (c) replayed windows at the operating point, in turns
+    fc = train_config(cfg, "vjp")
+    rcfg = render_config_from_cfg(cfg, sfm_level=-1, fine_level=level, nerf_far_override=False)
+    names = ("adam",) + OPT_NAMES
+    reset_counts(counters)
+    states = {n: fresh(n) for n in names}
+    rate_runs = {n: scan_run(cfg, fc, rcfg, TRAIN_BATCH, OPT_RATE_INNER, True) for n in names}
+    walls = {n: [] for n in names}
+    for n in names + names + names[::-1]:  # the first call of each captures, untimed
+        perm, start = pool.take_scan_window(TRAIN_BATCH, OPT_RATE_INNER)
+        sync()
+        t0 = time.perf_counter()
+        states[n], aux = rate_runs[n](states[n], tr.scene, pool.data, tr.fine_dgrid, None, perm,
+                                      start)
+        sync()
+        walls[n].append(time.perf_counter() - t0)
+        bad = [k for k, v in aux.items() if not bool(torch.isfinite(v))]
+        if bad:
+            fails.append(f"optimizer {n} replayed window: {bad} not finite")
+    ms = {n: 1e3 * sum(w[1:]) / ((len(w) - 1) * OPT_RATE_INNER) for n, w in walls.items()}
+    print(f"optimizer windows, steady vjp {fc.act_dtype} at batch {TRAIN_BATCH} ({card}): ms a "
+          f"step over {OPT_RATE_INNER}-step {'replayed' if device == 'cuda' else 'eager'} "
+          f"windows in turns (" + ", ".join(names + names[::-1]) + "): " + ", ".join(
+              f"{n} {ms[n]:.3f}" for n in names) + "; each first call (warm-up and capture) "
+          + ", ".join(f"{n} {walls[n][0]:.3f} s" for n in names))
+    launches["optimizer rates"] = read_counts()
+    launches["optimizer rates_graph"] = graph_launches(rate_runs.values(),
+                                                       launches["optimizer rates"])
+    for r in rate_runs.values():
+        r.release()
+    del states, rate_runs, tr, pool
+    free_cached()
+
+    # (b) train_cli, a save inside RAdam's first five updates, a resume
+    extra = ["--log_every", str(OPT_SCAN), "--test_batch_size", str(TRAIN_BATCH)]
+    restored = []
+    real_restore = loop.Trainer._restore
+
+    def restore(self, path):
+        real_restore(self, path)
+        restored.append(copy.deepcopy(self.state.optimizer.state_dict()))
+
+    for name in OPT_NAMES:
+        cfg_path = write_cfg(os.path.join(root, f"optimizer_{name}.yaml"), root,
+                             merged(base, {"TRAINER": {"OPTIMIZER": name}}))
+        trs, saved = [], None
+        with mock.patch.object(loop.Trainer, "_restore", restore):
+            for run, ckpt in ((f"optimizer {name}", ck0), (f"optimizer {name}_resume", None)):
+                if ckpt is None:
+                    ckpt = latest_checkpoint(trs[0].ckpt_dir) or ""
+                reset_counts(counters)
+                t0 = time.perf_counter()
+                t = train_cli(cfg_path, save, run.replace(" ", "_"), TRAIN_BATCH, OPT_SCAN,
+                              device, extra + ["--ckpt_path", ckpt])
+                sync()
+                wall = time.perf_counter() - t0
+                got = launches[run] = read_counts()
+                launches[f"{run}_graph"] = graph_launches(t.scan_runs(), got)
+                trs.append(t)
+                if saved is None:
+                    saved = copy.deepcopy(t.state.optimizer.state_dict())
+                recs = log_records(t.logger.path)
+                bad = [(r["step"], k) for r in recs for k, v in r.items() if not math.isfinite(v)]
+                losses = [(r["step"], r["loss"]) for r in recs if "loss" in r]
+                scan = t.scan_runs()
+                print(f"{run}: train_cli {OPT_SCAN} steps from step {t.state.step - OPT_SCAN} "
+                      f"to {t.state.step}, update count {t.state.optimizer.count}; "
+                      + ("; ".join(f"a {r.n_inner}-step run: {r.captures} capture(s), "
+                                   f"{r.replays} replays, per captured step " + ", ".join(
+                                       f"{k} {v}" for k, v in sorted(r.per_step_launches.items()))
+                                   for r in scan) or "no multi-step run")
+                      + "; counted " + (", ".join(f"{k} {v}" for k, v in got.items() if v)
+                                        or "none")
+                      + "; logged loss " + ", ".join(f"{s} {v:.5f}" for s, v in losses)
+                      + f"; wall {wall:.2f} s")
+                if bad or not losses:
+                    fails.append(f"{run}: logged losses {losses}, non-finite {bad[:5]}")
+                if device == "cuda":
+                    fails += resume_graph_fails(t, "vjp")
+                    fails += [f"{run}: {k} launched, outside the vjp step's kernels"
+                              for r in scan for k in r.per_step_launches
+                              if k not in OPT_STEP_KERNELS]
+                    fails += [f"{run}: {k} launched {v} times, outside the vjp step's kernels"
+                              for k, v in got.items() if v and k not in OPT_STEP_KERNELS]
+                for r in scan:
+                    r.release()
+        at = [(t.state.step, t.state.optimizer.count) for t in trs]
+        want = [(step0 + OPT_SCAN, OPT_SCAN), (step0 + 2 * OPT_SCAN, 2 * OPT_SCAN)]
+        file = restore_checkpoint(latest_checkpoint(trs[0].ckpt_dir))["optimizer"]
+        equal = same_state(restored[-1], saved) and same_state(file, saved)
+        print(f"optimizer {name}: saved at step {want[0][0]}, update {file['count']} "
+              f"({file['name']}); the resumed Trainer's state "
+              f"{'equals' if equal else 'DIFFERS from'} the saved one bit for bit ({len(saved['state']['state'])} parameters' "
+              + ", ".join(sorted(next(iter(saved["state"]["state"].values()), {})))
+              + f"); steps and counts {at}")
+        if at != want or not equal or file["name"] != name:
+            fails.append(f"optimizer {name}: train_cli and resume at {at}, restored state equal "
+                         f"{equal}")
+        del trs
+        free_cached()
+    print(f"optimizer phase ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return launches, fails
+
+
 def e2e_gate_phase(root: str, device: str = "cuda", card: str = "the CPU"):
     """tests/test_e2e.py:79-191 through the port's CLIs: its workspace (6
     views of 40x30) and cache, train_cli 300 steps at batch 512 (the
@@ -3413,7 +3675,7 @@ def e2e_gate_phase(root: str, device: str = "cuda", card: str = "the CPU"):
     sync()
     t_train = time.perf_counter() - t0
     counted = read_counts()
-    graph = graph_launches(tr, counted)
+    graph = graph_launches(tr.scan_runs(), counted)
     launches = {"train": {n: v + graph[n] for n, v in counted.items()}}
     scan = tr.scan_runs()
     print(f"e2e gate's train_cli: {type(tr.device_pool).__name__ if tr.device_pool else 'host'}"
@@ -3529,11 +3791,28 @@ def scan_launches(counted: dict, run) -> dict:
             for k, v in counted.items()}
 
 
-def sync_warnings(model, fc, rcfg, scene, rays, fine_grid, sfm_grid) -> list:
-    """The host syncs of one eager served chunk: torch's sync debug mode's
-    warnings (distinct messages), on the card."""
+def host_syncs(fn) -> list:
+    """The host syncs of ``fn()``: torch's sync debug mode's warnings
+    (distinct messages), on the card."""
     import warnings
 
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # torch warns "called a synchronizing CUDA operation" at each sync, and
+    # once that the mode is a prototype, which is not a sync
+    return sorted({str(w.message).splitlines()[0] for w in caught
+                   if "synchroniz" in str(w.message) and "prototype" not in str(w.message)})
+
+
+def sync_warnings(model, fc, rcfg, scene, rays, fine_grid, sfm_grid) -> list:
+    """The host syncs of one eager served chunk (``host_syncs``)."""
     import torch
 
     from neuralrecon_w_tpu_torch.training.step import make_render_fn
@@ -3544,17 +3823,7 @@ def sync_warnings(model, fc, rcfg, scene, rays, fine_grid, sfm_grid) -> list:
     fn = make_render_fn(fc, rcfg)
     fn(model, scene, r, ts, ts, None, fine_grid, sfm_grid)
     sync()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn(model, scene, r, ts, ts, None, fine_grid, sfm_grid)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    # torch warns "called a synchronizing CUDA operation" at each sync, and
-    # once that the mode is a prototype, which is not a sync
-    return sorted({str(w.message).splitlines()[0] for w in caught
-                   if "synchroniz" in str(w.message) and "prototype" not in str(w.message)})
+    return host_syncs(lambda: fn(model, scene, r, ts, ts, None, fine_grid, sfm_grid))
 
 
 def serving_kernels(fc) -> tuple:
@@ -4797,6 +5066,12 @@ def main() -> int:
                 got.update(ranked)
                 pfails += tfails
                 clock.lap("tensor-parallel")
+                # every TRAINER.OPTIMIZER in the captured window from the same
+                # checkpoint's parameters: launches under "train_cli optimizer ..."
+                ranked, ofails = optimizer_phase(root, ck, "cuda", card)
+                got.update(ranked)
+                pfails += ofails
+                clock.lap("optimizers")
         finally:
             shutil.rmtree(root, ignore_errors=True)
         fails += pfails

@@ -210,45 +210,57 @@ def init_field(fc: FieldConfig, generator: torch.Generator, device=None) -> Neuc
     return model
 
 
-def _adam_state(opt_state):
-    """The optax ScaleByAdamState (count, mu, nu) inside an opt_state tree
-    of tuples, found by its fields (optax is not imported here)."""
-    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+def _optax_state(opt_state, fields: tuple):
+    """The first optax state inside an opt_state tree of tuples that has
+    ``fields`` (a NamedTuple's ``_fields``), or None: ScaleByAdamState
+    (count, mu, nu) for Adam and RAdam, TraceState (trace) for SGD's
+    momentum, ScaleByScheduleState (count). Found by its fields, so optax
+    is not imported here."""
+    if all(f in getattr(opt_state, "_fields", ()) for f in fields):
         return opt_state
     if isinstance(opt_state, (tuple, list)):
         for s in opt_state:
-            found = _adam_state(s)
+            found = _optax_state(s, fields)
             if found is not None:
                 return found
     return None
 
 
 def state_from_jax(np_state, fc: FieldConfig, optimizer_spec, grid=None, device=None):
-    """A JAX ``TrainState`` (params, the optax Adam state and step, numpy
-    leaves) and optionally the JAX package's fine ``VoxelGrid`` as the
-    port's: (``training.step.TrainState``, ``ops.voxel_grid.VoxelGrid`` or
-    None). The model holds the parameters, the torch Adam state Adam's
-    first and second moments and step count per parameter, the
-    ``Optimizer`` the update count its schedule reads; the grid's cells are
-    put in the port's order."""
+    """A JAX ``TrainState`` (params, the optax state and step, numpy leaves)
+    and optionally the JAX package's fine ``VoxelGrid`` as the port's:
+    (``training.step.TrainState``, ``ops.voxel_grid.VoxelGrid`` or None).
+    The model holds the parameters, the ``Optimizer`` the update count its
+    schedule reads and, per parameter, the state of the optimiser
+    ``optimizer_spec`` names: for Adam and RAdam optax's ScaleByAdamState
+    as ``step`` (its count), ``exp_avg`` (mu) and ``exp_avg_sq`` (nu); for
+    SGD the TraceState's trace as ``momentum_buffer``, the count that of
+    the LR schedule's state, or with a constant LR the step. The grid's
+    cells are put in the port's order."""
     from ..ops.voxel_grid import VoxelGrid, _sort_coords
     from ..training.step import TrainState
 
     model = field_from_jax(np_state.params, fc, device)
     optimizer = optimizer_spec.init(model.parameters())
-    if optimizer_spec.name != "adam":
-        raise NotImplementedError("only Adam's state is carried across")
-    adam = _adam_state(np_state.opt_state)
-    if adam is None:
-        raise ValueError("the JAX opt_state holds no Adam state (count, mu, nu)")
-    count = int(np.asarray(adam.count))
-    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
-    for name, p in model.named_parameters():
-        optimizer.opt.state[p] = {
-            "step": torch.tensor(float(count)),
-            "exp_avg": mu[name].to(p.device).reshape(p.shape).clone(),
-            "exp_avg_sq": nu[name].to(p.device).reshape(p.shape).clone(),
-        }
+    named = dict(model.named_parameters())
+    if optimizer_spec.name == "sgd":
+        trace = _optax_state(np_state.opt_state, ("trace",))
+        if trace is None:
+            raise ValueError("the JAX opt_state holds no SGD momentum (TraceState)")
+        sched = _optax_state(np_state.opt_state, ("count",))
+        count = int(np.asarray(sched.count if sched is not None else np_state.step))
+        per = {"momentum_buffer": params_from_jax(trace.trace)}
+    else:
+        adam = _optax_state(np_state.opt_state, ("count", "mu", "nu"))
+        if adam is None:
+            raise ValueError(f"the JAX opt_state holds no {optimizer_spec.name} state "
+                             "(count, mu, nu)")
+        count = int(np.asarray(adam.count))
+        per = {"exp_avg": params_from_jax(adam.mu), "exp_avg_sq": params_from_jax(adam.nu)}
+    for name, p in named.items():
+        st = {} if optimizer_spec.name == "sgd" else {"step": torch.tensor(float(count))}
+        optimizer.opt.state[p] = {**st, **{k: v[name].to(p.device).reshape(p.shape).clone()
+                                           for k, v in per.items()}}
     optimizer.count = count
     fine = None
     if grid is not None:

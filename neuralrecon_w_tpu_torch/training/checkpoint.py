@@ -9,9 +9,11 @@ exported by ``neuralrecon_w_tpu.tools.convert_torch_ckpt --reverse``, and
 the reference's strict loader reads what the port writes. The trainer's
 files add two top-level entries that loader does not look at:
 
-  * ``"optimizer"``: the torch optimiser's ``state_dict`` (Adam's moments
-    and step per parameter, in ``model.parameters()`` order) and the
-    update count the LR schedule reads;
+  * ``"optimizer"``: ``schedule.Optimizer.state_dict()``: the optimiser's
+    name (TRAINER.OPTIMIZER), the torch optimiser's ``state_dict`` (per
+    parameter, in ``model.parameters()`` order: Adam's and RAdam's
+    ``step``, ``exp_avg`` and ``exp_avg_sq``, SGD's ``momentum_buffer``)
+    and the update count the LR schedule reads;
   * ``"fine_grid"``: the surface grid's level, origin, scale and cells,
     which the JAX package writes beside its orbax tree as ``fine_grid.npz``.
 
@@ -47,7 +49,7 @@ def save_checkpoint(path: str, model: NeuconWField, step: int, optimizer=None,
     sd = with_dead_entries(sd, encode_a_bg=not hasattr(model.nerf, "views_linears"))
     ckpt = {"state_dict": sd, "global_step": int(step), "epoch": 0}
     if optimizer is not None:
-        ckpt["optimizer"] = {"state": optimizer.state_dict(), "count": int(optimizer.count)}
+        ckpt["optimizer"] = optimizer.state_dict()
     if fine_grid is not None:
         ckpt["fine_grid"] = {"level": int(fine_grid.level),
                              "origin": [float(v) for v in np.asarray(fine_grid.origin)],

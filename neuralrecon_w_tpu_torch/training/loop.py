@@ -277,14 +277,14 @@ class Trainer:
     def _restore(self, path: str):
         """Parameters and step; the optimiser state and the fine grid where
         the file has them (a parameters-only file restores with fresh
-        optimiser state, as ``loop.py:159-161`` does)."""
+        optimiser state, as ``loop.py:159-161`` does). The state must be
+        of the optimiser TRAINER.OPTIMIZER names, else this raises."""
         restored = restore_checkpoint(path)
         self.state.model.load_state_dict(
             without_dead_entries(restored["state_dict"], self.fc.encode_a_bg), strict=True)
         self.state.step = restored["step"]
         if "optimizer" in restored:
-            self.state.optimizer.opt.load_state_dict(restored["optimizer"]["state"])
-            self.state.optimizer.count = int(restored["optimizer"]["count"])
+            self.state.optimizer.load_state_dict(restored["optimizer"])
         if "fine_grid" in restored:
             self._set_fine_grid(restored["fine_grid"],
                                 device_grid_from_host(restored["fine_grid"], self.device))

@@ -35,9 +35,10 @@ a plain loop of the step. On the card it captures one step in a
 ``torch.cuda.CUDAGraph`` and replays it, in every SDF_GRAD_MODE and with
 either background: the batch is gathered inside the graph by a device
 cursor, and the step counter (the cos-anneal ratio), the update count (the
-LR) and Adam's state are device tensors the graph advances. The kernel
-modes' wrappers pack the weights from the live parameters inside the
-captured step, so every replay reads the weights Adam left in place.
+LR) and the optimiser's state (Adam's, SGD's or RAdam's: ``schedule.py``)
+are device tensors the graph advances. The kernel modes' wrappers pack the
+weights from the live parameters inside the captured step, so every
+replay reads the weights the update left in place.
 Inside the graph the sampler's jitter draws from one generator registered
 with the graph, seeded once from (seed, step at capture), so its stream
 differs from the eager steps' per-(seed, step) generators. K5 sums with
@@ -189,8 +190,8 @@ def make_train_step(fc: FieldConfig, rcfg: RenderConfig, lcfg: LossConfig,
 
 
 # eager steps before a capture (the whole-network capture recipe's
-# warm-up: lazy state such as Adam's moments and the autograd engine's is
-# made outside the graph); they are real steps of the window
+# warm-up: lazy state such as the optimiser's moments and the autograd
+# engine's is made outside the graph); they are real steps of the window
 GRAPH_WARMUP = 2
 
 

@@ -740,3 +740,59 @@ print("ok")
     assert "the first step's gathered gradients worst" in out
     assert "finite;" in out and "GB/s), all-gather of 8 MB" in out
     assert out.strip().endswith("ok")
+
+
+def test_chip_smoke_optimizer_phase_without_jax_package(tmp_path):
+    """optimizer_phase at a tiny width on the CPU (the kernels' plain
+    versions, the plain loop in place of a graph): from a 5-step train_cli
+    checkpoint's parameters and fine grid, for SGD and RAdam an 8-step
+    window held to the plain loop by graph_parity, a train_cli run saved at
+    update 5 and resumed, its optimiser state restored bit for bit, then
+    the three optimisers' windows timed in turns; every check passing, and
+    no JAX."""
+    code = f"""
+import os
+import sys
+import torch
+import chip_smoke as cs
+
+torch.set_num_threads(2)
+cs.TRAINER_CAMS, cs.IMG_WH, cs.TRAINER_POINTS, cs.TRAIN_BATCH = 5, (24, 18), 1500, 128
+cs.OPT_RATE_INNER = 2
+extra = {{"NEUCONW": {{"SDF_CONFIG": {{"d_hidden": 64, "d_out": 65, "n_layers": 4, "skip_in": [2]}},
+                     "COLOR_CONFIG": {{"d_feature": 64, "d_hidden": 32, "n_layers": 2}},
+                     "N_VOCAB": 8}}}}
+root = {str(tmp_path)!r}
+cs.cli_workspace(root, "cpu", cs.TRAINER_CAMS + 1, cs.IMG_WH, cs.TRAINER_POINTS, 1.7, 64, 0.1875)
+cfg = cs.write_cfg(os.path.join(root, "train.yaml"), root, cs.merged(
+    {{"NEUCONW": {{"TRAIN_VOXEL_SIZE": 0.05, "UPDATE_FREQ": 2}},
+     "TRAINER": {{"SAVE_FREQ": 5, "VAL_FREQ": 1000.0}}, "TPU": {{"DEVICE_POOL": False}}}}, extra))
+cs.train_cli(cfg, os.path.join(root, "results"), "trainer", 128, 5, "cpu")
+ck = os.path.join(root, "results", "trainer", "checkpoints", "step_5.ckpt")
+launches, fails = cs.optimizer_phase(root, ck, "cpu", extra_cfg=extra, train_voxel=0.05)
+assert fails == [], fails
+assert set(launches) == {{"optimizer parity", "optimizer parity_graph", "optimizer rates",
+                         "optimizer rates_graph", "optimizer sgd", "optimizer sgd_graph",
+                         "optimizer sgd_resume", "optimizer sgd_resume_graph", "optimizer radam",
+                         "optimizer radam_graph", "optimizer radam_resume",
+                         "optimizer radam_resume_graph"}}
+assert "jax" not in sys.modules and "neuralrecon_w_tpu" not in sys.modules
+print("ok")
+"""
+    proc = run(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-3000:]
+    out = proc.stdout
+    for name in ("sgd", "radam"):
+        assert f"graph vs eager optimizer {name} vjp f32 PERTURB 0, 8 steps" in out
+        assert (f"optimizer {name}: graph vs eager, steady vjp, 8 steps from a fresh state "
+                "(0 capture, 0 replays, update counts (8, 8)): graph_parity's bounds held; "
+                "the parameters' change rel-L2 0.00e+00 of eager's") in out
+        assert f"optimizer {name}: saved at step 10, update 5 ({name}); the resumed Trainer's " \
+               "state equals the saved one bit for bit" in out
+        for tag, at in (("", "5 to 10, update count 5"), ("_resume", "10 to 15, update count 10")):
+            assert (f"optimizer {name}{tag}: train_cli 5 steps from step {at}; a 5-step run: "
+                    "0 capture(s), 0 replays") in out
+    assert "-> ok" in out and "-> FAIL" not in out
+    assert "ms a step over 2-step eager windows in turns (adam, sgd, radam, radam, sgd, adam)" \
+        in out
+    assert out.strip().endswith("ok")

@@ -260,12 +260,23 @@ def test_ray_mask_and_loss_terms_match_jax():
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-6, err_msg=k)
 
 
+# each case's gradient scales: the second update clipped at GRAD_CLIP 0.99
+# (the others below it); RAdam's eight cross its rectification (update 6)
+GRAD_SCALES = {"adam": (0.1, 3.0, 0.05), "sgd": (0.1, 3.0, 0.05),
+               "radam": (0.1, 3.0, 0.05, 0.2, 0.08, 0.15, 0.03, 0.12)}
+
+
 @pytest.mark.parametrize("opt,sched", [("adam", "none"), ("adam", "cosine"), ("adam", "steplr"),
-                                       ("adam", "poly"), ("sgd", "none")])
+                                       ("adam", "poly"), ("sgd", "none"), ("radam", "none"),
+                                       ("radam", "cosine"), ("radam", "steplr"),
+                                       ("radam", "poly")])
 def test_optimizer_matches_optax(opt, sched):
-    """The same gradients through JAX make_optimizer and the port's over 3
-    updates, the second clipped at GRAD_CLIP 0.99; weight decay with the
-    cosine schedule (AdamW)."""
+    """The same gradients through JAX make_optimizer and the port's over
+    GRAD_SCALES[opt] updates, the second clipped at GRAD_CLIP 0.99; weight
+    decay with the cosine schedule (AdamW; RAdam ignores it on both sides).
+    RAdam's update runs jitted, as the JAX package runs it: XLA's float32
+    power there is the correctly rounded one (eager jnp.power with an
+    integer count is an ulp or two off, which moves ro by ~0.02 at t = 6)."""
     from neuralrecon_w_tpu.training import make_optimizer as jax_make_optimizer
     from neuralrecon_w_tpu_torch.training.schedule import make_optimizer
 
@@ -277,15 +288,17 @@ def test_optimizer_matches_optax(opt, sched):
     params = {"a": rng.standard_normal((4, 3)).astype(np.float32),
               "b": rng.standard_normal(5).astype(np.float32)}
     grads = [{k: (rng.standard_normal(v.shape) * s).astype(np.float32) for k, v in params.items()}
-             for s in (0.1, 3.0, 0.05)]
-    jopt, _ = jax_make_optimizer(cfg, 8192, total_steps=4)
+             for s in GRAD_SCALES[opt]]
+    total = len(grads) + 1  # the schedules stay above 0 through the last update
+    jopt, _ = jax_make_optimizer(cfg, 8192, total_steps=total)
+    update = jax.jit(jopt.update) if opt == "radam" else jopt.update
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     js = jopt.init(jp)
-    spec, _ = make_optimizer(cfg, 8192, total_steps=4)
+    spec, _ = make_optimizer(cfg, 8192, total_steps=total)
     tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in params.items()}
     topt = spec.init(tp.values())
     for g in grads:
-        upd, js = jopt.update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
+        upd, js = update({k: jnp.asarray(v) for k, v in g.items()}, js, jp)
         jp = optax.apply_updates(jp, upd)
         for k, p in tp.items():
             p.grad = torch.from_numpy(g[k].copy())
