@@ -101,13 +101,16 @@ a resume to step 302) and fails on any of that test's gates and bands.
 
 The grid queries: ``ray_kernel_phase`` holds K10
 (``csrc/ray_voxel.cu``, the exact DDA) and K11 (the sampled first hit) to
-their plain versions with ``torch.equal`` on every output: K10 at the SFM
-level over the serving frames' and the training cache's rays, K10 at
-level 10 with first_only over 2^20 rays (axis-parallel ones, origins in
-occupied cells, misses among them), K11 at the steady chunk's 1024
-samples; each timed against its plain version in turns, its bound from the
-loop trips the kernel counted. Serving, the ray cache, validation and the
-band cache run through them. After the training phases ``graph_parity``
+their plain versions with ``torch.equal`` on every output and on each
+ray's trips: K10 at the SFM level over one served chunk's, the serving
+frames' and the training cache's rays, K10 at level 10 with first_only
+over 2^20 rays (axis-parallel ones, origins in occupied cells, misses
+among them), K11 at the steady chunk's 1024 samples; each timed against
+its plain version in turns, its bound from the loop trips the kernel
+counted; K10's pre-pass (its coarse mask, level 10) against its plain
+version and timed alone, and per K10 case the share of global reads the
+mask skipped. Serving, the ray cache, validation and the band cache run
+through them. After the training phases ``graph_parity``
 holds make_scan_train_fn's CUDA graph to the same window of eager steps on
 a ``DeviceRayPool`` of the training rays (f32 at PERTURB 0, and the
 operating point's mean loss), and ``trainer_phase`` (now on the host pool,
@@ -1462,48 +1465,97 @@ def in_turns(kernel, plain, reps_k: int = 5, reps_p: int = 1):
     return min(k1, k2), (p1 + p2) / 2
 
 
-def ray_kernel_phase(scene, sfm_grid, sfm_level, fine_grid, fine_host, frames, rcfg_steady):
-    """K10 at the SFM level over the serving frames' and the training
-    cache's rays (the SFM near / far of serving and of the ray cache), K10
-    at level 10 with first_only over level10_rays (the band cache's query),
-    K11 at the steady serving chunk's n_samples: each held to its plain
-    version with torch.equal, timed against it in turns. ``bound_ms``: the
-    larger of the bytes (each ray's inputs read and outputs written once,
-    and each distinct occupancy word the walk reads once, counted by the
-    plain version's ``touched`` on this run's rays) over the memory rate,
-    and the float32 operations (K10_* / K11_*, over the trips the kernel
-    counted in this run) over the FMA pipes' peak."""
+def ray_kernel_cases(scene, sfm_grid, sfm_level, fine_grid, fine_host, frames, rcfg_steady):
+    """ray_kernel_phase's inputs: K10's cases [(label, grid, level, o, d,
+    first_only)] (one served chunk, the serving frames and the training
+    cache at the SFM level; level10_rays at the fine level, first_only)
+    and K11's (grid, level, o, d, t_lo, t_hi, n_samples) on the steady
+    chunk, made as near_far_from_fine_grid makes them."""
     import numpy as np
     import torch
 
-    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
     from neuralrecon_w_tpu_torch.rendering.renderer import near_far_from_sfm_grid
 
     dev = scene.origin.device
-    fails, cases = [], {}
     rows, _ = training_rays()
     srv = torch.as_tensor(np.concatenate(frames), device=dev)
     cache = torch.as_tensor(rows, device=dev)
     o10, d10 = level10_rays(fine_host, K10_RAYS)
-    k10 = [(f"level {sfm_level} serving", sfm_grid, sfm_level,
-            (srv[:, :3] - sfm_grid.origin) / sfm_grid.scale, srv[:, 3:6].contiguous(), False),
-           (f"level {sfm_level} cache", sfm_grid, sfm_level,
-            (cache[:, :3] - sfm_grid.origin) / sfm_grid.scale, cache[:, 3:6].contiguous(), False),
+    sfm = lambda rays: ((rays[:, :3] - sfm_grid.origin) / sfm_grid.scale,  # noqa: E731
+                        rays[:, 3:6].contiguous())
+    k10 = [(f"level {sfm_level} chunk", sfm_grid, sfm_level, *sfm(srv[:CHUNK]), False),
+           (f"level {sfm_level} serving", sfm_grid, sfm_level, *sfm(srv), False),
+           (f"level {sfm_level} cache", sfm_grid, sfm_level, *sfm(cache), False),
            (f"level {fine_host.level} first_only", fine_grid, fine_host.level,
             torch.as_tensor(o10, device=dev), torch.as_tensor(d10, device=dev), True)]
+    k10 = [(label, grid, level, o.contiguous(), d, first)
+           for label, grid, level, o, d, first in k10]
+    rays = torch.as_tensor(frames[1][:CHUNK], device=dev)
+    rays_o = (rays[:, :3] - scene.origin) / scene.radius
+    near, far, _ = near_far_from_sfm_grid(rcfg_steady, scene, sfm_grid, rays_o, rays[:, 3:6],
+                                          rays[:, 6:7] / scene.radius, rays[:, 7:8] / scene.radius)
+    o = ((rays_o * scene.radius + scene.origin) - fine_grid.origin) / fine_grid.scale
+    t_lo = (near[:, 0] * scene.radius / fine_grid.scale).contiguous()
+    t_hi = (far[:, 0] * scene.radius / fine_grid.scale).contiguous()
+    k11 = (fine_grid, fine_host.level, o.contiguous(), rays[:, 3:6].contiguous(), t_lo, t_hi,
+           rcfg_steady.surface_query_samples)
+    return k10, k11
+
+
+def ray_kernel_phase(scene, sfm_grid, sfm_level, fine_grid, fine_host, frames, rcfg_steady):
+    """K10 at the SFM level over one served chunk's rays, the serving
+    frames' and the training cache's (the SFM near / far of serving and of
+    the ray cache), K10 at level 10 with first_only over level10_rays (the
+    band cache's query), K11 at the steady serving chunk's n_samples: each
+    held to its plain version with torch.equal, each ray's trips to the
+    plain walk's, timed against it in turns. K10's pre-pass (its coarse
+    mask, ``ray_voxel.coarse_mask``) is held to its plain version and timed
+    alone at each grid K10 runs it on (from ``MASK_FROM`` up); each K10
+    case prints the share of its trips whose global read the mask skipped
+    (the plain version's ``global_reads``: none below ``MASK_FROM``).
+    ``bound_ms``: the larger of the bytes (each ray's inputs read and
+    outputs written once, and each distinct occupancy word the walk reads
+    once, counted by the plain version's ``touched`` on this run's rays)
+    over the memory rate, and the float32 operations (K10_* / K11_*, over
+    the trips the kernel counted in this run) over the FMA pipes' peak."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    dev = scene.origin.device
+    fails, cases, prepass = [], {}, {}
+    for level, grid in ((sfm_level, sfm_grid), (fine_host.level, fine_grid)):
+        if level < rv.MASK_FROM:  # K10 runs no pre-pass there
+            continue
+        got = rv.coarse_mask(grid.occ, level)
+        equal = torch.equal(got, rv.coarse_words_plain(grid.occ, level, rv.mask_shift(level)))
+        ms = cuda_ms(lambda: rv.coarse_mask(grid.occ, level), 20)
+        prepass[level] = ms
+        print(f"K10 pre-pass at level {level}: {grid.occ.numel()} words to a coarse mask of "
+              f"{got.numel()} (blocks of {1 << rv.mask_shift(level)}^3 cells), "
+              f"{int(rv._popcount32(got.long() & 0xFFFFFFFF).sum())} blocks "
+              f"occupied; equal to the plain mask {equal}; {ms:.4f} ms -> "
+              f"{'ok' if equal else 'FAIL'}")
+        if not equal:
+            fails.append(f"K10 pre-pass at level {level}")
+    k10, k11 = ray_kernel_cases(scene, sfm_grid, sfm_level, fine_grid, fine_host, frames,
+                                rcfg_steady)
     for label, grid, level, o, d, first in k10:
-        o = o.contiguous()
         r = o.shape[0]
         trips = torch.empty(r, dtype=torch.int32, device=dev)
         touched = torch.zeros_like(grid.occ)
+        plain_trips, reads = torch.empty_like(trips), torch.empty_like(trips)
         got = rv.dda_traverse(grid.occ, level, o, d, first, steps_out=trips)
-        want = rv.dda_traverse_plain(grid.occ, level, o, d, first, touched=touched)
+        want = rv.dda_traverse_plain(grid.occ, level, o, d, first, touched=touched,
+                                     steps_out=plain_trips, global_reads=reads)
         sync()
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
         n_trips, words = float(trips.double().sum()), int((touched > 0).sum())
-        if float(touched.double().sum()) != n_trips:
-            fails.append(f"K10 {label}: the plain version read {float(touched.sum())} words, "
-                         f"the kernel made {n_trips} trips")
+        if float(touched.double().sum()) != n_trips or not torch.equal(trips, plain_trips):
+            fails.append(f"K10 {label}: the plain version read {float(touched.sum())} words "
+                         f"in {float(plain_trips.double().sum())} trips, the kernel made "
+                         f"{n_trips} trips")
+        skipped = 1.0 - float(reads.double().sum()) / max(n_trips, 1.0)
         err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
         ms, plain_ms = in_turns(lambda: rv.dda_traverse(grid.occ, level, o, d, first),
                                 lambda: rv.dda_traverse_plain(grid.occ, level, o, d, first))
@@ -1511,33 +1563,33 @@ def ray_kernel_phase(scene, sfm_grid, sfm_level, fine_grid, fine_host, frames, r
         b = bound(r * K10_RAY_OPS + n_trips * K10_TRIP_OPS, r * (24 + 4 + 4 + 1) + 4 * words,
                   "simt")
         print(f"K10 dda {label} on {r} rays: {int(got[2].sum())} hit, mean {mean_trips:.1f} "
-              f"steps (max {int(trips.max())}), {words} distinct words of {grid.occ.numel()}; "
-              f"torch.equal {equal}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) -> {'ok' if equal else 'FAIL'}")
+              f"steps (max {int(trips.max())}), {words} distinct words of {grid.occ.numel()}, "
+              f"the mask skipped the global read of {skipped:.4f} of the steps; torch.equal "
+              f"{equal}; kernel {ms:.4f} ms ("
+              + (f"its pre-pass {prepass[level]:.4f}" if level in prepass else "no pre-pass")
+              + f"), plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}) -> "
+              f"{'ok' if equal else 'FAIL'}")
         if not equal:
             fails.append(f"K10 {label}")
         cases[label] = {"rays": r, "mean_steps": mean_trips, "words": words, "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms, **b}
+                        "skipped_share": skipped, "prepass_ms": prepass.get(level), "ms": ms,
+                        "plain_ms": plain_ms, **b}
     head = cases[f"level {fine_host.level} first_only"]
     res = {"dda": {**head, "library_ms": None, "cases": cases}}
 
     # K11 on the steady chunk, its inputs as near_far_from_fine_grid makes them
-    rays = torch.as_tensor(frames[1][:CHUNK], device=dev)
-    rays_o = (rays[:, :3] - scene.origin) / scene.radius
-    near, far, _ = near_far_from_sfm_grid(rcfg_steady, scene, sfm_grid, rays_o, rays[:, 3:6],
-                                          rays[:, 6:7] / scene.radius, rays[:, 7:8] / scene.radius)
-    o = ((rays_o * scene.radius + scene.origin) - fine_grid.origin) / fine_grid.scale
-    d = rays[:, 3:6].contiguous()
-    t_lo = (near[:, 0] * scene.radius / fine_grid.scale).contiguous()
-    t_hi = (far[:, 0] * scene.radius / fine_grid.scale).contiguous()
-    k = rcfg_steady.surface_query_samples
-    level = fine_host.level
+    _, level, o, d, t_lo, t_hi, k = k11
     trips = torch.empty(o.shape[0], dtype=torch.int32, device=dev)
+    plain_trips = torch.empty_like(trips)
     touched = torch.zeros_like(fine_grid.occ)
     got = rv.sampled_first_hit(fine_grid, level, o, d, t_lo, t_hi, k, steps_out=trips)
-    want = rv.sampled_first_hit_plain(fine_grid, level, o, d, t_lo, t_hi, k, touched=touched)
+    want = rv.sampled_first_hit_plain(fine_grid, level, o, d, t_lo, t_hi, k, touched=touched,
+                                      steps_out=plain_trips)
     sync()
     equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    if not torch.equal(trips, plain_trips):
+        fails.append(f"K11: the kernel walked {float(trips.double().sum())} samples, the plain "
+                     f"walk {float(plain_trips.double().sum())}")
     err = float((got[0] - want[0]).abs().max())
     ms, plain_ms = in_turns(lambda: rv.sampled_first_hit(fine_grid, level, o, d, t_lo, t_hi, k),
                             lambda: rv.sampled_first_hit_plain(fine_grid, level, o, d, t_lo,
@@ -4690,7 +4742,8 @@ def reproj_filter_phase(root: str, ply_path: str, card: str = "the CPU",
 
 REDESIGNED = (("K2", "up_sample_kernel"), ("K3", "sdf_vjp_fwd_kernel"),
               ("K4", "sdf_vjp_bwd_kernel"), ("K6", "field_fwd_kernel"), ("K7", "field_bwd_kernel"),
-              ("K8", "bg_fwd_kernel"), ("K9", "bg_bwd_kernel"))
+              ("K8", "bg_fwd_kernel"), ("K9", "bg_bwd_kernel"), ("K10", "dda_kernel"),
+              ("K10's pre-pass", "coarse_kernel"), ("K11", "sampled_hit_kernel"))
 
 
 def ptxas_report(log: str) -> list:
@@ -5168,7 +5221,9 @@ def main() -> int:
           f"{ratio(kres['sdf_vjp_fwd']):.1f}; K4 sdf_vjp_bwd {ratio(kres['sdf_vjp_bwd']):.1f}; "
           f"K8 nerf_bg_fwd {ratio(kres['nerf_bg_fwd']):.1f}; K9 nerf_bg_bwd "
           f"{ratio(kres['nerf_bg_bwd']):.1f} (against its rows for K5 "
-          f"{kres['nerf_bg_bwd']['ms'] / kres['nerf_bg_bwd']['rows_floor_ms']:.1f})")
+          f"{kres['nerf_bg_bwd']['ms'] / kres['nerf_bg_bwd']['rows_floor_ms']:.1f}); K10 dda "
+          + ", ".join(f"{ratio(c):.1f} {label}" for label, c in kres["dda"]["cases"].items())
+          + f"; K11 sampled_hit {ratio(kres['sampled_hit']):.1f}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,6 @@
 // K10: the exact first / last-hit DDA through a flat occupancy grid,
 // K11: the sampled first-hit query, and
-// K12: the exact DDA through a two-level grid; one thread per ray, all three.
+// K12: the exact DDA through a two-level grid.
 //
 // None replaces a Pallas kernel: the JAX package's DDAs are
 // lax.while_loops of whole-batch steps (neuralrecon_w_tpu/ops/ray_voxel.py:
@@ -12,15 +12,42 @@
 // rate (~20-40 launches a step, up to 3 * 2^L + 2 steps), the buffer by its
 // bytes.
 //
-// What bounds these kernels: device memory. A ray reads its 24 bytes of
-// origin and direction, writes its results, and reads one 4-byte
-// occupancy word a step (K10) or a sample (K11); the words are scattered
-// over a bitfield of 2^{3L} / 8 bytes (128 MiB at level 10, above the 50 MB
-// L2), so each read is a sector of its own unless neighbouring rays walk
-// neighbouring cells, as the rays of one camera do. The design keeps a
-// ray's whole march in registers (no (R, K) buffer, no per-step launch)
-// and ends a ray's loop as soon as it is decided: at the grid's exit, or
-// at the first hit where only that is asked.
+// What bounds these kernels. Counted as bytes and operations the work is
+// small: a ray reads its 24 bytes of origin and direction, writes its
+// results, and tests one occupancy bit a step (K10) or a sample (K11), the
+// words scattered over a bitfield of 2^{3L} / 8 bytes (128 MiB at level 10,
+// above the 50 MB L2). What a ray walked by one thread meets instead is
+// latency: a step's word must arrive before its bit is tested and the loop
+// goes on, so a march is a chain of dependent memory round trips, and a
+// served chunk of 8192 rays is too few threads to hide them. Each kernel
+// keeps a ray's walk in registers (no (R, K) buffer, no launch a step) and
+// ends it as soon as it is decided: at the grid's exit, or at the first hit
+// where only that is asked. Then:
+//
+// K11, one warp a ray. Lane j takes sample base + j, 32 samples a round,
+// their loads in flight together; a ballot of "inside and occupied" and its
+// lowest set bit give the first hit in sample order, and the warp stops
+// after the round that holds it. A ray that misses 1024 samples waits on 32
+// round trips, not 1024; neighbouring samples share words, so a round's
+// reads coalesce; a chunk of 8192 rays is 8192 warps, about one resident
+// wave of the card. (Two rounds in flight bought nothing, PERF.md §6.)
+//
+// K10, one thread a ray (the march is a float32 recurrence, bit for bit
+// the plain version's, so it cannot be split). A ray computes BATCH steps'
+// cells ahead, issues the reads they need together, then tests them in
+// order; first_only stops after the batch that holds the first hit, and
+// every output is the logical march's (a read issued past the ray's end is
+// never tested). From level MASK_FROM up, where the grid (16 MiB and more)
+// no longer stays in L2, a coarse mask also skips reads: one bit a B^3
+// block of cells, the OR of its cells, B = 2^(level - MASK_LEVEL) (2^18
+// bits, 32 KB), staged in shared memory by every block; a step reads its
+// word only where its block is occupied. The mask is built by a pre-pass
+// (coarse_kernel) in every call, on the same stream, so a captured frame or
+// a grid rewritten in place never meets a stale one. Below MASK_FROM the
+// mask does not pay: a warp waits on a batch's reads whenever one of its 32
+// rays needs one, which is nearly every batch, so skipping saves no round
+// trip and costs instructions (PERF.md §6). Blocks shrink to as few as 32
+// threads where the rays are few, so that a chunk spreads over the SMs.
 //
 // The results equal the plain versions bit for bit. So the arithmetic is
 // theirs, operation for operation, in float32 with round-to-nearest, and
@@ -29,11 +56,23 @@
 // boundary would go the other way. Division stays IEEE (nvcc's default
 // -prec-div=true).
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tile_mma.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr float BIG = 1e10f;  // ops/ray_voxel.py's _INF
+// K10's coarse mask is a level-MASK_LEVEL grid: 2^18 bits, MASK_WORDS words;
+// K10 marches through it from level MASK_FROM up
+constexpr int MASK_LEVEL = 6;
+constexpr int MASK_WORDS = 1 << (3 * MASK_LEVEL - 5);
+constexpr int MASK_FROM = 9;
+static_assert(MASK_LEVEL >= 5, "a mask word is 32 blocks of one z-run");
+static_assert(MASK_FROM > MASK_LEVEL, "the mask's blocks hold more than a cell");
+// K10's steps computed ahead of their reads
+constexpr int BATCH = 8;
 
 __device__ __forceinline__ bool occupied(const unsigned* __restrict__ occ, long long idx) {
   return (__ldg(occ + (idx >> 5)) >> (idx & 31)) & 1u;
@@ -43,19 +82,79 @@ __device__ __forceinline__ float clamp_cell(float x, int n) {
   return fminf(fmaxf(floorf(x), 0.0f), (float)(n - 1));
 }
 
+// K10's pre-pass, above MASK_LEVEL: bit c of the mask is the OR of the B^3
+// cells of block c (B = 2^s, s = level - MASK_LEVEL), blocks in the linear
+// (x, y, z) order of a level-MASK_LEVEL grid. One warp a mask word: its 32
+// blocks run along z, so its cells are B words of each of B^2 rows, B^3
+// words that the lanes read side by side (a row's B words are adjacent),
+// each ORed into the bits of the blocks it covers; one store a word, so
+// nothing is zeroed first and nothing is atomic.
 __global__ void __launch_bounds__(THREADS)
-dda_kernel(const unsigned* __restrict__ occ, int level, const float* __restrict__ rays_o,
-           const float* __restrict__ rays_d, long long n_rays, int first_only, int max_steps,
-           float* __restrict__ t_first, float* __restrict__ t_last,
-           unsigned char* __restrict__ hit, int* __restrict__ steps_out) {
-  const long long r = (long long)blockIdx.x * THREADS + threadIdx.x;
+coarse_kernel(const unsigned* __restrict__ occ, int level, unsigned* __restrict__ mask) {
+  constexpr int UNROLL = 8;
+  const int word = (int)(((long long)blockIdx.x * THREADS + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (word >= MASK_WORDS) return;
+  const int s = level - MASK_LEVEL;
+  const long long b = 1LL << s;
+  const long long bx = word >> (2 * MASK_LEVEL - 5);
+  const long long by = (word >> (MASK_LEVEL - 5)) & ((1 << MASK_LEVEL) - 1);
+  const long long bz0 = (long long)(word & ((1 << (MASK_LEVEL - 5)) - 1)) << 5;
+  const long long row_words = 1LL << (level - 5);  // the words of one (x, y) row
+  const long long z_word = (bz0 << s) >> 5;        // the run's first word in its row
+  const long long n = b * b * b;
+  unsigned acc = 0;
+  for (long long j0 = lane; j0 < n; j0 += 32 * UNROLL) {
+    unsigned w[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long j = j0 + 32 * u, row = j >> s;
+      const long long x = (bx << s) + (row >> s), y = (by << s) + (row & (b - 1));
+      w[u] = j < n ? __ldg(occ + ((x << level) + y) * row_words + z_word + (j & (b - 1))) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (!w[u]) continue;
+      const int k = (int)((j0 + 32 * u) & (b - 1));  // the word's place in its row's run
+      if (s >= 5) {  // the word lies inside one block
+        acc |= 1u << (k >> (s - 5));
+      } else {  // the word covers 32 / B blocks, B bits each
+        const unsigned m = (1u << (1 << s)) - 1u;
+        for (int g = 0; g < (32 >> s); ++g)
+          if ((w[u] >> (g << s)) & m) acc |= 1u << ((k << (5 - s)) + g);
+      }
+    }
+  }
+  acc = __reduce_or_sync(0xffffffffu, acc);
+  if (lane == 0) mask[word] = acc;
+}
+
+template <bool MASKED>
+__global__ void __launch_bounds__(THREADS)
+dda_kernel(const unsigned* __restrict__ occ, const unsigned* __restrict__ mask, int level,
+           const float* __restrict__ rays_o, const float* __restrict__ rays_d, long long n_rays,
+           int first_only, int max_steps, float* __restrict__ t_first,
+           float* __restrict__ t_last, unsigned char* __restrict__ hit,
+           int* __restrict__ steps_out) {
+  extern __shared__ __align__(16) unsigned smask[];
+  const int shift = level - MASK_LEVEL;  // log2 of a mask block's edge (MASKED)
+  if (MASKED) {
+    for (int k = threadIdx.x; k < MASK_WORDS / 4; k += blockDim.x)
+      nw::cp_async16(smask + 4 * k, mask + 4 * k);
+    nw::cp_async_commit();
+    nw::cp_async_wait<0>();
+    __syncthreads();
+  }
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
   const int n = 1 << level;
   const float cell_w = 2.0f / (float)n;
+  // per axis; indexed by constants only (the step's axis is applied by
+  // selects), so that all of it stays in registers
   float o[3], d[3], inv[3], tmax[3], tdelta[3];
-  long long idx_step[3];
-  int left[3];
+  int cell[3], dir[3];
   float t_enter = -INFINITY, t_exit = INFINITY;
+#pragma unroll
   for (int a = 0; a < 3; ++a) {
     o[a] = rays_o[3 * r + a];
     d[a] = rays_d[3 * r + a];
@@ -69,38 +168,74 @@ dda_kernel(const unsigned* __restrict__ occ, int level, const float* __restrict_
   t_enter = fmaxf(t_enter, 0.0f);
   bool active = t_exit > t_enter;
   const float t_in = __fadd_rn(t_enter, 1e-6f);
-  const long long stride[3] = {(long long)n * n, n, 1};
-  long long idx = 0;
+#pragma unroll
   for (int a = 0; a < 3; ++a) {
     const float pos = __fadd_rn(o[a], __fmul_rn(d[a], t_in));
-    const int cell = (int)clamp_cell(__fadd_rn(pos, 1.0f) / cell_w, n);
+    cell[a] = (int)clamp_cell(__fadd_rn(pos, 1.0f) / cell_w, n);
     const bool up = d[a] > 0.0f;
-    const float bound = __fsub_rn(__fmul_rn((float)(cell + (up ? 1 : 0)), cell_w), 1.0f);
+    const float bound = __fsub_rn(__fmul_rn((float)(cell[a] + (up ? 1 : 0)), cell_w), 1.0f);
     tmax[a] = __fmul_rn(__fsub_rn(bound, o[a]), inv[a]);
     tdelta[a] = __fmul_rn(cell_w, fabsf(inv[a]));
-    idx_step[a] = up ? stride[a] : -stride[a];
-    left[a] = up ? n - 1 - cell : cell;
-    idx = idx * n + cell;
+    dir[a] = up ? 1 : -1;
   }
-  const long long n_cells = (long long)n * n * n;
   float t_cur = t_enter, first = BIG, last = -BIG;
   int i = 0;
-  for (; i < max_steps && active; ++i) {
-    const long long at = idx < 0 ? 0 : (idx >= n_cells ? n_cells - 1 : idx);
-    if (occupied(occ, at)) {
-      if (first >= BIG) first = t_cur;
-      last = t_cur;
+  bool go = active && max_steps > 0;
+  while (go) {
+    // the next BATCH steps of the march: their entry t, their cell, and
+    // whether they read it (0 past the ray's end, 1 an empty mask block, 2
+    // read the word)
+    float ts[BATCH];
+    long long at[BATCH];
+    unsigned char kind[BATCH];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      kind[j] = 0;
+      if (active && i + j < max_steps) {
+        ts[j] = t_cur;
+        bool read = true;
+        if (MASKED) {
+          const int c = ((cell[0] >> shift) << (2 * MASK_LEVEL)) |
+                        ((cell[1] >> shift) << MASK_LEVEL) | (cell[2] >> shift);
+          read = (smask[c >> 5] >> (c & 31)) & 1u;
+        }
+        kind[j] = read ? 2 : 1;
+        at[j] = ((((long long)cell[0] << level) | cell[1]) << level) | cell[2];
+        // argmin, the first axis on ties
+        const bool y = tmax[1] < tmax[0];
+        const float t_xy = y ? tmax[1] : tmax[0];
+        const bool z = tmax[2] < t_xy;
+        const int a = z ? 2 : (y ? 1 : 0);
+        const float t_next = z ? tmax[2] : t_xy;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          if (q == a) {
+            tmax[q] = __fadd_rn(tmax[q], tdelta[q]);
+            cell[q] += dir[q];
+          }
+        }
+        // the ray leaves the grid where the stepped axis leaves [0, n): the
+        // plain version's count of steps left on that axis going below 0
+        active = (unsigned)(z ? cell[2] : (y ? cell[1] : cell[0])) < (unsigned)n &&
+                 t_next <= t_exit;
+        t_cur = t_next;
+      }
     }
-    int a = 0;  // argmin, the first axis on ties
-    if (tmax[1] < tmax[a]) a = 1;
-    if (tmax[2] < tmax[a]) a = 2;
-    const float t_next = tmax[a];
-    tmax[a] = __fadd_rn(tmax[a], tdelta[a]);
-    idx += idx_step[a];
-    left[a] -= 1;
-    active = left[a] >= 0 && t_next <= t_exit;
-    if (first_only) active = active && first >= BIG;
-    t_cur = t_next;
+    unsigned w[BATCH];
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) w[j] = kind[j] == 2 ? __ldg(occ + (at[j] >> 5)) : 0u;
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      if (kind[j] && go) {
+        ++i;
+        if (kind[j] == 2 && ((w[j] >> (at[j] & 31)) & 1u)) {
+          if (first >= BIG) first = ts[j];
+          last = ts[j];
+          if (first_only) go = false;
+        }
+      }
+    }
+    go = go && active && i < max_steps;
   }
   const bool h = first < BIG;
   t_first[r] = h ? first : 0.0f;
@@ -115,38 +250,52 @@ sampled_hit_kernel(const unsigned* __restrict__ occ, int level, const float* __r
                    const float* __restrict__ t_hi, const float* __restrict__ rel, int n_samples,
                    long long n_rays, float* __restrict__ t_first, unsigned char* __restrict__ hit,
                    int* __restrict__ steps_out) {
-  const long long r = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long r = ((long long)blockIdx.x * THREADS + threadIdx.x) >> 5;  // a warp's ray
+  const int lane = threadIdx.x & 31;
   if (r >= n_rays) return;
   const int n = 1 << level;
   const float half_n = (float)n / 2.0f;
   float o[3], d[3];
+#pragma unroll
   for (int a = 0; a < 3; ++a) {
-    o[a] = rays_o[3 * r + a];
-    d[a] = rays_d[3 * r + a];
+    o[a] = __ldg(rays_o + 3 * r + a);
+    d[a] = __ldg(rays_d + 3 * r + a);
   }
-  const float lo = t_lo[r];
-  const float span = __fsub_rn(t_hi[r], lo);
+  const float lo = __ldg(t_lo + r);
+  const float span = __fsub_rn(__ldg(t_hi + r), lo);
   float found = 0.0f;
   bool h = false;
-  int k = 0;
-  while (k < n_samples && !h) {
-    const float t = __fadd_rn(lo, __fmul_rn(span, __ldg(rel + k)));
-    bool inside = true;
-    long long idx = 0;
-    for (int a = 0; a < 3; ++a) {
-      const float p = __fadd_rn(o[a], __fmul_rn(d[a], t));
-      inside = inside && fabsf(p) < 1.0f;
-      idx = idx * n + (long long)clamp_cell(__fmul_rn(__fadd_rn(p, 1.0f), half_n), n);
+  int walked = n_samples;
+  for (int base = 0; base < n_samples; base += 32) {
+    const int k = base + lane;
+    float t = 0.0f;
+    bool occ_k = false;
+    if (k < n_samples) {
+      t = __fadd_rn(lo, __fmul_rn(span, __ldg(rel + k)));
+      bool inside = true;
+      long long idx = 0;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float p = __fadd_rn(o[a], __fmul_rn(d[a], t));
+        inside = inside && fabsf(p) < 1.0f;
+        idx = idx * n + (long long)clamp_cell(__fmul_rn(__fadd_rn(p, 1.0f), half_n), n);
+      }
+      occ_k = inside && occupied(occ, idx);
     }
-    ++k;
-    if (inside && occupied(occ, idx)) {
-      found = t;
+    const unsigned hits = __ballot_sync(0xffffffffu, occ_k);
+    if (hits) {  // the lowest lane is the first sample
+      const int j = __ffs(hits) - 1;
+      found = __shfl_sync(0xffffffffu, t, j);
       h = true;
+      walked = base + j + 1;
+      break;
     }
   }
-  t_first[r] = found;
-  hit[r] = h;
-  if (steps_out) steps_out[r] = k;
+  if (lane == 0) {
+    t_first[r] = found;
+    hit[r] = h;
+    if (steps_out) steps_out[r] = walked;
+  }
 }
 
 // K12. The grid is two levels (ops/ray_voxel.py's HierGrid): meta holds, per
@@ -238,18 +387,51 @@ dda_hier_kernel(const uint2* __restrict__ meta, const unsigned* __restrict__ fin
 
 }  // namespace
 
+static int launch_coarse(const void* occ, int level, void* mask, cudaStream_t stream) {
+  coarse_kernel<<<MASK_WORDS * 32 / THREADS, THREADS, 0, stream>>>(
+      static_cast<const unsigned*>(occ), level, static_cast<unsigned*>(mask));
+  return (int)cudaGetLastError();
+}
+
+// K10's coarse mask of a level-`level` grid (level > MASK_LEVEL) into mask,
+// MASK_WORDS words (16-byte aligned): the pre-pass nw_dda runs, alone.
+extern "C" int nw_coarse_mask(const void* occ, int level, void* mask, void* stream) {
+  if (level <= MASK_LEVEL || level > 20 || !mask || (reinterpret_cast<uintptr_t>(mask) & 15))
+    return -1;
+  return launch_coarse(occ, level, mask, static_cast<cudaStream_t>(stream));
+}
+
 // (t_first, t_last, hit) of rays (R, 3) + (R, 3) float32 in grid-normalised
-// coordinates through the level-`level` bitfield; steps_out (R,) int32 or
-// null: the loop trips of each ray.
-extern "C" int nw_dda(const void* occ, int level, const float* rays_o, const float* rays_d,
-                      long long n_rays, int first_only, int max_steps, float* t_first,
-                      float* t_last, unsigned char* hit, int* steps_out, void* stream) {
-  if (level < 0 || level > 20 || max_steps < 0) return -1;
+// coordinates through the level-`level` bitfield; mask: MASK_WORDS words of
+// 16-byte aligned scratch, which the pre-pass writes first from level
+// MASK_FROM up (else unused); steps_out (R,) int32 or null: the loop trips
+// of each ray.
+extern "C" int nw_dda(const void* occ, void* mask, int level, const float* rays_o,
+                      const float* rays_d, long long n_rays, int first_only, int max_steps,
+                      float* t_first, float* t_last, unsigned char* hit, int* steps_out,
+                      void* stream) {
+  const bool masked = level >= MASK_FROM;
+  if (level < 0 || level > 20 || max_steps < 0 ||
+      (masked && (!mask || (reinterpret_cast<uintptr_t>(mask) & 15))))
+    return -1;
   if (n_rays <= 0) return 0;
-  const long long blocks = (n_rays + THREADS - 1) / THREADS;
-  dda_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(occ), level, rays_o, rays_d, n_rays, first_only, max_steps,
-      t_first, t_last, hit, steps_out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (masked) {
+    const int err = launch_coarse(occ, level, mask, s);
+    if (err) return err;
+  }
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return (int)cudaGetLastError();
+  // halve the block (down to a warp) until there are four blocks an SM
+  int threads = THREADS;
+  while (threads > 32 && (n_rays + threads - 1) / threads < 4LL * sms) threads >>= 1;
+  const long long blocks = (n_rays + threads - 1) / threads;
+  auto kernel = masked ? dda_kernel<true> : dda_kernel<false>;
+  kernel<<<(unsigned)blocks, threads, masked ? MASK_WORDS * sizeof(unsigned) : 0, s>>>(
+      static_cast<const unsigned*>(occ), static_cast<const unsigned*>(mask), level, rays_o,
+      rays_d, n_rays, first_only, max_steps, t_first, t_last, hit, steps_out);
   return (int)cudaGetLastError();
 }
 
@@ -261,7 +443,7 @@ extern "C" int nw_sampled_hit(const void* occ, int level, const float* rays_o,
                               unsigned char* hit, int* steps_out, void* stream) {
   if (level < 0 || level > 20 || n_samples < 1) return -1;
   if (n_rays <= 0) return 0;
-  const long long blocks = (n_rays + THREADS - 1) / THREADS;
+  const long long blocks = (n_rays * 32 + THREADS - 1) / THREADS;
   sampled_hit_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(occ), level, rays_o, rays_d, t_lo, t_hi, rel, n_samples,
       n_rays, t_first, hit, steps_out);

@@ -6,13 +6,16 @@ first-hit query) and K12 (the exact DDA through a two-level grid) in
 The JAX package marches a packed occupancy bitfield with a branch-free
 Amanatides-Woo DDA inside ``lax.while_loop``, and samples the band's
 interval densely for the sampled query. On a CUDA tensor ``dda_traverse``
-launches K10, ``sampled_first_hit`` K11 and ``dda_traverse_hier`` K12, one
-thread per ray, or raise; on a CPU tensor they run their plain versions:
+launches K10 (one thread a ray, its reads issued a batch of steps at a
+time; from MASK_FROM up through a coarse occupancy mask that a pre-pass
+builds in every call, ``coarse_mask``), ``sampled_first_hit`` K11 (one
+warp a ray, 32 samples a round) and ``dda_traverse_hier`` K12 (one thread
+a ray), or raise; on a CPU tensor they run their plain versions:
 ``dda_traverse_plain`` and ``dda_traverse_hier_plain``, Python loops of
 whole-batch tensor steps that ask the device whether any ray is still
 active every ``_SYNC_EVERY`` steps, and ``sampled_first_hit_plain`` over
-the (R, n_samples) sample buffer. Each kernel equals its plain version bit
-for bit.
+the (R, n_samples) sample buffer (the mask's: ``coarse_words_plain``).
+Each kernel equals its plain version bit for bit.
 
 Two grid layouts. ``DeviceGrid`` is the flat bitfield of 2^{3L} bits.
 ``HierGrid`` is JAX's two-level one: a bitfield of 8^3-cell blocks and 512
@@ -46,6 +49,13 @@ from .voxel_grid import VoxelGrid
 _INF = 1e10
 # steps between host checks of "is any ray still marching"
 _SYNC_EVERY = 16
+# K10's coarse mask (csrc/ray_voxel.cu): one bit a B^3 block of cells, B =
+# 2^(level - MASK_LEVEL) above MASK_LEVEL, so 2^18 bits (32 KB, in shared
+# memory); at MASK_LEVEL and below the grid is its own mask. K10 marches
+# through it from level MASK_FROM up (grids of 16 MiB and more)
+MASK_LEVEL = 6
+MASK_FROM = 9
+_MASK_WORDS = 1 << (3 * MASK_LEVEL - 5)
 
 
 class DeviceGrid(NamedTuple):
@@ -87,26 +97,31 @@ def dda_traverse(occ: torch.Tensor, level: int, rays_o: torch.Tensor,
                  max_steps: int | None = None, steps_out: torch.Tensor | None = None):
     """March rays (R, 3) in grid-normalized coordinates through the
     [-1, 1]^3 grid. Returns (t_first, t_last, hit); misses hold 0. CPU
-    tensors take the plain version; CUDA tensors launch K10, or raise.
-    ``steps_out`` ((R,) int32, CUDA only) receives each ray's loop trips."""
+    tensors take the plain version; CUDA tensors launch K10 (after its
+    mask's pre-pass from MASK_FROM up, which the count leaves out), or
+    raise. ``steps_out`` ((R,) int32 on the rays' device) receives each
+    ray's loop trips."""
     if max_steps is None:
         max_steps = _default_steps(level)
-    if rays_o.device.type == "cpu":
-        return dda_traverse_plain(occ, level, rays_o, rays_d, first_only, max_steps)
-    if rays_o.device.type != "cuda":
-        raise ValueError(f"tensors on {rays_o.device}")
     r = rays_o.shape[0]
-    _check_rays("dda_traverse", occ, level, rays_o, rays_d)
     if steps_out is not None and (steps_out.shape != (r,) or steps_out.dtype != torch.int32
                                   or steps_out.device != rays_o.device):
         raise ValueError("dda_traverse: steps_out must be (R,) int32 on the rays' device")
+    if rays_o.device.type == "cpu":
+        return dda_traverse_plain(occ, level, rays_o, rays_d, first_only, max_steps,
+                                  steps_out=steps_out)
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"tensors on {rays_o.device}")
+    _check_rays("dda_traverse", occ, level, rays_o, rays_d)
     rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
     t_first = torch.empty(r, dtype=torch.float32, device=rays_o.device)
     t_last = torch.empty_like(t_first)
     hit = torch.empty(r, dtype=torch.bool, device=rays_o.device)
-    err = kernels().nw_dda(occ.data_ptr(), level, rays_o.data_ptr(), rays_d.data_ptr(), r,
-                           int(first_only), int(max_steps), t_first.data_ptr(), t_last.data_ptr(),
-                           hit.data_ptr(), None if steps_out is None else steps_out.data_ptr(),
+    mask = torch.empty(_MASK_WORDS, dtype=torch.int32, device=rays_o.device)  # the pre-pass's
+    err = kernels().nw_dda(occ.data_ptr(), mask.data_ptr(), level,
+                           rays_o.data_ptr(), rays_d.data_ptr(), r, int(first_only),
+                           int(max_steps), t_first.data_ptr(), t_last.data_ptr(), hit.data_ptr(),
+                           None if steps_out is None else steps_out.data_ptr(),
                            stream_handle(rays_o.device))
     check("nw_dda", err)
     dda_traverse.launches += 1
@@ -114,6 +129,67 @@ def dda_traverse(occ: torch.Tensor, level: int, rays_o: torch.Tensor,
 
 
 dda_traverse.launches = 0
+
+
+def mask_shift(level: int) -> int:
+    """log2 of the edge B of K10's mask blocks at ``level``."""
+    return max(level - MASK_LEVEL, 0)
+
+
+def coarse_mask(occ: torch.Tensor, level: int) -> torch.Tensor:
+    """K10's coarse mask of a level-``level`` grid's words
+    (``coarse_words_plain`` at ``mask_shift(level)``): above MASK_LEVEL on
+    a CUDA tensor K10's pre-pass (csrc/ray_voxel.cu ``coarse_kernel``),
+    which ``dda_traverse`` runs before every launch from MASK_FROM up; at
+    MASK_LEVEL and below the words themselves. CPU tensors take the plain
+    version."""
+    if occ.device.type == "cpu":
+        return coarse_words_plain(occ, level, mask_shift(level))
+    if occ.device.type != "cuda":
+        raise ValueError(f"tensors on {occ.device}")
+    n_words = max((1 << (3 * level)) // 32, 1)
+    if occ.dtype != torch.int32 or occ.shape != (n_words,) or not occ.is_contiguous():
+        raise ValueError(f"coarse_mask: a level-{level} grid is ({n_words},) int32 words")
+    if level <= MASK_LEVEL:
+        return occ
+    mask = torch.empty(_MASK_WORDS, dtype=torch.int32, device=occ.device)
+    check("nw_coarse_mask", kernels().nw_coarse_mask(occ.data_ptr(), level, mask.data_ptr(),
+                                                     stream_handle(occ.device)))
+    return mask
+
+
+def coarse_words_plain(occ: torch.Tensor, level: int, shift: int) -> torch.Tensor:
+    """The plain version of K10's pre-pass at any block edge B = 2^shift:
+    bit c is set where any cell of block c is occupied, the blocks in the
+    linear (x, y, z) order of a level max(level - shift, 0) grid (one block
+    covers the whole grid where B^3 exceeds it), packed 32 to an int32
+    word as the grid's cells are. At shift 3 these are the coarse words of
+    the two-level grid (``hier_grid_from_host``'s ``meta[:, 0]``). Runs a
+    slab of blocks along x at a time, so a level-10 grid needs no dense
+    copy."""
+    n = 1 << level
+    lc = max(level - shift, 0)
+    b, nc = n >> lc, 1 << lc
+    if level < 5:  # a word spans rows: the bits one by one
+        shifts = torch.arange(32, dtype=torch.int32, device=occ.device)
+        cells = ((occ[:, None] >> shifts) & 1).reshape(-1)[:n ** 3] == 1
+        blocks = cells.reshape(nc, b, nc, b, nc, b).any(5).any(3).any(1)
+    else:
+        rows = occ.reshape(n, n, n // 32)
+        slabs = []
+        for x0 in range(0, n, b):
+            w = rows[x0:x0 + b]
+            if b >= 32:  # a word lies inside one block
+                z = (w != 0).reshape(b, n, n // b, b // 32).any(3)
+            else:  # a word covers 32 / b blocks, b bits each
+                z = torch.stack([((w >> (g * b)) & ((1 << b) - 1)) != 0
+                                 for g in range(32 // b)], dim=-1).reshape(b, n, n // b)
+            slabs.append(z.reshape(b, nc, b, nc).any(2).any(0))
+        blocks = torch.stack(slabs)
+    bits = blocks.reshape(-1).to(torch.int64)
+    bits = torch.nn.functional.pad(bits, (0, -bits.numel() % 32)).reshape(-1, 32)
+    words = (bits << torch.arange(32, device=occ.device)).sum(1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
 def _check_rays(name: str, occ, level: int, rays_o, rays_d, *rows):
@@ -132,7 +208,9 @@ def _check_rays(name: str, occ, level: int, rays_o, rays_d, *rows):
 
 def dda_traverse_plain(occ: torch.Tensor, level: int, rays_o: torch.Tensor,
                        rays_d: torch.Tensor, first_only: bool = False,
-                       max_steps: int | None = None, touched: torch.Tensor | None = None):
+                       max_steps: int | None = None, touched: torch.Tensor | None = None,
+                       steps_out: torch.Tensor | None = None,
+                       global_reads: torch.Tensor | None = None):
     """The plain PyTorch version of K10 (same contract as dda_traverse).
 
     Each step is a handful of whole-batch tensor ops, so its cost is the
@@ -140,8 +218,11 @@ def dda_traverse_plain(occ: torch.Tensor, level: int, rays_o: torch.Tensor,
     exit as per-axis counts of steps left, and the step axis by argmin +
     gather / scatter. The f32 arithmetic is the JAX loop's, so the
     results are the same bit for bit. ``touched`` (occ's shape, int32)
-    gains one at a word for every read of it that K10 makes: one a loop
-    trip of each ray."""
+    gains one at a word for every step that tests it: one a loop trip of
+    each ray. ``steps_out`` ((R,) int32) receives each ray's loop trips,
+    ``global_reads`` ((R,) int32) the trips on which K10 reads the word
+    from device memory: every trip below MASK_FROM, from it up those whose
+    block of K10's coarse mask is occupied."""
     n = 1 << level
     if max_steps is None:
         max_steps = _default_steps(level)
@@ -174,6 +255,11 @@ def dda_traverse_plain(occ: torch.Tensor, level: int, rays_o: torch.Tensor,
     t_cur = t_enter
     first = torch.full((r,), _INF, device=rays_o.device)
     last = torch.full((r,), -_INF, device=rays_o.device)
+    trips = torch.zeros(r, dtype=torch.int32, device=rays_o.device)
+    reads = torch.zeros_like(trips)
+    s = mask_shift(level)
+    mask = (coarse_words_plain(occ, level, s) if global_reads is not None
+            and level >= MASK_FROM else None)
     for i in range(max_steps):
         if i % _SYNC_EVERY == 0 and not bool(active.any()):
             break
@@ -182,6 +268,13 @@ def dda_traverse_plain(occ: torch.Tensor, level: int, rays_o: torch.Tensor,
         occ_hit = _bit(occ, at) & active
         if touched is not None:
             touched.index_add_(0, at >> 5, active.to(torch.int32))
+        trips += active.to(torch.int32)
+        if mask is not None:  # the cell's block in the level-MASK_LEVEL mask
+            bx, by, bz = (at >> 2 * level) >> s, ((at >> level) & (n - 1)) >> s, (at & (n - 1)) >> s
+            c = (bx << 2 * MASK_LEVEL) | (by << MASK_LEVEL) | bz
+            reads += (_bit(mask, c) & active).to(torch.int32)
+        else:
+            reads += active.to(torch.int32)
         first = torch.where(occ_hit & (first >= _INF), t_cur, first)
         last = torch.where(occ_hit, t_cur, last)
 
@@ -194,6 +287,10 @@ def dda_traverse_plain(occ: torch.Tensor, level: int, rays_o: torch.Tensor,
         if first_only:
             active = active & (first >= _INF)
         t_cur = t_next
+    if steps_out is not None:
+        steps_out.copy_(trips)
+    if global_reads is not None:
+        global_reads.copy_(reads)
     hit = first < _INF
     zero = torch.zeros_like(first)
     return torch.where(hit, first, zero), torch.where(hit, last, zero), hit
@@ -218,18 +315,21 @@ def sampled_first_hit(grid: DeviceGrid, level: int, rays_o, rays_d, t_lo, t_hi,
     (``ray_voxel.py:326-358``): the first of the n_samples midpoints
     inside the cube and occupied. Returns (t_first, hit), t_first = 0 on
     miss. CPU tensors take the plain version; CUDA tensors launch K11,
-    which walks the samples in order and stops at the first hit, or
-    raise. ``steps_out`` ((R,) int32, CUDA only): samples walked a ray."""
-    if rays_o.device.type == "cpu":
-        return sampled_first_hit_plain(grid, level, rays_o, rays_d, t_lo, t_hi, n_samples)
-    if rays_o.device.type != "cuda":
-        raise ValueError(f"tensors on {rays_o.device}")
-    t_lo, t_hi = t_lo.contiguous(), t_hi.contiguous()
-    _check_rays("sampled_first_hit", grid.occ, level, rays_o, rays_d, t_lo, t_hi)
+    which walks the samples in order, 32 a round, and stops after the
+    round that holds the first hit, or raise. ``steps_out`` ((R,) int32 on
+    the rays' device): samples walked a ray, up to and including its first
+    hit, else n_samples."""
     r = rays_o.shape[0]
     if steps_out is not None and (steps_out.shape != (r,) or steps_out.dtype != torch.int32
                                   or steps_out.device != rays_o.device):
         raise ValueError("sampled_first_hit: steps_out must be (R,) int32 on the rays' device")
+    if rays_o.device.type == "cpu":
+        return sampled_first_hit_plain(grid, level, rays_o, rays_d, t_lo, t_hi, n_samples,
+                                       steps_out=steps_out)
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"tensors on {rays_o.device}")
+    t_lo, t_hi = t_lo.contiguous(), t_hi.contiguous()
+    _check_rays("sampled_first_hit", grid.occ, level, rays_o, rays_d, t_lo, t_hi)
     rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
     # the sample offsets as the plain version computes them, so that both
     # place every sample at the same float32 value
@@ -253,12 +353,14 @@ def _sample_offsets(n_samples: int, device) -> torch.Tensor:
 
 
 def sampled_first_hit_plain(grid: DeviceGrid, level: int, rays_o, rays_d, t_lo, t_hi,
-                            n_samples: int = 1024, touched: torch.Tensor | None = None):
+                            n_samples: int = 1024, touched: torch.Tensor | None = None,
+                            steps_out: torch.Tensor | None = None):
     """The plain PyTorch version of K11 (same contract as
     sampled_first_hit), over the whole (R, n_samples, 3) sample buffer.
     ``touched`` (grid.occ's shape, int32) gains one at a word for every
-    read of it that K11 makes: one a sample inside the cube, up to and
-    including a ray's first hit."""
+    sample that tests it: one a sample inside the cube, up to and
+    including a ray's first hit. ``steps_out`` ((R,) int32) receives the
+    samples walked a ray."""
     rel = _sample_offsets(n_samples, rays_o.device)
     t = t_lo[:, None] + (t_hi - t_lo)[:, None] * rel[None, :]  # (R, K)
     p = rays_o[:, None, :] + rays_d[:, None, :] * t[..., None]
@@ -267,6 +369,8 @@ def sampled_first_hit_plain(grid: DeviceGrid, level: int, rays_o, rays_d, t_lo, 
     occ = _bit(grid.occ, cells) & inside
     hit = torch.any(occ, dim=1)
     idx = torch.argmax(occ.to(torch.uint8), dim=1)
+    if steps_out is not None:
+        steps_out.copy_(torch.where(hit, idx + 1, n_samples))
     if touched is not None:
         end = torch.where(hit, idx, n_samples - 1)
         walked = torch.arange(n_samples, device=rays_o.device)[None, :] <= end[:, None]

@@ -1,0 +1,341 @@
+#!/usr/bin/env python3
+"""K10 (the DDA) and K11 (the sampled first hit, ``csrc/ray_voxel.cu``) of
+two checkouts, timed in turns on one card (parent, change, change,
+parent), and the serving path and the band cache around them.
+
+    python3 scripts/torch_ray_kernel_turns.py --parent build/parent [--kernels-only]
+
+builds each checkout's ``neuralrecon_w_tpu_torch/csrc/ray_voxel.cu`` alone
+with the port's nvcc flags (its ``-Xptxas -v`` lines printed) and routes
+this checkout's wrappers (``ops/ray_voxel.py``) to either build, so that
+both kernels run as the path runs them: the same allocations, launch
+counts and CUDA graphs, the parent's ``nw_dda`` called with its own
+arguments. The shapes are ``chip_smoke.ray_kernel_phase``'s
+(``ray_kernel_cases``): K10 at the SFM level on one served chunk, the
+serving frames and the training cache, at level 10 with first_only on
+2^20 rays; K11 on the steady chunk. Each case is held to the plain
+version and the two checkouts to each other (``torch.equal``), and timed
+two ways: in a CUDA graph (``chip_smoke.graph_ms``, the device alone) and
+as back-to-back calls (``chip_smoke.cuda_ms``). K10's pre-pass is timed
+alone, and each K10 case prints the share of its trips whose global read
+the mask skipped. Unless ``--kernels-only``, it then builds the whole
+kernel library and, in turns, with either checkout's K10 / K11 on this
+checkout's path: the served steady frames eager and as the captured graph
+(``chip_smoke.serving_graph_phase``, rays/s), the renderer's spans
+``render.sfm_near_far`` / ``render.surface_band`` on one eager steady
+chunk (torch.profiler), and the band cache's pass over a device pool
+(``DeviceRayPool.attach_surface`` and a synchronise, as
+``Trainer.attach_seconds`` times it) of the training cache's 230,400 rows
+and of 2^22 rows. With ``--variants``, K10 is also timed in this
+checkout's VARIANTS (one constant or line of its source changed: the
+steps a batch, the block rule, the mask's level, the level it starts at,
+no skip), in turns with it, each held to the plain version. Prints the card's name and power limit and one JSON line; exits
+non-zero without a card or when the checkouts or a variant disagree.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import glob
+import hashlib
+import importlib.util
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join("neuralrecon_w_tpu_torch", "csrc", "ray_voxel.cu")
+ENTRIES = ("nw_coarse_mask", "nw_dda", "nw_sampled_hit", "nw_dda_hier")
+TURNS = ("parent", "change", "change", "parent")
+POOL_ROWS = 1 << 22
+# --variants: this checkout's ray_voxel.cu with one line changed, to read
+# what each part of K10's design buys (each must still equal the plain DDA)
+VARIANTS = {
+    "batch 1": ("constexpr int BATCH = 8;", "constexpr int BATCH = 1;"),
+    "batch 4": ("constexpr int BATCH = 8;", "constexpr int BATCH = 4;"),
+    "batch 16": ("constexpr int BATCH = 8;", "constexpr int BATCH = 16;"),
+    "blocks of 256": ("(n_rays + threads - 1) / threads < 4LL * sms",
+                      "(n_rays + threads - 1) / threads < 0LL * sms"),
+    "mask level 5": ("constexpr int MASK_LEVEL = 6;", "constexpr int MASK_LEVEL = 5;"),
+    "mask from level 7": ("constexpr int MASK_FROM = 9;", "constexpr int MASK_FROM = 7;"),
+    "no skip": ("read = (smask[c >> 5] >> (c & 31)) & 1u;", "read = true;"),
+}
+# the renderer's grid-query spans and the kernels inside them
+SPANS = ("render.sfm_near_far", "render.surface_band", "coarse_kernel", "dda_kernel",
+         "sampled_hit_kernel")
+
+
+def build_ray_voxel(checkout: str, out_dir: str, variant: tuple | None = None):
+    """nvcc of one checkout's ray_voxel.cu alone, with ``variant``'s (old,
+    new) line replaced -> (ctypes library with the checkout's own
+    signatures, ptxas lines)."""
+    sys.path.insert(0, ROOT)
+    from chip_smoke import ptxas_report
+    from neuralrecon_w_tpu_torch.ops import build
+
+    spec = importlib.util.spec_from_file_location(
+        f"build_{abs(hash(checkout))}", os.path.join(checkout, "neuralrecon_w_tpu_torch", "ops",
+                                                     "build.py"))
+    theirs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(theirs)
+    src = os.path.join(checkout, SRC)
+    with open(src) as f:
+        text = f.read()
+    if variant is not None:
+        if variant[0] not in text:
+            raise ValueError(f"variant {variant}: no such line in {src}")
+        text = text.replace(variant[0], variant[1])
+    tag = hashlib.sha256(text.encode()).hexdigest()[:12]
+    os.makedirs(out_dir, exist_ok=True)
+    if variant is not None:  # beside a copy of the headers it includes
+        work = os.path.join(out_dir, f"src_{tag}")
+        os.makedirs(work, exist_ok=True)
+        for header in glob.glob(os.path.join(os.path.dirname(src), "*.cuh")):
+            shutil.copy(header, work)
+        src = os.path.join(work, os.path.basename(SRC))
+        with open(src, "w") as f:
+            f.write(text)
+    lib = os.path.join(out_dir, f"libray_voxel_{tag}.so")
+    proc = subprocess.run([build._nvcc(), *theirs.NVCC_FLAGS, "-shared", "-o", lib, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    dll = ctypes.CDLL(lib)
+    for name in ENTRIES:
+        if name in theirs._SIGNATURES:
+            fn = getattr(dll, name)
+            fn.argtypes = theirs._SIGNATURES[name]
+            fn.restype = ctypes.c_int
+    return dll, set(theirs._SIGNATURES), ptxas_report(proc.stdout + proc.stderr)
+
+
+class Route:
+    """What ``ops/ray_voxel.kernels()`` returns: one checkout's grid-query
+    entries, the rest from ``full`` (this checkout's whole library). A
+    parent whose nw_dda takes no mask gets its own argument list."""
+
+    def __init__(self, dll, names, full=None):
+        self.dll, self.names, self.full = dll, names, full
+
+    def __getattr__(self, name):
+        if name == "nw_dda" and "nw_coarse_mask" not in self.names:
+            fn = self.dll.nw_dda
+            return lambda occ, mask, *rest: fn(occ, *rest)
+        if name in ENTRIES:
+            return getattr(self.dll, name)
+        if self.full is None:
+            raise AttributeError(f"{name}: only the grid queries are built (--kernels-only)")
+        return getattr(self.full, name)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", required=True, help="root of the parent's checkout")
+    parser.add_argument("--out", default=os.path.join(ROOT, "build", "ray_kernel_turns"))
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="time the kernels only (no whole-library build, no serving path)")
+    parser.add_argument("--variants", action="store_true",
+                        help="also time K10 in this checkout's VARIANTS, in turns with it")
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_ray_kernel_turns: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from neuralrecon_w_tpu_torch.config import load_cfg, render_config_from_cfg
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    print(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
+    routes = {}
+    for label, checkout in (("parent", args.parent), ("change", ROOT)):
+        t0 = time.perf_counter()
+        dll, names, ptxas = build_ray_voxel(checkout, args.out)
+        routes[label] = Route(dll, names)
+        print(f"built {label}'s ray_voxel.cu in {time.perf_counter() - t0:.1f} s")
+        for line in ptxas:
+            print(f"  ptxas {label}: {line}")
+    for name, variant in (VARIANTS.items() if args.variants else ()):
+        dll, names, ptxas = build_ray_voxel(ROOT, args.out, variant)
+        routes[name] = Route(dll, names)
+        print(f"  ptxas {name}: " + "; ".join(p for p in ptxas if "dda_kernel" in p))
+
+    def use(label):
+        rv.kernels = lambda: routes[label]
+
+    use("change")
+    scene, sfm_host, fine_host, frames = cs.make_scene(dev)
+    sfm_grid = rv.device_grid_from_host(sfm_host, dev)
+    fine_grid = rv.device_grid_from_host(fine_host, dev)
+    cfg = load_cfg(cs.CONFIG)
+    rcfg_steady = render_config_from_cfg(cfg, sfm_level=sfm_host.level,
+                                         fine_level=fine_host.level, nerf_far_override=True)
+    k10, k11 = cs.ray_kernel_cases(scene, sfm_grid, sfm_host.level, fine_grid, fine_host,
+                                   frames, rcfg_steady)
+    res, bad = {"card": card}, []
+
+    def turns(name, fn, reps):
+        """fn() under each checkout in TURNS: graph and back-to-back ms."""
+        entry = {lab: {"graph_ms": [], "calls_ms": []} for lab in ("parent", "change")}
+        for lab in TURNS:
+            use(lab)
+            entry[lab]["graph_ms"].append(cs.graph_ms(fn, reps=reps))
+            entry[lab]["calls_ms"].append(cs.cuda_ms(fn, reps=reps))
+        use("change")
+        print(f"{name} ({card}): " + "; ".join(
+            f"{lab} graph {', '.join(f'{t:.4f}' for t in entry[lab]['graph_ms'])} ms, calls "
+            f"{', '.join(f'{t:.4f}' for t in entry[lab]['calls_ms'])} ms"
+            for lab in ("parent", "change")))
+        return entry
+
+    def outputs(fn):
+        out = {}
+        for lab in ("parent", "change"):
+            use(lab)
+            out[lab] = fn()
+        use("change")
+        torch.cuda.synchronize()
+        return out
+
+    for level, grid in ((sfm_host.level, sfm_grid), (fine_host.level, fine_grid)):
+        if level < rv.MASK_FROM:  # K10 runs no pre-pass there
+            continue
+        ms = [cs.graph_ms(lambda: rv.coarse_mask(grid.occ, level), reps=20) for _ in range(2)]
+        res[f"prepass level {level}"] = {"graph_ms": ms}
+        print(f"K10 pre-pass at level {level} ({card}): graph {ms[0]:.4f}, {ms[1]:.4f} ms")
+    for label, grid, level, o, d, first in k10:
+        r = o.shape[0]
+        steps, reads = (torch.empty(r, dtype=torch.int32, device=dev) for _ in range(2))
+        want = rv.dda_traverse_plain(grid.occ, level, o, d, first, steps_out=steps,
+                                     global_reads=reads)
+        got = outputs(lambda: rv.dda_traverse(grid.occ, level, o, d, first))
+        equal = {lab: all(torch.equal(g, w) for g, w in zip(got[lab], want)) for lab in got}
+        skipped = 1.0 - float(reads.double().sum()) / max(float(steps.double().sum()), 1.0)
+        call = lambda: rv.dda_traverse(grid.occ, level, o, d, first)  # noqa: E731
+        reps = 5 if r > 300000 else 20
+        entry = turns(f"K10 {label} on {r} rays", call, reps)
+        entry.update(rays=r, mean_steps=float(steps.float().mean()), skipped_share=skipped,
+                     equal_plain=equal)
+        print(f"  equal to the plain version {equal}; the mask skipped {skipped:.4f} of the "
+              f"global reads; mean {entry['mean_steps']:.1f} steps")
+        if args.variants:
+            entry["variants"] = {}
+            for name in ("change", *VARIANTS, "change"):
+                use(name)
+                ok = all(torch.equal(g, w) for g, w in zip(call(), want))
+                ms = cs.graph_ms(call, reps=reps)
+                entry["variants"].setdefault(name, []).append(ms)
+                bad += [] if ok else [f"K10 {label} {name}"]
+            use("change")
+            print(f"  variants, graph ms ({card}): " + ", ".join(
+                f"{name} {' / '.join(f'{t:.4f}' for t in v)}"
+                for name, v in entry["variants"].items()))
+        res[f"K10 {label}"] = entry
+        bad += [f"K10 {label} {lab}" for lab, ok in equal.items() if not ok]
+    grid, level, o, d, t_lo, t_hi, k = k11
+    want = rv.sampled_first_hit_plain(grid, level, o, d, t_lo, t_hi, k)
+    got = outputs(lambda: rv.sampled_first_hit(grid, level, o, d, t_lo, t_hi, k))
+    equal = {lab: all(torch.equal(g, w) for g, w in zip(got[lab], want)) for lab in got}
+    call = lambda: rv.sampled_first_hit(grid, level, o, d, t_lo, t_hi, k)  # noqa: E731
+    entry = turns(f"K11 at {k} samples on {o.shape[0]} rays", call, 50)
+    entry["equal_plain"] = equal
+    print(f"  equal to the plain version {equal}")
+    res["K11"] = entry
+    bad += [f"K11 {lab}" for lab, ok in equal.items() if not ok]
+
+    if not args.kernels_only:
+        res["path"], path_bad = serving_and_pool(cs, rv, routes, use, cfg, scene, frames,
+                                                 fine_grid, fine_host, sfm_grid, rcfg_steady,
+                                                 card)
+        bad += path_bad
+    print(card)
+    print(json.dumps({"ray_kernel_turns": res}, default=str))
+    if bad:
+        print(f"disagreements: {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def serving_and_pool(cs, rv, routes, use, cfg, scene, frames, fine_grid, fine_host, sfm_grid,
+                     rcfg_steady, card):
+    """The served steady frames (eager and graph rays/s), the renderer's
+    grid-query spans on one eager steady chunk, and the band cache's
+    attach, each under the parent's and the change's K10 / K11 in turns."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuralrecon_w_tpu_torch.config import field_config_from_cfg
+    from neuralrecon_w_tpu_torch.datasets.cache import DeviceRayPool, RayPool
+    from neuralrecon_w_tpu_torch.ops import build
+    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.training.step import make_render_fn
+
+    t0 = time.perf_counter()
+    full = build.kernels()
+    print(f"built the whole kernel library in {time.perf_counter() - t0:.1f} s")
+    for route in routes.values():
+        route.full = full
+    dev = scene.origin.device
+    fc = field_config_from_cfg(cfg)
+    model = init_field(fc, torch.Generator().manual_seed(cs.SEED), dev).eval()
+    model.requires_grad_(False)
+    out, bad = {}, []
+    for lab in TURNS:
+        use(lab)
+        rps, _, fails = cs.serving_graph_phase(model, fc, rcfg_steady, scene, frames, fine_grid,
+                                               sfm_grid, f"steady, {lab}'s K10 / K11")
+        out.setdefault("serving_rps", {}).setdefault(lab, []).append(rps)
+        bad += fails
+    rays = torch.as_tensor(frames[1][:cs.CHUNK], device=dev)
+    ts = torch.zeros(rays.shape[0], dtype=torch.long, device=dev)
+    render = make_render_fn(fc, rcfg_steady)
+    for lab in TURNS:
+        use(lab)
+        render(model, scene, rays, ts, ts, None, fine_grid, sfm_grid)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            render(model, scene, rays, ts, ts, None, fine_grid, sfm_grid)
+            torch.cuda.synchronize()
+        spans = {}  # a span is listed twice: its CPU range and its device range
+        for e in prof.key_averages():
+            name = next((n for n in SPANS if n in e.key), None)
+            if name:
+                spans[name] = max(spans.get(name, 0.0), e.device_time_total / 1e3)
+        out.setdefault("chunk_device_ms", {}).setdefault(lab, []).append(spans)
+        print(f"steady chunk of {rays.shape[0]} rays, {lab}'s K10 / K11 ({card}), device ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(spans.items())))
+    rows, rgbs = cs.training_rays()
+    for n_rows in (len(rows), POOL_ROWS):
+        reps = -(-n_rows // len(rows))
+        pool = DeviceRayPool(RayPool(np.tile(rows, (reps, 1))[:n_rows],
+                                     np.tile(rgbs, (reps, 1))[:n_rows], seed=0), dev)
+        walls = {"parent": [], "change": []}
+        for lab in TURNS:
+            use(lab)
+            pool.attach_surface(fine_grid, fine_host.level)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pool.attach_surface(fine_grid, fine_host.level)
+            torch.cuda.synchronize()
+            walls[lab].append(time.perf_counter() - t0)
+        out[f"attach_s {n_rows}"] = walls
+        print(f"band cache attach over {n_rows} pool rows at level {fine_host.level} ({card}): "
+              + "; ".join(f"{lab} {', '.join(f'{t:.5f}' for t in v)} s"
+                          for lab, v in walls.items()))
+        del pool
+    use("change")
+    return out, bad
+
+
+if __name__ == "__main__":
+    sys.exit(main())

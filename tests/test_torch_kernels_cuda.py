@@ -970,12 +970,15 @@ def test_sampled_hit_kernel_matches_plain_bit_for_bit(dev, n_samples, n_rays):
     t_lo = torch.rand(n_rays, device=dev, generator=g)
     t_hi = t_lo + 3.0 * torch.rand(n_rays, device=dev, generator=g)
     before = rv.sampled_first_hit.launches
-    got = rv.sampled_first_hit(grid, level, o, d, t_lo, t_hi, n_samples)
-    want = rv.sampled_first_hit_plain(grid, level, o, d, t_lo, t_hi, n_samples)
+    steps, plain_steps = (torch.empty(n_rays, dtype=torch.int32, device=dev) for _ in range(2))
+    got = rv.sampled_first_hit(grid, level, o, d, t_lo, t_hi, n_samples, steps_out=steps)
+    want = rv.sampled_first_hit_plain(grid, level, o, d, t_lo, t_hi, n_samples,
+                                      steps_out=plain_steps)
     torch.cuda.synchronize()
     assert rv.sampled_first_hit.launches == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    assert torch.equal(steps, plain_steps)
 
 
 def test_grid_query_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -989,6 +992,169 @@ def test_grid_query_wrappers_reject_what_the_kernels_do_not_take(dev):
         rv.dda_traverse(words, 4, o.double(), o.double())
     with pytest.raises(ValueError):
         rv.dda_traverse(words.cpu(), 4, o, o)
+    with pytest.raises(ValueError):
+        rv.coarse_mask(words, 5)
+
+
+def clustered_grid(level, kind, seed=0):
+    """A host grid whose K10 mask blocks are some empty and some occupied:
+    'shell', chip_smoke's shell of radius 0.8 (two cells thick, at least
+    one at the coarse levels); 'blocks', one in 16 of the mask's blocks
+    occupied, each by a few random cells."""
+    import numpy as np
+
+    from chip_smoke import shell_coords
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+    from neuralrecon_w_tpu_torch.ops.voxel_grid import VoxelGrid, _sort_coords
+
+    rng = np.random.default_rng(seed)
+    n = 1 << level
+    if kind == "shell":
+        coords = shell_coords(level, 1.0, 0.8, max(2.0, n / 64))
+    else:
+        b = 1 << rv.mask_shift(level)
+        nc = n // b
+        blocks = rng.integers(0, nc, (max(nc ** 3 // 16, 1), 3))
+        coords = (blocks[:, None, :] * b + rng.integers(0, b, (len(blocks), 4, 3))).reshape(-1, 3)
+    return VoxelGrid(level, np.zeros(3), 1.0, _sort_coords(coords, level))
+
+
+def check_dda(dev, host, o, d, first_only):
+    """K10 against the plain DDA on a host grid's words: every output, each
+    ray's trips, and the plain version's read count; returns (trips, the
+    trips that read the global word)."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    words = torch.from_numpy(host.occupancy_words().view(np.int32)).to(dev)
+    o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+    r = o.shape[0]
+    trips, plain_trips, reads = (torch.empty(r, dtype=torch.int32, device=dev)
+                                 for _ in range(3))
+    touched = torch.zeros_like(words)
+    before = rv.dda_traverse.launches
+    got = rv.dda_traverse(words, host.level, o, d, first_only, steps_out=trips)
+    want = rv.dda_traverse_plain(words, host.level, o, d, first_only, touched=touched,
+                                 steps_out=plain_trips, global_reads=reads)
+    torch.cuda.synchronize()
+    assert rv.dda_traverse.launches == before + 1  # the pre-pass is not counted
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(trips, plain_trips)
+    assert int(touched.sum()) == int(trips.sum())
+    return trips, reads
+
+
+@pytest.mark.parametrize("kind", ["shell", "blocks"])
+@pytest.mark.parametrize("first_only", [False, True])
+@pytest.mark.parametrize("level", list(range(1, 11)))
+def test_dda_kernel_on_clustered_grids(dev, level, first_only, kind):
+    """K10 bit for bit against the plain DDA on grids whose mask blocks are
+    empty and occupied both (at random words every block is occupied, so
+    the skip would never run), over level10_rays's four kinds: from
+    outside, axis parallel, from inside the cube (occupied cells), misses.
+    From MASK_FROM up both of a step's branches run: the mask skips some
+    global reads and not all; below it every trip reads."""
+    from chip_smoke import level10_rays
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    host = clustered_grid(level, kind, seed=level)
+    o, d = level10_rays(host, 4096, seed=level)
+    trips, reads = check_dda(dev, host, o, d, first_only)
+    if level >= rv.MASK_FROM:
+        assert 0 < int(reads.sum()) < int(trips.sum())
+    else:
+        assert torch.equal(reads, trips)
+
+
+@pytest.mark.parametrize("first_only", [False, True])
+@pytest.mark.parametrize("n_rays", [1, 3, 8189, 300001])
+def test_dda_kernel_ragged_ray_counts(dev, n_rays, first_only):
+    """K10 at ragged ray counts on the level-8 shell: one block of a warp
+    (1, 3), warps of blocks of 32 (8189), blocks of 256 with a ragged last
+    one (300,001)."""
+    import numpy as np
+
+    from chip_smoke import level10_rays
+
+    host = clustered_grid(8, "shell")
+    o, d = level10_rays(host, max(n_rays, 4), seed=n_rays)
+    check_dda(dev, host, np.ascontiguousarray(o[:n_rays]), np.ascontiguousarray(d[:n_rays]),
+              first_only)
+
+
+@pytest.mark.parametrize("kind", ["shell", "blocks", "random"])
+@pytest.mark.parametrize("level", list(range(1, 11)))
+def test_coarse_mask_matches_plain(dev, level, kind):
+    """K10's pre-pass against its plain version (the words themselves at
+    MASK_LEVEL and below), on clustered grids and on random words, whose
+    every block is occupied."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    words = (random_words(level, dev, seed=level) if kind == "random" else
+             torch.from_numpy(clustered_grid(level, kind, seed=level).occupancy_words()
+                              .view(np.int32)).to(dev))
+    got = rv.coarse_mask(words, level)
+    torch.cuda.synchronize()
+    want = rv.coarse_words_plain(words, level, rv.mask_shift(level))
+    if level <= rv.MASK_LEVEL:
+        # the grid is its own mask; the plain mask drops the bits past the
+        # cells of a grid under one word (levels 0 and 1), which no step reads
+        assert torch.equal(got, words)
+        cells = 1 << (3 * level)
+        got = got & ((1 << cells) - 1 if cells < 32 else -1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("first", [0, 31, 32, 33, 512, None])
+def test_sampled_hit_kernel_warp_edges(dev, first):
+    """K11 with the first hit at sample 0, 31, 32 and 33 (either side of
+    the first round's edge), at 512 with the samples before it outside the
+    cube over an occupied clamped cell, and missing all 1024 samples.
+    Rays run along z through the level-10 grid, so sample k is the centre of
+    z-cell k; each ray's column holds its first hit's cell and some after
+    it."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+    from neuralrecon_w_tpu_torch.ops.voxel_grid import VoxelGrid, _sort_coords
+
+    level, n_rays, k = 10, 96, 1024
+    n = 1 << level
+    rng = np.random.default_rng(0 if first is None else first)
+    cols = rng.choice(n * n, n_rays, replace=False)
+    x, y = cols // n, cols % n
+    outside = first == 512  # samples 0-511 lie before z = -1, their cell clamped to z-cell 0
+    hit_at = 0 if outside else first
+    coords = []
+    if first is not None:
+        later = rng.integers(hit_at + 1, n, (n_rays, 3))
+        coords = [np.stack([x, y, z], 1) for z in (np.full(n_rays, hit_at), *later.T)]
+    # occupied cells off the rays' columns, so that a miss walks a grid that is not empty
+    noise = rng.integers(0, n, (4096, 3))
+    coords.append(noise[~np.isin(noise[:, 0] * n + noise[:, 1], cols)])
+    host = VoxelGrid(level, np.zeros(3), 1.0, _sort_coords(np.concatenate(coords), level))
+    words = torch.from_numpy(host.occupancy_words().view(np.int32)).to(dev)
+    grid = rv.DeviceGrid(words, torch.zeros(3, device=dev), 1.0, 2.0 / n)
+    centre = lambda c: (c + 0.5) * 2.0 / n - 1.0  # noqa: E731
+    o = torch.as_tensor(np.stack([centre(x), centre(y), np.full(n_rays, -2.0)], 1),
+                        dtype=torch.float32, device=dev)
+    d = torch.zeros_like(o)
+    d[:, 2] = 1.0
+    t_lo = torch.full((n_rays,), 0.0 if outside else 1.0, device=dev)
+    t_hi = t_lo + 2.0
+    steps, plain_steps = (torch.empty(n_rays, dtype=torch.int32, device=dev) for _ in range(2))
+    got = rv.sampled_first_hit(grid, level, o, d, t_lo, t_hi, k, steps_out=steps)
+    want = rv.sampled_first_hit_plain(grid, level, o, d, t_lo, t_hi, k, steps_out=plain_steps)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(steps, plain_steps)
+    assert int((plain_steps == (k if first is None else first + 1)).sum()) == n_rays
+    assert bool(got[1].all()) if first is not None else not bool(got[1].any())
 
 
 def test_captured_step_matches_eager(dev):

@@ -259,3 +259,118 @@ def test_hier_plain_counts_the_words_k12_reads():
     assert hit.all() and abs(float(t_first[0]) - 2.5) < 1e-5 and float(t_last[0]) == float(
         t_first[0])
     assert touched[0].tolist() == [9] and int(touched[1].sum()) == 8
+
+
+# --------------------------- K10's coarse mask ---------------------------
+
+
+def clustered_grid(level, seed=0):
+    """Occupied cells in six clusters and a thin scatter (up to ~3,000
+    cells), so that blocks of the edges tested are empty and occupied both."""
+    rng = np.random.default_rng(seed)
+    n = 1 << level
+    centres = rng.integers(0, n, (6, 3))
+    spread = max(n // 16, 1)
+    coords = [np.clip(c + rng.integers(-spread, spread + 1, (400, 3)), 0, n - 1)
+              for c in centres]
+    coords.append(rng.integers(0, n, (min(n ** 3 // 4096 + 1, 500), 3)))
+    return VoxelGrid(level, np.zeros(3), 1.0,
+                     np.unique(np.concatenate(coords), axis=0).astype(np.int32))
+
+
+@pytest.mark.parametrize("edge", ["k10", "b8", "beyond"])
+@pytest.mark.parametrize("level", list(range(1, 11)))
+def test_coarse_words_match_a_numpy_or_over_blocks(level, edge):
+    """coarse_words_plain against the OR over blocks of the host grid's
+    cells: at K10's block edge (the cells themselves at MASK_LEVEL and
+    below), at B = 8, and at a B whose block exceeds the grid (one bit, set
+    if any cell is)."""
+    host = clustered_grid(level, seed=level)
+    shift = {"k10": trv.mask_shift(level), "b8": 3, "beyond": level + 1}[edge]
+    lc = max(level - shift, 0)
+    nc = 1 << lc
+    blocks = host.coords.astype(np.int64) >> (level - lc)
+    cidx = (blocks[:, 0] * nc + blocks[:, 1]) * nc + blocks[:, 2]
+    want = np.zeros(max(nc ** 3 // 32, 1), np.uint32)
+    np.bitwise_or.at(want, cidx >> 5, np.uint32(1) << (cidx & 31).astype(np.uint32))
+    occ = torch.from_numpy(host.occupancy_words().view(np.int32))
+    got = trv.coarse_words_plain(occ, level, shift).numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, want)
+    if edge == "k10":
+        np.testing.assert_array_equal(trv.coarse_mask(occ, level).numpy().view(np.uint32), want)
+    if nc >= 8:  # blocks empty and occupied both
+        assert 0 < int(np.unpackbits(want.view(np.uint8)).sum()) < nc ** 3
+
+
+@pytest.mark.parametrize("level", list(range(3, 11)))
+def test_coarse_words_at_b8_are_jax_hier_coarse_words(level):
+    """At B = 8 the mask is the coarse level of JAX's two-level grid: bit
+    for bit its ``hier_grid_from_host(grid).meta[:, 0]``."""
+    host = clustered_grid(level, seed=20 + level)
+    occ = torch.from_numpy(host.occupancy_words().view(np.int32))
+    np.testing.assert_array_equal(trv.coarse_words_plain(occ, level, 3).numpy().view(np.uint32),
+                                  np.asarray(jrv.hier_grid_from_host(host).meta)[:, 0])
+
+
+@pytest.mark.parametrize("first_only", [False, True])
+@pytest.mark.parametrize("level", [5, 8, 9])
+def test_plain_dda_counts_trips_and_global_reads(level, first_only):
+    """steps_out: each ray's trips (their sum is touched's); global_reads:
+    the trips K10 reads from device memory, every one below MASK_FROM,
+    some and not all on a clustered grid from it up, all of them on a grid
+    whose every block is occupied. The CPU wrapper fills steps_out as the
+    kernel does."""
+    host = clustered_grid(level, seed=level)
+    o, d = random_rays(r=256, seed=level)
+    o = ((o - np.array([0.3, -0.2, -4.0], np.float32)) * 0.25).astype(np.float32)
+    o[:, 2] -= 1.5
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    occ = torch.from_numpy(host.occupancy_words().view(np.int32))
+    trips, reads, wrapped = (torch.zeros(256, dtype=torch.int32) for _ in range(3))
+    touched = torch.zeros_like(occ)
+    want = trv.dda_traverse_plain(occ, level, o, d, first_only, touched=touched,
+                                  steps_out=trips, global_reads=reads)
+    got = trv.dda_traverse(occ, level, o, d, first_only, steps_out=wrapped)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(wrapped, trips) and int(touched.sum()) == int(trips.sum()) > 0
+    assert bool((reads <= trips).all())
+    if level < trv.MASK_FROM:
+        assert torch.equal(reads, trips)
+        return
+    assert 0 < int(reads.sum()) < int(trips.sum())
+    full = torch.full_like(occ, -1)  # every cell occupied: every trip reads
+    trips_full, reads_full = torch.zeros_like(trips), torch.zeros_like(trips)
+    trv.dda_traverse_plain(full, level, o, d, first_only, steps_out=trips_full,
+                           global_reads=reads_full)
+    assert torch.equal(reads_full, trips_full)
+
+
+def test_plain_sampled_hit_counts_the_samples_walked():
+    """steps_out of the plain K11: the first occupied inside sample's index
+    + 1, else n_samples, against a numpy walk of every ray's samples."""
+    host = random_grid()
+    o, d = random_rays(r=64, seed=3)
+    grid = trv.device_grid_from_host(host, "cpu")
+    o_n = ((o - host.origin) / host.scale).astype(np.float32)
+    rng = np.random.default_rng(4)
+    t_lo = rng.uniform(0.5, 1.5, 64).astype(np.float32)
+    t_hi = (t_lo + rng.uniform(1.0, 3.0, 64)).astype(np.float32)
+    k = 96
+    steps, wrapped = torch.zeros(64, dtype=torch.int32), torch.zeros(64, dtype=torch.int32)
+    args = (grid, host.level, torch.from_numpy(o_n), torch.from_numpy(d),
+            torch.from_numpy(t_lo), torch.from_numpy(t_hi), k)
+    _, hit = trv.sampled_first_hit_plain(*args, steps_out=steps)
+    trv.sampled_first_hit(*args, steps_out=wrapped)
+    rel = ((np.arange(k, dtype=np.float32) + np.float32(0.5)) / np.float32(k))
+    t = t_lo[:, None] + (t_hi - t_lo)[:, None] * rel[None]
+    p = o_n[:, None, :] + d[:, None, :] * t[..., None]
+    inside = np.abs(p).max(-1) < 1.0
+    n = host.res
+    c = np.clip(np.floor((p + 1.0) * (n / 2.0)), 0, n - 1).astype(np.int64)
+    occupied = np.isin((c[..., 0] * n + c[..., 1]) * n + c[..., 2],
+                       (host.coords[:, 0].astype(np.int64) * n + host.coords[:, 1]) * n
+                       + host.coords[:, 2]) & inside
+    want = np.where(occupied.any(1), occupied.argmax(1) + 1, k)
+    np.testing.assert_array_equal(steps.numpy(), want)
+    assert torch.equal(wrapped, steps) and 0 < int(hit.sum()) < 64
