@@ -4336,12 +4336,16 @@ def held_out_view_pair(root: str, device: str = "cuda"):
 
 # point-cloud mode at level 12 (the filter's deepest grid) over REPROJ_CAMS
 # ring views at IMG_WH; K12 against its plain version on REPROJ_KERNEL_VIEWS
-# views' rays (76,800 at 160x120), the filter's keep mask against the plain
+# views' rays (76,800 at 160x120) and at the filter's call shape, the
+# filter's keep mask against the plain
 # DDA's on REPROJ_PLAIN_VIEWS views; mesh mode over REPROJ_MESH_VIEWS views
 # on REPROJ_WORKERS threads; the native rasteriser against the numpy one on
 # 2 views of REPROJ_RASTER_FACES seeded faces (the numpy one loops per face)
 REPROJ_CAMS, REPROJ_LEVEL, REPROJ_SHELL_POINTS = 100, 12, 1 << 20
 REPROJ_KERNEL_VIEWS, REPROJ_PLAIN_VIEWS, REPROJ_MESH_VIEWS = 4, 4, 8
+# K12 also at the filter's call shape: its first FILTER_CALL_RAYS pixel rays
+# (render_hit_codes_multi's chunk) of FILTER_CALL_VIEWS views
+FILTER_CALL_RAYS, FILTER_CALL_VIEWS = 262144, 14
 REPROJ_WORKERS, REPROJ_RASTER_FACES = 8, 10000
 REPROJ_CAM_DIST = 2.5  # camera distance, in the cloud's bounding radii
 # tests/test_ops.py:141-143's tolerance on near / far, SFM units; the
@@ -4418,56 +4422,90 @@ def level_voxel(verts, level: int) -> float:
     return 2.0 * scale / (1 << level) / 1.25
 
 
-def k12_kernel_check(hg, level: int, o, d, card: str):
-    """K12 against dda_traverse_hier_plain on rays (o, d), both
-    first_only modes, torch.equal on every output; the filter's query
-    (first_only) timed in turns, its bound from this run's trips and
-    distinct words. Returns (entry, fails)."""
+def k12_split(hg, touched, steps) -> dict:
+    """A K12 run's steps split as the plain version's touched counts read it
+    (fine steps: those inside an occupied block, one fine word each; block
+    steps: the rest), the distinct occupied blocks entered and the distinct
+    meta rows and fine words read."""
+    fine = int(touched[1].sum())
+    return {"block_steps": int(steps) - fine, "fine_steps": fine,
+            "blocks_entered": int((touched[1].view(-1, 16) > 0).any(1).sum()),
+            "meta_rows": int((touched[0] > 0).sum()), "fine_words": int((touched[1] > 0).sum())}
+
+
+def k12_kernel_check(hg, level: int, cases: dict, card: str):
+    """K12 against dda_traverse_hier_plain on each case's rays (label ->
+    (o, d)), both first_only modes, torch.equal on every output and each
+    ray's steps; each case's step split (``k12_split``) and reads
+    (``global_reads``) printed; the filter's query (first_only) timed in
+    turns with the plain version, its bound from this run's steps and
+    distinct words. Returns (entry, fails): the first case's numbers, every
+    case's under "cases"."""
     import torch
 
     from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
 
-    dev = o.device
-    r = o.shape[0]
-    fails, entry = [], {}
-    for first in (False, True):
-        trips = torch.empty(r, dtype=torch.int32, device=dev) if dev.type == "cuda" else None
-        touched = (torch.zeros(hg.meta.shape[0], dtype=torch.int32, device=dev),
-                   torch.zeros_like(hg.fine))
-        got = (rv.dda_traverse_hier(hg, level, o, d, first, steps_out=trips) if trips is not None
-               else rv.dda_traverse_hier(hg, level, o, d, first))
-        sync()
-        t0 = time.perf_counter()
-        want = rv.dda_traverse_hier_plain(hg, level, o, d, first, touched=touched)
-        sync()
-        plain_s = time.perf_counter() - t0
-        equal = all(torch.equal(g, w) for g, w in zip(got, want))
-        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
-        n_trips = float(touched[0].double().sum())
-        if trips is not None and float(trips.double().sum()) != n_trips:
-            fails.append(f"K12 first_only={first}: the plain version read {n_trips} meta rows, "
-                         f"the kernel made {float(trips.double().sum())} trips")
-        rows, words = int((touched[0] > 0).sum()), int((touched[1] > 0).sum())
-        print(f"K12 dda_hier level {level} first_only={first} on {r} rays: {int(got[2].sum())} "
-              f"hit, mean {n_trips / r:.1f} steps, {rows} distinct meta rows of "
-              f"{hg.meta.shape[0]}, {words} fine words of {hg.fine.numel()}; torch.equal "
-              f"{equal} -> {'ok' if equal else 'FAIL'}")
-        if not equal:
-            fails.append(f"K12 first_only={first}")
-        if first:
-            b = bound(r * K12_RAY_OPS + n_trips * K12_TRIP_OPS,
-                      r * (24 + 4 + 4 + 1) + 8 * rows + 4 * words, "simt")
-            entry = {"rays": r, "level": level, "mean_steps": n_trips / r, "meta_rows": rows,
-                     "fine_words": words, "max_abs_err": err, **b}
-            if dev.type == "cuda":
-                # the plain version's one timed run (a second of launches) is
-                # its time; the kernel's, CUDA events over 5 launches
-                ms, plain_ms = cuda_ms(lambda: rv.dda_traverse_hier(hg, level, o, d, True)), \
-                    plain_s * 1e3
-                entry.update(ms=ms, plain_ms=plain_ms, library_ms=None)
-                print(f"K12 dda_hier level {level} first_only ({card}): kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    fails, entry = [], {"cases": {}}
+    for label, (o, d) in cases.items():
+        dev = o.device
+        r = o.shape[0]
+        for first in (False, True):
+            trips = torch.empty(r, dtype=torch.int32, device=dev)
+            touched = (torch.zeros(hg.meta.shape[0], dtype=torch.int32, device=dev),
+                       torch.zeros_like(hg.fine))
+            steps, reads = (torch.zeros(r, dtype=torch.int32, device=dev) for _ in range(2))
+            got = rv.dda_traverse_hier(hg, level, o, d, first, steps_out=trips)
+            sync()
+            t0 = time.perf_counter()
+            want = rv.dda_traverse_hier_plain(hg, level, o, d, first, touched=touched,
+                                              steps_out=steps, global_reads=reads)
+            sync()
+            plain_s = time.perf_counter() - t0
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+            n_trips = float(touched[0].double().sum())
+            if not torch.equal(trips, steps):
+                fails.append(f"K12 {label} first_only={first}: the kernel's steps differ from "
+                             f"the plain version's on {int((trips != steps).sum())} rays")
+            split = k12_split(hg, touched, n_trips)
+            n_reads = float(reads.double().sum())
+            print(f"K12 dda_hier level {level} {label} first_only={first} on {r} rays: "
+                  f"{int(got[2].sum())} hit, mean {n_trips / r:.1f} steps ({split['block_steps']} "
+                  f"block, {split['fine_steps']} fine), {split['blocks_entered']} distinct "
+                  f"occupied blocks entered, {n_reads / r:.2f} reads a ray; "
+                  f"{split['meta_rows']} distinct meta rows of {hg.meta.shape[0]}, "
+                  f"{split['fine_words']} fine words of {hg.fine.numel()}; torch.equal "
+                  f"{equal} -> {'ok' if equal else 'FAIL'}")
+            if not equal:
+                fails.append(f"K12 {label} first_only={first}")
+            if first:
+                b = bound(r * K12_RAY_OPS + n_trips * K12_TRIP_OPS,
+                          r * (24 + 4 + 4 + 1) + 8 * split["meta_rows"] + 4 * split["fine_words"],
+                          "simt")
+                case = {"rays": r, "level": level, "mean_steps": n_trips / r,
+                        "reads_per_ray": n_reads / r, **split, "max_abs_err": err, **b}
+                if dev.type == "cuda":
+                    # the plain version's one timed run (a second of launches) is
+                    # its time; the kernel's, CUDA events over 5 launches
+                    ms, plain_ms = cuda_ms(lambda: rv.dda_traverse_hier(hg, level, o, d, True)), \
+                        plain_s * 1e3
+                    case.update(ms=ms, plain_ms=plain_ms, library_ms=None)
+                    print(f"K12 (redesigned) dda_hier level {level} {label} first_only "
+                          f"({card}): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+                entry["cases"][label] = case
+                if len(entry) == 1:  # the first case's numbers are the entry's own
+                    entry.update(case)
     return entry, fails
+
+
+def filter_call_rays(cams, grid, dev, n: int = FILTER_CALL_RAYS, views: int = FILTER_CALL_VIEWS):
+    """One reprojection-filter DDA call's rays: the first n pixel rays of
+    ``views`` views, as render_hit_codes_multi packs them."""
+    o, d = cloud_rays(cams[:views], grid, dev)
+    if o.shape[0] < n:
+        raise ValueError(f"{views} views hold {o.shape[0]} rays, fewer than {n}")
+    return o[:n].contiguous(), d[:n].contiguous()
 
 
 def exact_first(lo, hi, o, d):
@@ -4584,6 +4622,42 @@ def k12_vs_k10(grid, cams, dev):
     return fails
 
 
+def filter_setup(root: str, ply_path: str, dev, level: int = REPROJ_LEVEL,
+                 n_cams: int = REPROJ_CAMS, wh=IMG_WH, shell_points: int = REPROJ_SHELL_POINTS):
+    """The reprojection filter's inputs from a mesh: its vertices as the point
+    cloud (or, where fewer, a seeded shell of shell_points points around
+    them), written as ``cloud.ply`` into root; n_cams ring views written into
+    root (``filter_cameras``); the cloud voxelised at ``level`` and its
+    two-level grid on dev. Returns (verts, faces, the mesh's reach from its
+    centre, cloud, cloud_ply, cams, voxel, grid, hg, (t0, t1, t2): the clock
+    before voxelising, after it and after the grid's upload)."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.evaluation import reproj_filter as rf
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+    from neuralrecon_w_tpu_torch.utils.ply import read_ply, write_ply
+
+    mesh = read_ply(ply_path)
+    verts, faces = mesh["verts"], mesh["faces"]
+    center = (verts.max(0) + verts.min(0)) / 2
+    reach = float(np.linalg.norm(verts - center, axis=1).max())
+    cloud = verts
+    if len(verts) < shell_points:  # a shell around the mesh: tests/test_ops.py:168
+        v = np.random.default_rng(SEED).standard_normal((shell_points, 3))
+        cloud = center + v / np.linalg.norm(v, axis=1, keepdims=True) * (0.9 * reach)
+    cloud_ply = os.path.join(root, "cloud.ply")
+    write_ply(cloud_ply, cloud)
+    cams = filter_cameras(root, center, REPROJ_CAM_DIST * reach, n_cams, wh)
+    voxel = level_voxel(cloud, level)
+    t0 = time.perf_counter()
+    grid = rf.voxelize_points(cloud, voxel)
+    t1 = time.perf_counter()
+    hg = rv.hier_grid_from_host(grid, dev)
+    sync()
+    return (verts, faces, reach, cloud, cloud_ply, cams, voxel, grid, hg,
+            (t0, t1, time.perf_counter()))
+
+
 def reproj_filter_phase(root: str, ply_path: str, card: str = "the CPU",
                         level: int = REPROJ_LEVEL, n_cams: int = REPROJ_CAMS, wh=IMG_WH,
                         shell_points: int = REPROJ_SHELL_POINTS):
@@ -4608,28 +4682,12 @@ def reproj_filter_phase(root: str, ply_path: str, card: str = "the CPU",
     from neuralrecon_w_tpu_torch.ops.native import rasterize_depth_native
     from neuralrecon_w_tpu_torch.ops.voxel_grid import VoxelGrid, _sort_coords
     from neuralrecon_w_tpu_torch.tools import reproj_filter_cli
-    from neuralrecon_w_tpu_torch.utils.ply import read_ply, write_ply
+    from neuralrecon_w_tpu_torch.utils.ply import read_ply
 
     dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     fails = []
-    mesh = read_ply(ply_path)
-    verts, faces = mesh["verts"], mesh["faces"]
-    center = (verts.max(0) + verts.min(0)) / 2
-    reach = float(np.linalg.norm(verts - center, axis=1).max())
-    cloud = verts
-    if len(verts) < shell_points:  # a shell around the mesh: tests/test_ops.py:168
-        v = np.random.default_rng(SEED).standard_normal((shell_points, 3))
-        cloud = center + v / np.linalg.norm(v, axis=1, keepdims=True) * (0.9 * reach)
-    cloud_ply = os.path.join(root, "cloud.ply")
-    write_ply(cloud_ply, cloud)
-    cams = filter_cameras(root, center, REPROJ_CAM_DIST * reach, n_cams, wh)
-    voxel = level_voxel(cloud, level)
-    t0 = time.perf_counter()
-    grid = rf.voxelize_points(cloud, voxel)
-    t1 = time.perf_counter()
-    hg = rv.hier_grid_from_host(grid, dev)
-    sync()
-    t2 = time.perf_counter()
+    verts, faces, reach, cloud, cloud_ply, cams, voxel, grid, hg, (t0, t1, t2) = filter_setup(
+        root, ply_path, dev, level, n_cams, wh, shell_points)
     hier_bytes = (hg.meta.numel() + hg.fine.numel()) * 4
     flat_bytes = (1 << (3 * grid.level)) // 8
     print(f"reprojection filter: {len(cloud)} points ({'the mesh vertices' if cloud is verts else 'a shell'}"
@@ -4642,8 +4700,12 @@ def reproj_filter_phase(root: str, ply_path: str, card: str = "the CPU",
         fails.append(f"the filter's grid is level {grid.level}, not {level}")
 
     o, d = cloud_rays(cams[:REPROJ_KERNEL_VIEWS], grid, dev)
-    entry, kfails = k12_kernel_check(hg, grid.level, o, d, card)
+    cases = {f"{REPROJ_KERNEL_VIEWS} views": (o, d)}
+    if len(cams) >= FILTER_CALL_VIEWS:
+        cases["filter call"] = filter_call_rays(cams, grid, dev)
+    entry, kfails = k12_kernel_check(hg, grid.level, cases, card)
     fails += kfails
+    del cases
     entry.update(hier_bytes=hier_bytes, flat_bytes=flat_bytes)
     # the same cells at level 10 (a level-12 index >> 2 is the level-10 one):
     # a grid both K10 and K12 can hold
@@ -4743,7 +4805,8 @@ def reproj_filter_phase(root: str, ply_path: str, card: str = "the CPU",
 REDESIGNED = (("K2", "up_sample_kernel"), ("K3", "sdf_vjp_fwd_kernel"),
               ("K4", "sdf_vjp_bwd_kernel"), ("K6", "field_fwd_kernel"), ("K7", "field_bwd_kernel"),
               ("K8", "bg_fwd_kernel"), ("K9", "bg_bwd_kernel"), ("K10", "dda_kernel"),
-              ("K10's pre-pass", "coarse_kernel"), ("K11", "sampled_hit_kernel"))
+              ("K10's pre-pass", "coarse_kernel"), ("K11", "sampled_hit_kernel"),
+              ("K12", "dda_hier_kernel"))
 
 
 def ptxas_report(log: str) -> list:
@@ -4771,10 +4834,15 @@ def ptxas_report(log: str) -> list:
             kern = re.search(r"([a-z][a-z_]*_kernel)I?(13__nv_bfloat16|f)?", name)
             base = kern.group(1) if kern else name
             dtype = {"13__nv_bfloat16": "bf16", "f": "float"}.get(kern.group(2) if kern else "", "")
+            if base == "dda_hier_kernel":
+                dtype = "masked" if "ILb1E" in name else "unmasked"
             per_lane = re.search(r"up_sample_kernelILi(\d+)E", name)  # K2's samples a lane
             if per_lane:
                 dtype = f"V={per_lane.group(1)}"
-            mark = next((f"{lab} (redesigned) " for lab, k in REDESIGNED if k == base), "")
+            lab = next((lab for lab, k in REDESIGNED if k == base), None)
+            if lab and "coarse_kernelILi2E" in name:  # the pre-pass over meta's rows
+                lab = "K12's pre-pass"
+            mark = f"{lab} (redesigned) " if lab else ""
             out.append(f"{mark}{base}<{dtype}>: {m.group(1)} registers, {stack} bytes stack frame, "
                        f"{st} bytes spill stores, {ld} bytes spill loads")
             name = None
@@ -5223,7 +5291,10 @@ def main() -> int:
           f"{ratio(kres['nerf_bg_bwd']):.1f} (against its rows for K5 "
           f"{kres['nerf_bg_bwd']['ms'] / kres['nerf_bg_bwd']['rows_floor_ms']:.1f}); K10 dda "
           + ", ".join(f"{ratio(c):.1f} {label}" for label, c in kres["dda"]["cases"].items())
-          + f"; K11 sampled_hit {ratio(kres['sampled_hit']):.1f}")
+          + f"; K11 sampled_hit {ratio(kres['sampled_hit']):.1f}"
+          + ("; K12 dda_hier " + ", ".join(
+              f"{ratio(c):.1f} {label}" for label, c in k12.get("cases", {}).items()
+              if "ms" in c) if k12 else ""))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

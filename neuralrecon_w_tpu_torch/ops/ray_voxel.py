@@ -10,7 +10,9 @@ launches K10 (one thread a ray, its reads issued a batch of steps at a
 time; from MASK_FROM up through a coarse occupancy mask that a pre-pass
 builds in every call, ``coarse_mask``), ``sampled_first_hit`` K11 (one
 warp a ray, 32 samples a round) and ``dda_traverse_hier`` K12 (one thread
-a ray), or raise; on a CPU tensor they run their plain versions:
+a ray: from HIER_MASK_FROM up through the same mask, of its blocks, so a
+step in an empty mask block reads nothing; an occupied block's fine words
+read once), or raise; on a CPU tensor they run their plain versions:
 ``dda_traverse_plain`` and ``dda_traverse_hier_plain``, Python loops of
 whole-batch tensor steps that ask the device whether any ray is still
 active every ``_SYNC_EVERY`` steps, and ``sampled_first_hit_plain`` over
@@ -55,6 +57,9 @@ _SYNC_EVERY = 16
 # through it from level MASK_FROM up (grids of 16 MiB and more)
 MASK_LEVEL = 6
 MASK_FROM = 9
+# K12 marches through the same mask, of its blocks (meta's coarse words),
+# from this level up: the lowest whose blocks outnumber the mask's bits
+HIER_MASK_FROM = 10
 _MASK_WORDS = 1 << (3 * MASK_LEVEL - 5)
 
 
@@ -473,25 +478,29 @@ def dda_traverse_hier(hg: HierGrid, level: int, rays_o: torch.Tensor, rays_d: to
                       steps_out: torch.Tensor | None = None):
     """March rays (R, 3) in grid-normalized coordinates through a two-level
     grid (same contract as dda_traverse). CPU tensors take the plain
-    version; CUDA tensors launch K12, or raise. ``steps_out`` ((R,) int32,
-    CUDA only) receives each ray's loop trips."""
+    version; CUDA tensors launch K12 (after its mask's pre-pass from
+    HIER_MASK_FROM up, which the count leaves out), or raise. ``steps_out``
+    ((R,) int32 on the rays' device) receives each ray's steps."""
     if max_steps is None:
         max_steps = _default_steps(level)
-    if rays_o.device.type == "cpu":
-        return dda_traverse_hier_plain(hg, level, rays_o, rays_d, first_only, max_steps)
-    if rays_o.device.type != "cuda":
-        raise ValueError(f"tensors on {rays_o.device}")
     r = rays_o.shape[0]
-    _check_hier("dda_traverse_hier", hg, level, rays_o, rays_d)
     if steps_out is not None and (steps_out.shape != (r,) or steps_out.dtype != torch.int32
                                   or steps_out.device != rays_o.device):
         raise ValueError("dda_traverse_hier: steps_out must be (R,) int32 on the rays' device")
+    if rays_o.device.type == "cpu":
+        return dda_traverse_hier_plain(hg, level, rays_o, rays_d, first_only, max_steps,
+                                       steps_out=steps_out)
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"tensors on {rays_o.device}")
+    _check_hier("dda_traverse_hier", hg, level, rays_o, rays_d)
     rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
     t_first = torch.empty(r, dtype=torch.float32, device=rays_o.device)
     t_last = torch.empty_like(t_first)
     hit = torch.empty(r, dtype=torch.bool, device=rays_o.device)
+    mask = torch.empty(_MASK_WORDS, dtype=torch.int32, device=rays_o.device)  # the pre-pass's
     err = kernels().nw_dda_hier(
-        hg.meta.data_ptr(), hg.fine.data_ptr(), hg.fine.shape[0], level, rays_o.data_ptr(),
+        hg.meta.data_ptr(), mask.data_ptr(), hg.fine.data_ptr(), hg.fine.shape[0], level,
+        rays_o.data_ptr(),
         rays_d.data_ptr(), r, int(first_only), int(max_steps), _hier_eps(level),
         t_first.data_ptr(), t_last.data_ptr(), hit.data_ptr(),
         None if steps_out is None else steps_out.data_ptr(), stream_handle(rays_o.device))
@@ -501,6 +510,33 @@ def dda_traverse_hier(hg: HierGrid, level: int, rays_o: torch.Tensor, rays_d: to
 
 
 dda_traverse_hier.launches = 0
+
+
+def hier_mask(hg: HierGrid, level: int) -> torch.Tensor:
+    """K12's coarse mask of a level-``level`` two-level grid: K10's mask of
+    its blocks' bitfield (meta's coarse words, a level-(level - 3) grid),
+    ``coarse_words_plain`` at ``mask_shift(level - 3)``. Above MASK_LEVEL + 3
+    on a CUDA grid K12's pre-pass (csrc/ray_voxel.cu ``coarse_kernel`` over
+    meta's rows), which ``dda_traverse_hier`` runs before every launch from
+    HIER_MASK_FROM up; at MASK_LEVEL + 3 and below meta's coarse words
+    themselves. CPU tensors take the plain version."""
+    if level < 3:
+        raise ValueError("a two-level grid needs level >= 3")
+    if hg.meta.device.type == "cpu":
+        return coarse_words_plain(hg.meta[:, 0].contiguous(), level - 3, mask_shift(level - 3))
+    if hg.meta.device.type != "cuda":
+        raise ValueError(f"tensors on {hg.meta.device}")
+    n_words = max((1 << (3 * (level - 3))) // 32, 1)
+    if hg.meta.dtype != torch.int32 or hg.meta.shape != (n_words, 2) \
+            or not hg.meta.is_contiguous():
+        raise ValueError(f"hier_mask: a level-{level} two-level grid's meta is ({n_words}, 2) "
+                         "int32 words")
+    if level - 3 <= MASK_LEVEL:
+        return hg.meta[:, 0].contiguous()
+    mask = torch.empty(_MASK_WORDS, dtype=torch.int32, device=hg.meta.device)
+    check("nw_hier_mask", kernels().nw_hier_mask(hg.meta.data_ptr(), level, mask.data_ptr(),
+                                                 stream_handle(hg.meta.device)))
+    return mask
 
 
 def _check_hier(name: str, hg: HierGrid, level: int, rays_o, rays_d):
@@ -516,6 +552,8 @@ def _check_hier(name: str, hg: HierGrid, level: int, rays_o, rays_d):
             or hg.meta.device != rays_o.device or hg.fine.device != rays_o.device:
         raise ValueError(f"{name}: a level-{level} two-level grid is meta ({n_words}, 2) and "
                          "fine (16 n,) int32 words on the rays' device")
+    if hg.fine.data_ptr() % 16:  # K12 reads a block's 16 words as four 16-byte loads
+        raise ValueError(f"{name}: fine must start on a 16-byte boundary")
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -528,7 +566,8 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 
 def dda_traverse_hier_plain(hg: HierGrid, level: int, rays_o: torch.Tensor,
                             rays_d: torch.Tensor, first_only: bool = False,
-                            max_steps: int | None = None, touched=None):
+                            max_steps: int | None = None, touched=None, global_reads=None,
+                            steps_out=None):
     """The plain PyTorch version of K12 (same contract as dda_traverse;
     ``ray_voxel.py:198-295``). Each step probes the point eps past the
     current entry, reads its block's meta row and its fine bit, and
@@ -537,7 +576,12 @@ def dda_traverse_hier_plain(hg: HierGrid, level: int, rays_o: torch.Tensor,
     f32 arithmetic is the JAX loop's. ``touched`` (a pair of int32 tensors of
     meta's rows and of fine's shape) gains one at a meta row for every step
     of an active ray, and at a fine word for every such step inside an
-    occupied block: the reads K12 makes."""
+    occupied block: the words a march reads at least once. ``global_reads``
+    ((R,) int32) receives each ray's reads from device memory that K12
+    waits on: the meta row of each step outside the block it holds (from
+    HIER_MASK_FROM up only in an occupied mask block), and the 16 fine
+    words of each occupied block it enters. ``steps_out`` ((R,) int32)
+    receives each ray's steps, K12's ``steps_out``."""
     n_f = 1 << level
     n_c = n_f >> 3
     if max_steps is None:
@@ -559,6 +603,15 @@ def dda_traverse_hier_plain(hg: HierGrid, level: int, rays_o: torch.Tensor,
     step_dir = (d > 0).to(torch.float32)
     words = hg.meta[:, 0].to(torch.int64) & 0xFFFFFFFF
     ranks = hg.meta[:, 1].to(torch.int64)
+    if steps_out is not None:
+        steps_out.zero_()
+    if global_reads is not None:
+        global_reads.zero_()
+        mask = None
+        if level >= HIER_MASK_FROM:  # K12's mask, its plain version
+            mask = coarse_words_plain(hg.meta[:, 0].contiguous(), level - 3,
+                                      mask_shift(level - 3)).to(torch.int64) & 0xFFFFFFFF
+        held_b = torch.full((r,), -1, dtype=torch.int64, device=dev)
 
     t_cur = t_enter
     first = torch.full((r,), _INF, device=dev)
@@ -582,6 +635,17 @@ def dda_traverse_hier_plain(hg: HierGrid, level: int, rays_o: torch.Tensor,
         if touched is not None:
             touched[0].index_add_(0, row, active.to(torch.int32))
             touched[1].index_add_(0, at, (active & blk).to(torch.int32))
+        if steps_out is not None:
+            steps_out += active.to(torch.int32)
+        if global_reads is not None:
+            new_b = active & (bidx != held_b)
+            if mask is not None:
+                m = c >> (level - MASK_LEVEL)
+                m = (m[:, 0] << (2 * MASK_LEVEL)) | (m[:, 1] << MASK_LEVEL) | m[:, 2]
+                new_b = new_b & (((mask[m >> 5] >> (m & 31)) & 1) == 1)
+            entered = new_b & blk
+            global_reads += new_b.to(torch.int32) + entered.to(torch.int32)
+            held_b = torch.where(entered, bidx, held_b)
         first = torch.where(occ_hit & (first >= _INF), t_cur, first)
         last = torch.where(occ_hit, t_cur, last)
 

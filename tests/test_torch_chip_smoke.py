@@ -579,6 +579,38 @@ print("ok")
     assert out.count("native vs numpy rasteriser") == 2 and out.strip().endswith("ok")
 
 
+def test_chip_smoke_filter_call_rays_and_k12_split(tmp_path):
+    """filter_call_rays: the first n pixel rays of the first views, as
+    render_hit_codes_multi packs one call; too few views raise. k12_split:
+    the block / fine split, the occupied blocks entered and the distinct
+    words, read off the plain version's touched counts."""
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+    from neuralrecon_w_tpu_torch.ops.voxel_grid import VoxelGrid, _sort_coords
+
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(0)
+    host = VoxelGrid(6, np.zeros(3), 1.0, _sort_coords(rng.integers(16, 48, (400, 3)), 6))
+    cams = cs.filter_cameras(str(tmp_path), np.zeros(3), 2.5, 3, (12, 9))
+    o, d = cs.filter_call_rays(cams, host, "cpu", n=200, views=2)
+    o_all, d_all = cs.cloud_rays(cams[:2], host, "cpu")
+    assert o.shape == (200, 3) and torch.equal(o, o_all[:200]) and torch.equal(d, d_all[:200])
+    with pytest.raises(ValueError):
+        cs.filter_call_rays(cams, host, "cpu", n=1000, views=2)
+    hg = rv.hier_grid_from_host(host, "cpu")
+    touched = (torch.zeros(hg.meta.shape[0], dtype=torch.int32), torch.zeros_like(hg.fine))
+    steps = torch.zeros(200, dtype=torch.int32)
+    rv.dda_traverse_hier_plain(hg, 6, o, d, touched=touched, steps_out=steps)
+    split = cs.k12_split(hg, touched, int(steps.sum()))
+    assert split["block_steps"] + split["fine_steps"] == int(steps.sum())
+    assert split["fine_steps"] == int(touched[1].sum()) > 0 and split["block_steps"] > 0
+    assert 0 < split["blocks_entered"] <= hg.fine.numel() // 16
+    assert split["meta_rows"] == int((touched[0] > 0).sum())
+
+
 def test_chip_smoke_kernels_line_names_every_kernel():
     """The kernels line's sources: K1-K12's wrappers by name, each a file in
     the port and the JAX function it replaces at the line it names, K12 the

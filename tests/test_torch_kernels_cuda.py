@@ -1247,6 +1247,190 @@ def test_dda_hier_wrapper_rejects_what_the_kernel_does_not_take(dev):
         rv.dda_traverse_hier(hg, 6, o.double(), o.double())
     with pytest.raises(ValueError):
         rv.dda_traverse_hier(hg._replace(fine=hg.fine.cpu()), 6, o, o)
+    # fine off a 16-byte boundary: K12 reads a block's words as 16-byte loads
+    shifted = torch.zeros(hg.fine.numel() + 1, dtype=torch.int32, device=dev)[1:]
+    shifted.copy_(hg.fine)
+    with pytest.raises(ValueError):
+        rv.dda_traverse_hier(hg._replace(fine=shifted), 6, o, o)
+
+
+@pytest.fixture(scope="module")
+def hier_grids(dev):
+    """(host grid, its two-level grid on the card) for K12's cases, built
+    once per (level, kind):
+    'sparse', blocks holding one or two cells each (rays cross occupied
+    blocks without a hit); 'full', every block occupied (at level 12, the
+    blocks of a 128^3-block sub-cube: all of them would be 8 GiB of fine
+    words); 'shell', shell_hier's sphere of 2^20 points."""
+    import numpy as np
+
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+    from neuralrecon_w_tpu_torch.ops.voxel_grid import VoxelGrid, _sort_coords
+
+    cache = {}
+
+    def get(level, kind):
+        if (level, kind) not in cache:
+            rng = np.random.default_rng(level)
+            n_c = 1 << (level - 3)
+            if kind == "shell":
+                cache[level, kind] = shell_hier(level, dev)
+                return cache[level, kind]
+            if kind == "full":
+                edge = min(n_c, 128)
+                lo = (n_c - edge) // 2
+                blocks = np.stack(np.meshgrid(*[np.arange(lo, lo + edge)] * 3, indexing="ij"),
+                                  -1).reshape(-1, 1, 3)
+                cells = blocks * 8 + rng.integers(0, 8, (len(blocks), 3, 3))
+            else:
+                blocks = rng.integers(0, n_c, (min(n_c ** 3 // 8 + 1, 200000), 1, 3))
+                cells = blocks * 8 + rng.integers(0, 8, (len(blocks), 2, 3))
+            host = VoxelGrid(level, np.zeros(3), 1.0, _sort_coords(cells.reshape(-1, 3), level))
+            cache[level, kind] = host, rv.hier_grid_from_host(host, dev)
+        return cache[level, kind]
+
+    return get
+
+
+def check_hier(dev, grids, o, d, first_only, max_steps=None):
+    """K12 against dda_traverse_hier_plain on a (host grid, two-level grid)
+    pair: every output and each ray's steps equal; the launch counted once.
+    Returns the plain version's steps."""
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    host, hg = grids
+    o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+    r = o.shape[0]
+    trips, steps = (torch.empty(r, dtype=torch.int32, device=dev) for _ in range(2))
+    before = rv.dda_traverse_hier.launches
+    got = rv.dda_traverse_hier(hg, host.level, o, d, first_only, max_steps, steps_out=trips)
+    want = rv.dda_traverse_hier_plain(hg, host.level, o, d, first_only, max_steps,
+                                      steps_out=steps)
+    torch.cuda.synchronize()
+    assert rv.dda_traverse_hier.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(trips, steps)
+    return steps
+
+
+def axis_rays(host, n, seed=0):
+    """Rays along +z and -z through seeded occupied cells' (x, y) columns,
+    and rays along z, x and y that cross a 32-block edge of a meta row
+    (z-block 32 k) or a block edge in x / y, from outside the cube."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    res = 1 << host.level
+    w = 2.0 / res
+    cells = host.coords[rng.integers(0, len(host.coords), n)].astype(np.float64)
+    centre = (cells + 0.5) * w - 1.0
+    o, d = [], []
+    for sign in (1.0, -1.0):  # along +-z through occupied columns
+        oo = centre.copy()
+        oo[:, 2] = -1.5 * sign
+        o.append(oo)
+        d.append(np.tile([0.0, 0.0, sign], (n, 1)))
+    # oblique rays that cross z-block 32 k (a meta row's edge) mid-march
+    n_c = res // 8
+    k = rng.integers(1, max(n_c // 32, 2), n) * 32 % max(n_c, 1)
+    z_edge = k * 8 * w - 1.0
+    oo = centre.copy()
+    oo[:, 2] = z_edge - 0.3
+    dd = np.stack([rng.normal(0, 0.05, n), rng.normal(0, 0.05, n), np.ones(n)], 1)
+    o.append(oo - dd * 2.0)
+    d.append(dd)
+    for axis in (0, 1):  # along x and along y
+        oo = centre.copy()
+        oo[:, axis] = -1.5
+        dd = np.zeros((n, 3))
+        dd[:, axis] = 1.0
+        o.append(oo)
+        d.append(dd)
+    o, d = np.concatenate(o), np.concatenate(d)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+@pytest.mark.parametrize("first_only", [False, True])
+@pytest.mark.parametrize("kind", ["sparse", "full"])
+@pytest.mark.parametrize("level", [3, 4, 9, 10, 12])
+def test_dda_hier_kernel_on_sparse_and_full_grids(dev, hier_grids, level, kind, first_only):
+    """K12 bit for bit (every output, each ray's steps) on grids whose
+    occupied blocks hold one or two cells and on grids with every block
+    occupied, over level10_rays's kinds (from outside, axis parallel, from
+    occupied cells inside the cube, misses) and axis_rays (along +-z, across
+    a meta row's 32-block edge, along x and y)."""
+    import numpy as np
+
+    from chip_smoke import level10_rays
+
+    grids = hier_grids(level, kind)
+    o1, d1 = level10_rays(grids[0], 4096, seed=level)
+    o2, d2 = axis_rays(grids[0], 256, seed=level)
+    steps = check_hier(dev, grids, np.concatenate([o1, o2]), np.concatenate([d1, d2]),
+                       first_only)
+    assert int(steps.max()) > 1
+
+
+@pytest.mark.parametrize("max_steps", [1, 2, 7, 8, 9, 33])
+@pytest.mark.parametrize("level", [4, 12])
+def test_dda_hier_kernel_max_steps_cuts(dev, hier_grids, level, max_steps):
+    """K12 cut after max_steps steps (1, 2, 7, 8, 9, 33: after the first
+    steps, around eight and past a meta row's 32 blocks) against the plain
+    version with the same cut, both first_only modes: each ray's march is
+    the uncut one's, cut."""
+    from chip_smoke import level10_rays
+
+    grids = hier_grids(level, "shell" if level == 12 else "sparse")
+    o, d = level10_rays(grids[0], 2048, seed=max_steps)
+    for first in (False, True):
+        full = check_hier(dev, grids, o, d, first)
+        cut = check_hier(dev, grids, o, d, first, max_steps)
+        assert torch.equal(cut, full.clamp(max=max_steps))
+
+
+@pytest.mark.parametrize("first_only", [False, True])
+@pytest.mark.parametrize("n_rays", [1, 3, 8189, 262144])
+def test_dda_hier_kernel_ragged_ray_counts(dev, hier_grids, n_rays, first_only):
+    """K12 at ragged ray counts on the level-12 shell: one block of a warp
+    (1, 3), blocks of 32 to 128 threads (8189), and the filter's call of
+    262,144 rays whose last quarter are its padding rays (origins at 4.0,
+    along +z: sure misses)."""
+    import numpy as np
+
+    from chip_smoke import level10_rays
+
+    grids = hier_grids(12, "shell")
+    real = n_rays if n_rays < 262144 else 3 * n_rays // 4
+    o, d = level10_rays(grids[0], max(real, 4), seed=n_rays)
+    o, d = o[:real], d[:real]
+    if real < n_rays:  # render_hit_codes_multi's padding
+        o = np.concatenate([o, np.full((n_rays - real, 3), 4.0, np.float32)])
+        d = np.concatenate([d, np.tile(np.float32([0.0, 0.0, 1.0]), (n_rays - real, 1))])
+    steps = check_hier(dev, grids, np.ascontiguousarray(o), np.ascontiguousarray(d),
+                       first_only)
+    if real < n_rays:
+        assert int(steps[real:].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("level", [4, 9, 10, 11, 12])
+def test_hier_mask_kernel_matches_plain(dev, hier_grids, level):
+    """K12's pre-pass (K10's over meta's coarse words) against its plain
+    version, on a sparse grid and on the shell: at every level the
+    pre-pass takes (10 up, whether or not K12 marches through the mask
+    there) and below it, where the mask is meta's coarse words."""
+    from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
+
+    for kind in ("sparse", "shell"):
+        hg = hier_grids(level, kind)[1]
+        got = rv.hier_mask(hg, level)
+        torch.cuda.synchronize()
+        want = rv.coarse_words_plain(hg.meta[:, 0].contiguous(), level - 3,
+                                     rv.mask_shift(level - 3))
+        assert torch.equal(got, want)
+        bits = (got.to(torch.int64)[:, None] >> torch.arange(32, device=dev)) & 1
+        assert 0 < int(bits.sum()) < bits.numel()  # mask blocks empty and occupied both
 
 
 def test_captured_served_chunk_matches_eager(dev):

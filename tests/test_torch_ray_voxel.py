@@ -261,6 +261,187 @@ def test_hier_plain_counts_the_words_k12_reads():
     assert touched[0].tolist() == [9] and int(touched[1].sum()) == 8
 
 
+# cuts after the first steps, around eight (the batch that K10 computes
+# ahead) and past a meta row's 32 blocks
+HIER_CUTS = (1, 2, 7, 8, 9, 33)
+
+
+def full_block_grid(level, seed=0, per_block=3):
+    """A two-level host grid with every block occupied, each by a few cells."""
+    rng = np.random.default_rng(seed)
+    n_c = 1 << (level - 3)
+    blocks = np.stack(np.meshgrid(*[np.arange(n_c)] * 3, indexing="ij"), -1).reshape(-1, 1, 3)
+    coords = (blocks * 8 + rng.integers(0, 8, (len(blocks), per_block, 3))).reshape(-1, 3)
+    return VoxelGrid(level, np.array([0.1, -0.3, 0.2]), 1.5,
+                     np.unique(coords, axis=0).astype(np.int32))
+
+
+def inside_rays(host, r=96, seed=0):
+    """Rays from inside the cube in SFM units: half from occupied cells'
+    centres, half from random points, in random directions."""
+    rng = np.random.default_rng(seed)
+    centres = host.centers_sfm()[rng.integers(0, len(host.coords), r // 2)]
+    anywhere = host.origin + rng.uniform(-0.95, 0.95, (r - r // 2, 3)) * host.scale
+    d = rng.standard_normal((r, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return np.concatenate([centres, anywhere]).astype(np.float32), d.astype(np.float32)
+
+
+@pytest.mark.parametrize("first_only", [False, True])
+@pytest.mark.parametrize("max_steps", HIER_CUTS)
+@pytest.mark.parametrize("level,n_cells", [(4, 60), (9, 800)])
+def test_hier_dda_max_steps_cuts_match_jax(level, n_cells, max_steps, first_only):
+    """The plain version K12 is held to, cut after max_steps steps
+    (HIER_CUTS), against JAX's loop with the same cut."""
+    host = random_grid(level=level, n_cells=n_cells, seed=30 + level)
+    o, d = random_rays(r=96, seed=31 + level)
+    jg, tg = hier_pair(host)
+    o_norm = ((o - host.origin) / host.scale).astype(np.float32)
+    want = jrv.dda_traverse_hier(jg, level, jnp.asarray(o_norm), jnp.asarray(d), first_only,
+                                 max_steps)
+    steps = torch.zeros(len(o), dtype=torch.int32)
+    got = trv.dda_traverse_hier_plain(tg, level, torch.from_numpy(o_norm), torch.from_numpy(d),
+                                      first_only, max_steps, steps_out=steps)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0)
+    # each ray's march is the uncut one's, cut after max_steps steps
+    full = torch.zeros(len(o), dtype=torch.int32)
+    trv.dda_traverse_hier_plain(tg, level, torch.from_numpy(o_norm), torch.from_numpy(d),
+                                first_only, steps_out=full)
+    assert torch.equal(steps, full.clamp(max=max_steps))
+    assert int(full.max()) > max_steps or max_steps == HIER_CUTS[-1]
+
+
+@pytest.mark.parametrize("first_only", [False, True])
+@pytest.mark.parametrize("level", [4, 6])
+def test_hier_dda_every_block_occupied_matches_jax(level, first_only):
+    """Every block occupied (no block step at all), from outside the cube
+    and from inside it."""
+    host = full_block_grid(level, seed=level)
+    hg = trv.hier_grid_from_host(host, "cpu")
+    assert int(hg.fine.numel()) == 16 * (1 << (3 * (level - 3)))
+    for o, d in (random_rays(r=64, seed=40 + level), inside_rays(host, seed=41 + level)):
+        _, _, hit = assert_hier_matches(host, o, d, first_only)
+        assert hit.any()
+
+
+@pytest.mark.parametrize("first_only", [False, True])
+@pytest.mark.parametrize("level,n_cells", [(5, 40), (9, 800)])
+def test_hier_dda_rays_inside_the_cube_match_jax(level, n_cells, first_only):
+    """Rays that start inside the cube, in occupied cells and elsewhere."""
+    host = random_grid(level=level, n_cells=n_cells, seed=50 + level)
+    o, d = inside_rays(host, seed=51 + level)
+    _, _, hit = assert_hier_matches(host, o, d, first_only)
+    assert hit.any() and (~hit).any()
+
+
+def split_of(hg, level, o, d, first_only=False):
+    """(block steps, fine steps) of rays (o, d) from the plain version's
+    touched counts, and its per-ray steps."""
+    touched = (torch.zeros(hg.meta.shape[0], dtype=torch.int32), torch.zeros_like(hg.fine))
+    steps = torch.zeros(o.shape[0], dtype=torch.int32)
+    trv.dda_traverse_hier_plain(hg, level, o, d, first_only, touched=touched, steps_out=steps)
+    fine_steps = int(touched[1].sum())
+    assert int(steps.sum()) == int(touched[0].sum())
+    return int(touched[0].sum()) - fine_steps, fine_steps, steps
+
+
+def test_hier_touched_split_on_hand_made_grids():
+    """The block / fine split read from touched: an empty grid gives block
+    steps only, one per block crossed; a ray through one fully occupied
+    block gives one fine step per fine cell it crosses, counted exactly."""
+    level, n_c = 5, 4
+    empty = VoxelGrid(level, np.zeros(3), 1.0, np.zeros((0, 3), np.int32))
+    hg = trv.hier_grid_from_host(empty, "cpu")
+    # along +z at a block's centre: n_c blocks; an oblique ray: one step a block crossed
+    o = torch.tensor([[-0.75, -0.75, -2.0], [-0.9, -0.8, -0.95]])
+    d = torch.tensor([[0.0, 0.0, 1.0], [0.3, 0.2, 0.9327379]])
+    d = d / d.norm(dim=-1, keepdim=True)
+    blocks, fine_steps, steps = split_of(hg, level, o, d)
+    assert fine_steps == 0 and steps[0] == n_c and blocks == int(steps.sum())
+    # the oblique ray's blocks, counted by their boundary planes crossed (float64)
+    o64, d64 = o[1].double().numpy(), d[1].double().numpy()
+    t_out = float(np.min((np.where(d64 > 0, 1.0, -1.0) - o64) / d64))
+    a, b = (o64 + 1) / 2 * n_c, (o64 + d64 * t_out + 1) / 2 * n_c
+    assert steps[1] == 1 + int(np.abs(np.floor(np.minimum(b, n_c - 1e-9)) - np.floor(a)).sum())
+
+    # block (1, 2, 1) full: its 512 cells
+    cells = np.stack(np.meshgrid(*[np.arange(8)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    full = VoxelGrid(level, np.zeros(3), 1.0, (cells + np.array([8, 16, 8])).astype(np.int32))
+    hg = trv.hier_grid_from_host(full, "cpu")
+    w = 2.0 / (1 << level)
+    lo = np.array([8, 16, 8]) * w - 1.0  # the block's low corner, normalised
+    cases = [(lo + np.array([3.5, 2.5, -4.0]) * w, np.array([0.0, 0.0, 1.0])),
+             (lo + np.array([-3.2, 1.3, -2.9]) * w, np.array([0.61, 0.29, 0.55]))]
+    for o_, d_ in cases:
+        d_ = d_ / np.linalg.norm(d_)
+        o_t = torch.tensor(o_[None], dtype=torch.float32)
+        d_t = torch.tensor(d_[None], dtype=torch.float32)
+        blocks, fine_steps, _ = split_of(hg, level, o_t, d_t)
+        # the fine cells the ray crosses inside the block: one plus the cell
+        # planes it crosses there (a generic ray crosses no two at once)
+        with np.errstate(divide="ignore"):
+            t0, t1 = (lo - o_) / d_, (lo + 8 * w - o_) / d_
+        s_in, s_out = np.max(np.minimum(t0, t1)), np.min(np.maximum(t0, t1))
+        a = (o_ + d_ * s_in - lo) / w
+        b = (o_ + d_ * s_out - lo) / w
+        crossed = 1 + int(np.abs(np.floor(np.clip(b, 0, 8 - 1e-9))
+                                 - np.floor(np.clip(a, 0, 8 - 1e-9))).sum())
+        assert fine_steps == crossed, (fine_steps, crossed)
+        assert blocks > 0
+
+
+def test_hier_plain_global_reads_follow_the_mask():
+    """global_reads: below HIER_MASK_FROM a read for each step outside the
+    held block, and one more for each occupied block entered; from it, no
+    read in an empty mask block, so fewer reads than block steps on a
+    sparse grid; the mask is the OR of the cells over 64^3-cell blocks."""
+    o, d = random_rays(r=48, seed=61)
+    for level in (trv.HIER_MASK_FROM - 1, trv.HIER_MASK_FROM):
+        host = random_grid(level=level, n_cells=300, seed=60)
+        hg = trv.hier_grid_from_host(host, "cpu")
+        o_norm = torch.from_numpy(((o - host.origin) / host.scale).astype(np.float32))
+        steps, reads = (torch.zeros(len(o), dtype=torch.int32) for _ in range(2))
+        touched = (torch.zeros(hg.meta.shape[0], dtype=torch.int32), torch.zeros_like(hg.fine))
+        trv.dda_traverse_hier_plain(hg, level, o_norm, torch.from_numpy(d), touched=touched,
+                                    steps_out=steps, global_reads=reads)
+        block_steps = int(steps.sum()) - int(touched[1].sum())
+        if level < trv.HIER_MASK_FROM:
+            assert int(reads.sum()) > block_steps
+        else:
+            assert 0 < int(reads.sum()) < block_steps
+        assert bool((reads <= 2 * steps).all())
+        shift = level - trv.MASK_LEVEL
+        m = host.coords.astype(np.int64) >> shift
+        m = (m[:, 0] << (2 * trv.MASK_LEVEL)) | (m[:, 1] << trv.MASK_LEVEL) | m[:, 2]
+        want = np.zeros(1 << (3 * trv.MASK_LEVEL - 5), np.uint32)
+        np.bitwise_or.at(want, m >> 5, np.uint32(1) << (m & 31).astype(np.uint32))
+        if level >= trv.HIER_MASK_FROM:
+            np.testing.assert_array_equal(trv.hier_mask(hg, level).numpy().view(np.uint32), want)
+
+
+def test_hier_mask_below_the_prepass_is_metas_words():
+    """At MASK_LEVEL + 3 and below a two-level grid's blocks are no more than
+    the mask's: K12's mask is meta's coarse words themselves."""
+    for level in (3, 4, trv.MASK_LEVEL + 3):
+        host = random_grid(level=level, n_cells=200, seed=level)
+        hg = trv.hier_grid_from_host(host, "cpu")
+        assert torch.equal(trv.hier_mask(hg, level), hg.meta[:, 0].contiguous())
+
+
+def test_mask_constants_agree_with_the_kernel_source():
+    """The wrappers' copies of ray_voxel.cu's mask constants (MASK_LEVEL,
+    MASK_FROM, HIER_MASK_FROM) are the kernels' own."""
+    import re
+    from pathlib import Path
+
+    src = (Path(trv.__file__).parent.parent / "csrc" / "ray_voxel.cu").read_text()
+    for name in ("MASK_LEVEL", "MASK_FROM", "HIER_MASK_FROM"):
+        found = re.findall(rf"constexpr int {name} = (\d+);", src)
+        assert found == [str(getattr(trv, name))], (name, found)
+
+
 # --------------------------- K10's coarse mask ---------------------------
 
 
