@@ -1,0 +1,10 @@
+"""Device ms a served chunk inside ``render.background``: the background
+field outside the unit sphere; the busy time between the span's marker
+kernels (``benchmark/spans.py``), None where the trace holds no marker of
+it."""
+
+from benchmark.spans import span_ms
+
+
+def read(rec):
+    return span_ms(rec, "render.background")

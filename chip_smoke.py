@@ -815,6 +815,7 @@ def profile_chunk(model, fc, rcfg, scene, rays, fine_grid, sfm_grid, label) -> N
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from neuralrecon_w_tpu_torch.tracing import span_ms
     from neuralrecon_w_tpu_torch.training.step import make_render_fn
 
     dev = scene.origin.device
@@ -840,12 +841,9 @@ def profile_chunk(model, fc, rcfg, scene, rays, fine_grid, sfm_grid, label) -> N
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    # the renderer's spans are ranges on the device timeline, not kernels;
-    # CPU-side ops carry their kernels' time too, so only device events count
-    spans = {}  # a span is listed twice: its CPU range and its device range
-    for e in events:
-        if e.key.startswith("render."):
-            spans[e.key] = max(spans.get(e.key, 0.0), e.device_time_total / 1e3)
+    # the renderer's spans, each timed between its two marker kernels
+    spans = {k: v for k, v in span_ms().items() if k.startswith("render.")}
+    # only device events count: CPU-side ops carry their kernels' time too
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.key.startswith("render.")]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
@@ -1318,13 +1316,17 @@ def training_phase(cfg, state, scene, pool, fine_grid, fine_level, label, n_time
 
 def profile_step(cfg, state, scene, pool, fine_grid, fine_level, label) -> None:
     """torch.profiler over one warm training step per grad mode: the
-    device time by the step's spans (render and loss, optimiser) and the
-    renderer's, the busy share of the wall, the top kernels. The backward
-    runs on autograd's own thread, outside the spans: it is the rest of
-    the busy time."""
+    device time by the step's spans (``tracing.span_ms``: train.render_loss
+    with the renderer's render.importance, render.background and
+    render.foreground inside it, train.backward, train.optimizer, each
+    timed between its two marker kernels on the card), the busy share of
+    the wall, the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from neuralrecon_w_tpu_torch.tracing import DEVICE, SPANS, span_ms
+
+    device_spans = {s.name for s in SPANS if s.kind == DEVICE}
     for mode in TRAIN_MODES:
         step = make_steps(cfg, train_config(cfg, mode), fine_level)
         step(state, scene, pool.next_batch(TRAIN_BATCH), fine_grid)
@@ -1336,12 +1338,9 @@ def profile_step(cfg, state, scene, pool, fine_grid, fine_level, label) -> None:
             sync()
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages()
-        spans = {}
-        for e in events:
-            if e.key.startswith(("render.", "train.")):
-                spans[e.key] = max(spans.get(e.key, 0.0), e.device_time_total / 1e3)
+        spans = {k: v for k, v in span_ms().items() if k in device_spans}
         device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.startswith(("render.", "train."))]
+                  and e.key not in device_spans]
         busy_ms = sum(e.self_device_time_total for e in device) / 1e3
         top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
         print(f"profile training {label} {mode} step of {TRAIN_BATCH} rays: wall {wall_ms:.1f} ms, "

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "nw_sampled_hit": [_P, _I, _P, _P, _P, _P, _P, _I, _LL, _P, _P, _P, _P],
     "nw_hier_mask": [_P, _I, _P, _P],
     "nw_dda_hier": [_P, _P, _P, _LL, _I, _P, _P, _LL, _I, _I, _F, _P, _P, _P, _P, _P],
+    "nw_span_mark": [_P, _I, _I, _P],
 }
 
 

@@ -13,13 +13,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..config import FieldConfig, RenderConfig
 from ..models.neuconw import field_background, field_forward
 from ..ops.importance_sampler import fused_importance_sampler, importance_sampler_plain
 from ..ops.ray_voxel import DeviceGrid, grid_near_far, sampled_first_hit
 from ..parallel.tensor import vocab_lookup
+from ..tracing import span
 from .sampling import merge_sorted
 
 
@@ -95,15 +95,12 @@ def sparse_sampler(model, fc: FieldConfig, rcfg: RenderConfig, scene: SceneInfo,
     dev = rays_o.device
 
     if rcfg.nerf_far_override and sfm_grid is not None:
-        with record_function("render.sfm_near_far"):
-            near, far, _ = near_far_from_sfm_grid(rcfg, scene, sfm_grid, rays_o, rays_d,
-                                                  near, far)
+        near, far, _ = near_far_from_sfm_grid(rcfg, scene, sfm_grid, rays_o, rays_d, near, far)
 
     sample_near, sample_far = near, far
     if fine_grid is not None:
-        with record_function("render.surface_band"):
-            sample_near, sample_far, _ = near_far_from_fine_grid(
-                rcfg, scene, fine_grid, rays_o, rays_d, near, far, surf_cache)
+        sample_near, sample_far, _ = near_far_from_fine_grid(
+            rcfg, scene, fine_grid, rays_o, rays_d, near, far, surf_cache)
 
     sample_dist = (sample_far - sample_near) / rcfg.n_samples
     lin = torch.linspace(0.0, 1.0, rcfg.n_samples, device=dev)
@@ -132,7 +129,7 @@ def sparse_sampler(model, fc: FieldConfig, rcfg: RenderConfig, scene: SceneInfo,
         z_vals_outside = far / torch.flip(z_out, dims=[-1]) + 1.0 / rcfg.n_samples
 
     if rcfg.n_importance > 0:
-        with record_function("render.importance"):
+        with span("render.importance", dev):
             z_vals = importance_stage(model, fc, rcfg, rays_o, rays_d, z_vals)
 
     # boundary guards around the surface band; each block is made
@@ -396,7 +393,7 @@ def render_rays(model, fc: FieldConfig, rcfg: RenderConfig, scene: SceneInfo,
     background_alpha = None
     background_sampled_color = None
     if rcfg.render_bg and rcfg.n_outside > 0:
-        with record_function("render.background"):
+        with span("render.background", rays_o.device):
             z_feed = merge_sorted(z_vals, z_vals_outside)
             ret_out = render_core_outside(
                 model, fc, rcfg, rays_o, rays_d, z_feed, sample_dist, a_embedded,
@@ -404,7 +401,7 @@ def render_rays(model, fc: FieldConfig, rcfg: RenderConfig, scene: SceneInfo,
         background_sampled_color = ret_out["sampled_color"]
         background_alpha = ret_out["alpha"]
 
-    with record_function("render.foreground"):
+    with span("render.foreground", rays_o.device):
         ret = render_core(model, fc, rcfg, rays_o, rays_d, z_vals, sample_dist, a_embedded,
                           cos_anneal_ratio, background_alpha, background_sampled_color,
                           background_rgb, ray_mask)

@@ -59,6 +59,7 @@ from ..ops.ray_voxel import device_grid_from_host
 from ..ops.voxel_grid import VoxelGrid
 from ..parallel.mesh import all_gather_rows, barrier, is_main, shard_rays
 from ..tools.convert import without_dead_entries
+from ..tracing import span_ms
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .losses import loss_config_from_cfg
 from .schedule import make_optimizer
@@ -454,6 +455,9 @@ class Trainer:
 
             if step_i % log_every == 0 or step_i >= total:
                 scalars = {k: float(v) for k, v in aux.items()}  # the only reads back
+                # each span's last run (a captured dispatch's last step), read
+                # once the loss read has waited for the device
+                scalars.update({f"time/{k}_ms": v for k, v in span_ms().items()})
                 now = time.time()
                 scalars["rays_per_sec"] = bs * (step_i - win_step) / max(now - win_t, 1e-9)
                 scalars["lr"] = self.lr_at(self.state.optimizer.count - 1)

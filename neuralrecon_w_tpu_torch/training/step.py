@@ -56,7 +56,6 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..config import FieldConfig, RenderConfig
 from ..models.neuconw import NeuconWField
@@ -64,6 +63,7 @@ from ..rendering.renderer import render_rays
 from ..parallel.mesh import all_reduce_sum_, rank_seed
 from ..parallel.tensor import is_split, sync_replicated_grads
 from ..tools.convert import init_field
+from ..tracing import prepare, span
 from .losses import LossConfig, batch_counts, loss_terms
 from .schedule import Optimizer
 
@@ -150,8 +150,7 @@ def make_train_step(fc: FieldConfig, rcfg: RenderConfig, lcfg: LossConfig,
         results = render_rays(model, fc, rcfg, scene, batch["rays"], batch["ts"],
                               batch["labels"], rng, cos_anneal, fine_grid=fine_grid,
                               sfm_grid=sfm_grid, ray_mask=ray_mask, surf_cache=surf_cache)
-        with record_function("train.all_reduce_counts"):
-            counts = all_reduce_sum_(group, batch_counts(results))
+        counts = all_reduce_sum_(group, batch_counts(results))
         terms = loss_terms(lcfg, results, batch["rgbs"], counts)
         # this rank's parts of the global aux: each sums over the ranks
         mask = results["ray_mask"][:, None]
@@ -168,17 +167,16 @@ def make_train_step(fc: FieldConfig, rcfg: RenderConfig, lcfg: LossConfig,
         rng = step_generator(seed, state.step, dev, 0 if group is None else group.data_rank)
         state.model.train()
         state.optimizer.zero_grad()
-        with record_function("train.render_loss"):
+        with span("train.render_loss", dev):
             loss, aux = loss_fn(state.model, scene, batch, rng, cos_anneal, fine_grid, sfm_grid,
                                 group)
-        loss.backward()
+        with span("train.backward", dev):
+            loss.backward()
         if group is not None and group.n_model > 1:
-            with record_function("train.sync_replicated_grads"):
-                sync_replicated_grads(group, state.model.parameters())
+            sync_replicated_grads(group, state.model.parameters())
         if group is not None:
-            with record_function("train.all_reduce_grads"):
-                aux = all_reduce_grads(group, state.model.parameters(), aux)
-        with record_function("train.optimizer"):
+            aux = all_reduce_grads(group, state.model.parameters(), aux)
+        with span("train.optimizer", dev):
             state.optimizer.step()
         state.step += 1
         return state, finish_aux(aux)
@@ -218,7 +216,10 @@ class ScanRun:
     into them; any other tensor there is copied in before the replays), the
     scene. A capture that fails raises. ``captures``, ``replays`` and
     ``per_step_launches`` (the kernel launches one captured step records)
-    say what ran: the wrappers' counters tick at capture only."""
+    say what ran: the wrappers' counters tick at capture only. The step's
+    device spans (``train.render_loss``, ``train.backward``,
+    ``train.optimizer``, ``tracing.py``) are captured with it, so every
+    replay stamps them; ``train.inputs`` times a call's hand-off."""
 
     def __init__(self, step_fn, batch_size: int, n_inner: int, graph: Optional[bool]):
         self.step_fn = step_fn
@@ -283,17 +284,19 @@ class ScanRun:
                else 1.0)
         model, opt = st["state"].model, st["state"].optimizer
         model.train()
-        with record_function("train.render_loss"):
+        with span("train.render_loss", dev):
             loss, aux = self.step_fn.loss_fn(model, st["scene"], batch, self._gen, cos,
                                              st["fine_grid"], st["sfm_grid"])
-        loss.backward()
-        with record_function("train.optimizer"):
+        with span("train.backward", dev):
+            loss.backward()
+        with span("train.optimizer", dev):
             opt.graph_step(self._count_t)
         self._step_t += 1
         return finish_aux(aux)
 
     def _capture(self, state, scene, pool_data, fine_grid, sfm_grid, perm):
         dev = pool_data["rays"].device
+        prepare(dev)
         state.optimizer.make_capturable()
         self._static = {"state": state, "scene": scene, "data": dict(pool_data),
                         "fine_grid": fine_grid, "sfm_grid": sfm_grid, "perm": perm}
@@ -336,11 +339,12 @@ class ScanRun:
         first = self._g is None
         if first:
             self._capture(state, scene, pool_data, fine_grid, sfm_grid, perm)
-        else:
-            self._inputs_in(state, scene, pool_data, fine_grid, sfm_grid, perm)
-        self._cursor.fill_(0 if start is None else int(start))
-        self._step_t.fill_(float(state.step))
-        self._count_t.fill_(float(state.optimizer.count))
+        with span("train.inputs"):
+            if not first:
+                self._inputs_in(state, scene, pool_data, fine_grid, sfm_grid, perm)
+            self._cursor.fill_(0 if start is None else int(start))
+            self._step_t.fill_(float(state.step))
+            self._count_t.fill_(float(state.optimizer.count))
         n_replay, aux = self.n_inner, None
         if first:
             warm = min(GRAPH_WARMUP, self.n_inner)
@@ -466,6 +470,7 @@ class ScanRender:
         from ..ops import read_launches
 
         c, dev = self.chunk, rays.device
+        prepare(dev)
         st = {"model": model, "scene": scene, "fine_grid": fine_grid, "sfm_grid": sfm_grid,
               "rays": rays[:c].clone(), "ts": ts[:c].clone(), "labels": labels[:c].clone()}
         side = torch.cuda.Stream(device=dev)

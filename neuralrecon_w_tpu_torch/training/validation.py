@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import all_gather_rows
+from ..tracing import span
 from ..utils.colormap import jet_uint8
 
 
@@ -40,24 +41,30 @@ def render_image(render_chunk, model, scene, rays: np.ndarray, ts: np.ndarray,
     rank; ``scan_render`` is then not used. The model ranks of a data shard
     (a group with a model axis) render the same rays, from a whole field or
     from one split over them. Returns (H, W, ...) numpy images: color, depth
-    and the weight-averaged normal."""
+    and the weight-averaged normal. Spans: ``serve.frame_in`` (the padding
+    and, with ``scan_render``, the copy to the device) and
+    ``serve.frame_out`` (the fetch, which waits for the render)."""
     if device is None:
         device = next(model.parameters()).device
     w, h = img_wh
     n = len(rays)
     pad = (-n) % chunk
-    if pad:
-        rays = np.concatenate([rays, np.repeat(rays[-1:], pad, 0)], 0)
-        ts = np.concatenate([ts, np.repeat(ts[-1:], pad, 0)])
-        labels = np.concatenate([labels, np.repeat(labels[-1:], pad, 0)])
 
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device, non_blocking=True)
 
     n_data, data_rank = (1, 0) if group is None else (group.n_data, group.data_rank)
     split = n_data > 1
-    if scan_render is not None and not split:
-        out = scan_render(model, scene, put(rays), put(ts), put(labels), rng, fine_grid, sfm_grid)
+    scan = scan_render is not None and not split
+    with span("serve.frame_in"):
+        if pad:
+            rays = np.concatenate([rays, np.repeat(rays[-1:], pad, 0)], 0)
+            ts = np.concatenate([ts, np.repeat(ts[-1:], pad, 0)])
+            labels = np.concatenate([labels, np.repeat(labels[-1:], pad, 0)])
+        if scan:
+            frame = put(rays), put(ts), put(labels)
+    if scan:
+        out = scan_render(model, scene, *frame, rng, fine_grid, sfm_grid)
         packed = torch.cat([out["color"], out["depth"][:, None], out["normal"]], 1)
     else:
         per, lo = chunk, 0
@@ -76,7 +83,8 @@ def render_image(render_chunk, model, scene, rays: np.ndarray, ts: np.ndarray,
             part = torch.cat([out["color"], out["depth"][:, None], (g * wgt).sum(dim=1)], 1)
             parts.append(all_gather_rows(group, part) if split else part)
         packed = torch.cat(parts)
-    packed = packed.cpu().numpy()
+    with span("serve.frame_out"):
+        packed = packed.cpu().numpy()
     return {"color": packed[:n, :3].reshape(h, w, 3), "depth": packed[:n, 3].reshape(h, w),
             "normal": packed[:n, 4:].reshape(h, w, 3)}
 

@@ -24,9 +24,8 @@ case's share of trips whose global read the mask skipped. Unless
 ``--kernels-only``, it then builds the whole kernel library and, in
 turns, with either checkout's K10 / K11 on this checkout's path: the
 served steady frames eager and as the captured graph
-(``chip_smoke.serving_graph_phase``, rays/s), the renderer's spans
-``render.sfm_near_far`` / ``render.surface_band`` on one eager steady
-chunk (torch.profiler), and the band cache's pass over a device pool
+(``chip_smoke.serving_graph_phase``, rays/s), the grid-query kernels'
+device time on one eager steady chunk (torch.profiler), and the band cache's pass over a device pool
 (``DeviceRayPool.attach_surface`` and a synchronise, as
 ``Trainer.attach_seconds`` times it) of the training cache's 230,400 rows
 and of 2^22 rows.
@@ -108,9 +107,8 @@ K12_VARIANTS = {
         "< 0LL * sms) threads >>= 1;\n  const long long blocks = (n_rays + threads - 1) / threads;"
         "\n  // 32 KB of mask"),
 }
-# the renderer's grid-query spans and the kernels inside them
-SPANS = ("render.sfm_near_far", "render.surface_band", "coarse_kernel", "dda_kernel",
-         "sampled_hit_kernel")
+# the renderer's grid-query kernels
+GRID_KERNELS = ("coarse_kernel", "dda_kernel", "sampled_hit_kernel")
 
 
 def patched(text: str, variant) -> str:
@@ -513,9 +511,9 @@ def serving_and_pool(cs, rv, routes, use, cfg, scene, frames, fine_grid, fine_ho
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             render(model, scene, rays, ts, ts, None, fine_grid, sfm_grid)
             torch.cuda.synchronize()
-        spans = {}  # a span is listed twice: its CPU range and its device range
+        spans = {}  # a kernel is listed twice: its CPU launch and its device run
         for e in prof.key_averages():
-            name = next((n for n in SPANS if n in e.key), None)
+            name = next((n for n in GRID_KERNELS if n in e.key), None)
             if name:
                 spans[name] = max(spans.get(name, 0.0), e.device_time_total / 1e3)
         out.setdefault("chunk_device_ms", {}).setdefault(lab, []).append(spans)
