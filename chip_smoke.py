@@ -19,7 +19,11 @@ level-10 fine grid with boundary samples). The scene is made in-process
 with numpy: SFM points on a sphere of radius 1, the SFM grid from
 ``grid_from_points``, the fine grid a shell around that sphere, cameras
 on a ring. It checks the outputs, counts the kernel launches of the
-serving run, and prints timings with the card's name and power limit.
+serving run and the field's products (``models/layers.linear.aligned`` /
+``.fallback``), and prints timings with the card's name and power limit.
+``product_phase`` then runs the bg_op and bg_ref fields' forward, input
+gradient and double backward under torch.profiler and fails on a
+fallback product or a tensor-core ``align1`` kernel.
 The kernels are held to their plain versions on a copy of the SDF net
 with seeded noise on every weight and bias (``live_sdf_net``): the
 geometric init zeroes the sin / cos columns, the skip's PE half and the
@@ -292,8 +296,8 @@ K3_F32_TOL = 1e-4
 VJP_BF16_REL = 5e-2  # kernels vs the plain version in bf16, rel-L2 per output
 # pallas vs vjp, one step from one state. In f32: (loss rtol, rel-L2 per
 # parameter gradient) between the two modes. In bf16 the two modes round
-# the SDF forward at other places (the 'vjp' matmuls round their outputs
-# and add the bias in bf16, K3 keeps both in f32), which moves every loss by
+# the SDF forward at other places (the 'vjp' products round each layer's
+# output to bf16, K3 keeps it in f32), which moves every loss by
 # ~1 %; and a gradient is a sum over ~200k points whose rounding errors do
 # not cancel as its signal does, so each mode's bf16 gradient lies a few
 # percent to O(1) off the f32 one, independently. So in bf16 both are held
@@ -723,6 +727,79 @@ def kernel_phase(model, fc, rays_o, rays_d, z_base, n_pts_cmp: int):
         if not ok:
             fails.append(f"sampler {act} {z0.shape[1]} + {n_imp}")
     return res, fails
+
+
+PRODUCT_CONFIGS = {"bg_op": CONFIG,
+                   "bg_ref": os.path.join(ROOT, "config", "train_brandenburg_gate.yaml")}
+PRODUCT_RAYS, PRODUCT_SAMPLES = 1024, 24
+
+
+def product_phase():
+    """The field's products at the bg_op and bg_ref fields' widths: the SDF
+    forward and its input gradient, the colour and background nets over
+    per-ray dirs, the double backward, under torch.profiler. Prints the
+    products ``models/layers.linear`` issued aligned and through a fallback
+    and the device's product kernels by name; fails on a fallback or a
+    tensor-core ``align1`` kernel. Returns fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
+    from neuralrecon_w_tpu_torch.models import color, layers, nerf_bg, sdf
+    from neuralrecon_w_tpu_torch.tools.convert import init_field
+
+    fails = []
+    pats = ("gemm", "gemv", "nvjet", "cutlass", "xmma", "s16816", "s1688", "splitkreduce")
+    for name, path in PRODUCT_CONFIGS.items():
+        fc = field_config_from_cfg(load_cfg(path))
+        act = sdf.act_dtype_of(fc.act_dtype)
+        model = init_field(fc, torch.Generator().manual_seed(SEED), "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        n = PRODUCT_RAYS * PRODUCT_SAMPLES
+        pts = torch.randn(n, 3, device="cuda", generator=gen) * 0.4
+        d = torch.nn.functional.normalize(
+            torch.randn(PRODUCT_RAYS, 3, device="cuda", generator=gen), dim=-1)
+        a = torch.randn(PRODUCT_RAYS, fc.n_a, device="cuda", generator=gen)
+        pts4 = torch.cat([pts, torch.rand(n, 1, device="cuda", generator=gen) * 0.9 + 0.1], -1)
+
+        def step():
+            x = pts.clone().requires_grad_(True)
+            s, feat = sdf.apply_sdf_split(model.neuconw.sdf_net, fc.sdf_cfg, x, act)
+            (g,) = torch.autograd.grad(s, x, torch.ones_like(s), create_graph=True)
+            rgb = color.apply_color(model.neuconw.color_net, fc.color_cfg, fc.encode_a, x, g, d,
+                                    feat, a, act_dtype=act, n_samples=PRODUCT_SAMPLES)
+            density, rgb_bg = nerf_bg.apply_nerf_bg(model.nerf, fc.encode_a_bg, pts4, d, a,
+                                                    act_dtype=act, n_samples=PRODUCT_SAMPLES)
+            loss = (rgb.float().square().mean() + ((g.float().norm(dim=-1) - 1) ** 2).mean()
+                    + s.float().mean() + density.float().mean() + rgb_bg.float().mean())
+            loss.backward()
+
+        step()
+        torch.cuda.synchronize()
+        before = (layers.linear.aligned, layers.linear.fallback)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        aligned, fallback = (layers.linear.aligned - before[0], layers.linear.fallback - before[1])
+        kernels = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and any(
+                    p in e.key.lower() for p in pats):
+                kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
+        # cuBLAS's f32 SIMT kernels (cutlass_80_simt_sgemm_*) are align1 on
+        # aligned operands too; a tensor-core align1 kernel is a misaligned one
+        unaligned = [k for k in kernels if "align1" in k and "simt" not in k]
+        print(f"products in {name} ({fc.act_dtype}, {n} points, forward, input gradient and "
+              f"double backward): aligned {aligned}, fallback {fallback}; product kernels ms: "
+              + "; ".join(f"{k[:110]} {v:.3f}" for k, v in
+                          sorted(kernels.items(), key=lambda kv: -kv[1])))
+        if fallback or not aligned:
+            fails.append(f"{name}: {fallback} fallback products of {aligned + fallback}")
+        if unaligned:
+            fails.append(f"{name}: align1 product kernels {unaligned}")
+        del model
+        torch.cuda.empty_cache()
+    return fails
 
 
 def serving_phase(model, fc, rcfg, scene, frames, fine_grid, sfm_grid, label):
@@ -4954,6 +5031,8 @@ def main() -> int:
                "sampled_hit": sampled_first_hit}
     for k in serve_k.values():
         k.launches = 0
+    from neuralrecon_w_tpu_torch.models.layers import linear
+    linear.aligned = linear.fallback = 0
     rps_warm, outs_warm = serving_phase(model, fc, rcfg_warm, scene, frames, None, sfm_grid,
                                         "warm-up")
     launches_warm = {n: k.launches for n, k in serve_k.items()}
@@ -4961,7 +5040,11 @@ def main() -> int:
                                             sfm_grid, "steady")
     launches = {n: k.launches for n, k in serve_k.items()}
     print("launches in serving: " + ", ".join(
-        f"{n} {launches[n]} (warm-up {launches_warm[n]})" for n in serve_k))
+        f"{n} {launches[n]} (warm-up {launches_warm[n]})" for n in serve_k)
+        + f"; field products aligned {linear.aligned}, fallback {linear.fallback}")
+    if linear.fallback or not linear.aligned:
+        fails.append(f"serving: {linear.fallback} fallback field products")
+    fails += product_phase()
     # K10 serves the SFM near / far in both phases; K11 the steady fine-grid query
     for name in ("sdf_mlp", "up_sample", "dda"):
         if launches_warm[name] <= 0 or launches[name] <= launches_warm[name]:

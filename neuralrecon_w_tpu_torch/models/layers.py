@@ -6,9 +6,30 @@ shapes are the reference checkpoint's: a weight-normed layer holds
 effective weight ``v * g / max(||v||_row, 1e-12)`` (``torch.nn.utils.
 weight_norm`` with dim=0; the JAX package stores the transpose).
 
-Every linear of the field networks runs through ``linear``. A layer split
-over a model axis (``parallel/tensor.py``) holds its rank's block and runs
-through ``tp_linear``: column (the output dim split)
+Every linear of the field networks runs through ``linear``, which issues
+one product a layer (two where a per-ray block is taken once a ray, one
+per output block where ``outs`` splits the output) with
+the bias in the product's epilogue (``F.linear``: cuBLASLt adds it before
+the one rounding). The JAX package never concatenates a layer's input: it
+runs a product per input block over the weight's column slices and adds
+them, which XLA fuses on the TPU. On a GPU those slices and the widths of
+the field (the encodings' 39, 27 and 84, the SDF's 473, the colour's 134
+and the heads' 587 and 331) give the library operands whose base or
+leading dimension is not a multiple of 16 bytes, which it runs on kernels
+of 1-element loads, and every partial sum and bias is one more pass over
+the activations. So the port writes a layer's input blocks into one buffer
+and pads its width with zero columns to a multiple of ``align_of(dtype)``
+elements (8 in bf16, 4 in f32), pads the effective weight once a call with
+the matching zero columns, and pads the output width with zero rows (a
+zero bias), split off the result unless the caller keeps them. An input
+made wider by its producer (``positional_encoding(..., width=)``, a hidden
+activation kept ``padded``) meets zero weight columns too. The
+parameters, their names and shapes do not change. ``linear.aligned`` and
+``linear.fallback`` count the products at issue (a graph's replays are
+not counted): aligned, or not padded (a split layer's blocks).
+
+A layer split over a model axis (``parallel/tensor.py``) holds its rank's
+block and runs through ``tp_linear``: column (the output dim split)
 ``gather(copy(x) @ W_r.T + b_r)``, row (the input dim split)
 ``reduce(split(x) @ W_r.T) + b``, the bias added once after the reduce,
 a row split's weight norm summing its squares over the ranks.
@@ -27,19 +48,34 @@ from torch import nn
 from ..parallel import tensor as tp
 
 
-def positional_encoding(x: torch.Tensor, n_freqs: int, include_input: bool = True) -> torch.Tensor:
-    """[x, sin(2^0 x), cos(2^0 x), ..., sin(2^{n-1} x), cos(2^{n-1} x)]."""
-    if n_freqs <= 0:
-        return x
-    feats = [x] if include_input else []
-    for i in range(n_freqs):
+def positional_encoding(x: torch.Tensor, n_freqs: int, include_input: bool = True,
+                        width=None) -> torch.Tensor:
+    """[x, sin(2^0 x), cos(2^0 x), ..., sin(2^{n-1} x), cos(2^{n-1} x)],
+    with zero columns after it up to ``width`` where that is wider."""
+    feats = [x] if include_input or n_freqs <= 0 else []
+    for i in range(max(n_freqs, 0)):
         feats.append(torch.sin(x * (2.0 ** i)))
         feats.append(torch.cos(x * (2.0 ** i)))
-    return torch.cat(feats, dim=-1)
+    d = sum(f.shape[-1] for f in feats)
+    if width is not None and width > d:
+        feats.append(x.new_zeros(*x.shape[:-1], width - d))
+    return feats[0] if len(feats) == 1 else torch.cat(feats, dim=-1)
 
 
 def pe_dim(d_in: int, n_freqs: int, include_input: bool = True) -> int:
     return d_in * ((1 if include_input else 0) + 2 * n_freqs)
+
+
+def align_of(dtype) -> int:
+    """Elements of ``dtype`` in 16 bytes: the multiple a product's widths,
+    leading dimensions and offsets take (8 in bf16, 4 in f32)."""
+    return max(1, 16 // dtype.itemsize)
+
+
+def aligned_width(k: int, dtype) -> int:
+    """``k`` rounded up to a multiple of ``align_of(dtype)``."""
+    a = align_of(dtype)
+    return -(-k // a) * a
 
 
 def softplus_beta(x: torch.Tensor, beta: float = 100.0) -> torch.Tensor:
@@ -101,18 +137,20 @@ def layer_bias(layer: nn.Module) -> torch.Tensor:
     return layer.bias if s is None or s.kind == "row" else tp.gather(layer.bias, s.axis, 0)
 
 
-def weight_bias(layer, dtype=None, norm_first: bool = False):
+def weight_bias(layer, dtype=None, norm_first: bool = False, scale=None):
     """(weight (d_out, d_in), bias) of a linear in ``dtype``, as it computes
     on this rank: a whole layer's own, a (weight, bias) pair as given, a
     split layer's block of the weight and the bias's block (column) or the
     whole bias (row). The JAX package's colour and background nets cast v
     and g before the weight norm; its SDF net takes the norm in the
-    parameters' dtype and casts the weight (``norm_first``)."""
+    parameters' dtype and casts the weight (``norm_first``). ``scale`` (a
+    whole layer's) multiplies the weight before that cast."""
+    scaled = (lambda w: w) if scale is None else (lambda w: w * scale)  # noqa: E731
     if isinstance(layer, tuple):
-        return tuple(_cast(t, dtype) for t in layer)
+        return _cast(scaled(layer[0]), dtype), _cast(layer[1], dtype)
     b = _cast(layer.bias, dtype)
     if not hasattr(layer, "weight_v"):
-        return _cast(layer.weight, dtype), b
+        return _cast(scaled(layer.weight), dtype), b
     v, g = (layer.weight_v, layer.weight_g) if norm_first else (
         _cast(layer.weight_v, dtype), _cast(layer.weight_g, dtype))
     s = tp.split_of(layer)
@@ -124,7 +162,7 @@ def weight_bias(layer, dtype=None, norm_first: bool = False):
         sq = tp.copy(tp.reduce(torch.sum(v * v, dim=1, keepdim=True), s.axis), s.axis)
         norm = torch.sqrt(torch.clamp(sq, min=1e-24))  # = max(||v||, 1e-12)
         w = v * (tp.copy(g, s.axis) / norm)
-    return (_cast(w, dtype) if norm_first else w), b
+    return (_cast(scaled(w), dtype) if norm_first else scaled(w)), b
 
 
 def per_sample(t, n_samples):
@@ -136,10 +174,30 @@ def per_sample(t, n_samples):
     return t[:, None, :].expand(t.shape[0], n_samples, t.shape[-1]).reshape(-1, t.shape[-1])
 
 
-def apply_linear_parts(weight: torch.Tensor, bias, parts) -> torch.Tensor:
-    """Linear layer over cat(parts, -1) as row-block partial products,
-    without materialising the concatenation (``layers.py:87-103``)."""
-    acc = bias
+def _aligned(t: torch.Tensor) -> bool:
+    """Whether a product operand's base and leading dimension are multiples
+    of 16 bytes (a dimension of 1 has no leading dimension to align)."""
+    a = align_of(t.dtype)
+    if t.storage_offset() % a:
+        return False
+    if t.dim() < 2 or 1 in t.shape[-2:]:
+        return True
+    s0, s1 = t.stride(-2), t.stride(-1)
+    ld = s0 if s1 == 1 else s1 if s0 == 1 else 1
+    return ld % a == 0
+
+
+def _tick(aligned: bool, n: int = 1) -> None:
+    if aligned:
+        linear.aligned += n
+    else:
+        linear.fallback += n
+
+
+def _partial_products(weight: torch.Tensor, parts) -> torch.Tensor:
+    """A split layer's block over cat(parts, -1) as row-block partial
+    products, without the concatenation (``layers.py:87-103``)."""
+    acc = None
     off = 0
     for x in parts:
         k = x.shape[-1]
@@ -148,6 +206,7 @@ def apply_linear_parts(weight: torch.Tensor, bias, parts) -> torch.Tensor:
         off += k
     if off != weight.shape[1]:
         raise ValueError(f"parts cover {off} inputs, weight has {weight.shape[1]}")
+    _tick(False, len(parts))
     return acc
 
 
@@ -156,57 +215,119 @@ def tp_linear(layer, x, dtype=None, scale=None, norm_first: bool = False):
     blocks in order); ``scale`` multiplies the product before the bias.
     Every rank gets the whole output. Column: gather(copy(x) @ W_r.T +
     b_r), one product per block; row: reduce(split(x) @ W_r.T) + b over
-    cat(x, -1)."""
+    cat(x, -1). Its products are not padded: ``linear.fallback`` counts
+    them."""
     s = tp.split_of(layer)
     w, b = weight_bias(layer, dtype, norm_first)
     parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
     if s.kind == "col":
-        acc = apply_linear_parts(w, None, tuple(tp.copy(p, s.axis) for p in parts))
+        acc = _partial_products(w, tuple(tp.copy(p, s.axis) for p in parts))
         if scale is not None:
             acc = acc * scale
         return tp.gather(acc + b, s.axis)
     xs = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
     acc = tp.reduce(tp.split(xs, s.axis) @ w.t(), s.axis)
+    _tick(False)
     if scale is not None:
         acc = acc * scale
     return acc + b
 
 
-def linear(layer, x, dtype=None, *, scale=None, n_samples=None, outs=None,
-           norm_first: bool = False):
+def linear(layer, x, dtype=None, *, scale=None, n_samples=None, outs=None, widths=None,
+           padded: bool = False, norm_first: bool = False):
     """``layer`` over ``x``, or over cat(x, -1) for a tuple of the input's
-    column blocks, in ``dtype``, as row-block partial products without the
-    concatenation. ``layer`` is a linear (plain or weight-normed, whole or
-    split over a model axis) or a whole (weight, bias) pair; ``norm_first``
-    as ``weight_bias``.
+    column blocks, in ``dtype``: one product over one aligned operand, the
+    bias in its epilogue. ``layer`` is a linear (plain or weight-normed,
+    whole or split over a model axis) or a whole (weight, bias) pair;
+    ``norm_first`` as ``weight_bias``.
 
-      * ``scale`` multiplies the product before the bias (the SDF skip's
-        1 / sqrt 2);
+      * ``widths``, the layer's input columns each block carries (default:
+        a lone block the layer's width, a tuple's blocks their own); a
+        block wider than that carries padding in its last columns (any
+        finite values), met by zero weight columns;
+      * ``padded`` returns the output with its padding columns (zero: zero
+        weight rows, zero bias), as wide as a product operand must be;
+      * ``scale`` (a float) multiplies the product before the bias: a whole
+        layer's weight takes it before its cast (the SDF skip's 1 / sqrt 2);
       * with ``n_samples``, the blocks after the first hold a row per ray
-        (N / n_samples rows): their product is taken once per ray and
-        broadcast to the ray's samples;
+        (N / n_samples rows): their product, with the bias, is taken once
+        per ray and broadcast to the ray's samples;
       * ``outs``, slices of the output features: a tuple of those blocks,
-        each its own product (an SDF sweep computes no feature).
+        each its own product over its rows (an SDF sweep computes no
+        feature; in training the input gradient of the sdf block alone
+        stays a product of 8 rows, where one product over [sdf | feature]
+        would take a dense one over every row).
 
-    A split layer runs through ``tp_linear`` over per-sample rows, and
-    ``outs`` slices its whole output after the collective."""
+    A split layer runs through ``tp_linear`` over per-sample rows and its
+    blocks without their padding, and ``outs`` slices its whole output
+    after the collective."""
     parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
-    if not isinstance(layer, tuple) and tp.split_of(layer) is not None:
+    s = None if isinstance(layer, tuple) else tp.split_of(layer)
+    if s is not None:
+        if widths is None and len(parts) == 1:
+            w = layer.weight_v if hasattr(layer, "weight_v") else layer.weight
+            widths = (w.shape[1] * (s.axis.n if s.kind == "row" else 1),)
+        if widths is not None:
+            parts = tuple(p[..., :n] for p, n in zip(parts, widths))
         parts = parts[:1] + tuple(per_sample(p, n_samples) for p in parts[1:])
         y = tp_linear(layer, parts, dtype, scale, norm_first)
         return y if outs is None else tuple(y[..., o] for o in outs)
-    w, b = weight_bias(layer, dtype, norm_first)
+    w, b = weight_bias(layer, dtype, norm_first, scale)
+    if widths is None:
+        widths = (w.shape[1],) if len(parts) == 1 else tuple(p.shape[-1] for p in parts)
     if outs is not None:
-        return tuple(_whole_linear(w[o], b[o], parts, scale, n_samples) for o in outs)
-    return _whole_linear(w, b, parts, scale, n_samples)
+        return tuple(_unpadded(_product(parts, widths, w[o], b[o]), len(range(
+            *o.indices(w.shape[0])))) for o in outs)
+    if n_samples is None:
+        y = _product(parts, widths, w, b)
+    else:
+        d = widths[0]
+        z = _product(parts[:1], widths[:1], w[:, :d], None)
+        z_ray = _product(parts[1:], widths[1:], w[:, d:], b)
+        y = (z.reshape(-1, n_samples, z.shape[-1]) + z_ray[:, None, :]).reshape(z.shape)
+    return y if padded else _unpadded(y, w.shape[0])
 
 
-def _whole_linear(w, b, parts, scale, n_samples):
-    if n_samples is not None:
-        d = parts[0].shape[-1]
-        z = parts[0] @ w[:, :d].t()
-        z_ray = apply_linear_parts(w[:, d:], b, parts[1:])
-        return (z.reshape(-1, n_samples, z.shape[-1]) + z_ray[:, None, :]).reshape(z.shape)
-    if scale is None:
-        return apply_linear_parts(w, b, parts)
-    return apply_linear_parts(w, None, parts) * scale + b
+def _unpadded(y, d_out):
+    """The first ``d_out`` columns of a padded output (split off, so that
+    the backward writes the padded cotangent in one pass)."""
+    return y if y.shape[-1] == d_out else y.split([d_out, y.shape[-1] - d_out], -1)[0]
+
+
+linear.aligned = 0
+linear.fallback = 0
+
+
+def _product(parts, widths, w, b):
+    """cat(parts, -1) @ w.T + b as one product, padded: the blocks written
+    into one buffer whose width is a multiple of 16 bytes (zero columns
+    after them where needed), ``w`` laid out to match with zero columns
+    where a block carries padding, zero rows and a zero bias up to an
+    aligned output width, the bias in the epilogue."""
+    d_out, k = w.shape
+    if len(widths) != len(parts) or sum(widths) != k or any(
+            p.shape[-1] < n for p, n in zip(parts, widths)):
+        raise ValueError(f"blocks of widths {[p.shape[-1] for p in parts]} carrying "
+                         f"{list(widths)} columns for a weight of {k}")
+    x = parts[0]
+    width = sum(p.shape[-1] for p in parts)
+    pad = aligned_width(width, x.dtype) - width
+    if len(parts) > 1 or pad or not _aligned(x):
+        x = torch.cat(parts + ((x.new_zeros(*x.shape[:-1], pad),) if pad else ()), -1)
+    rows = aligned_width(d_out, w.dtype)
+    if any(p.shape[-1] > n for p, n in zip(parts[:-1], widths[:-1])):
+        # zero columns after each block's own; F.pad below adds the last's
+        cols, off = [], 0
+        for p, n in zip(parts[:-1], widths[:-1]):
+            cols += [w[:, off:off + n], w.new_zeros(d_out, p.shape[-1] - n)]
+            off += n
+        w = torch.cat(cols + [w[:, off:]], 1)
+    if (rows, x.shape[-1]) != tuple(w.shape):
+        w = F.pad(w, (0, x.shape[-1] - w.shape[1], 0, rows - d_out))
+        b = None if b is None else F.pad(b, (0, rows - d_out))
+    elif not (w.is_contiguous() and _aligned(w)):
+        w = w.clone(memory_format=torch.contiguous_format)
+    if b is not None and b.storage_offset() % align_of(b.dtype):
+        b = b.clone()  # the epilogue's bias vector, aligned
+    _tick(_aligned(x) and _aligned(w))
+    return F.linear(x, w, b)

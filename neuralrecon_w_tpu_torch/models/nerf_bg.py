@@ -11,7 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .color import StaticEncoding, init_linear_
-from .layers import linear, pe_dim, positional_encoding
+from .layers import aligned_width, linear, pe_dim, positional_encoding
 from .sdf import act_dtype_of
 
 D = 8
@@ -57,13 +57,16 @@ def apply_nerf_bg(net: NeRF, encode_appearance: bool, pts4, view_dirs,
     pts4, view_dirs = pts4.to(dt), view_dirs.to(dt)
     if a_embedded is not None:
         a_embedded = a_embedded.to(dt)
-    pe = positional_encoding(pts4, 10)
+    d_pe = pe_dim(4, 10)
+    # the encoding made as wide as an aligned product operand (zero columns)
+    pe = positional_encoding(pts4, 10, width=aligned_width(d_pe, dt))
     pe_view = positional_encoding(view_dirs, 4)
 
     h = pe
     skipped = False
     for i, layer in enumerate(net.pts_linears):
-        h = F.relu(linear(layer, (pe, h) if skipped else h, dt))
+        h = F.relu(linear(layer, (pe, h), dt, widths=(d_pe, h.shape[-1])) if skipped
+                   else linear(layer, h, dt))
         skipped = i in SKIPS
 
     alpha = linear(net.alpha_linear, h, dt)

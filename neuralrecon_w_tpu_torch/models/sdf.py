@@ -14,8 +14,8 @@ import math
 import torch
 from torch import nn
 
-from .layers import (WNLinear, layer_bias, layer_weight, linear, pe_dim, positional_encoding,
-                     softplus_beta)
+from .layers import (WNLinear, aligned_width, layer_bias, layer_weight, linear, pe_dim,
+                     positional_encoding, softplus_beta)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -106,32 +106,37 @@ def init_sdf_(net: SDFNetwork, cfg: dict, generator: torch.Generator) -> None:
 def apply_sdf_split(net: SDFNetwork, cfg: dict, x: torch.Tensor,
                     act_dtype=torch.float32, with_feature: bool = True, weights=None):
     """(..., 3) -> (sdf (..., 1) f32 (or f64), feature (..., d_out-1) in act_dtype
-    or None) (``sdf.py:100-155``): the skip layer runs as two row-block
-    products, the last layer as [sdf | feature] column blocks (a layer split
-    over a model axis: after its collective). ``weights``, every layer's
-    whole (weight, bias), stands in for the net's layers: 'fwd' passes
-    them, as no collective runs inside ``torch.func``'s transforms."""
+    or None) (``sdf.py:100-155``): each layer one product over an aligned
+    operand (``layers.linear``), the hidden activations as wide as the
+    padded products make them, the skip layer over cat(h, pe) with its
+    1 / sqrt 2 in the weight, the last layer as the sdf row's product and
+    the feature rows' (a layer split over a model axis: its output sliced
+    after its collective). ``weights``, every
+    layer's whole (weight, bias), stands in for the net's layers: 'fwd'
+    passes them, as no collective runs inside ``torch.func``'s transforms."""
     act = act_dtype_of(act_dtype)
     skip_in = tuple(cfg["skip_in"])
     scale = float(cfg["scale"])
     x = x * scale
     shape = x.shape[:-1]
     x = x.reshape(-1, cfg["d_in"])
-    inputs = positional_encoding(x, cfg["multires"]) if cfg["multires"] > 0 else x
-    inputs = inputs.to(act)
+    # the encoding made as wide as an aligned product operand (zero columns)
+    d_pe = sdf_layer_dims(cfg)[0]
+    inputs = positional_encoding(x, cfg["multires"], width=aligned_width(d_pe, act)).to(act)
     layers = weights if weights is not None else [net.layer(l) for l in range(net.n_layers)]
 
-    h = inputs
-    # made on the device (no host copy, which a captured step cannot hold)
-    inv_sqrt2 = torch.full((), 1.0 / math.sqrt(2), dtype=act, device=x.device)
-    for l, layer in enumerate(layers[:-1]):
+    # the hidden activations keep their padding columns (softplus(0) after a
+    # zero pre-activation), which meet zero weight columns in the next layer
+    h, d_h = inputs, d_pe
+    for l, (layer, (_, d_out)) in enumerate(zip(layers[:-1], sdf_layer_shapes(cfg))):
         if l in skip_in:
-            h = linear(layer, (h, inputs), act, scale=inv_sqrt2, norm_first=True)
+            h = linear(layer, (h, inputs), act, scale=1.0 / math.sqrt(2), widths=(d_h, d_pe),
+                       padded=True, norm_first=True)
         else:
-            h = linear(layer, h, act, norm_first=True)
-        h = softplus_beta(h, 100.0)
+            h = linear(layer, h, act, widths=(d_h,), padded=True, norm_first=True)
+        h, d_h = softplus_beta(h, 100.0), d_out
     outs = (slice(0, 1), slice(1, None)) if with_feature else (slice(0, 1),)
-    sdf, *feat = linear(layers[-1], h, act, outs=outs, norm_first=True)
+    sdf, *feat = linear(layers[-1], h, act, outs=outs, widths=(d_h,), norm_first=True)
     # sdf in float32 (float64 stays float64, for the tests' exact references)
     sdf = sdf.to(torch.promote_types(act, torch.float32)) / scale
     return sdf.reshape(*shape, 1), (

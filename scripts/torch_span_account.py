@@ -1,7 +1,8 @@
 """Where a benchmark cell's traced window goes, by the program's spans, on
 the card:
 
-    python scripts/torch_span_account.py --cells train.op serve.op --seed 7 [--out f.json]
+    python scripts/torch_span_account.py --cells train.op serve.op --seed 7 [--out f.json] \
+        [--top 40]
 
 For each cell it runs the benchmark's traced window (``benchmark/harness``,
 the cell's own kind and traffic) and reads, a step or a chunk: each device
@@ -10,7 +11,10 @@ inside it, the device's busy ms, the markers' own count and device time;
 and, over the window, each host span's total ms and the idle gaps of the
 device labelled by the innermost range open at their middle, the
 program's host spans (``serve.frame_in``, ``serve.frame_out``,
-``train.inputs``) among the benchmark's own. One JSON line a cell."""
+``train.inputs``) among the benchmark's own; with ``--top``, the window's
+device operations by name (ms a step or chunk, the most first) and every
+product kernel of the benchmark's ``gemm`` class by name. One JSON line a
+cell."""
 
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def account(rec) -> dict:
+def account(rec, top: int = 0) -> dict:
     from benchmark import spans as S
     from benchmark import trace as T
     from benchmark.metrics import units
@@ -70,6 +74,12 @@ def account(rec) -> dict:
                            sorted(by.items(), key=lambda kv: -kv[1][1])}
     out["longest_gaps_ms"] = [[name, 1e3 * sec] for name, sec in gaps[:8]]
     out["long_gaps"] = gap_split(tr)
+    if top:
+        by_name = sorted(T.seconds_by_name(tr).items(), key=lambda kv: -kv[1])
+        pats = [p.lower() for p in T.kernel_classes()["gemm"]]
+        out["top_ops_ms"] = [[T.short_name(k, 200), 1e3 * v / n] for k, v in by_name[:top]]
+        out["gemm_kernels_ms"] = [[T.short_name(k, 200), 1e3 * v / n] for k, v in by_name
+                                  if any(p in k.lower() for p in pats)]
     return out
 
 
@@ -101,6 +111,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cells", nargs="+", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--top", type=int, default=0,
+                    help="list the window's device operations by name, this many")
     ap.add_argument("--trace-frames", type=int, default=None,
                     help="frames in a serving cell's traced window (default: the traffic's)")
     args = ap.parse_args(argv)
@@ -128,7 +140,7 @@ def main(argv=None) -> int:
         rec = dict(got["rec"], cfg=ctx.cfg)
         line = {"cell": cell, "seed": args.seed, "device": torch.cuda.get_device_name(0),
                 "correct": correct.judge(got["numbers"], ctx.limits) and got["failed"] == 0,
-                **account(rec)}
+                **account(rec, args.top)}
         lines.append(line)
         print(json.dumps(line), flush=True)
         torch.cuda.empty_cache()
