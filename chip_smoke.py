@@ -143,7 +143,12 @@ to its plain version with ``torch.equal`` and to K10 on a level-10 grid,
 ``reproj_filter_cli`` in point-cloud mode over every view (its stages'
 seconds, the DDA's rays/s, the kept count; its keep mask on 4 views held
 to the plain DDA's), mesh mode over 8 views, and the native depth
-rasteriser held to the numpy one.
+rasteriser held to the numpy one. Last, ``chip_smoke_neuralangelo.smoke``
+trains Neuralangelo's hash-grid field through ``train_cli`` across a
+refresh and a level increase and renders a frame through ``render_cli``;
+the hash kernels (K13 the encoding, K14 the table's gradient,
+``csrc/hash_grid.cu``) are held to their plain versions before, at a
+train.neuralangelo step's shapes (``hash_kernel_phase``).
 
 The kernel modes in CUDA graphs: after the 'vjp' windows, ``graph_parity``
 holds each kernel mode's captured window ('pallas', 'pallas_field' with
@@ -232,7 +237,9 @@ their training launches, K6 with its launches on every path, each plus
 its launches in the CLI runs, listed by run under "cli", the device-pool
 run's graph replays as "train_cli device_pool_graph"; K10 and K11 with
 their serving and training launches, the served graph's replays under
-"serving_graph"; K12 with the filter CLI's; each with
+"serving_graph"; K12 with the filter CLI's; K13 and K14 with the
+hash-grid field's CLI runs', "neuralangelo train_cli" and "neuralangelo
+render_cli"; each with
 its time, its plain version's, one PyTorch call's for the same function
 where there is one (K5: one ``addmm`` per factor pair on the same rows,
 ``library_ms``), and the least time the card could take for the same
@@ -1687,6 +1694,104 @@ def ray_kernel_phase(scene, sfm_grid, sfm_level, fine_grid, fine_host, frames, r
     return res, fails
 
 
+# K13 / K14 at a train.neuralangelo step's shapes: 8192 rays, each with
+# the sampler's 16 points and 30 foreground samples, each sample with its
+# 4 taps at e = 1 / (2048 sqrt 3) (all 16 levels active); K14 takes the
+# 150 foreground points a ray. The rays cross the surface |x| = 0.5 (the
+# unit sphere of SFM points at scene radius 2) in a band of HASH_BAND
+HASH_SAMPLER_PTS, HASH_FG_PTS, HASH_BAND = 16, 30, 0.02
+HASH_TAPS = ((1.0, -1.0, -1.0), (-1.0, -1.0, 1.0), (-1.0, 1.0, -1.0), (1.0, 1.0, 1.0))
+
+
+def hash_points(n_rays: int, dev):
+    """(n_rays x 166, 3) points as a step encodes them: the sampler's, the
+    foreground samples', their taps' (the last n_rays x 150 take K14)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    hit = torch.as_tensor(sphere_points(n_rays, 0.5), dtype=torch.float32, device=dev)
+    d = torch.randn(n_rays, 3, device=dev, generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+
+    def along(n):
+        t = ((torch.rand(n_rays, n, device=dev, generator=g) * 2 - 1) * HASH_BAND).sort(-1)[0]
+        return hit[:, None, :] + d[:, None, :] * t[..., None]
+
+    fg = along(HASH_FG_PTS)
+    e = 1.0 / (2048 * math.sqrt(3.0))
+    taps = fg[:, :, None, :] + e * torch.tensor(HASH_TAPS, device=dev)
+    return torch.cat([along(HASH_SAMPLER_PTS).reshape(-1, 3), fg.reshape(-1, 3),
+                      taps.reshape(-1, 3)]).contiguous()
+
+
+def hash_kernel_phase(n_rays: int = TRAIN_BATCH, dev="cuda"):
+    """K13 (the encoding) and K14 (the table's gradient) at the published
+    layout (16 levels x 8 features, 2^22 entries a hashed level: the
+    45,727,205-entry table, N(0, 0.1)) on a step's points, all levels
+    active: each against its plain version at tests/test_torch_neuralangelo.py's
+    tolerances (K13 rtol 1e-5, atol 1e-6; K14 each entry within 1e-5 of its
+    sum of |terms|, float atomics' order), and timed in turns with it. The
+    bound: the least bytes (benchmark/counts/hashgrid.py): points in,
+    features or gradients out, each distinct entry touched once (twice for
+    K14) over 3.35 TB/s. K14's ms include its gradient buffer's zeroing, as
+    its span has it."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.config import HASH_SDF_CONFIG
+    from neuralrecon_w_tpu_torch.ops.hash_grid import (
+        _level_rows, grid_spec, hash_encode, hash_encode_plain, hash_grad, hash_grad_plain)
+
+    dev = torch.device(dev)
+    spec = grid_spec(HASH_SDF_CONFIG)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    table = torch.randn(spec.n_entries, spec.features, device=dev, generator=g) * 0.1
+    act = torch.tensor(spec.levels, dtype=torch.int32, device=dev)
+    x = hash_points(n_rays, dev)
+    x_g = x[n_rays * HASH_SAMPLER_PTS:]
+    gy = torch.randn(x_g.shape[0], spec.width, device=dev, generator=g)
+
+    def entries(pts) -> int:
+        return sum(int(torch.unique(_level_rows(spec, l, pts)[0]).numel())
+                   for l in range(spec.levels))
+
+    fails, res = [], {}
+    got = hash_encode(x, table, spec, act)
+    want = hash_encode_plain(x, table, spec, act)
+    enc_err = float((got - want).abs().max())
+    enc_ok = bool(torch.isclose(got, want, rtol=1e-5, atol=1e-6).all())
+    del got, want
+    got = hash_grad(x_g, gy, spec, act)
+    err = (got - hash_grad_plain(x_g, gy, spec, act)).abs()
+    del got
+    magnitude = hash_grad_plain(x_g, gy.abs(), spec, act)
+    grad_ratio = float((err / (magnitude + 1e-6)).max())
+    grad_ok = bool((err <= 1e-5 * magnitude + 1e-6).all())
+    del err, magnitude
+    point_bytes = 12 + 4 * spec.width
+    for name, ok, check, pts, n_bytes, kernel, plain in (
+            ("hash_encode", enc_ok, f"max abs err {enc_err:.2e}", x,
+             lambda n: x.shape[0] * point_bytes + 32 * n,
+             lambda: hash_encode(x, table, spec, act),
+             lambda: hash_encode_plain(x, table, spec, act)),
+            ("hash_grad", grad_ok, f"max err / sum |terms| {grad_ratio:.2e}", x_g,
+             lambda n: x_g.shape[0] * point_bytes + 2 * 32 * n,
+             lambda: hash_grad(x_g, gy, spec, act),
+             lambda: hash_grad_plain(x_g, gy, spec, act))):
+        n_ent = entries(pts)
+        ms, plain_ms = in_turns(kernel, plain)
+        b = bound(0, n_bytes(n_ent), "simt")
+        print(f"{'K13' if name == 'hash_encode' else 'K14'} {name} at {pts.shape[0]} points, "
+              f"{spec.levels} levels, {spec.n_entries} entries ({n_ent} distinct touched): "
+              f"{check}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"{name} against its plain version: {check}")
+        res[name] = {"points": pts.shape[0], "levels": spec.levels, "entries": spec.n_entries,
+                     "distinct_entries": n_ent, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": None, **b}
+    return res, fails
+
+
 # A captured window against the same window of eager steps, one state,
 # f32 at PERTURB 0: the same kernels in the same order, every sum in a fixed
 # order (the appearance rows are gathered by indexing, whose backward is a
@@ -2614,7 +2719,7 @@ def field_train_kernel_phase(model, fc, n_time: int):
 
     def double_backward():
         xx = x[0].clone().requires_grad_(True)
-        rgb, _, sdf, gr = field_forward(dmodel, fc_vjp, xx, x[1], x[2], create_graph=True)
+        rgb, _, sdf, gr, _ = field_forward(dmodel, fc_vjp, xx, x[1], x[2], create_graph=True)
         (torch.sum(rgb * x[3]) + torch.sum(sdf * x[4]) + torch.sum(gr * x[5])).backward()
 
     work, rows = ft.workspace(n_time, pack, dev)
@@ -5024,6 +5129,9 @@ def main() -> int:
                                     rcfg_steady)
     kres.update(rres)
     fails += rfails
+    hres, hfails = hash_kernel_phase()
+    kres.update(hres)
+    fails += hfails
     clock.lap("kernel checks")
 
     # serving: launches are counted from here on
@@ -5280,6 +5388,22 @@ def main() -> int:
         fails += pfails
         cli_runs.update({f"{label} {run}": v for run, v in got.items()})
         print(f"peak device memory in {label} {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # Neuralangelo's hash-grid field through train_cli and render_cli
+    # (chip_smoke_neuralangelo.py): K13's and K14's launches on the main
+    # path, counted from a reset just before its train_cli
+    import chip_smoke_neuralangelo
+
+    torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp(prefix="neuralangelo_", dir=os.path.join(ROOT, "build"))
+    try:
+        got, hfails = chip_smoke_neuralangelo.smoke(root, "cuda")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fails += hfails
+    cli_runs.update({f"neuralangelo {run}": v for run, v in got.items()})
+    print(f"peak device memory in the neuralangelo CLIs "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    clock.lap("neuralangelo CLIs")
 
     print(clock.line())
     if fails:
@@ -5308,7 +5432,14 @@ def main() -> int:
                "sampled_hit": ("neuralrecon_w_tpu_torch/csrc/ray_voxel.cu",
                                "neuralrecon_w_tpu/ops/ray_voxel.py:326"),
                "dda_hier": ("neuralrecon_w_tpu_torch/csrc/ray_voxel.cu",
-                            "neuralrecon_w_tpu/ops/ray_voxel.py:198")}
+                            "neuralrecon_w_tpu/ops/ray_voxel.py:198"),
+               # no JAX counterpart: the hash grid's encoding and its table's
+               # gradient take the place of the SDF input's positional
+               # encoding and of its transpose
+               "hash_encode": ("neuralrecon_w_tpu_torch/csrc/hash_grid.cu",
+                               "neuralrecon_w_tpu/ops/field_vjp_math.py:60"),
+               "hash_grad": ("neuralrecon_w_tpu_torch/csrc/hash_grid.cu",
+                             "neuralrecon_w_tpu/ops/field_vjp_math.py:68")}
     # K1 and K2 count the serving path's launches; K3, K4 the training
     # path's in 'pallas', K7 to K9 in 'pallas_field', K5 in both (by_mode);
     # K6 its launches on every path (kernel 5's forward in training, the
@@ -5331,6 +5462,7 @@ def main() -> int:
             launches[name] += v
             kres[name]["serving_graph"] = v
     launches["dda_hier"] = r_launches["dda_hier"]
+    launches["hash_encode"] = launches["hash_grad"] = 0  # the neuralangelo CLIs' alone
     kres["dda_hier"] = k12
     kres["sdf_mlp"]["extraction"] = {"launches": x_launches["sdf_mlp"], **kres.pop("sdf_mlp_f32")}
     kres["field_fwd_extraction"] = kres.pop("field_fwd")
@@ -5376,7 +5508,9 @@ def main() -> int:
           + f"; K11 sampled_hit {ratio(kres['sampled_hit']):.1f}"
           + ("; K12 dda_hier " + ", ".join(
               f"{ratio(c):.1f} {label}" for label, c in k12.get("cases", {}).items()
-              if "ms" in c) if k12 else ""))
+              if "ms" in c) if k12 else "")
+          + f"; K13 hash_encode {ratio(kres['hash_encode']):.1f}; K14 hash_grad "
+          f"{ratio(kres['hash_grad']):.1f}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -94,6 +94,25 @@ _DEFAULTS = {
 }
 
 
+# SDF_CONFIG of the second kind of SDF net, ``type: hashgrid``
+# (``models/hash_sdf.py``): Neuralangelo's geometry (Li et al., CVPR 2023,
+# projects/neuralangelo/configs/base.yaml), a multi-resolution hash
+# encoding of ``levels`` levels of ``features`` features, 2^log2_table
+# entries a level, resolutions min_res to max_res over [-bound, bound]^3,
+# levels from init_active on, one more every level_every steps; a softplus
+# MLP of n_layers x d_hidden on [x, the encoding]; its gradient by four
+# tetrahedral taps, and its Laplacian for the curvature loss of weight
+# curvature_weight (decayed as levels are added). A YAML that sets
+# ``type: hashgrid`` starts its SDF_CONFIG from these keys instead of the
+# MLP's, which stay the defaults (and the JAX package's).
+HASH_SDF_CONFIG = {
+    "type": "hashgrid", "levels": 16, "features": 8, "log2_table": 22, "min_res": 32,
+    "max_res": 2048, "bound": 2.0, "d_in": 3, "d_hidden": 256, "n_layers": 1, "d_out": 257,
+    "bias": 0.5, "geometric_init": True, "weight_norm": True, "inside_outside": False,
+    "init_active": 4, "level_every": 5000, "init_table": 1e-4, "curvature_weight": 5e-4,
+}
+
+
 class Cfg(dict):
     """A dict with attribute access."""
 
@@ -148,6 +167,9 @@ def _merge(src: dict, dst: Cfg, path: str) -> None:
             raise KeyError(f"non-existent config key: {full}")
         if isinstance(dst[key], Cfg) != isinstance(value, dict):
             raise TypeError(f"config type mismatch at {full}")
+        if (full == "NEUCONW.SDF_CONFIG" and value.get("type") == "hashgrid"
+                and dst[key].get("type") != "hashgrid"):
+            dst[key] = _tree(HASH_SDF_CONFIG)
         if isinstance(value, dict):
             _merge(value, dst[key], full)
         else:
@@ -203,6 +225,11 @@ class FieldConfig(NamedTuple):
     @property
     def color_cfg(self) -> dict:
         return dict(self.color)
+
+    @property
+    def hash_sdf(self) -> bool:
+        """Whether the SDF net is the hash-grid kind (``models/hash_sdf.py``)."""
+        return self.sdf_cfg.get("type") == "hashgrid"
 
 
 def field_config_from_cfg(cfg) -> FieldConfig:

@@ -19,6 +19,10 @@ through the fused field kernels, K6 forward and K7 + K5 backward
 primal and three tangent passes, ``models/sdf.sdf_value_feat_grad_fwdmode``),
 differentiated reverse over forward in training, its SDF net in float32
 whatever the field's dtype, as the JAX package's.
+With ``SDF_CONFIG.type: hashgrid`` the SDF net is Neuralangelo's
+(``models/hash_sdf.py``): its gradient is numerical (four taps, no
+autograd gradient), ``field_forward`` can give its Laplacian, and it runs
+only as 'vjp' in float32 (any other mode or dtype raises).
 ``TPU.FUSED_BG`` (``bg_mode`` 'pallas') sends the background through the
 fused NeRF++ kernels K8 / K9 (``ops/nerf_bg_fused.py``).
 
@@ -39,6 +43,7 @@ from torch import nn
 from ..config import FieldConfig
 from ..device import default_device
 from .color import RenderingNetwork, apply_color
+from .hash_sdf import HashSDFNetwork, hash_sdf_feat_grad, hash_sdf_value
 from .layers import per_sample
 from .nerf_bg import NeRF, apply_nerf_bg
 from .sdf import (SDFNetwork, act_dtype_of, sdf_value, sdf_value_feat_grad,
@@ -51,10 +56,27 @@ class SingleVarianceNetwork(nn.Module):
         self.variance = nn.Parameter(torch.tensor(float(init_val), device=device))
 
 
+def check_hash_field(fc: FieldConfig) -> None:
+    """A hash-grid SDF net runs its own numerical gradient in float32: the
+    K-kernel modes (and 'fwd') compute the MLP net's autograd gradient, and
+    bfloat16 cannot resolve the taps' differences."""
+    if fc.grad_mode != "vjp":
+        raise ValueError(f"SDF_CONFIG.type hashgrid takes its gradient from its taps: "
+                         f"TPU.SDF_GRAD_MODE must be 'vjp', not {fc.grad_mode!r}")
+    if fc.act_dtype != "float32":
+        raise ValueError(f"SDF_CONFIG.type hashgrid runs in float32 (its taps' differences "
+                         f"are below bfloat16's resolution): TPU.FIELD_DTYPE must be "
+                         f"'float32', not {fc.act_dtype!r}")
+
+
 class NeuconWCore(nn.Module):
     def __init__(self, fc: FieldConfig, device=None):
         super().__init__()
-        self.sdf_net = SDFNetwork(fc.sdf_cfg, device)
+        if fc.hash_sdf:
+            check_hash_field(fc)
+            self.sdf_net = HashSDFNetwork(fc.sdf_cfg, device)
+        else:
+            self.sdf_net = SDFNetwork(fc.sdf_cfg, device)
         self.color_net = RenderingNetwork(fc.color_cfg, fc.n_a, fc.encode_a, device)
         self.deviation_network = SingleVarianceNetwork(fc.s_init, device)
 
@@ -73,27 +95,51 @@ def inv_s(model: NeuconWField) -> torch.Tensor:
     return torch.clamp(torch.exp(model.neuconw.deviation_network.variance * 10.0), 1e-6, 1e6)
 
 
+def set_progress(model: NeuconWField, fc: FieldConfig, step) -> None:
+    """The field's state at a training step (a host int, or a captured
+    step's 0-d device counter): a hash-grid net's active levels; nothing
+    for the MLP net."""
+    if fc.hash_sdf:
+        model.neuconw.sdf_net.set_step(step)
+
+
+def curvature_decay(model: NeuconWField, fc: FieldConfig):
+    """The curvature weight's factor at the field's state (a 0-d device
+    tensor), or None where the SDF net has no Laplacian."""
+    return model.neuconw.sdf_net.curvature_decay() if fc.hash_sdf else None
+
+
 def field_sdf(model: NeuconWField, fc: FieldConfig, pts: torch.Tensor) -> torch.Tensor:
     """SDF probe, (..., 3) -> (...,)."""
+    if fc.hash_sdf:
+        return hash_sdf_value(model.neuconw.sdf_net, pts)
     return sdf_value(model.neuconw.sdf_net, fc.sdf_cfg, pts, act_dtype_of(fc.act_dtype))
 
 
 def field_forward(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded,
-                  n_samples=None, create_graph: bool = False):
+                  n_samples=None, create_graph: bool = False, laplacian: bool = False):
     """Foreground field at flattened samples: rgb (N, 3), inv_s, sdf
-    (N,), gradients (N, 3). dirs / a_embedded are per ray when
-    n_samples is set (``neuconw.py:117-182``). create_graph keeps the
-    'vjp' and 'fwd' modes' sdf, feature and gradient in the autograd graph,
-    as training needs; the kernel modes are always differentiable."""
+    (N,), gradients (N, 3) and the SDF's Laplacian (N,), which only a
+    hash-grid net asked for it (``laplacian``) with autograd on gives
+    (training's curvature term; else None).
+    dirs / a_embedded are per ray when n_samples is set
+    (``neuconw.py:117-182``). create_graph keeps the 'vjp' and 'fwd' modes'
+    sdf, feature and gradient in the autograd graph, as training needs; the
+    kernel modes and the hash-grid net's taps are always differentiable
+    (once)."""
     act = act_dtype_of(fc.act_dtype)
-    if fc.grad_mode == "pallas_field":
+    lap = None
+    if fc.hash_sdf:
+        sdf, feat, grad, lap = hash_sdf_feat_grad(model.neuconw.sdf_net, pts,
+                                                  laplacian and torch.is_grad_enabled())
+    elif fc.grad_mode == "pallas_field":
         # the fused kernels take per-sample dirs and a (neuconw.py:132-149)
         from ..ops.field_train import field_rgb_sdf_grad_kernel
 
         dirs, a_embedded = per_sample(dirs, n_samples), per_sample(a_embedded, n_samples)
         rgb, sdf, grad = field_rgb_sdf_grad_kernel(model, fc, pts, dirs, a_embedded)
-        return rgb, inv_s(model), sdf, grad
-    if fc.grad_mode in ("pallas", "pallas_hybrid"):
+        return rgb, inv_s(model), sdf, grad, None
+    elif fc.grad_mode in ("pallas", "pallas_hybrid"):
         from ..ops.sdf_field_vjp import sdf_value_feat_grad_kernel
 
         sdf, feat, grad = sdf_value_feat_grad_kernel(
@@ -109,14 +155,14 @@ def field_forward(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded,
         raise ValueError(f"unknown SDF_GRAD_MODE {fc.grad_mode!r}")
     rgb = apply_color(model.neuconw.color_net, fc.color_cfg, fc.encode_a, pts, grad,
                       dirs, feat, a_embedded, act_dtype=act, n_samples=n_samples)
-    return rgb, inv_s(model), sdf, grad
+    return rgb, inv_s(model), sdf, grad, lap
 
 
 def field_rgb(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded) -> torch.Tensor:
     """Colour probe for mesh vertex colouring (``neuconw.py:185-189``), with
     no autograd graph kept."""
     with torch.no_grad():
-        rgb, _, _, _ = field_forward(model, fc, pts, dirs, a_embedded)
+        rgb = field_forward(model, fc, pts, dirs, a_embedded)[0]
     return rgb
 
 

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "nw_hier_mask": [_P, _I, _P, _P],
     "nw_dda_hier": [_P, _P, _P, _LL, _I, _P, _P, _LL, _I, _I, _F, _P, _P, _P, _P, _P],
     "nw_span_mark": [_P, _I, _I, _P],
+    "nw_hash_encode": [_P, _LL, _P, _P, _P, _P, _P],
+    "nw_hash_grad": [_P, _LL, _P, _P, _P, _P, _P],
 }
 
 

@@ -93,15 +93,25 @@ def fused_importance_sampler(sdf_net, sdf_cfg_items: tuple, rays_o, rays_d, z_ba
     """z_base (R, n0) sorted -> (R, n0 + n_importance) sorted samples;
     rays in unit-sphere coordinates (``pallas_sampler.py:389-454``).
     K1 and K2 on CUDA tensors, their plain versions on CPU tensors."""
+    packed = pack_sdf_weights(sdf_net, sdf_cfg_items, act_dtype)
+    return importance_rounds(lambda pts: fused_sdf_head(packed, pts), rays_o, rays_d, z_base,
+                             n_importance, up_steps, s_val_base)
+
+
+@torch.no_grad()
+def importance_rounds(sdf_fn, rays_o, rays_d, z_base, n_importance: int, up_steps: int,
+                      s_val_base: int) -> torch.Tensor:
+    """The sampler's rounds (K2 on CUDA tensors, its plain version on CPU
+    tensors) around any SDF: ``sdf_fn`` maps (P, 3) float32 points to (P,)
+    (K1 for the MLP net; the hash-grid net's own evaluation)."""
     if up_steps < 1:
         raise ValueError("up_steps must be at least 1")
-    packed = pack_sdf_weights(sdf_net, sdf_cfg_items, act_dtype)
     r = rays_o.shape[0]
     rays_o, rays_d, z_base = rays_o.float(), rays_d.float(), z_base.float()
 
     def sdf_at(z):
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
-        return fused_sdf_head(packed, pts.reshape(-1, 3)).view(r, -1)
+        return sdf_fn(pts.reshape(-1, 3)).view(r, -1)
 
     n_per = n_importance // up_steps
     za, sa, zb, sb = z_base, sdf_at(z_base), None, None
@@ -122,15 +132,24 @@ def importance_sampler_plain(sdf_net, sdf_cfg_items: tuple, rays_o, rays_d, z_ba
     the renderer's path when fused_sampler_sdf is off, and the reference
     the kernels are held to on the card."""
     packed = pack_sdf_weights(sdf_net, sdf_cfg_items, act_dtype)
+    return importance_plain(lambda pts: sdf_mlp_plain(packed, pts), rays_o, rays_d, z_base,
+                            n_importance, up_steps, s_val_base)
+
+
+@torch.no_grad()
+def importance_plain(sdf_fn, rays_o, rays_d, z_base, n_importance: int, up_steps: int,
+                     s_val_base: int) -> torch.Tensor:
+    """``importance_sampler_plain`` around any SDF (``importance_rounds``'
+    ``sdf_fn``)."""
     rays_o, rays_d, z_vals = rays_o.float(), rays_d.float(), z_base.float()
 
-    def sdf_fn(pts):
-        return sdf_mlp_plain(packed, pts.reshape(-1, 3)).view(pts.shape[:-1])
+    def sdf_at(pts):
+        return sdf_fn(pts.reshape(-1, 3)).view(pts.shape[:-1])
 
-    sdf = sdf_fn(rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None])
+    sdf = sdf_at(rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None])
     n_per = n_importance // up_steps
     for i in range(up_steps):
         new_z = up_sample(rays_o, rays_d, z_vals, sdf, n_per, 64.0 * 2 ** (s_val_base + i))
-        z_vals, sdf = cat_z_vals(sdf_fn, rays_o, rays_d, z_vals, new_z, sdf,
+        z_vals, sdf = cat_z_vals(sdf_at, rays_o, rays_d, z_vals, new_z, sdf,
                                  last=i + 1 == up_steps)
     return z_vals

@@ -15,8 +15,9 @@ import torch
 import torch.nn.functional as F
 
 from ..config import FieldConfig, RenderConfig
-from ..models.neuconw import field_background, field_forward
-from ..ops.importance_sampler import fused_importance_sampler, importance_sampler_plain
+from ..models.neuconw import curvature_decay, field_background, field_forward, field_sdf
+from ..ops.importance_sampler import (fused_importance_sampler, importance_plain,
+                                      importance_rounds, importance_sampler_plain)
 from ..ops.ray_voxel import DeviceGrid, grid_near_far, sampled_first_hit
 from ..parallel.tensor import vocab_lookup
 from ..tracing import span
@@ -79,6 +80,11 @@ def importance_stage(model, fc: FieldConfig, rcfg: RenderConfig, rays_o, rays_d,
     """NeuS importance sampling at the fixed inv_s schedule: the kernels
     (or, on CPU tensors, their plain versions) when fused_sampler_sdf,
     else the plain stage on any device (``renderer.py:277-306``)."""
+    if fc.hash_sdf:
+        # the hash-grid net's SDF in K1's place (K13 and its products)
+        rounds = importance_rounds if rcfg.fused_sampler_sdf else importance_plain
+        return rounds(lambda pts: field_sdf(model, fc, pts), rays_o, rays_d, z_vals,
+                      rcfg.n_importance, rcfg.up_sample_steps, rcfg.s_val_base)
     sampler = fused_importance_sampler if rcfg.fused_sampler_sdf else importance_sampler_plain
     return sampler(model.neuconw.sdf_net, fc.sdf, rays_o, rays_d, z_vals, rcfg.n_importance,
                    rcfg.up_sample_steps, rcfg.s_val_base, act_dtype=fc.act_dtype)
@@ -253,8 +259,9 @@ def render_core(model, fc, rcfg, rays_o, rays_d, z_vals, sample_dist, a_embedded
 
     # in training the sdf, feature and gradient keep their graph, so the
     # colour and eikonal losses reach the SDF net (serving runs under no_grad)
-    rgb_flat, inv_s, sdf_flat, grad_flat = field_forward(
-        model, fc, pts_flat, rays_d, a_embedded, n, create_graph=torch.is_grad_enabled())
+    rgb_flat, inv_s, sdf_flat, grad_flat, lap_flat = field_forward(
+        model, fc, pts_flat, rays_d, a_embedded, n, create_graph=torch.is_grad_enabled(),
+        laplacian=True)
     rgb = rgb_flat.reshape(batch, n, 3)
     sdf = sdf_flat.reshape(batch, n)
     gradients = grad_flat.reshape(batch, n, 3)
@@ -315,7 +322,7 @@ def render_core(model, fc, rcfg, rays_o, rays_d, z_vals, sample_dist, a_embedded
     eikonal_sum, relax_sum = torch.sum(relax * grad_norm_err), torch.sum(relax)
     gradient_error = eikonal_sum / (relax_sum + 1e-5)
 
-    return {
+    out = {
         "color": color,
         "color_sphere": color_sphere,
         "color_bg": color_bg if color_bg is not None else torch.zeros_like(color),
@@ -334,6 +341,12 @@ def render_core(model, fc, rcfg, rays_o, rays_d, z_vals, sample_dist, a_embedded
         "gradients": gradients,
         "normals": normals,
     }
+    if lap_flat is not None:
+        # the curvature term's numerator over the eikonal term's samples,
+        # its weight decayed with the net's coarse-to-fine state
+        out["curvature_sum"] = (torch.sum(relax * lap_flat.reshape(batch, n).abs())
+                                * curvature_decay(model, fc))
+    return out
 
 
 # ------------------------------- top level -------------------------------
@@ -424,7 +437,7 @@ def render_rays(model, fc: FieldConfig, rcfg: RenderConfig, scene: SceneInfo,
         floor_y_error = torch.zeros_like(ret["normals"])
         floor_count = torch.zeros((), device=rays.device)
 
-    return {
+    out = {
         "color": ret["color"],
         "color_sphere": ret["color_sphere"],
         "color_bg": ret["color_bg"],
@@ -447,6 +460,9 @@ def render_rays(model, fc: FieldConfig, rcfg: RenderConfig, scene: SceneInfo,
         "sfm_depth_valid": (depth_weight > 0).to(rays.dtype) * ray_mask,
         "ray_mask": ray_mask,
     }
+    if "curvature_sum" in ret:
+        out["curvature_sum"] = ret["curvature_sum"]
+    return out
 
 
 def _floor_loss(rcfg, scene, labels, normals, rays_o, rays_d, depth, ray_mask):

@@ -30,6 +30,7 @@ from ..config import FieldConfig
 from ..device import default_device
 from ..models.color import init_color_
 from ..models.nerf_bg import init_nerf_bg_
+from ..models.hash_sdf import init_hash_sdf_
 from ..models.neuconw import NeuconWField
 from ..models.sdf import init_sdf_
 
@@ -204,7 +205,10 @@ def init_field(fc: FieldConfig, generator: torch.Generator, device=None) -> Neuc
     with torch.no_grad():
         model.embedding_a.weight.copy_(
             torch.randn(fc.n_vocab, fc.n_a, generator=generator).to(model.embedding_a.weight.device))
-    init_sdf_(model.neuconw.sdf_net, fc.sdf_cfg, generator)
+    if fc.hash_sdf:
+        init_hash_sdf_(model.neuconw.sdf_net, fc.sdf_cfg, generator)
+    else:
+        init_sdf_(model.neuconw.sdf_net, fc.sdf_cfg, generator)
     init_color_(model.neuconw.color_net, generator)
     init_nerf_bg_(model.nerf, generator)
     return model

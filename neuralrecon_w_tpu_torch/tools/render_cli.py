@@ -131,7 +131,7 @@ def render(args, group=None):
 
     from ..config import field_config_from_cfg, load_cfg, render_config_from_cfg
     from ..datasets.phototourism import build_image_rays, load_image
-    from ..models.neuconw import NeuconWField
+    from ..models.neuconw import NeuconWField, set_progress
     from ..ops.ray_voxel import device_grid_from_host
     from ..parallel.mesh import is_main
     from ..tools.convert import without_dead_entries
@@ -151,6 +151,7 @@ def render(args, group=None):
     model = NeuconWField(fc, device)
     model.load_state_dict(without_dead_entries(restored["state_dict"], fc.encode_a_bg),
                           strict=True)
+    set_progress(model, fc, restored["step"])
     model.eval().requires_grad_(False)
     fine_dgrid, fine_level = None, -1
     if "fine_grid" in restored:

@@ -52,6 +52,13 @@ SPANS = (
     Span("train.inputs", 6, None, HOST),  # a captured dispatch's hand-off
     Span("serve.frame_in", 7, None, HOST),  # a frame's padding and copy to the device
     Span("serve.frame_out", 8, None, HOST),  # a frame's fetch to the host
+    # the hash-grid SDF net (models/hash_sdf.py): each encoding (K13), nested
+    # where it is called (the importance sampler, the taps); the table's
+    # scatter-add (K14) inside train.backward; the numerical gradient's
+    # evaluations (the point and its 4 taps) and the Laplacian
+    Span("field.hash_encode", 9, None, DEVICE),
+    Span("field.hash_grad", 10, "train.backward", DEVICE),
+    Span("field.taps", 11, "render.foreground", DEVICE),
 )
 BY_NAME = {s.name: s for s in SPANS}
 

@@ -87,8 +87,13 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
 
 def load_field(path: str, fc, device=None) -> NeuconWField:
     """A NeuconWField from a Lightning-layout ``.ckpt`` file, strictly
-    loaded, on ``device`` (default: the card)."""
-    sd = restore_checkpoint(path)["state_dict"]
+    loaded, on ``device`` (default: the card), at the file's step (a
+    hash-grid SDF net's active levels)."""
+    from ..models.neuconw import set_progress
+
+    restored = restore_checkpoint(path)
     model = NeuconWField(fc, default_device(device))
-    model.load_state_dict(without_dead_entries(sd, fc.encode_a_bg), strict=True)
+    model.load_state_dict(without_dead_entries(restored["state_dict"], fc.encode_a_bg),
+                          strict=True)
+    set_progress(model, fc, restored["step"])
     return model

@@ -55,6 +55,7 @@ from ..config import field_config_from_cfg, render_config_from_cfg
 from ..datasets.cache import DeviceRayPool, RayPool, local_split_names, read_ray_cache
 from ..datasets.mask_utils import get_label_id_mapping
 from ..device import default_device
+from ..models.neuconw import set_progress
 from ..ops.ray_voxel import device_grid_from_host
 from ..ops.voxel_grid import VoxelGrid
 from ..parallel.mesh import all_gather_rows, barrier, is_main, shard_rays
@@ -284,6 +285,7 @@ class Trainer:
         self.state.model.load_state_dict(
             without_dead_entries(restored["state_dict"], self.fc.encode_a_bg), strict=True)
         self.state.step = restored["step"]
+        set_progress(self.state.model, self.fc, self.state.step)
         if "optimizer" in restored:
             self.state.optimizer.load_state_dict(restored["optimizer"])
         if "fine_grid" in restored:

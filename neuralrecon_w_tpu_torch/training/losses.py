@@ -2,7 +2,8 @@
 
 Masked L1 colour, eikonal error * igr_weight, semantic mask BCE *
 mask_weight (with MESH_MASK_LIST), SFM depth MSE * depth_weight (with
-DEPTH_LOSS) and the floor-normal term. The reference assigns
+DEPTH_LOSS), the floor-normal term, and with a hash-grid SDF net its
+curvature term (``SDF_CONFIG.curvature_weight``). The reference assigns
 ``floor_weight = depth_weight``; ``replicate_floor_weight_bug`` (default
 True) keeps that for parity. Masked rays stay in the batch with zero weight.
 The denominators that depend on the batch are counted apart
@@ -26,6 +27,8 @@ class LossConfig(NamedTuple):
     use_depth_loss: bool = False
     use_floor_normal: bool = False
     replicate_floor_weight_bug: bool = True
+    # the hash-grid SDF net's curvature term (0: none), before its decay
+    curvature_weight: float = 0.0
 
 
 def loss_config_from_cfg(cfg) -> LossConfig:
@@ -41,6 +44,7 @@ def loss_config_from_cfg(cfg) -> LossConfig:
         use_depth_loss=bool(n.DEPTH_LOSS),
         use_floor_normal=bool(n.FLOOR_NORMAL),
         replicate_floor_weight_bug=bool(w.replicate_floor_weight_bug),
+        curvature_weight=float(n.SDF_CONFIG.get("curvature_weight", 0.0)),
     )
 
 
@@ -67,6 +71,11 @@ def loss_terms(lcfg: LossConfig, results: dict, rgbs: torch.Tensor, counts: torc
     color_error = (results["color"] - rgbs) * masks
     ret = {"color_loss": torch.sum(torch.abs(color_error)) / mask_sum}
     ret["normal_loss"] = lcfg.igr_weight * (results["eikonal_sum"] / (counts[1] + 1e-5))
+    if lcfg.curvature_weight and "curvature_sum" in results:
+        # |Laplacian| over the eikonal term's samples (Neuralangelo's
+        # curvature loss), its weight decayed with the levels added
+        ret["curvature_loss"] = lcfg.curvature_weight * (
+            results["curvature_sum"] / (counts[1] + 1e-5))
     if lcfg.use_mesh_mask:
         # times this rank's share of the global batch (1.0 exactly at one rank)
         mean = torch.mean(results["mask_error"]) * (masks.shape[0] / counts[4])

@@ -611,8 +611,30 @@ def test_chip_smoke_filter_call_rays_and_k12_split(tmp_path):
     assert split["meta_rows"] == int((touched[0] > 0).sum())
 
 
+def test_chip_smoke_hash_points_as_a_step_encodes_them():
+    """hash_kernel_phase's points: each ray's sampler points, foreground
+    samples and their four taps at e = 1 / (2048 sqrt 3), in a band across
+    the surface |x| = 0.5."""
+    import math
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+
+    n = 64
+    x = cs.hash_points(n, torch.device("cpu"))
+    assert x.shape == (n * (cs.HASH_SAMPLER_PTS + 5 * cs.HASH_FG_PTS), 3)
+    fg = x[n * cs.HASH_SAMPLER_PTS:n * (cs.HASH_SAMPLER_PTS + cs.HASH_FG_PTS)].view(n, -1, 3)
+    taps = x[n * (cs.HASH_SAMPLER_PTS + cs.HASH_FG_PTS):].view(n, cs.HASH_FG_PTS, 4, 3)
+    e = 1.0 / (2048 * math.sqrt(3.0))
+    off = (taps - fg[:, :, None, :]) / e
+    assert torch.allclose(off, torch.tensor(cs.HASH_TAPS).expand_as(off), atol=1e-2)
+    assert ((x.norm(dim=-1) - 0.5).abs() <= cs.HASH_BAND + 1e-3).all()
+
+
 def test_chip_smoke_kernels_line_names_every_kernel():
-    """The kernels line's sources: K1-K12's wrappers by name, each a file in
+    """The kernels line's sources: K1-K14's wrappers by name, each a file in
     the port and the JAX function it replaces at the line it names, K12 the
     two-level DDA."""
     import re

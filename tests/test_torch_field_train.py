@@ -177,7 +177,7 @@ def test_field_forward_pallas_field_matches_vjp(n_samples):
         d = torch.from_numpy(dirs if n_samples is None else dirs[:6]).requires_grad_(True)
         outs = field_forward(m, fc._replace(grad_mode=mode), p, d, m.embedding_a(ts), n_samples,
                              create_graph=True)
-        rgb, _, sdf, grad = outs
+        rgb, _, sdf, grad, _ = outs
         c = [torch.from_numpy(v) for v in cots]
         (torch.sum(rgb * c[0]) + torch.sum(sdf * c[1]) + torch.sum(grad * c[2])).backward()
         g = {k: v.grad for k, v in m.named_parameters() if v.grad is not None}

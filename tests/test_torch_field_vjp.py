@@ -261,8 +261,8 @@ def test_unported_grad_modes_raise(mode):
     model = init_field(fc, torch.Generator().manual_seed(0), "cpu")
     pts = torch.from_numpy(np.random.RandomState(0).randn(4, 3).astype(np.float32) * 0.5)
     args = (model, fc, pts, torch.zeros(4, 3), torch.zeros(4, 48))
-    rgb, _, sdf, grad = field_forward(*args)
-    assert rgb.shape == (4, 3) and sdf.shape == (4,) and grad.shape == (4, 3)
+    rgb, _, sdf, grad, lap = field_forward(*args)
+    assert rgb.shape == (4, 3) and sdf.shape == (4,) and grad.shape == (4, 3) and lap is None
     assert all(bool(torch.isfinite(t).all()) for t in (rgb, sdf, grad))
     if mode == "fwd":
         want = field_forward(model, fc._replace(grad_mode="vjp"), *args[2:])

@@ -660,8 +660,8 @@ def test_field_train_function_matches_double_backward(dev, field):
     def grads(mode):
         m = copy.deepcopy(model).requires_grad_(True)
         xs = [t.clone().requires_grad_(True) for t in (pts, dirs, a)]
-        rgb, _, sdf, grad = field_forward(m, fc._replace(grad_mode=mode), *xs, n_samples,
-                                          create_graph=True)
+        rgb, _, sdf, grad, _ = field_forward(m, fc._replace(grad_mode=mode), *xs, n_samples,
+                                             create_graph=True)
         (torch.sum(rgb * c[0]) + torch.sum(sdf * c[1]) + torch.sum(grad * c[2])).backward()
         return {k: p.grad for k, p in m.named_parameters() if "_net." in k} | {
             f"x{i}": x.grad for i, x in enumerate(xs)}
@@ -1585,7 +1585,7 @@ def test_field_train_replays_follow_weights(dev, field, act):
     c = [torch.randn(n_rays * n_samples, k, generator=gen).to(dev).squeeze(1) for k in (3, 1, 3)]
 
     def fn():
-        rgb, _, sdf, grad = field_forward(model, fc, *xs, n_samples, create_graph=True)
+        rgb, _, sdf, grad, _ = field_forward(model, fc, *xs, n_samples, create_graph=True)
         loss = torch.sum(rgb * c[0]) + torch.sum(sdf * c[1]) + torch.sum(grad * c[2])
         return (rgb.detach(), sdf.detach(), grad.detach(),
                 *torch.autograd.grad(loss, params + xs))
