@@ -21,9 +21,11 @@ with numpy: SFM points on a sphere of radius 1, the SFM grid from
 on a ring. It checks the outputs, counts the kernel launches of the
 serving run and the field's products (``models/layers.linear.aligned`` /
 ``.fallback``), and prints timings with the card's name and power limit.
-``product_phase`` then runs the bg_op and bg_ref fields' forward, input
-gradient and double backward under torch.profiler and fails on a
-fallback product or a tensor-core ``align1`` kernel.
+``product_phase`` then runs the bg_op, bg_ref and neuralangelo_op fields'
+forward, input gradient and double backward under torch.profiler and
+fails on a fallback product, a tensor-core ``align1`` kernel, or a
+float32 product off K15 (``csrc/split_tf32_gemm.cu``); ``split_tf32_phase``
+holds K15 to float64 and times it at the float32 cells' shapes.
 The kernels are held to their plain versions on a copy of the SDF net
 with seeded noise on every weight and bias (``live_sdf_net``): the
 geometric init zeroes the sin / cos columns, the skip's PE half and the
@@ -334,9 +336,10 @@ MODE_KERNELS = {"pallas": ("sdf_mlp", "up_sample", "sdf_vjp_fwd", "sdf_vjp_bwd",
                 "vjp": ("sdf_mlp", "up_sample"),
                 "pallas_field": ("sdf_mlp", "up_sample", "dw_reduce", "field_fwd", "field_bwd",
                                  "nerf_bg_fwd", "nerf_bg_bwd"),
-                "fwd": ("sdf_mlp", "up_sample")}
+                "fwd": ("sdf_mlp", "up_sample", "split_tf32_gemm")}
 # 'pallas_field' with FUSED_BG; 'fwd' (forward-mode SDF gradient) evaluates
 # its SDF net in float32 whatever the field's dtype, as the JAX package's
+# (on the card its products run K15)
 TRAIN_MODES = ("pallas", "vjp", "pallas_field", "fwd")
 # modes training_phase steps on a copy of the state (see there): 'fwd' came
 # after the others, and the bf16 step_parity of 'pallas' is held to a
@@ -737,26 +740,34 @@ def kernel_phase(model, fc, rays_o, rays_d, z_base, n_pts_cmp: int):
 
 
 PRODUCT_CONFIGS = {"bg_op": CONFIG,
-                   "bg_ref": os.path.join(ROOT, "config", "train_brandenburg_gate.yaml")}
+                   "bg_ref": os.path.join(ROOT, "config", "train_brandenburg_gate.yaml"),
+                   "neuralangelo_op": os.path.join(ROOT, "neuralrecon_w_tpu_torch", "configs",
+                                                   "train_neuralangelo_op.yaml")}
 PRODUCT_RAYS, PRODUCT_SAMPLES = 1024, 24
+LIBRARY_PRODUCTS = ("xmma", "nvjet", "cutlass", "s16816", "s1688", "gemv", "splitkreduce")
 
 
 def product_phase():
-    """The field's products at the bg_op and bg_ref fields' widths: the SDF
-    forward and its input gradient, the colour and background nets over
-    per-ray dirs, the double backward, under torch.profiler. Prints the
-    products ``models/layers.linear`` issued aligned and through a fallback
-    and the device's product kernels by name; fails on a fallback or a
-    tensor-core ``align1`` kernel. Returns fails."""
+    """The field's products at the bg_op, bg_ref and neuralangelo_op fields'
+    widths: the SDF forward and its input gradient (the hash field's four
+    taps and Laplacian), the colour and background nets over per-ray dirs,
+    the double backward, under torch.profiler. Prints the products
+    ``models/layers.linear`` issued aligned, through a fallback and on K15
+    (``linear.split_tf32``), K15's launches, and the device's product
+    kernels by name; fails on a fallback, a tensor-core ``align1`` kernel, a
+    bf16 product on K15, or a float32 one off it (a library product kernel
+    in a float32 field). Returns fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
-    from neuralrecon_w_tpu_torch.models import color, layers, nerf_bg, sdf
+    from neuralrecon_w_tpu_torch.models import color, layers, sdf
+    from neuralrecon_w_tpu_torch.models.neuconw import field_background, field_forward
+    from neuralrecon_w_tpu_torch.ops.split_tf32 import split_tf32_gemm
     from neuralrecon_w_tpu_torch.tools.convert import init_field
 
     fails = []
-    pats = ("gemm", "gemv", "nvjet", "cutlass", "xmma", "s16816", "s1688", "splitkreduce")
+    pats = ("gemm",) + LIBRARY_PRODUCTS
     for name, path in PRODUCT_CONFIGS.items():
         fc = field_config_from_cfg(load_cfg(path))
         act = sdf.act_dtype_of(fc.act_dtype)
@@ -771,23 +782,32 @@ def product_phase():
 
         def step():
             x = pts.clone().requires_grad_(True)
-            s, feat = sdf.apply_sdf_split(model.neuconw.sdf_net, fc.sdf_cfg, x, act)
-            (g,) = torch.autograd.grad(s, x, torch.ones_like(s), create_graph=True)
-            rgb = color.apply_color(model.neuconw.color_net, fc.color_cfg, fc.encode_a, x, g, d,
-                                    feat, a, act_dtype=act, n_samples=PRODUCT_SAMPLES)
-            density, rgb_bg = nerf_bg.apply_nerf_bg(model.nerf, fc.encode_a_bg, pts4, d, a,
-                                                    act_dtype=act, n_samples=PRODUCT_SAMPLES)
+            if fc.hash_sdf:
+                rgb, _, s, g, lap = field_forward(model, fc, x, d, a, n_samples=PRODUCT_SAMPLES,
+                                                  create_graph=True, laplacian=True)
+                extra = lap.float().square().mean()
+            else:
+                s, feat = sdf.apply_sdf_split(model.neuconw.sdf_net, fc.sdf_cfg, x, act)
+                (g,) = torch.autograd.grad(s, x, torch.ones_like(s), create_graph=True)
+                rgb = color.apply_color(model.neuconw.color_net, fc.color_cfg, fc.encode_a, x, g,
+                                        d, feat, a, act_dtype=act, n_samples=PRODUCT_SAMPLES)
+                extra = 0.0
+            density, rgb_bg = field_background(model, fc, pts4, d, a, n_samples=PRODUCT_SAMPLES)
             loss = (rgb.float().square().mean() + ((g.float().norm(dim=-1) - 1) ** 2).mean()
-                    + s.float().mean() + density.float().mean() + rgb_bg.float().mean())
+                    + s.float().mean() + density.float().mean() + rgb_bg.float().mean() + extra)
             loss.backward()
 
         step()
         torch.cuda.synchronize()
-        before = (layers.linear.aligned, layers.linear.fallback)
+        before = (layers.linear.aligned, layers.linear.fallback, layers.linear.split_tf32,
+                  split_tf32_gemm.launches)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             step()
             torch.cuda.synchronize()
-        aligned, fallback = (layers.linear.aligned - before[0], layers.linear.fallback - before[1])
+        aligned, fallback, routed, k15 = (
+            after - b for after, b in zip((layers.linear.aligned, layers.linear.fallback,
+                                           layers.linear.split_tf32, split_tf32_gemm.launches),
+                                          before))
         kernels = {}
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA and any(
@@ -796,17 +816,105 @@ def product_phase():
         # cuBLAS's f32 SIMT kernels (cutlass_80_simt_sgemm_*) are align1 on
         # aligned operands too; a tensor-core align1 kernel is a misaligned one
         unaligned = [k for k in kernels if "align1" in k and "simt" not in k]
+        library = [k for k in kernels if any(p in k.lower() for p in LIBRARY_PRODUCTS)]
         print(f"products in {name} ({fc.act_dtype}, {n} points, forward, input gradient and "
-              f"double backward): aligned {aligned}, fallback {fallback}; product kernels ms: "
+              f"double backward): aligned {aligned}, fallback {fallback}, linear.split_tf32 "
+              f"{routed}, K15 launches {k15}; product kernels ms: "
               + "; ".join(f"{k[:110]} {v:.3f}" for k, v in
                           sorted(kernels.items(), key=lambda kv: -kv[1])))
         if fallback or not aligned:
             fails.append(f"{name}: {fallback} fallback products of {aligned + fallback}")
         if unaligned:
             fails.append(f"{name}: align1 product kernels {unaligned}")
+        if act == torch.float32 and (routed != aligned or not k15 or library):
+            fails.append(f"{name}: {routed} of {aligned} float32 products on K15, {k15} "
+                         f"launches, library product kernels {library}")
+        if act != torch.float32 and (routed or k15):
+            fails.append(f"{name}: {routed} bf16 products on K15 ({k15} launches)")
         del model
         torch.cuda.empty_cache()
     return fails
+
+
+# K15's shapes: train.ref's SDF hidden layer at a step's 245,760 points, and
+# train.neuralangelo's MLP (131 -> 256 -> 257, padded to 132 and 260) at a
+# step's 1,228,800 gradient points; (rows, k, n) of the forward y = x w^T
+SPLIT_SHAPES = {"train.ref": ((245_760, 512, 512),),
+                "train.neuralangelo": ((1_228_800, 132, 256), (1_228_800, 256, 260))}
+SPLIT_ERR_RATIO = 8.0  # K15's error over a float32 product's, max and median
+
+
+def split_forms(x, w, dy):
+    """The three product forms of a linear y = x w^T: (name, a, b, form,
+    the float64 result, flops)."""
+    m, k = x.shape
+    n = w.shape[0]
+    return (("forward", x, w, "nt", lambda: x.double() @ w.double().t(), 2 * m * n * k),
+            ("dX", dy, w, "nn", lambda: dy.double() @ w.double(), 2 * m * n * k),
+            ("dW", dy, x, "tn", lambda: dy.double().t() @ x.double(), 2 * m * n * k))
+
+
+def split_tf32_phase(shapes=SPLIT_SHAPES, dev="cuda", time_it: bool = True):
+    """K15 at the float32 cells' shapes, each product form (forward, input
+    gradient 'nn', weight gradient 'tn' with its split-K): its error and a
+    float32 product's against float64 (max and median of |c - c64|; K15's
+    within ``SPLIT_ERR_RATIO`` x the float32 product's; the errors' lean,
+    sum((c - c64) sign(c64)) / sum |c - c64|, which the tensor cores'
+    rounding toward zero pulls below 0), and its time beside its bound
+    (operations over 165 TFLOP/s, ``bound``), its plain version's and
+    ``torch.matmul`` in float32 (``library_ms``: the cuBLAS product the port
+    no longer calls for a float32 linear). Returns (results, fails)."""
+    import torch
+
+    from neuralrecon_w_tpu_torch.ops.split_tf32 import split_tf32_gemm, split_tf32_gemm_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res, fails = {}, []
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for cell, dims in shapes.items():
+        for rows, k, n in dims:
+            x = torch.randn(rows, k, device=dev, generator=g)
+            w = torch.randn(n, k, device=dev, generator=g) / k ** 0.5
+            dy = torch.randn(rows, n, device=dev, generator=g)
+            for name, a, b, form, exact, flops in split_forms(x, w, dy):
+                c64 = exact()
+                got = split_tf32_gemm(a, b, form)
+                ref = {"nt": lambda: a @ b.t(), "nn": lambda: a @ b,
+                       "tn": lambda: a.t() @ b}[form]
+                errs, lean = {}, {}
+                for lab, c in (("k15", got), ("f32", ref())):
+                    d = c.double() - c64
+                    e = d.abs().flatten()
+                    errs[lab] = (float(e.max()), float(e.median()))
+                    # the errors' lean: -1 all toward zero, 0 as many each way
+                    lean[lab] = float((d * torch.sign(c64)).sum() / e.sum().clamp(min=1e-300))
+                del c64, got
+                ratio = max(errs["k15"][i] / max(errs["f32"][i], 1e-30) for i in range(2))
+                ok = ratio <= SPLIT_ERR_RATIO
+                entry = {"rows": rows, "k": k, "n": n, "form": form, "err_k15": errs["k15"],
+                         "err_f32": errs["f32"], "err_ratio": ratio, "lean_k15": lean["k15"],
+                         "lean_f32": lean["f32"]}
+                line = (f"K15 {cell} {name} ({form}) rows {rows} k {k} n {n}: max / median "
+                        f"|err| {errs['k15'][0]:.3e} / {errs['k15'][1]:.3e}, float32 product "
+                        f"{errs['f32'][0]:.3e} / {errs['f32'][1]:.3e} (x{ratio:.2f}); lean "
+                        f"{lean['k15']:+.2f}, float32 {lean['f32']:+.2f}")
+                if time_it:
+                    ms, plain_ms = in_turns(lambda: split_tf32_gemm(a, b, form),
+                                            lambda: split_tf32_gemm_plain(a, b, form))
+                    lib_ms = cuda_ms(ref)
+                    bd = bound(flops, nbytes(a, b) + 4 * (rows * n if form != "tn" else k * n),
+                               "float32")
+                    entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
+                    line += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound "
+                             f"{bd['bound_ms']:.3f} ({bd['bound_by']}), plain {plain_ms:.3f}, "
+                             f"torch.matmul f32 {lib_ms:.3f}")
+                print(line + (" -> ok" if ok else " -> FAIL"))
+                if not ok:
+                    fails.append(f"K15 {cell} {name}: error {ratio:.2f}x a float32 product's")
+                res[f"{cell} {name} {rows}x{k}x{n}"] = entry
+            del x, w, dy
+            torch.cuda.empty_cache()
+    return res, fails
 
 
 def serving_phase(model, fc, rcfg, scene, frames, fine_grid, sfm_grid, label):
@@ -2049,7 +2157,7 @@ def graph_rates(cfg, state0, scene, pool, fine_grid, fine_level, label, modes=RA
                                           perm, start)
 
         one_step = scan_run(cfg, fc, rcfg, batch, 1, False)
-        reset_counts(counters)
+        reset_counts()
         eager_step()
         walls["eager"].append(window("eager"))
         free_cached()
@@ -2067,7 +2175,7 @@ def graph_rates(cfg, state0, scene, pool, fine_grid, fine_level, label, modes=RA
                for k, v in read_counts().items()}
         g.release()
         free_cached()
-        reset_counts(counters)
+        reset_counts()
         eager_step()
         walls["eager"].append(window("eager"))
         got = {k: v + read_counts()[k] for k, v in got.items()}
@@ -2239,7 +2347,7 @@ def device_pool_trainer_phase(root: str, overrides: dict, device: str, extra: li
     with mock.patch.object(loop.Trainer, "_attach_pool_surface", attach), \
             mock.patch.object(DeviceRayPool, "take_scan_window", take), \
             mock.patch.object(DeviceRayPool, "gather", gather):
-        reset_counts(counters)
+        reset_counts()
         t0 = time.perf_counter()
         tr = train_cli(cfg_path, save_dir, "device_pool", TRAIN_BATCH, TRAINER_STEPS, device,
                        extra)
@@ -2247,7 +2355,7 @@ def device_pool_trainer_phase(root: str, overrides: dict, device: str, extra: li
         wall = time.perf_counter() - t0
         runs["device_pool"] = read_counts()
         n_attach = len(attaches)
-        reset_counts(counters)
+        reset_counts()
         ck = latest_checkpoint(tr.ckpt_dir)
         tr2 = train_cli(resume_path, save_dir, "device_pool_resume", TRAIN_BATCH, POOL_RESUME,
                         device, extra + ["--ckpt_path", ck or ""])
@@ -2879,12 +2987,10 @@ def extraction_phase(model, fc, root: str, n_points: int = EXTRACT_POINTS,
 # ---------------------------- the training CLI ----------------------------
 
 
-def reset_counts(counters: dict) -> None:
-    from neuralrecon_w_tpu_torch.ops.sdf_mlp import fused_sdf_head
+def reset_counts() -> None:
+    from neuralrecon_w_tpu_torch.ops import reset_launches
 
-    for c in counters.values():
-        c.launches = 0
-    fused_sdf_head.launches_f32 = 0
+    reset_launches()
 
 
 def read_counts() -> dict:
@@ -3031,7 +3137,7 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
     counters = launch_counters()
     save_dir = os.path.join(root, "results")
     extra = ["--log_every", str(TRAINER_LOG), "--test_batch_size", str(TRAIN_BATCH)]
-    reset_counts(counters)
+    reset_counts()
     t0 = time.perf_counter()
     tr = train_cli(cfg_path, save_dir, "trainer", TRAIN_BATCH, TRAINER_STEPS, device, extra)
     sync()
@@ -3112,7 +3218,7 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
     # K7, K5, K8, K9 as eager steps fed by host batches, a refresh first
     cfg2 = write_cfg(os.path.join(root, "train_fused.yaml"), root, merged(
         host, {"TPU": {"SDF_GRAD_MODE": "pallas_field", "FUSED_BG": True}}))
-    reset_counts(counters)
+    reset_counts()
     t0 = time.perf_counter()
     tr2 = train_cli(cfg2, save_dir, "trainer_resume", TRAIN_BATCH, TRAINER_RESUME, device,
                     extra + ["--ckpt_path", ck or ""])
@@ -3173,7 +3279,7 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
         cfg3 = write_cfg(os.path.join(root, f"train_{run}.yaml"), root, merged(
             overrides, {"TPU": {"SDF_GRAD_MODE": mode, "FUSED_BG": bg,
                                 "SCAN_INNER": GRAPH_RESUME}, "NEUCONW": {"UPDATE_FREQ": 0}}))
-        reset_counts(counters)
+        reset_counts()
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -3329,7 +3435,7 @@ def multi_rank_phase(root: str, ck: str, device: str = "cuda", card: str = "the 
             step = make_train_step(tr.fc, rcfg, tr.lcfg, tr.anneal_end, tr.ray_mask_ids,
                                    seed=int(cfg.TRAINER.SEED) + 1, group=g)
             if g is not None:
-                reset_counts(counters)
+                reset_counts()
             for b in batches:
                 st, aux = step(st, tr.scene, b, tr.fine_dgrid, None)
             sync()
@@ -3743,7 +3849,7 @@ def optimizer_phase(root: str, ck: str, device: str = "cuda", card: str = "the C
                           tr.state.step)
 
     # (a) a captured window against the plain loop, per optimiser
-    reset_counts(counters)
+    reset_counts()
     runs = []
     for name in OPT_NAMES:
         state0 = fresh(name)
@@ -3773,7 +3879,7 @@ def optimizer_phase(root: str, ck: str, device: str = "cuda", card: str = "the C
     fc = train_config(cfg, "vjp")
     rcfg = render_config_from_cfg(cfg, sfm_level=-1, fine_level=level, nerf_far_override=False)
     names = ("adam",) + OPT_NAMES
-    reset_counts(counters)
+    reset_counts()
     states = {n: fresh(n) for n in names}
     rate_runs = {n: scan_run(cfg, fc, rcfg, TRAIN_BATCH, OPT_RATE_INNER, True) for n in names}
     walls = {n: [] for n in names}
@@ -3819,7 +3925,7 @@ def optimizer_phase(root: str, ck: str, device: str = "cuda", card: str = "the C
             for run, ckpt in ((f"optimizer {name}", ck0), (f"optimizer {name}_resume", None)):
                 if ckpt is None:
                     ckpt = latest_checkpoint(trs[0].ckpt_dir) or ""
-                reset_counts(counters)
+                reset_counts()
                 t0 = time.perf_counter()
                 t = train_cli(cfg_path, save, run.replace(" ", "_"), TRAIN_BATCH, OPT_SCAN,
                               device, extra + ["--ckpt_path", ckpt])
@@ -3902,7 +4008,7 @@ def e2e_gate_phase(root: str, device: str = "cuda", card: str = "the CPU"):
                                                "PHOTOTOURISM": {"IMG_DOWNSCALE": 1}}}, f)
     counters = launch_counters()
     save_dir = os.path.join(root, "run")
-    reset_counts(counters)
+    reset_counts()
     t0 = time.perf_counter()
     tr = train_cli(cfg_path, save_dir, "sphere", 512, 300, device, ["--test_batch_size", "128"])
     sync()
@@ -3928,7 +4034,7 @@ def e2e_gate_phase(root: str, device: str = "cuda", card: str = "the CPU"):
             or not ck.endswith("step_300.ckpt") or os.path.getsize(tr.logger.path) == 0:
         fails.append(f"e2e train: step {tr.state.step}, {n_vox} voxels, checkpoint {ck}")
 
-    reset_counts(counters)
+    reset_counts()
     out = os.path.join(root, "mesh.ply")
     t0 = time.perf_counter()
     res = extract_mesh_cli.main(["--cfg_path", cfg_path, "--ckpt_path", ck or "", "--mesh_size",
@@ -3963,7 +4069,7 @@ def e2e_gate_phase(root: str, device: str = "cuda", card: str = "the CPU"):
     if len(pngs) != 1 or std <= E2E_RENDER_STD:
         fails.append(f"e2e render_cli: {pngs}, std {std:.3f}")
 
-    reset_counts(counters)
+    reset_counts()
     tr2 = train_cli(cfg_path, save_dir, "sphere_resume", 512, 2, device,
                     ["--test_batch_size", "128", "--ckpt_path", ck or "", "--divide_lr"])
     sync()
@@ -4189,7 +4295,7 @@ def render_cli_dispatch_check(cfg_path: str, ck: str, root: str, device: str,
     pngs, launches = {}, {}
     for d in ("scan", "chunk"):
         out = os.path.join(root, f"render_{tag}{d}")
-        reset_counts(counters)
+        reset_counts()
         t0 = time.perf_counter()
         with mock.patch.object(step, "make_scan_render_fn", recording):
             render_cli.main(["--cfg_path", cfg_path, "--ckpt_path", ck, "--out_dir", out,
@@ -4898,7 +5004,7 @@ def reproj_filter_phase(root: str, ply_path: str, card: str = "the CPU",
 
     # point-cloud mode through the CLI, every view
     counters = launch_counters()
-    reset_counts(counters)
+    reset_counts()
     buf = io.StringIO()
     sync()
     t0 = time.perf_counter()
@@ -5017,6 +5123,10 @@ def ptxas_report(log: str) -> list:
             dtype = {"13__nv_bfloat16": "bf16", "f": "float"}.get(kern.group(2) if kern else "", "")
             if base == "dda_hier_kernel":
                 dtype = "masked" if "ILb1E" in name else "unmasked"
+            k15 = re.search(r"split_tf32_gemm_kernelILi(\d)ELi(\d+)E", name)
+            if k15:  # the product form and the tile's width
+                form = ("nt", "nn", "tn")[int(k15.group(1))]
+                base, dtype = "split_tf32_gemm_kernel", f"{form}, {k15.group(2)}"
             per_lane = re.search(r"up_sample_kernelILi(\d+)E", name)  # K2's samples a lane
             if per_lane:
                 dtype = f"V={per_lane.group(1)}"
@@ -5153,6 +5263,9 @@ def main() -> int:
     if linear.fallback or not linear.aligned:
         fails.append(f"serving: {linear.fallback} fallback field products")
     fails += product_phase()
+    sres, sfails = split_tf32_phase()
+    fails += sfails
+    kres["split_tf32_gemm"] = {"cases": sres, **sres["train.ref forward 245760x512x512"]}
     # K10 serves the SFM near / far in both phases; K11 the steady fine-grid query
     for name in ("sdf_mlp", "up_sample", "dda"):
         if launches_warm[name] <= 0 or launches[name] <= launches_warm[name]:
@@ -5439,7 +5552,11 @@ def main() -> int:
                "hash_encode": ("neuralrecon_w_tpu_torch/csrc/hash_grid.cu",
                                "neuralrecon_w_tpu/ops/field_vjp_math.py:60"),
                "hash_grad": ("neuralrecon_w_tpu_torch/csrc/hash_grid.cu",
-                             "neuralrecon_w_tpu/ops/field_vjp_math.py:68")}
+                             "neuralrecon_w_tpu/ops/field_vjp_math.py:68"),
+               # no Pallas kernel: the field's float32 products, which the
+               # JAX package leaves to XLA
+               "split_tf32_gemm": ("neuralrecon_w_tpu_torch/csrc/split_tf32_gemm.cu",
+                                   "neuralrecon_w_tpu/ops/field_vjp_math.py:114")}
     # K1 and K2 count the serving path's launches; K3, K4 the training
     # path's in 'pallas', K7 to K9 in 'pallas_field', K5 in both (by_mode);
     # K6 its launches on every path (kernel 5's forward in training, the
@@ -5463,6 +5580,9 @@ def main() -> int:
             kres[name]["serving_graph"] = v
     launches["dda_hier"] = r_launches["dda_hier"]
     launches["hash_encode"] = launches["hash_grad"] = 0  # the neuralangelo CLIs' alone
+    # K15: the training phases' float32 products (bg_op trains and serves in bf16)
+    launches["split_tf32_gemm"] = sum(train_launches[m].get("split_tf32_gemm", 0)
+                                      for m in TRAIN_MODES)
     kres["dda_hier"] = k12
     kres["sdf_mlp"]["extraction"] = {"launches": x_launches["sdf_mlp"], **kres.pop("sdf_mlp_f32")}
     kres["field_fwd_extraction"] = kres.pop("field_fwd")
@@ -5510,7 +5630,8 @@ def main() -> int:
               f"{ratio(c):.1f} {label}" for label, c in k12.get("cases", {}).items()
               if "ms" in c) if k12 else "")
           + f"; K13 hash_encode {ratio(kres['hash_encode']):.1f}; K14 hash_grad "
-          f"{ratio(kres['hash_grad']):.1f}")
+          f"{ratio(kres['hash_grad']):.1f}; K15 split_tf32_gemm "
+          f"{ratio(kres['split_tf32_gemm']):.1f} (train.ref's forward)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

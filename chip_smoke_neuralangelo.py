@@ -78,7 +78,6 @@ def smoke(root: str, device: str = "cuda", steps: int = 300, update: int = 150,
     import torch
     from PIL import Image
 
-    from neuralrecon_w_tpu_torch.ops.hash_grid import hash_encode
     from neuralrecon_w_tpu_torch.tools import render_cli
     from neuralrecon_w_tpu_torch.training import step as step_mod
     from neuralrecon_w_tpu_torch.training.checkpoint import latest_checkpoint
@@ -94,9 +93,7 @@ def smoke(root: str, device: str = "cuda", steps: int = 300, update: int = 150,
     cfg_path = write_cfg(os.path.join(root, "train.yaml"), root, update, level_every,
                          steps, tiny)
     print(f"workspace: {info['n_points']} SFM points, cache {info['cache_seconds']:.1f} s")
-    counters = cs.launch_counters()
-    cs.reset_counts(counters)
-    hash_encode.points = 0
+    cs.reset_counts()
     t1 = time.perf_counter()
     tr = cs.train_cli(cfg_path, os.path.join(root, "results"), "neuralangelo", batch,
                       steps, device, ["--log_every", str(max(1, steps // 12))])
@@ -145,8 +142,7 @@ def smoke(root: str, device: str = "cuda", steps: int = 300, update: int = 150,
         return made[-1]
 
     out = os.path.join(root, "render")
-    cs.reset_counts(counters)
-    hash_encode.points = 0
+    cs.reset_counts()
     t1 = time.perf_counter()
     with mock.patch.object(step_mod, "make_scan_render_fn", recording):
         render_cli.main(["--cfg_path", cfg_path, "--ckpt_path", ck, "--out_dir", out,

@@ -26,7 +26,11 @@ made wider by its producer (``positional_encoding(..., width=)``, a hidden
 activation kept ``padded``) meets zero weight columns too. The
 parameters, their names and shapes do not change. ``linear.aligned`` and
 ``linear.fallback`` count the products at issue (a graph's replays are
-not counted): aligned, or not padded (a split layer's blocks).
+not counted): aligned, or not padded (a split layer's blocks). On a card a
+float32 product runs on K15 (``ops/split_tf32``: three TF32 tensor-core
+products a float32 one, float32-accurate, its backward and double backward
+products of the same kernel), counted in ``linear.split_tf32``; bf16
+products stay on ``F.linear``.
 
 A layer split over a model axis (``parallel/tensor.py``) holds its rank's
 block and runs through ``tp_linear``: column (the output dim split)
@@ -45,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.split_tf32 import split_tf32_linear
 from ..parallel import tensor as tp
 
 
@@ -296,6 +301,14 @@ def _unpadded(y, d_out):
 
 linear.aligned = 0
 linear.fallback = 0
+linear.split_tf32 = 0
+
+
+def _split_route(x: torch.Tensor) -> bool:
+    """Whether a product over ``x`` runs on K15 (``ops/split_tf32``): a
+    float32 operand on a card, where the library's float32 products run on
+    the FMA pipes and TF32 alone misses float32's accuracy."""
+    return x.dtype == torch.float32 and x.is_cuda
 
 
 def _product(parts, widths, w, b):
@@ -303,7 +316,9 @@ def _product(parts, widths, w, b):
     into one buffer whose width is a multiple of 16 bytes (zero columns
     after them where needed), ``w`` laid out to match with zero columns
     where a block carries padding, zero rows and a zero bias up to an
-    aligned output width, the bias in the epilogue."""
+    aligned output width, the bias in the epilogue. A float32 product on a
+    card runs on K15 (``_split_route``), counted in ``linear.split_tf32``;
+    bf16 and CPU products on ``F.linear``."""
     d_out, k = w.shape
     if len(widths) != len(parts) or sum(widths) != k or any(
             p.shape[-1] < n for p, n in zip(parts, widths)):
@@ -330,4 +345,7 @@ def _product(parts, widths, w, b):
     if b is not None and b.storage_offset() % align_of(b.dtype):
         b = b.clone()  # the epilogue's bias vector, aligned
     _tick(_aligned(x) and _aligned(w))
+    if _split_route(x):
+        linear.split_tf32 += 1
+        return split_tf32_linear(x, w, b)
     return F.linear(x, w, b)

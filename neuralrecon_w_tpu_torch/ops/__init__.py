@@ -1,4 +1,4 @@
-"""The port's Hopper kernels (K1-K14, ``csrc/``), their build, their
+"""The port's Hopper kernels (K1-K15, ``csrc/``), their build, their
 wrappers and the plain PyTorch versions beside them.
 
 Every wrapper can be captured in a ``torch.cuda.CUDAGraph``: it allocates
@@ -26,12 +26,25 @@ def kernel_counters() -> dict:
     from .ray_voxel import dda_traverse, dda_traverse_hier, sampled_first_hit
     from .sdf_field_vjp import dw_reduce, sdf_vjp_bwd, sdf_vjp_fwd
     from .sdf_mlp import fused_sdf_head
+    from .split_tf32 import split_tf32_gemm
 
     return {"sdf_mlp": fused_sdf_head, "up_sample": up_sample_round, "sdf_vjp_fwd": sdf_vjp_fwd,
             "sdf_vjp_bwd": sdf_vjp_bwd, "dw_reduce": dw_reduce, "field_fwd": fused_field_forward,
             "field_bwd": field_train_bwd, "nerf_bg_fwd": nerf_bg_fwd, "nerf_bg_bwd": nerf_bg_bwd,
             "dda": dda_traverse, "sampled_hit": sampled_first_hit, "dda_hier": dda_traverse_hier,
-            "hash_encode": hash_encode, "hash_grad": hash_grad}
+            "hash_encode": hash_encode, "hash_grad": hash_grad,
+            "split_tf32_gemm": split_tf32_gemm}
+
+
+def reset_launches() -> None:
+    """Zero every count ``read_launches`` reads."""
+    from .hash_grid import hash_encode
+    from .sdf_mlp import fused_sdf_head
+
+    for c in kernel_counters().values():
+        c.launches = 0
+    fused_sdf_head.launches_f32 = 0
+    hash_encode.points = 0
 
 
 def read_launches() -> dict:

@@ -55,6 +55,7 @@ _SIGNATURES = {
     "nw_span_mark": [_P, _I, _I, _P],
     "nw_hash_encode": [_P, _LL, _P, _P, _P, _P, _P],
     "nw_hash_grad": [_P, _LL, _P, _P, _P, _P, _P],
+    "nw_split_tf32_gemm": [_I, _P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

@@ -74,8 +74,7 @@ def cli_rank(local_rank: int, argv: list, resume_argv: list, n_local: int, coord
     ``local_rank`` of a one-host group; writes ``out.format(rank=...)``:
     per run its fingerprint, wall seconds, launches, whether the rank is
     main and its logger's path."""
-    from ..ops import kernel_counters, read_launches
-    from ..ops.sdf_mlp import fused_sdf_head
+    from ..ops import read_launches, reset_launches
     from ..tools.train_cli import get_opts, run
 
     if device is None and get_opts(argv).device == "cpu":
@@ -88,9 +87,7 @@ def cli_rank(local_rank: int, argv: list, resume_argv: list, n_local: int, coord
         for name, a in (("run", argv), ("resume", resume_argv)):
             if a is None:
                 continue
-            for c in kernel_counters().values():
-                c.launches = 0
-            fused_sdf_head.launches_f32 = 0
+            reset_launches()
             _sync(group.device)
             t0 = time.perf_counter()
             tr = run(get_opts(a), group)
