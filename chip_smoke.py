@@ -764,7 +764,7 @@ def product_phase():
     from neuralrecon_w_tpu_torch.models import color, layers, sdf
     from neuralrecon_w_tpu_torch.models.neuconw import field_background, field_forward
     from neuralrecon_w_tpu_torch.ops.split_tf32 import split_tf32_gemm
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
     fails = []
     pats = ("gemm",) + LIBRARY_PRODUCTS
@@ -782,7 +782,7 @@ def product_phase():
 
         def step():
             x = pts.clone().requires_grad_(True)
-            if fc.hash_sdf:
+            if fc.sdf_cfg.get("type") == "hashgrid":
                 rgb, _, s, g, lap = field_forward(model, fc, x, d, a, n_samples=PRODUCT_SAMPLES,
                                                   create_graph=True, laplacian=True)
                 extra = lap.float().square().mean()
@@ -3122,7 +3122,7 @@ def trainer_phase(root: str, device: str = "cuda", extra_cfg: dict | None = None
 
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
     from neuralrecon_w_tpu_torch.datasets.colmap import read_points3d_binary
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
     from neuralrecon_w_tpu_torch.training.checkpoint import latest_checkpoint, restore_checkpoint
 
     fails = []
@@ -5182,7 +5182,7 @@ def main() -> int:
     from neuralrecon_w_tpu_torch.ops.field_forward import fused_field_forward
     from neuralrecon_w_tpu_torch.ops.nerf_bg_fused import nerf_bg_fwd
     from neuralrecon_w_tpu_torch.rendering.renderer import bg_eval_idx
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
     from neuralrecon_w_tpu_torch.training.schedule import make_optimizer
     from neuralrecon_w_tpu_torch.training.step import init_state
 

@@ -226,11 +226,6 @@ class FieldConfig(NamedTuple):
     def color_cfg(self) -> dict:
         return dict(self.color)
 
-    @property
-    def hash_sdf(self) -> bool:
-        """Whether the SDF net is the hash-grid kind (``models/hash_sdf.py``)."""
-        return self.sdf_cfg.get("type") == "hashgrid"
-
 
 def field_config_from_cfg(cfg) -> FieldConfig:
     n = cfg.NEUCONW

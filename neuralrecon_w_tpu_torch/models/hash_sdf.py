@@ -44,10 +44,22 @@ def hash_sdf_dims(cfg: dict) -> list:
 
 class HashSDFNetwork(nn.Module):
     """The table ``table`` (entries, F) and layers ``lin{L}``; the
-    schedule's device state in buffers that a checkpoint does not keep."""
+    schedule's device state in buffers that a checkpoint does not keep;
+    ``models/sdf.SDFNetwork``'s interface. It runs only as 'vjp' in float32:
+    the K-kernel modes (and 'fwd') compute the MLP net's autograd gradient,
+    and bfloat16 cannot resolve the taps' differences."""
 
-    def __init__(self, cfg: dict, device=None):
+    def __init__(self, cfg: dict, device=None, grad_mode: str = "vjp",
+                 act_dtype: str = "float32"):
+        if grad_mode != "vjp":
+            raise ValueError(f"SDF_CONFIG.type hashgrid takes its gradient from its taps: "
+                             f"TPU.SDF_GRAD_MODE must be 'vjp', not {grad_mode!r}")
+        if act_dtype != "float32":
+            raise ValueError(f"SDF_CONFIG.type hashgrid runs in float32 (its taps' differences "
+                             f"are below bfloat16's resolution): TPU.FIELD_DTYPE must be "
+                             f"'float32', not {act_dtype!r}")
         super().__init__()
+        self.cfg = dict(cfg)
         self.spec = spec = grid_spec(cfg)
         self.table = nn.Parameter(torch.empty(spec.n_entries, spec.features, device=device))
         lin = WNLinear if cfg["weight_norm"] else nn.Linear
@@ -101,37 +113,52 @@ class HashSDFNetwork(nn.Module):
         """growth^-(levels added since init_active) at the active count (0-d)."""
         return self.curv_decay.index_select(0, self.active.long().reshape(1)).reshape(())
 
+    def sdf(self, x: torch.Tensor, act_dtype="float32") -> torch.Tensor:
+        """Signed distance, (..., 3) -> (...,) float32, whatever ``act_dtype``."""
+        h, d_h = _hidden(self, x.reshape(-1, 3).float())
+        return _last(self, h, d_h, slice(0, 1))[:, 0].reshape(x.shape[:-1])
 
-@torch.no_grad()
-def init_hash_sdf_(net: HashSDFNetwork, cfg: dict, generator: torch.Generator) -> None:
-    """Neuralangelo's init in place, drawn from ``generator``: the table
-    U(+-init_table); the geometric init of the layers (N(0, 2 / d_out)
-    weights with layer 0's encoding columns zeroed, zero biases; the last
-    layer sqrt(pi / d_in) + N(0, 1e-8), bias -bias)."""
-    dev = net.table.device
-    lim = float(cfg["init_table"])
-    net.table.copy_(((torch.rand(net.table.shape, generator=generator) * 2 - 1) * lim).to(dev))
-    bias = float(cfg["bias"])
-    inside_outside = bool(cfg["inside_outside"])
-    for l in range(net.n_layers):
-        layer = net.layer(l)
-        d_out, d_in = layer_weight(layer).shape
-        z = torch.randn(d_out, d_in, generator=generator).to(dev)
-        if l == net.n_layers - 1:
-            mean = math.sqrt(math.pi) / math.sqrt(d_in)
-            w = (-mean if inside_outside else mean) + 1e-4 * z
-            b = torch.full((d_out,), bias if inside_outside else -bias, device=dev)
-        else:
-            w = z * (math.sqrt(2) / math.sqrt(d_out))
-            if l == 0:
-                w[:, cfg["d_in"]:] = 0.0
-            b = torch.zeros(d_out, device=dev)
-        if isinstance(layer, WNLinear):
-            layer.weight_v.copy_(w)
-            layer.weight_g.copy_(torch.linalg.vector_norm(w, dim=1, keepdim=True))
-        else:
-            layer.weight.copy_(w)
-        layer.bias.copy_(b)
+    def sdf_fn(self, act_dtype="float32", plain: bool = False):
+        """The sampler's and the sweeps' SDF: ``sdf`` (K13 and its products)."""
+        return self.sdf
+
+    def sdf_feat_grad(self, x: torch.Tensor, grad_mode: str = "vjp", act_dtype="float32",
+                      create_graph: bool = False, laplacian: bool = False):
+        """``hash_sdf_feat_grad``, the Laplacian where asked with autograd on
+        (training's curvature term); any ``grad_mode`` runs the taps."""
+        return hash_sdf_feat_grad(self, x, laplacian and torch.is_grad_enabled())
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> None:
+        """Neuralangelo's init in place, drawn from ``generator``: the table
+        U(+-init_table); the geometric init of the layers (N(0, 2 / d_out)
+        weights with layer 0's encoding columns zeroed, zero biases; the last
+        layer sqrt(pi / d_in) + N(0, 1e-8), bias -bias)."""
+        cfg, dev = self.cfg, self.table.device
+        lim = float(cfg["init_table"])
+        self.table.copy_(((torch.rand(self.table.shape, generator=generator) * 2 - 1) * lim)
+                         .to(dev))
+        bias = float(cfg["bias"])
+        inside_outside = bool(cfg["inside_outside"])
+        for l in range(self.n_layers):
+            layer = self.layer(l)
+            d_out, d_in = layer_weight(layer).shape
+            z = torch.randn(d_out, d_in, generator=generator).to(dev)
+            if l == self.n_layers - 1:
+                mean = math.sqrt(math.pi) / math.sqrt(d_in)
+                w = (-mean if inside_outside else mean) + 1e-4 * z
+                b = torch.full((d_out,), bias if inside_outside else -bias, device=dev)
+            else:
+                w = z * (math.sqrt(2) / math.sqrt(d_out))
+                if l == 0:
+                    w[:, cfg["d_in"]:] = 0.0
+                b = torch.zeros(d_out, device=dev)
+            if isinstance(layer, WNLinear):
+                layer.weight_v.copy_(w)
+                layer.weight_g.copy_(torch.linalg.vector_norm(w, dim=1, keepdim=True))
+            else:
+                layer.weight.copy_(w)
+            layer.bias.copy_(b)
 
 
 def _hidden(net: HashSDFNetwork, x: torch.Tensor):
@@ -154,13 +181,6 @@ def _hidden(net: HashSDFNetwork, x: torch.Tensor):
 def _last(net: HashSDFNetwork, h, d_h, out: slice):
     return linear(net.layer(net.n_layers - 1), h, torch.float32, outs=(out,), widths=(d_h,),
                   norm_first=True)[0]
-
-
-def hash_sdf_value(net: HashSDFNetwork, x: torch.Tensor) -> torch.Tensor:
-    """Signed distance only, (..., 3) -> (...,) float32."""
-    shape = x.shape[:-1]
-    h, d_h = _hidden(net, x.reshape(-1, 3).float())
-    return _last(net, h, d_h, slice(0, 1))[:, 0].reshape(shape)
 
 
 def hash_sdf_feat_grad(net: HashSDFNetwork, x: torch.Tensor, laplacian: bool = False):

@@ -22,14 +22,15 @@ whatever the field's dtype, as the JAX package's.
 With ``SDF_CONFIG.type: hashgrid`` the SDF net is Neuralangelo's
 (``models/hash_sdf.py``): its gradient is numerical (four taps, no
 autograd gradient), ``field_forward`` can give its Laplacian, and it runs
-only as 'vjp' in float32 (any other mode or dtype raises).
+only as 'vjp' in float32 (any other mode or dtype raises). ``NeuconWCore``
+alone picks the net's kind: both answer ``models/sdf.SDFNetwork``'s calls.
 ``TPU.FUSED_BG`` (``bg_mode`` 'pallas') sends the background through the
 fused NeRF++ kernels K8 / K9 (``ops/nerf_bg_fused.py``).
 
 Gradient-free colour probes go through kernel 3's port instead: mesh
 vertex colouring (``parallel/sweep.sharded_rgb_sweep``) calls
 ``ops/field_forward.fused_field_forward`` (K6, ``csrc/field_fwd.cu``)
-when the field has an appearance code, and ``field_rgb`` here otherwise.
+where ``colours_by_k6``, and ``field_rgb`` here otherwise.
 
 ``NeuconWField`` is built on the card unless the caller names a device
 (``device.default_device``).
@@ -42,12 +43,11 @@ from torch import nn
 
 from ..config import FieldConfig
 from ..device import default_device
-from .color import RenderingNetwork, apply_color
-from .hash_sdf import HashSDFNetwork, hash_sdf_feat_grad, hash_sdf_value
+from .color import RenderingNetwork, apply_color, init_color_
+from .hash_sdf import HashSDFNetwork
 from .layers import per_sample
-from .nerf_bg import NeRF, apply_nerf_bg
-from .sdf import (SDFNetwork, act_dtype_of, sdf_value, sdf_value_feat_grad,
-                  sdf_value_feat_grad_fwdmode)
+from .nerf_bg import NeRF, apply_nerf_bg, init_nerf_bg_
+from .sdf import SDFNetwork, act_dtype_of
 
 
 class SingleVarianceNetwork(nn.Module):
@@ -56,25 +56,12 @@ class SingleVarianceNetwork(nn.Module):
         self.variance = nn.Parameter(torch.tensor(float(init_val), device=device))
 
 
-def check_hash_field(fc: FieldConfig) -> None:
-    """A hash-grid SDF net runs its own numerical gradient in float32: the
-    K-kernel modes (and 'fwd') compute the MLP net's autograd gradient, and
-    bfloat16 cannot resolve the taps' differences."""
-    if fc.grad_mode != "vjp":
-        raise ValueError(f"SDF_CONFIG.type hashgrid takes its gradient from its taps: "
-                         f"TPU.SDF_GRAD_MODE must be 'vjp', not {fc.grad_mode!r}")
-    if fc.act_dtype != "float32":
-        raise ValueError(f"SDF_CONFIG.type hashgrid runs in float32 (its taps' differences "
-                         f"are below bfloat16's resolution): TPU.FIELD_DTYPE must be "
-                         f"'float32', not {fc.act_dtype!r}")
-
-
 class NeuconWCore(nn.Module):
     def __init__(self, fc: FieldConfig, device=None):
         super().__init__()
-        if fc.hash_sdf:
-            check_hash_field(fc)
-            self.sdf_net = HashSDFNetwork(fc.sdf_cfg, device)
+        # the SDF net's kind is decided here, from SDF_CONFIG.type; callers ask the net
+        if fc.sdf_cfg.get("type") == "hashgrid":
+            self.sdf_net = HashSDFNetwork(fc.sdf_cfg, device, fc.grad_mode, fc.act_dtype)
         else:
             self.sdf_net = SDFNetwork(fc.sdf_cfg, device)
         self.color_net = RenderingNetwork(fc.color_cfg, fc.n_a, fc.encode_a, device)
@@ -89,31 +76,47 @@ class NeuconWField(nn.Module):
         self.neuconw = NeuconWCore(fc, device)
         self.nerf = NeRF(fc.encode_a_bg, fc.n_a, device)
 
+    def set_step(self, step) -> None:
+        """The field at a training step (a host int, or a captured step's 0-d
+        device counter): a hash-grid net's active levels; the MLP net's none."""
+        self.neuconw.sdf_net.set_step(step)
+
+    def curvature_decay(self):
+        """The curvature weight's factor at the field's state (a 0-d device
+        tensor), or None where the SDF net has no Laplacian."""
+        return self.neuconw.sdf_net.curvature_decay()
+
+
+def init_field(fc: FieldConfig, generator: torch.Generator, device=None) -> NeuconWField:
+    """Fresh field on ``device`` (default: the card) with the JAX package's
+    initialisation (``models/neuconw.py:89-99``): N(0, 1) appearance table,
+    the SDF net's own init (geometric), torch-default linears elsewhere,
+    variance = S_CONFIG.init_val. The numbers differ from jax.random's; the
+    distributions are the same."""
+    model = NeuconWField(fc, device)
+    table = model.embedding_a.weight
+    with torch.no_grad():
+        table.copy_(torch.randn(fc.n_vocab, fc.n_a, generator=generator).to(table.device))
+    model.neuconw.sdf_net.init_(generator)
+    init_color_(model.neuconw.color_net, generator)
+    init_nerf_bg_(model.nerf, generator)
+    return model
+
 
 def inv_s(model: NeuconWField) -> torch.Tensor:
     """exp(10 * variance), clamped to [1e-6, 1e6]."""
     return torch.clamp(torch.exp(model.neuconw.deviation_network.variance * 10.0), 1e-6, 1e6)
 
 
-def set_progress(model: NeuconWField, fc: FieldConfig, step) -> None:
-    """The field's state at a training step (a host int, or a captured
-    step's 0-d device counter): a hash-grid net's active levels; nothing
-    for the MLP net."""
-    if fc.hash_sdf:
-        model.neuconw.sdf_net.set_step(step)
-
-
-def curvature_decay(model: NeuconWField, fc: FieldConfig):
-    """The curvature weight's factor at the field's state (a 0-d device
-    tensor), or None where the SDF net has no Laplacian."""
-    return model.neuconw.sdf_net.curvature_decay() if fc.hash_sdf else None
+def colours_by_k6(model: NeuconWField, fc: FieldConfig) -> bool:
+    """Whether K6 (``ops/field_forward.fused_field_forward``) colours the
+    field: the MLP net with an appearance code."""
+    return fc.encode_a and isinstance(model.neuconw.sdf_net, SDFNetwork)
 
 
 def field_sdf(model: NeuconWField, fc: FieldConfig, pts: torch.Tensor) -> torch.Tensor:
     """SDF probe, (..., 3) -> (...,)."""
-    if fc.hash_sdf:
-        return hash_sdf_value(model.neuconw.sdf_net, pts)
-    return sdf_value(model.neuconw.sdf_net, fc.sdf_cfg, pts, act_dtype_of(fc.act_dtype))
+    return model.neuconw.sdf_net.sdf(pts, fc.act_dtype)
 
 
 def field_forward(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded,
@@ -127,34 +130,18 @@ def field_forward(model: NeuconWField, fc: FieldConfig, pts, dirs, a_embedded,
     sdf, feature and gradient in the autograd graph, as training needs; the
     kernel modes and the hash-grid net's taps are always differentiable
     (once)."""
-    act = act_dtype_of(fc.act_dtype)
-    lap = None
-    if fc.hash_sdf:
-        sdf, feat, grad, lap = hash_sdf_feat_grad(model.neuconw.sdf_net, pts,
-                                                  laplacian and torch.is_grad_enabled())
-    elif fc.grad_mode == "pallas_field":
+    if fc.grad_mode == "pallas_field":
         # the fused kernels take per-sample dirs and a (neuconw.py:132-149)
         from ..ops.field_train import field_rgb_sdf_grad_kernel
 
         dirs, a_embedded = per_sample(dirs, n_samples), per_sample(a_embedded, n_samples)
         rgb, sdf, grad = field_rgb_sdf_grad_kernel(model, fc, pts, dirs, a_embedded)
         return rgb, inv_s(model), sdf, grad, None
-    elif fc.grad_mode in ("pallas", "pallas_hybrid"):
-        from ..ops.sdf_field_vjp import sdf_value_feat_grad_kernel
-
-        sdf, feat, grad = sdf_value_feat_grad_kernel(
-            model.neuconw.sdf_net, fc.sdf, pts, act,
-            fwd_impl="plain" if fc.grad_mode == "pallas_hybrid" else "kernel")
-    elif fc.grad_mode == "fwd":
-        with torch.set_grad_enabled(create_graph and torch.is_grad_enabled()):
-            sdf, feat, grad = sdf_value_feat_grad_fwdmode(model.neuconw.sdf_net, fc.sdf_cfg, pts)
-    elif fc.grad_mode == "vjp":
-        sdf, feat, grad = sdf_value_feat_grad(
-            model.neuconw.sdf_net, fc.sdf_cfg, pts, act, create_graph=create_graph)
-    else:
-        raise ValueError(f"unknown SDF_GRAD_MODE {fc.grad_mode!r}")
+    sdf, feat, grad, lap = model.neuconw.sdf_net.sdf_feat_grad(
+        pts, fc.grad_mode, fc.act_dtype, create_graph, laplacian)
     rgb = apply_color(model.neuconw.color_net, fc.color_cfg, fc.encode_a, pts, grad,
-                      dirs, feat, a_embedded, act_dtype=act, n_samples=n_samples)
+                      dirs, feat, a_embedded, act_dtype=act_dtype_of(fc.act_dtype),
+                      n_samples=n_samples)
     return rgb, inv_s(model), sdf, grad, lap
 
 

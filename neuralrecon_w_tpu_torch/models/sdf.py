@@ -45,10 +45,13 @@ def sdf_layer_shapes(cfg) -> list:
 
 
 class SDFNetwork(nn.Module):
-    """Layers ``lin{L}``, named as the reference's ``sdf_net``."""
+    """Layers ``lin{L}``, named as the reference's ``sdf_net``. Its methods
+    past ``layer`` are an SDF net's interface, which ``models/hash_sdf.
+    HashSDFNetwork`` has too; the grad mode and the dtype are arguments."""
 
     def __init__(self, cfg: dict, device=None):
         super().__init__()
+        self.cfg = dict(cfg)
         lin = WNLinear if cfg["weight_norm"] else nn.Linear
         for l, (d_in, d_out) in enumerate(sdf_layer_shapes(cfg)):
             setattr(self, f"lin{l}", lin(d_in, d_out, device=device))
@@ -57,50 +60,88 @@ class SDFNetwork(nn.Module):
     def layer(self, l: int) -> nn.Module:
         return getattr(self, f"lin{l}")
 
+    def sdf(self, x: torch.Tensor, act_dtype="float32") -> torch.Tensor:
+        """Signed distance, (..., 3) -> (...,)."""
+        return sdf_value(self, self.cfg, x, act_dtype_of(act_dtype))
 
-@torch.no_grad()
-def init_sdf_(net: SDFNetwork, cfg: dict, generator: torch.Generator) -> None:
-    """Geometric init in place (``sdf.py:40-90``), drawn from ``generator``.
+    def sdf_fn(self, act_dtype="float32", plain: bool = False):
+        """The sampler's and the sweeps' SDF, (P, 3) float32 -> (P,): K1 or,
+        with ``plain``, its plain version (``ops/sdf_mlp.packed_sdf``)."""
+        from ..ops.sdf_mlp import packed_sdf
 
-    The PE tail of the skip input (every PE channel past raw xyz) and of
-    layer 0 is zeroed, so at init sdf(x) ~ |x| - bias."""
-    dims = sdf_layer_dims(cfg)
-    skip_in = tuple(cfg["skip_in"])
-    n_layers = net.n_layers
-    bias = float(cfg["bias"])
-    inside_outside = bool(cfg["inside_outside"])
-    multires = int(cfg["multires"])
-    for l in range(n_layers):
-        layer = net.layer(l)
-        d_out, d_in = layer_weight(layer).shape
-        dev = layer_weight(layer).device
+        return packed_sdf(self, self.cfg, act_dtype, plain)
 
-        def normal(*shape):
-            return torch.randn(*shape, generator=generator).to(dev)
+    def sdf_feat_grad(self, x: torch.Tensor, grad_mode: str = "vjp", act_dtype="float32",
+                      create_graph: bool = False, laplacian: bool = False):
+        """(sdf, feature, d sdf / d x, None: no Laplacian) in ``grad_mode``
+        ('pallas_field' is the whole field's: ``neuconw.field_forward``)."""
+        act = act_dtype_of(act_dtype)
+        if grad_mode in ("pallas", "pallas_hybrid"):
+            from ..ops.sdf_field_vjp import sdf_value_feat_grad_kernel
 
-        if cfg["geometric_init"]:
-            if l == n_layers - 1:
-                mean = math.sqrt(math.pi) / math.sqrt(d_in)
-                mean = -mean if inside_outside else mean
-                w = mean + 1e-4 * normal(d_out, d_in)
-                b = torch.full((d_out,), bias if inside_outside else -bias, device=dev)
+            sdf, feat, grad = sdf_value_feat_grad_kernel(
+                self, self.cfg, x, act,
+                fwd_impl="plain" if grad_mode == "pallas_hybrid" else "kernel")
+        elif grad_mode == "fwd":
+            with torch.set_grad_enabled(create_graph and torch.is_grad_enabled()):
+                sdf, feat, grad = sdf_value_feat_grad_fwdmode(self, self.cfg, x)
+        elif grad_mode == "vjp":
+            sdf, feat, grad = sdf_value_feat_grad(self, self.cfg, x, act,
+                                                  create_graph=create_graph)
+        else:
+            raise ValueError(f"unknown SDF_GRAD_MODE {grad_mode!r}")
+        return sdf, feat, grad, None
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator) -> None:
+        """Geometric init in place (``sdf.py:40-90``), drawn from ``generator``.
+
+        The PE tail of the skip input (every PE channel past raw xyz) and of
+        layer 0 is zeroed, so at init sdf(x) ~ |x| - bias."""
+        cfg = self.cfg
+        dims = sdf_layer_dims(cfg)
+        skip_in = tuple(cfg["skip_in"])
+        n_layers = self.n_layers
+        bias = float(cfg["bias"])
+        inside_outside = bool(cfg["inside_outside"])
+        multires = int(cfg["multires"])
+        for l in range(n_layers):
+            layer = self.layer(l)
+            d_out, d_in = layer_weight(layer).shape
+            dev = layer_weight(layer).device
+
+            def normal(*shape):
+                return torch.randn(*shape, generator=generator).to(dev)
+
+            if cfg["geometric_init"]:
+                if l == n_layers - 1:
+                    mean = math.sqrt(math.pi) / math.sqrt(d_in)
+                    mean = -mean if inside_outside else mean
+                    w = mean + 1e-4 * normal(d_out, d_in)
+                    b = torch.full((d_out,), bias if inside_outside else -bias, device=dev)
+                else:
+                    w = normal(d_out, d_in) * (math.sqrt(2) / math.sqrt(d_out))
+                    if multires > 0 and l == 0:
+                        w[:, 3:] = 0.0
+                    elif multires > 0 and l in skip_in:
+                        w[:, -(dims[0] - 3):] = 0.0
+                    b = torch.zeros(d_out, device=dev)
             else:
-                w = normal(d_out, d_in) * (math.sqrt(2) / math.sqrt(d_out))
-                if multires > 0 and l == 0:
-                    w[:, 3:] = 0.0
-                elif multires > 0 and l in skip_in:
-                    w[:, -(dims[0] - 3):] = 0.0
-                b = torch.zeros(d_out, device=dev)
-        else:
-            bound = 1.0 / math.sqrt(d_in)
-            w = (torch.rand(d_out, d_in, generator=generator) * 2 - 1).to(dev) * bound
-            b = (torch.rand(d_out, generator=generator) * 2 - 1).to(dev) * bound
-        if isinstance(layer, WNLinear):
-            layer.weight_v.copy_(w)
-            layer.weight_g.copy_(torch.linalg.vector_norm(w, dim=1, keepdim=True))
-        else:
-            layer.weight.copy_(w)
-        layer.bias.copy_(b)
+                bound = 1.0 / math.sqrt(d_in)
+                w = (torch.rand(d_out, d_in, generator=generator) * 2 - 1).to(dev) * bound
+                b = (torch.rand(d_out, generator=generator) * 2 - 1).to(dev) * bound
+            if isinstance(layer, WNLinear):
+                layer.weight_v.copy_(w)
+                layer.weight_g.copy_(torch.linalg.vector_norm(w, dim=1, keepdim=True))
+            else:
+                layer.weight.copy_(w)
+            layer.bias.copy_(b)
+
+    def set_step(self, step) -> None:
+        """No state of the net follows the training step."""
+
+    def curvature_decay(self):
+        """None: the net gives no Laplacian."""
 
 
 def apply_sdf_split(net: SDFNetwork, cfg: dict, x: torch.Tensor,

@@ -25,7 +25,7 @@ import torch
 
 from ..rendering.sampling import cat_z_vals, merge_sorted, up_sample
 from .build import check, kernels, stream_handle
-from .sdf_mlp import fused_sdf_head, pack_sdf_weights, sdf_mlp_plain
+from .sdf_mlp import packed_sdf
 
 MAX_WIDTH = 1024  # K2's widest row, na + nb + n_draw (csrc/up_sample.cu)
 
@@ -86,16 +86,14 @@ def up_sample_round(rays_o, rays_d, za, sa, zb, sb, n_draw: int, inv_s: float, l
 up_sample_round.launches = 0
 
 
-@torch.no_grad()
 def fused_importance_sampler(sdf_net, sdf_cfg_items: tuple, rays_o, rays_d, z_base,
                              n_importance: int, up_steps: int, s_val_base: int,
                              act_dtype="float32") -> torch.Tensor:
     """z_base (R, n0) sorted -> (R, n0 + n_importance) sorted samples;
     rays in unit-sphere coordinates (``pallas_sampler.py:389-454``).
     K1 and K2 on CUDA tensors, their plain versions on CPU tensors."""
-    packed = pack_sdf_weights(sdf_net, sdf_cfg_items, act_dtype)
-    return importance_rounds(lambda pts: fused_sdf_head(packed, pts), rays_o, rays_d, z_base,
-                             n_importance, up_steps, s_val_base)
+    return importance_rounds(packed_sdf(sdf_net, sdf_cfg_items, act_dtype), rays_o, rays_d,
+                             z_base, n_importance, up_steps, s_val_base)
 
 
 @torch.no_grad()
@@ -123,7 +121,6 @@ def importance_rounds(sdf_fn, rays_o, rays_d, z_base, n_importance: int, up_step
                            64.0 * 2 ** (s_val_base + up_steps - 1), last=True)
 
 
-@torch.no_grad()
 def importance_sampler_plain(sdf_net, sdf_cfg_items: tuple, rays_o, rays_d, z_base,
                              n_importance: int, up_steps: int, s_val_base: int,
                              act_dtype="float32") -> torch.Tensor:
@@ -131,9 +128,8 @@ def importance_sampler_plain(sdf_net, sdf_cfg_items: tuple, rays_o, rays_d, z_ba
     unfused sampler of ``renderer.py:294-306`` (up_sample + cat_z_vals):
     the renderer's path when fused_sampler_sdf is off, and the reference
     the kernels are held to on the card."""
-    packed = pack_sdf_weights(sdf_net, sdf_cfg_items, act_dtype)
-    return importance_plain(lambda pts: sdf_mlp_plain(packed, pts), rays_o, rays_d, z_base,
-                            n_importance, up_steps, s_val_base)
+    return importance_plain(packed_sdf(sdf_net, sdf_cfg_items, act_dtype, plain=True), rays_o,
+                            rays_d, z_base, n_importance, up_steps, s_val_base)
 
 
 @torch.no_grad()

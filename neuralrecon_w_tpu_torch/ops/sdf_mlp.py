@@ -157,8 +157,16 @@ fused_sdf_head.launches = 0
 fused_sdf_head.launches_f32 = 0
 
 
+def packed_sdf(net: SDFNetwork, sdf_cfg_items, act_dtype="float32", plain: bool = False):
+    """(P, 3) float32 -> (P,) over ``net``'s weights packed once in
+    ``act_dtype``: ``fused_sdf_head`` (K1), or with ``plain`` its plain version."""
+    packed = pack_sdf_weights(net, sdf_cfg_items, act_dtype)
+    head = sdf_mlp_plain if plain else fused_sdf_head
+    return lambda pts: head(packed, pts)
+
+
 def fused_field_sdf(model, fc, pts: torch.Tensor) -> torch.Tensor:
     """Drop-in for ``models.neuconw.field_sdf`` on gradient-free paths:
     (..., 3) -> (...), always float32 (``pallas_mlp.py:195-210``)."""
-    packed = pack_sdf_weights(model.neuconw.sdf_net, fc.sdf, "float32")
-    return fused_sdf_head(packed, pts.reshape(-1, 3).float()).reshape(pts.shape[:-1])
+    sdf = model.neuconw.sdf_net.sdf_fn("float32")
+    return sdf(pts.reshape(-1, 3).float()).reshape(pts.shape[:-1])

@@ -4,12 +4,11 @@
 The point set streams to the card in host-side macro batches of 2^22
 points (a level-10 extraction sweeps millions of candidates); each macro
 batch is padded to a whole number of fixed-size chunks, evaluated chunk
-by chunk, and brought back. The SDF sweep runs K1 in float32
-(``ops/sdf_mlp.fused_field_sdf``); the colour sweep runs K6
-(``ops/field_forward.fused_field_forward``) in the field's activation
-dtype when the field has an appearance code, and ``models/neuconw.
-field_rgb`` otherwise, as the JAX package does. A hash-grid SDF net
-(``models/hash_sdf.py``) sweeps through ``field_sdf`` and ``field_rgb``. On CPU tensors each runs
+by chunk, and brought back. The SDF sweep runs the SDF net's ``sdf_fn``
+in float32 (K1; a hash-grid net's own evaluation); the colour sweep runs
+K6 (``ops/field_forward.fused_field_forward``) in the field's activation
+dtype where ``models/neuconw.colours_by_k6``, and ``models/neuconw.
+field_rgb`` otherwise, as the JAX package does. On CPU tensors each runs
 its plain version.
 
 With a data group (``parallel/mesh.py``) of W ranks the sweep follows
@@ -64,18 +63,9 @@ def sweep(fn, chunk: int, *host_arrays, device=None, macro: int = MACRO,
 
 def sharded_sdf_sweep(model, fc, pts: np.ndarray, chunk: int = 65536, device=None,
                       macro: int = MACRO, group=None) -> np.ndarray:
-    """SDF at every point, float32 (N,), through K1 in float32 (a hash-grid
-    net through its own evaluation, K13 and its products); split over the
-    ranks of ``group`` where given."""
-    from ..ops.sdf_mlp import fused_sdf_head, pack_sdf_weights
-
-    if fc.hash_sdf:
-        from ..models.neuconw import field_sdf
-
-        return sweep(lambda b: field_sdf(model, fc, b), chunk, np.asarray(pts, np.float32),
-                     device=device, macro=macro, group=group)
-    packed = pack_sdf_weights(model.neuconw.sdf_net, fc.sdf, "float32")
-    return sweep(lambda b: fused_sdf_head(packed, b), chunk, np.asarray(pts, np.float32),
+    """SDF at every point, float32 (N,), through the SDF net's ``sdf_fn`` in
+    float32; split over the ranks of ``group`` where given."""
+    return sweep(model.neuconw.sdf_net.sdf_fn("float32"), chunk, np.asarray(pts, np.float32),
                  device=device, macro=macro, group=group)
 
 
@@ -85,7 +75,7 @@ def sharded_rgb_sweep(model, fc, pts: np.ndarray, view_dir, a_index: int,
     """Vertex colours (N, 3) at one view direction and appearance index
     (reference utils/visualization.py:124-156). An index past the
     vocabulary is clamped to its last entry, as ``sweep.py:201-209`` does."""
-    from ..models.neuconw import field_rgb
+    from ..models.neuconw import colours_by_k6, field_rgb
     from ..ops.field_forward import fused_field_forward, pack_field
 
     device = default_device(device)
@@ -100,7 +90,7 @@ def sharded_rgb_sweep(model, fc, pts: np.ndarray, view_dir, a_index: int,
         a_index = n_vocab - 1
     a_vec = model.embedding_a.weight[a_index].detach().float().cpu().numpy()
     a = np.broadcast_to(a_vec, (pts.shape[0], a_vec.shape[-1])).copy()
-    if fc.encode_a and not fc.hash_sdf:
+    if colours_by_k6(model, fc):
         pack = pack_field(model, fc)
 
         def fn(p, d, e):

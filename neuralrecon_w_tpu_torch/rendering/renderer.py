@@ -15,9 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import FieldConfig, RenderConfig
-from ..models.neuconw import curvature_decay, field_background, field_forward, field_sdf
-from ..ops.importance_sampler import (fused_importance_sampler, importance_plain,
-                                      importance_rounds, importance_sampler_plain)
+from ..models.neuconw import field_background, field_forward
+from ..ops.importance_sampler import importance_plain, importance_rounds
 from ..ops.ray_voxel import DeviceGrid, grid_near_far, sampled_first_hit
 from ..parallel.tensor import vocab_lookup
 from ..tracing import span
@@ -79,15 +78,12 @@ def near_far_from_fine_grid(rcfg, scene, grid: DeviceGrid, rays_o, rays_d, near,
 def importance_stage(model, fc: FieldConfig, rcfg: RenderConfig, rays_o, rays_d, z_vals):
     """NeuS importance sampling at the fixed inv_s schedule: the kernels
     (or, on CPU tensors, their plain versions) when fused_sampler_sdf,
-    else the plain stage on any device (``renderer.py:277-306``)."""
-    if fc.hash_sdf:
-        # the hash-grid net's SDF in K1's place (K13 and its products)
-        rounds = importance_rounds if rcfg.fused_sampler_sdf else importance_plain
-        return rounds(lambda pts: field_sdf(model, fc, pts), rays_o, rays_d, z_vals,
-                      rcfg.n_importance, rcfg.up_sample_steps, rcfg.s_val_base)
-    sampler = fused_importance_sampler if rcfg.fused_sampler_sdf else importance_sampler_plain
-    return sampler(model.neuconw.sdf_net, fc.sdf, rays_o, rays_d, z_vals, rcfg.n_importance,
-                   rcfg.up_sample_steps, rcfg.s_val_base, act_dtype=fc.act_dtype)
+    else the plain stage on any device (``renderer.py:277-306``), over
+    the SDF net's ``sdf_fn`` in the field's activation dtype."""
+    plain = not rcfg.fused_sampler_sdf
+    rounds = importance_plain if plain else importance_rounds
+    return rounds(model.neuconw.sdf_net.sdf_fn(fc.act_dtype, plain), rays_o, rays_d, z_vals,
+                  rcfg.n_importance, rcfg.up_sample_steps, rcfg.s_val_base)
 
 
 @torch.no_grad()
@@ -345,7 +341,7 @@ def render_core(model, fc, rcfg, rays_o, rays_d, z_vals, sample_dist, a_embedded
         # the curvature term's numerator over the eikonal term's samples,
         # its weight decayed with the net's coarse-to-fine state
         out["curvature_sum"] = (torch.sum(relax * lap_flat.reshape(batch, n).abs())
-                                * curvature_decay(model, fc))
+                                * model.curvature_decay())
     return out
 
 

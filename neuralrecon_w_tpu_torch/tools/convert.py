@@ -1,17 +1,13 @@
-"""Weights into the port: from the JAX package's parameter pytree, from a
-reference Lightning state dict, or drawn fresh with the same
-initialisation from a ``torch.Generator``.
+"""Weights into the port: from the JAX package's parameter pytree or from
+a reference Lightning state dict.
 
 ``export_state_dict`` and ``convert_state_dict`` are the port's copies of
 ``neuralrecon_w_tpu/tools/convert_torch_ckpt.py:65-182`` (numpy only), held
 equal to them by ``tests/test_torch_extraction.py``: the JAX pytree to the
 reference checkpoint layout and back. The port's module tree has the
 reference's names, less the two entries the reference builds but never
-runs (the wrapper-level ``neuconw.xyz_encoding_final`` and, with
-ENCODE_A_BG, ``nerf.views_linears.0``): ``without_dead_entries`` drops
-them on the way in, ``with_dead_entries`` writes them zero-filled on the
-way out, as the exporter does, so the reference's strict loader reads
-what the port saves.
+runs, which ``training/checkpoint.without_dead_entries`` drops on the way
+in. A fresh field comes from ``models/neuconw.init_field``.
 
 A field split over a model axis starts whole, from any of these, and
 ``parallel.tensor.shard_field`` keeps each rank's blocks;
@@ -27,15 +23,8 @@ import numpy as np
 import torch
 
 from ..config import FieldConfig
-from ..device import default_device
-from ..models.color import init_color_
-from ..models.nerf_bg import init_nerf_bg_
-from ..models.hash_sdf import init_hash_sdf_
 from ..models.neuconw import NeuconWField
-from ..models.sdf import init_sdf_
-
-_DEAD = "neuconw.xyz_encoding_final."
-_DEAD_BG_VIEWS = "nerf.views_linears.0."
+from ..training.checkpoint import without_dead_entries
 
 
 # ------------- copies of tools/convert_torch_ckpt.py:45-182 -------------
@@ -158,28 +147,6 @@ def export_state_dict(params: dict, bg_dir_dim: int = 27) -> dict:
 # ------------------------------ the port ------------------------------
 
 
-def without_dead_entries(sd: dict, encode_a_bg: bool) -> dict:
-    """A reference-layout state dict with the entries the port does not
-    build left out."""
-    dead = (_DEAD, _DEAD_BG_VIEWS) if encode_a_bg else (_DEAD,)
-    return {k: v for k, v in sd.items() if not k.startswith(dead)}
-
-
-def with_dead_entries(sd: dict, encode_a_bg: bool, bg_dir_dim: int = 27) -> dict:
-    """The port's state dict (float32 CPU tensors) in the reference layout:
-    the dead entries added zero-filled, shaped as ``export_state_dict``
-    shapes them."""
-    out = dict(sd)
-    out[_DEAD + "weight"] = torch.zeros(512, 512)
-    out[_DEAD + "bias"] = torch.zeros(512)
-    if encode_a_bg:
-        w = sd["nerf.pts_linears.0.weight"].shape[0]
-        half = sd["nerf.rgb_linear.weight"].shape[1]
-        out[_DEAD_BG_VIEWS + "weight"] = torch.zeros(half, bg_dir_dim + w)
-        out[_DEAD_BG_VIEWS + "bias"] = torch.zeros(half)
-    return out
-
-
 def params_from_jax(np_params: dict) -> dict:
     """JAX parameter pytree (numpy leaves) -> the port's state_dict."""
     sd = export_state_dict(np_params)
@@ -190,27 +157,8 @@ def params_from_jax(np_params: dict) -> dict:
 def field_from_jax(np_params: dict, fc: FieldConfig, device=None) -> NeuconWField:
     """A NeuconWField holding the JAX parameters, loaded strictly, on
     ``device`` (default: the card)."""
-    model = NeuconWField(fc, default_device(device))
+    model = NeuconWField(fc, device)
     model.load_state_dict(params_from_jax(np_params), strict=True)
-    return model
-
-
-def init_field(fc: FieldConfig, generator: torch.Generator, device=None) -> NeuconWField:
-    """Fresh field on ``device`` (default: the card) with the JAX package's
-    initialisation (``models/neuconw.py:89-99``): N(0, 1) appearance table,
-    geometric SDF init, torch-default linears elsewhere, variance =
-    S_CONFIG.init_val. The numbers differ from jax.random's; the
-    distributions are the same."""
-    model = NeuconWField(fc, default_device(device))
-    with torch.no_grad():
-        model.embedding_a.weight.copy_(
-            torch.randn(fc.n_vocab, fc.n_a, generator=generator).to(model.embedding_a.weight.device))
-    if fc.hash_sdf:
-        init_hash_sdf_(model.neuconw.sdf_net, fc.sdf_cfg, generator)
-    else:
-        init_sdf_(model.neuconw.sdf_net, fc.sdf_cfg, generator)
-    init_color_(model.neuconw.color_net, generator)
-    init_nerf_bg_(model.nerf, generator)
     return model
 
 

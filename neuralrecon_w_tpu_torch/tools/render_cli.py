@@ -131,11 +131,10 @@ def render(args, group=None):
 
     from ..config import field_config_from_cfg, load_cfg, render_config_from_cfg
     from ..datasets.phototourism import build_image_rays, load_image
-    from ..models.neuconw import NeuconWField, set_progress
+    from ..models.neuconw import NeuconWField
     from ..ops.ray_voxel import device_grid_from_host
     from ..parallel.mesh import is_main
-    from ..tools.convert import without_dead_entries
-    from ..training.checkpoint import restore_checkpoint
+    from ..training.checkpoint import restore_checkpoint, restore_field_
     from ..training.step import make_render_fn, make_scan_render_fn
     from ..training.validation import render_image
     from ..utils.scene import load_scene_bundle, val_downscale
@@ -148,11 +147,7 @@ def render(args, group=None):
 
     fc = field_config_from_cfg(cfg)
     restored = restore_checkpoint(args.ckpt_path)
-    model = NeuconWField(fc, device)
-    model.load_state_dict(without_dead_entries(restored["state_dict"], fc.encode_a_bg),
-                          strict=True)
-    set_progress(model, fc, restored["step"])
-    model.eval().requires_grad_(False)
+    model = restore_field_(NeuconWField(fc, device), restored).eval().requires_grad_(False)
     fine_dgrid, fine_level = None, -1
     if "fine_grid" in restored:
         fine_dgrid = device_grid_from_host(restored["fine_grid"], device)

@@ -6,8 +6,11 @@ A ``.ckpt`` file is ``torch.save`` of ``{"state_dict", "global_step",
 "epoch"}`` with the reference's parameter names (``tools/convert.py``), so
 the port reads the reference's own checkpoints and a JAX checkpoint
 exported by ``neuralrecon_w_tpu.tools.convert_torch_ckpt --reverse``, and
-the reference's strict loader reads what the port writes. The trainer's
-files add two top-level entries that loader does not look at:
+the reference's strict loader reads what the port writes: the two
+entries the reference builds but never runs, which the port's tree lacks,
+are dropped on the way in and written zero-filled on the way out
+(``without_dead_entries``, ``with_dead_entries``). The trainer's files add
+two top-level entries that loader does not look at:
 
   * ``"optimizer"``: ``schedule.Optimizer.state_dict()``: the optimiser's
     name (TRAINER.OPTIMIZER), the torch optimiser's ``state_dict`` (per
@@ -31,12 +34,34 @@ import re
 import numpy as np
 import torch
 
-from ..device import default_device
 from ..models.neuconw import NeuconWField
 from ..ops.voxel_grid import VoxelGrid
-from ..tools.convert import with_dead_entries, without_dead_entries
 
 _STEP_FILE = re.compile(r"^step_(\d+)\.ckpt$")
+_DEAD = "neuconw.xyz_encoding_final."
+_DEAD_BG_VIEWS = "nerf.views_linears.0."
+
+
+def without_dead_entries(sd: dict, encode_a_bg: bool) -> dict:
+    """A reference-layout state dict with the entries the port does not
+    build left out."""
+    dead = (_DEAD, _DEAD_BG_VIEWS) if encode_a_bg else (_DEAD,)
+    return {k: v for k, v in sd.items() if not k.startswith(dead)}
+
+
+def with_dead_entries(sd: dict, encode_a_bg: bool, bg_dir_dim: int = 27) -> dict:
+    """The port's state dict (float32 CPU tensors) in the reference layout:
+    the dead entries added zero-filled, shaped as ``tools/convert.
+    export_state_dict`` shapes them."""
+    out = dict(sd)
+    out[_DEAD + "weight"] = torch.zeros(512, 512)
+    out[_DEAD + "bias"] = torch.zeros(512)
+    if encode_a_bg:
+        w = sd["nerf.pts_linears.0.weight"].shape[0]
+        half = sd["nerf.rgb_linear.weight"].shape[1]
+        out[_DEAD_BG_VIEWS + "weight"] = torch.zeros(half, bg_dir_dim + w)
+        out[_DEAD_BG_VIEWS + "bias"] = torch.zeros(half)
+    return out
 
 
 def save_checkpoint(path: str, model: NeuconWField, step: int, optimizer=None,
@@ -85,15 +110,16 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
     return os.path.join(ckpt_dir, f"step_{max(steps)}.ckpt") if steps else None
 
 
+def restore_field_(model: NeuconWField, restored: dict) -> NeuconWField:
+    """``model`` with ``restore_checkpoint``'s parameters loaded strictly,
+    at the file's step (a hash-grid SDF net's active levels)."""
+    encode_a_bg = not hasattr(model.nerf, "views_linears")
+    model.load_state_dict(without_dead_entries(restored["state_dict"], encode_a_bg), strict=True)
+    model.set_step(restored["step"])
+    return model
+
+
 def load_field(path: str, fc, device=None) -> NeuconWField:
     """A NeuconWField from a Lightning-layout ``.ckpt`` file, strictly
-    loaded, on ``device`` (default: the card), at the file's step (a
-    hash-grid SDF net's active levels)."""
-    from ..models.neuconw import set_progress
-
-    restored = restore_checkpoint(path)
-    model = NeuconWField(fc, default_device(device))
-    model.load_state_dict(without_dead_entries(restored["state_dict"], fc.encode_a_bg),
-                          strict=True)
-    set_progress(model, fc, restored["step"])
-    return model
+    loaded, on ``device`` (default: the card), at the file's step."""
+    return restore_field_(NeuconWField(fc, device), restore_checkpoint(path))

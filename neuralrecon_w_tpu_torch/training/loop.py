@@ -55,13 +55,11 @@ from ..config import field_config_from_cfg, render_config_from_cfg
 from ..datasets.cache import DeviceRayPool, RayPool, local_split_names, read_ray_cache
 from ..datasets.mask_utils import get_label_id_mapping
 from ..device import default_device
-from ..models.neuconw import set_progress
 from ..ops.ray_voxel import device_grid_from_host
 from ..ops.voxel_grid import VoxelGrid
 from ..parallel.mesh import all_gather_rows, barrier, is_main, shard_rays
-from ..tools.convert import without_dead_entries
 from ..tracing import span_ms
-from .checkpoint import restore_checkpoint, save_checkpoint
+from .checkpoint import restore_checkpoint, restore_field_, save_checkpoint
 from .losses import loss_config_from_cfg
 from .schedule import make_optimizer
 from .step import init_state, make_render_fn, make_scan_train_fn, make_train_step
@@ -282,10 +280,8 @@ class Trainer:
         optimiser state, as ``loop.py:159-161`` does). The state must be
         of the optimiser TRAINER.OPTIMIZER names, else this raises."""
         restored = restore_checkpoint(path)
-        self.state.model.load_state_dict(
-            without_dead_entries(restored["state_dict"], self.fc.encode_a_bg), strict=True)
+        restore_field_(self.state.model, restored)
         self.state.step = restored["step"]
-        set_progress(self.state.model, self.fc, self.state.step)
         if "optimizer" in restored:
             self.state.optimizer.load_state_dict(restored["optimizer"])
         if "fine_grid" in restored:

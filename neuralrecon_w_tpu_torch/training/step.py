@@ -37,8 +37,8 @@ either background: the batch is gathered inside the graph by a device
 cursor, and the step counter (the cos-anneal ratio), the update count (the
 LR) and the optimiser's state (Adam's, SGD's or RAdam's: ``schedule.py``)
 are device tensors the graph advances (and a hash-grid SDF net's active
-levels follow the step counter on the device, ``models/neuconw.
-set_progress``). The kernel modes' wrappers pack the
+levels follow the step counter on the device, ``NeuconWField.
+set_step``). The kernel modes' wrappers pack the
 weights from the live parameters inside the captured step, so every
 replay reads the weights the update left in place.
 Inside the graph the sampler's jitter draws from one generator registered
@@ -60,11 +60,10 @@ from typing import Optional
 import torch
 
 from ..config import FieldConfig, RenderConfig
-from ..models.neuconw import NeuconWField, set_progress
+from ..models.neuconw import NeuconWField, init_field
 from ..rendering.renderer import render_rays
 from ..parallel.mesh import all_reduce_sum_, rank_seed
 from ..parallel.tensor import is_split, sync_replicated_grads
-from ..tools.convert import init_field
 from ..tracing import prepare, span
 from .losses import LossConfig, batch_counts, loss_terms
 from .schedule import Optimizer
@@ -167,7 +166,7 @@ def make_train_step(fc: FieldConfig, rcfg: RenderConfig, lcfg: LossConfig,
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         cos_anneal = min(1.0, state.step / anneal_end) if anneal_end > 0 else 1.0
         rng = step_generator(seed, state.step, dev, 0 if group is None else group.data_rank)
-        set_progress(state.model, fc, state.step)
+        state.model.set_step(state.step)
         state.model.train()
         state.optimizer.zero_grad()
         with span("train.render_loss", dev):
@@ -185,7 +184,6 @@ def make_train_step(fc: FieldConfig, rcfg: RenderConfig, lcfg: LossConfig,
         return state, finish_aux(aux)
 
     step_fn.loss_fn = loss_fn
-    step_fn.progress = lambda model, step: set_progress(model, fc, step)
     step_fn.anneal_end = anneal_end
     step_fn.seed = seed
     return step_fn
@@ -287,7 +285,7 @@ class ScanRun:
         cos = (torch.clamp(self._step_t / anneal_end, max=1.0).float() if anneal_end > 0
                else 1.0)
         model, opt = st["state"].model, st["state"].optimizer
-        self.step_fn.progress(model, self._step_t)
+        model.set_step(self._step_t)
         model.train()
         with span("train.render_loss", dev):
             loss, aux = self.step_fn.loss_fn(model, st["scene"], batch, self._gen, cos,

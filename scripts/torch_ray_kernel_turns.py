@@ -361,7 +361,7 @@ def k12_cases(cs, dev):
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
     from neuralrecon_w_tpu_torch.evaluation import reproj_filter as rf
     from neuralrecon_w_tpu_torch.ops import ray_voxel as rv
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
     fc = field_config_from_cfg(load_cfg(cs.CONFIG))
     model = init_field(fc, torch.Generator().manual_seed(cs.SEED), dev).eval()
@@ -482,7 +482,7 @@ def serving_and_pool(cs, rv, routes, use, cfg, scene, frames, fine_grid, fine_ho
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg
     from neuralrecon_w_tpu_torch.datasets.cache import DeviceRayPool, RayPool
     from neuralrecon_w_tpu_torch.ops import build
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
     from neuralrecon_w_tpu_torch.training.step import make_render_fn
 
     t0 = time.perf_counter()

@@ -44,7 +44,7 @@ def test_live_sdf_net_reaches_every_input():
     from chip_smoke import live_sdf_net
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
     from neuralrecon_w_tpu_torch.ops.sdf_mlp import pack_sdf_weights, sdf_mlp_plain
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
     torch.set_num_threads(1)
     cfg = load_cfg(os.path.join(ROOT, "config", "train_brandenburg_gate_tpu.yaml"))
@@ -81,7 +81,7 @@ import torch
 import chip_smoke as cs
 from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg, render_config_from_cfg
 from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
-from neuralrecon_w_tpu_torch.tools.convert import init_field
+from neuralrecon_w_tpu_torch.models.neuconw import init_field
 from neuralrecon_w_tpu_torch.training.step import make_render_fn
 from neuralrecon_w_tpu_torch.training.validation import render_image
 
@@ -133,7 +133,7 @@ import sys
 import torch
 import chip_smoke as cs
 from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
-from neuralrecon_w_tpu_torch.tools.convert import init_field
+from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
 torch.set_num_threads(1)
 root = {str(tmp_path)!r}
@@ -165,7 +165,7 @@ def test_chip_smoke_kernel_bounds():
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
     from neuralrecon_w_tpu_torch.ops import field_train as ft
     from neuralrecon_w_tpu_torch.ops import nerf_bg_fused as bgf
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
     fc = field_config_from_cfg(load_cfg(cs.CONFIG))
     model = init_field(fc, torch.Generator().manual_seed(0), "cpu").requires_grad_(False)
@@ -458,7 +458,7 @@ import torch
 import chip_smoke as cs
 from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg, render_config_from_cfg
 from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
-from neuralrecon_w_tpu_torch.tools.convert import init_field
+from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
 torch.set_num_threads(2)
 wh = (12, 8)
@@ -501,7 +501,7 @@ import torch
 import chip_smoke as cs
 from neuralrecon_w_tpu_torch.config import load_cfg, render_config_from_cfg
 from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
-from neuralrecon_w_tpu_torch.tools.convert import init_field
+from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
 torch.set_num_threads(2)
 wh = (12, 8)
@@ -548,7 +548,7 @@ import sys
 import torch
 import chip_smoke as cs
 from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
-from neuralrecon_w_tpu_torch.tools.convert import init_field
+from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
 torch.set_num_threads(2)
 root = {str(tmp_path)!r}

@@ -304,7 +304,7 @@ def test_cli_writes_the_ply(tmp_path):
     import chip_smoke as cs
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
     from neuralrecon_w_tpu_torch.tools import extract_mesh_cli
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
     extra = {"NEUCONW": {"SDF_CONFIG": {"d_hidden": 64, "d_out": 65, "n_layers": 4,
                                         "skip_in": [2]},

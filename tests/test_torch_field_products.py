@@ -15,7 +15,8 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg  # noqa: E402
 from neuralrecon_w_tpu_torch.models import color, layers, nerf_bg, sdf  # noqa: E402
 from neuralrecon_w_tpu_torch.models.neuconw import NeuconWField  # noqa: E402
-from neuralrecon_w_tpu_torch.tools.convert import init_field, with_dead_entries  # noqa: E402
+from neuralrecon_w_tpu_torch.models.neuconw import init_field  # noqa: E402
+from neuralrecon_w_tpu_torch.training.checkpoint import with_dead_entries  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -249,7 +249,7 @@ def test_unported_grad_modes_raise(mode):
     from neuralrecon_w_tpu.config import get_cfg_defaults
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg
     from neuralrecon_w_tpu_torch.models.neuconw import field_forward
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
     cfg = get_cfg_defaults()
     n = cfg.NEUCONW
@@ -333,7 +333,7 @@ def test_fwd_runs_sdf_in_float32_under_bf16():
     from neuralrecon_w_tpu.config import get_cfg_defaults
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg
     from neuralrecon_w_tpu_torch.models.neuconw import field_forward
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
     cfg = get_cfg_defaults()
     n = cfg.NEUCONW

@@ -1,6 +1,8 @@
-"""The port's two standing rules, checked on the CPU: it imports nothing of
-JAX or of the JAX package (every module parsed, not imported), and its
-entry points build on the card unless the caller names a device."""
+"""The port's standing rules, checked on the CPU: it imports nothing of
+JAX or of the JAX package (every module parsed, not imported); its layers
+below the entry points import nothing of ``tools/``; only ``models/``
+knows the SDF net's kind; and its entry points build on the card unless
+the caller names a device."""
 
 import ast
 import glob
@@ -56,6 +58,85 @@ def test_guard_sees_imports_inside_functions(tmp_path):
                                          "jax.numpy"]
 
 
+# ----------------------------- the layers -----------------------------
+
+PORT = os.path.join(ROOT, "neuralrecon_w_tpu_torch")
+# the layers below the entry points (tools/); testing/ranks.py, the rank
+# harness that drives train_cli, is not one of them
+BELOW_TOOLS = ("training", "rendering", "parallel", "models", "ops", "datasets", "evaluation",
+               "extraction", "utils")
+
+
+def port_file(path: str) -> str:
+    return os.path.relpath(path, PORT).replace(os.sep, "/")
+
+
+def imported_modules(path: str) -> list:
+    """(line, absolute module name) of every import in a port module, a
+    relative one resolved against the module's package; ``from a import b``
+    gives both a and a.b."""
+    parts = ["neuralrecon_w_tpu_torch"] + port_file(path).split("/")[:-1]
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [(node.lineno, a.name) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                base = ".".join(parts[:len(parts) - node.level + 1] + ([base] if base else []))
+            out += [(node.lineno, base)] + [(node.lineno, f"{base}.{a.name}") for a in node.names]
+    return out
+
+
+def test_layers_below_the_entry_points_import_nothing_of_tools():
+    """training/, rendering/, the field, the kernels and the rest take
+    nothing from the entry points' package: the field's init lives in
+    models/, the checkpoint format's dead entries in training/checkpoint."""
+    tools = "neuralrecon_w_tpu_torch.tools"
+    below = [p for p in FILES if p.startswith(PORT + os.sep)
+             and port_file(p).split("/")[0] in BELOW_TOOLS]
+    bad = [f"{port_file(p)}:{line} {name}" for p in below for line, name in imported_modules(p)
+           if name == tools or name.startswith(tools + ".")]
+    assert bad == []
+
+
+def net_kind_reads(path: str) -> list:
+    """Every place a module decides the SDF net's kind: a read of
+    ``hash_sdf``, a comparison with "hashgrid" (SDF_CONFIG.type) or an
+    isinstance test against an SDF net class; config.py's merge of
+    HASH_SDF_CONFIG into a hashgrid YAML's SDF_CONFIG aside."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    merge = set()
+    if port_file(path) == "config.py":
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef) and fn.name == "_merge":
+                merge = {id(n) for n in ast.walk(fn)}
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr == "hash_sdf":
+            bad.append((node.lineno, "hash_sdf"))
+        elif isinstance(node, ast.Compare) and id(node) not in merge and any(
+                isinstance(c, ast.Constant) and c.value == "hashgrid"
+                for c in [node.left] + node.comparators):
+            bad.append((node.lineno, "== 'hashgrid'"))
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "isinstance" \
+                and any("SDFNetwork" in ast.unparse(a) for a in node.args[1:]):
+            bad.append((node.lineno, "isinstance SDFNetwork"))
+    return bad
+
+
+def test_only_models_knows_the_sdf_net_kind():
+    """A new SDF net kind is a class in models/ and a config in config.py:
+    no renderer, sweep, trainer, converter or CLI branches on the kind."""
+    bad = [f"{port_file(p)}:{line} {what}"
+           for p in FILES if p.startswith(PORT + os.sep) and not port_file(p).startswith("models/")
+           for line, what in net_kind_reads(p)]
+    assert bad == []
+
+
 # ------------------------- the default device -------------------------
 
 
@@ -74,11 +155,10 @@ def small_fc():
 def entry_points(tmp_path):
     """(name, call(device)) for each entry point that takes a device."""
     from neuralrecon_w_tpu_torch.extraction import dense_eval_grid, extract_mesh
-    from neuralrecon_w_tpu_torch.models.neuconw import NeuconWField
+    from neuralrecon_w_tpu_torch.models.neuconw import NeuconWField, init_field
     from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
     from neuralrecon_w_tpu_torch.ops.voxel_grid import VoxelGrid
     from neuralrecon_w_tpu_torch.parallel.sweep import sharded_rgb_sweep, sharded_sdf_sweep
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
     from neuralrecon_w_tpu_torch.training.checkpoint import load_field, save_checkpoint
     from neuralrecon_w_tpu_torch.training.schedule import make_optimizer
     from neuralrecon_w_tpu_torch.training.step import init_state

@@ -45,7 +45,7 @@ def flagship(dev):
     reach the output."""
     from chip_smoke import live_sdf_net
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
     fc = field_config_from_cfg(load_cfg(CONFIG))
     model = init_field(fc, torch.Generator().manual_seed(0), dev).requires_grad_(False)
@@ -496,7 +496,7 @@ def field(dev):
     """The full-width field with the live SDF net (``chip_smoke.live_field``)."""
     from chip_smoke import live_field
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
     fc = field_config_from_cfg(load_cfg(CONFIG))
     model = init_field(fc, torch.Generator().manual_seed(0), dev).requires_grad_(False)
@@ -834,7 +834,7 @@ def test_nerf_bg_function_matches_autograd(dev):
 
 def field_config_and_model(dev):
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
     fc = field_config_from_cfg(load_cfg(CONFIG))
     return fc, init_field(fc, torch.Generator().manual_seed(0), dev).requires_grad_(False)
@@ -1442,7 +1442,7 @@ def test_captured_served_chunk_matches_eager(dev):
     from neuralrecon_w_tpu_torch.config import (field_config_from_cfg, load_cfg,
                                                 render_config_from_cfg)
     from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
     from neuralrecon_w_tpu_torch.training.step import make_render_fn, make_scan_render_fn
     from neuralrecon_w_tpu_torch.training.validation import render_image
 

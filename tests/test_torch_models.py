@@ -16,7 +16,8 @@ from neuralrecon_w_tpu.models import field_forward as jax_field_forward  # noqa:
 from neuralrecon_w_tpu.models import init_field as jax_init_field  # noqa: E402
 from neuralrecon_w_tpu_torch.config import field_config_from_cfg  # noqa: E402
 from neuralrecon_w_tpu_torch.models import field_background, field_forward, field_sdf  # noqa: E402
-from neuralrecon_w_tpu_torch.tools.convert import field_from_jax, init_field, params_from_jax  # noqa: E402
+from neuralrecon_w_tpu_torch.models.neuconw import init_field  # noqa: E402
+from neuralrecon_w_tpu_torch.tools.convert import field_from_jax, params_from_jax  # noqa: E402
 from test_torch_sdf_mlp import live_field_params  # noqa: E402
 
 torch.set_num_threads(1)

@@ -40,7 +40,7 @@ def small_cfg(**sdf):
 def live_field(cfg, seed=0, device="cpu"):
     """The field with its init, then the table N(0, 0.1) and layer 0's
     encoding columns at torch's default scale, so the grid moves the sdf."""
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
 
     fc = field_config_from_cfg(cfg)
     g = torch.Generator().manual_seed(seed)

@@ -17,8 +17,8 @@ from neuralrecon_w_tpu.training import make_optimizer as jax_make_optimizer  # n
 from neuralrecon_w_tpu.training.step import TrainState as JaxTrainState  # noqa: E402
 from neuralrecon_w_tpu.training.step import init_state as jax_init_state  # noqa: E402
 from neuralrecon_w_tpu_torch.config import field_config_from_cfg, get_cfg_defaults  # noqa: E402
+from neuralrecon_w_tpu_torch.models.neuconw import init_field  # noqa: E402
 from neuralrecon_w_tpu_torch.tools.convert import (  # noqa: E402
-    init_field,
     params_from_jax,
     state_from_jax,
 )

@@ -231,7 +231,7 @@ import torch
 from neuralrecon_w_tpu_torch.ops.voxel_grid import VoxelGrid
 from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg, render_config_from_cfg
 from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
-from neuralrecon_w_tpu_torch.tools.convert import init_field
+from neuralrecon_w_tpu_torch.models.neuconw import init_field
 from neuralrecon_w_tpu_torch.training.step import make_render_fn
 from neuralrecon_w_tpu_torch.training.validation import render_image
 from neuralrecon_w_tpu_torch.utils.scene import scene_info

@@ -152,7 +152,7 @@ def cli_setup(tmp_path_factory):
     checkpoint of seeded weights with a fine grid."""
     from neuralrecon_w_tpu_torch.config import load_cfg
     from neuralrecon_w_tpu_torch.testing import make_synthetic_scene
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
     from neuralrecon_w_tpu_torch.training.checkpoint import save_checkpoint
     from neuralrecon_w_tpu_torch.utils.scene import load_scene_bundle
 

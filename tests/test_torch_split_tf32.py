@@ -19,7 +19,7 @@ import torch.nn.functional as F  # noqa: E402
 from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg  # noqa: E402
 from neuralrecon_w_tpu_torch.models import color, layers, nerf_bg, sdf  # noqa: E402
 from neuralrecon_w_tpu_torch.ops import split_tf32 as st  # noqa: E402
-from neuralrecon_w_tpu_torch.tools.convert import init_field  # noqa: E402
+from neuralrecon_w_tpu_torch.models.neuconw import init_field  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 CONFIGS = {"bg_op": "config/train_brandenburg_gate_tpu.yaml",

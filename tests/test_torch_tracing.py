@@ -142,7 +142,7 @@ def test_scan_render_frame_host_spans():
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, render_config_from_cfg
     from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
     from neuralrecon_w_tpu_torch.rendering.renderer import SceneInfo
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
     from neuralrecon_w_tpu_torch.training.step import make_render_fn, make_scan_render_fn
     from neuralrecon_w_tpu_torch.training.validation import render_image
 
@@ -294,7 +294,7 @@ def test_captured_frame_replays_its_markers(dev):
 
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, render_config_from_cfg
     from neuralrecon_w_tpu_torch.ops.ray_voxel import device_grid_from_host
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
     from neuralrecon_w_tpu_torch.training.step import make_render_fn, make_scan_render_fn
     from neuralrecon_w_tpu_torch.training.validation import render_image
 

@@ -176,7 +176,7 @@ def test_extract_and_render_clis_split_over_ranks(workspace, tmp_path):
 
     from neuralrecon_w_tpu_torch.config import field_config_from_cfg, load_cfg
     from neuralrecon_w_tpu_torch.tools import extract_mesh_cli, render_cli
-    from neuralrecon_w_tpu_torch.tools.convert import init_field
+    from neuralrecon_w_tpu_torch.models.neuconw import init_field
     from neuralrecon_w_tpu_torch.training.checkpoint import save_checkpoint
     from neuralrecon_w_tpu_torch.utils.ply import read_ply
 
